@@ -1,0 +1,94 @@
+"""Flag registry of the port (``paddle_tpu.core.flags`` counterpart).
+
+Same names, types and defaults as the JAX package for the flags this slice
+reads; ``FLAGS_<name>`` in the environment overrides a default.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any
+
+__all__ = ["define_flag", "flag"]
+
+_lock = threading.Lock()
+
+
+@dataclass
+class _Flag:
+    name: str
+    type: type
+    default: Any
+    help: str
+    value: Any
+
+
+_REGISTRY: dict[str, _Flag] = {}
+
+
+def _coerce(typ: type, raw: Any) -> Any:
+    if typ is bool:
+        if isinstance(raw, str):
+            return raw.lower() in ("1", "true", "yes", "on")
+        return bool(raw)
+    return typ(raw)
+
+
+def define_flag(name: str, default: Any, help: str = "",
+                type: type | None = None):
+    """Register a flag; environment variable FLAGS_<name> overrides the
+    default."""
+    typ = type or (bool if isinstance(default, bool) else default.__class__)
+    with _lock:
+        if name in _REGISTRY:
+            return _REGISTRY[name]
+        env = os.environ.get(f"FLAGS_{name}")
+        value = default if env is None else _coerce(typ, env)
+        f = _Flag(name, typ, default, help, value)
+        _REGISTRY[name] = f
+        return f
+
+
+def flag(name: str):
+    return _REGISTRY[name].value
+
+
+define_flag("serving_page_size", 16,
+            "KV-cache page size in tokens (page granularity of the paged "
+            "decode kernel and the serving allocator)", type=int)
+define_flag("serving_num_pages", 0,
+            "total KV-cache pages (page 0 is the reserved null page); 0 = "
+            "derive from serving_hbm_budget_mb and the model geometry",
+            type=int)
+define_flag("serving_hbm_budget_mb", 64,
+            "device-memory budget of the paged KV cache when "
+            "serving_num_pages=0", type=int)
+define_flag("serving_decode_batch", 8,
+            "fixed decode-batch width: every decode step runs this many "
+            "slots, inactive ones as len-0 rows", type=int)
+define_flag("serving_prefill_chunk", 256,
+            "max tokens per prefill chunk", type=int)
+define_flag("serving_max_seq_len", 0,
+            "max context (prompt + generated) of a request; 0 = the "
+            "model's max_position_embeddings", type=int)
+define_flag("serving_prefill_pack", 1,
+            "pack admissions arriving together into one segment-id prefill "
+            "frame (first-fit over 32-aligned rows); 0 = always chunked",
+            type=int)
+define_flag("serving_pack_frame", 0,
+            "packed-prefill frame length in tokens (rounded down to 32); "
+            "0 = serving_prefill_chunk", type=int)
+define_flag("serving_waiting_queue_limit", 128,
+            "bound on the scheduler's waiting queue (QueueFull past it); "
+            "0 = unbounded", type=int)
+define_flag("serving_queue_limit", 32,
+            "bounded HTTP handler queue (503 past it)", type=int)
+define_flag("serving_request_timeout_s", 60.0,
+            "per-request wall-clock budget of the HTTP front-end",
+            type=float)
+define_flag("serving_max_body_mb", 8,
+            "Content-Length cap of the HTTP front-end", type=int)
+define_flag("router_retry_after_s", 1.0,
+            "Retry-After seconds advertised on admission-control 503s",
+            type=float)

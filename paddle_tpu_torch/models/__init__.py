@@ -1,0 +1,8 @@
+"""Models of the port (``paddle_tpu.models`` counterpart)."""
+from paddle_tpu_torch.models.convert import from_paddle_tpu_params
+from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                           llama_7b_config,
+                                           llama_tiny_config)
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "llama_7b_config",
+           "llama_tiny_config", "from_paddle_tpu_params"]

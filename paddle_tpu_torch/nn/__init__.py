@@ -1,0 +1,5 @@
+"""Layers and functional ops of the port (``paddle_tpu.nn`` counterpart)."""
+from paddle_tpu_torch.nn import functional
+from paddle_tpu_torch.nn.layer.norm import RMSNorm
+
+__all__ = ["functional", "RMSNorm"]

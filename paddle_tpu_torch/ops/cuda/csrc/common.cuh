@@ -1,0 +1,74 @@
+// Shared device helpers of the port's Hopper kernels (flash_fwd.cu,
+// paged_attention.cu): the block-skip predicate both attention kernels
+// run, and 8-wide vector loads that widen bf16/fp32 to fp32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
+
+namespace ptt {
+
+constexpr float kNegInf = -1e30f;
+
+// THE cross-block skip predicate (paddle_tpu/ops/pallas/flash_attention.py
+// `_seg_blocks_can_touch`): a K block may contribute to a Q block only if
+// their id ranges intersect. The flash kernel runs it over segment-id
+// ranges, the paged kernel over position ranges (a page is read only if
+// it overlaps the last query's key range [0, len + T - 2]).
+__device__ __forceinline__ bool blocks_can_touch(int q_min, int q_max,
+                                                 int k_min, int k_max) {
+  return k_min <= q_max && k_max >= q_min;
+}
+
+// 8 consecutive elements -> fp32. bf16 needs 16-byte alignment, fp32 32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  float4 a = *reinterpret_cast<const float4*>(p);
+  float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ void store(float v, float* p) { *p = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_min_i(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_max_i(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+}  // namespace ptt
