@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--layers N]
+    python3 chip_smoke.py [--seed N] [--layers N] [--phases a,b,...]
 
 Builds the port's hand-written Hopper kernels from ``paddle_tpu_torch/ops/
 cuda/csrc`` (nvcc, sm_90a) and runs, in order:
@@ -15,7 +15,14 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     costs up to 2^-8 of the value; fp32 RTOL 1e-4), and the whole output
     max |err| <= 1e-2 (bf16) or 1e-4 (fp32); then median ms, the plain
     version's and the library call's ms, and the bound (bytes over 3.35
-    TB/s or flops over the peak of the input type, whichever is larger);
+    TB/s or flops over the peak of the input type, whichever is larger).
+    The flash backward's dq, dk and dv (fp32 outputs of bf16 or fp32
+    inputs) are held per row the same way against
+    ``flash_attention_bwd_reference`` on the same (q, k, v, out, lse, dO);
+    the CE statistics kernel's m, lse = m + log s and target logit t within
+    1e-3 of ``ce_stats_reference`` (fp32 math on the same inputs; the sums
+    run over H = 4096 products in another order) and the logit sum sl
+    within 1e-5 * V of it (a sum over V logits);
  3. the engine on CUDA (kernels) against the engine on the CPU (plain
     versions): a 2-layer fp32 GQA model with the same weights serves the
     same prompts; the greedy streams must be equal;
@@ -25,7 +32,21 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     launch count read around this run; prints prefill and decode tokens/s,
     time to first token and peak memory, then profiles (torch.profiler)
     one 3000-token prefill and a few decode steps outside that run;
- 5. HTTP: serve_http, one streamed POST /generate, clean shutdown.
+ 5. HTTP: serve_http, one streamed POST /generate, clean shutdown;
+ 6. training on CUDA (kernels) against training on the CPU (plain
+    versions): a 2-layer fp32 GQA model with the same weights takes 3
+    ``TrainStep`` steps of AdamW on the same packed dict batch; per-step
+    losses within 1e-4 relative, last gradients within 1e-3 of each
+    tensor's max |grad|, final parameters within lr (an element whose
+    gradient is within rounding of zero may take another Adam step);
+ 7. training at the LLaMA-2-7B width (hidden 4096, 32/32 heads,
+    intermediate 11008, vocab 32000, seq 4096, batch 1, bf16, random
+    weights from --seed) and 3 decoder layers (the state of the full 32
+    does not fit in 80 GB): AdamW(lr 1e-4, wd 0.01,
+    multi_precision) with the fused head loss on one fixed batch, 2 warm-up
+    and 8 timed steps; prints median step ms, tokens/s, MFU, peak memory,
+    launches per step and the losses (finite, falling), checks that the
+    attention projections got gradients, then profiles one more step.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
@@ -35,7 +56,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -43,13 +66,20 @@ import sys
 import time
 import traceback
 
+PHASES = ("kernels", "cuda_vs_cpu", "full_width", "http",
+          "train_cuda_vs_cpu", "train_full_width")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # fp32 outside the tensor cores
 TOL = {"bfloat16": 1e-2, "float32": 1e-4}        # whole output, abs
 RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}  # per row, of max |ref|
 ATOL = 1e-6
+CE_TOL = 1e-3              # m, lse, t of ce_stats vs its plain version
+CE_SL_TOL = 1e-5           # sl, times V
 NEW_TOKENS = 32                                  # per full-width request
+TRAIN_LAYERS = 3           # full-width training: the 32-layer state
+TRAIN_SEQ = 4096           # (about 108 GB) does not fit in 80 GB
+TRAIN_LR = 1e-4
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -251,6 +281,185 @@ def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256):
                 bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
 
 
+def _device_ms_by_kernel(fn, reps=5):
+    """{kernel name: device ms per call of `fn`} from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def _kernel_ms(by_kernel, name):
+    hits = [ms for key, ms in by_kernel.items() if name in key]
+    if len(hits) != 1:
+        raise AssertionError(f"profiler found {len(hits)} kernels named "
+                             f"{name}: {sorted(by_kernel)}")
+    return hits[0]
+
+
+def flash_bwd_cases(gen):
+    """(label, kwargs) at the training path's shapes."""
+    import torch
+
+    bf = torch.bfloat16
+    seg = torch.zeros((1, 2048), dtype=torch.int32)
+    for j, start in enumerate((300, 1000, 1700)):   # 4 packed documents
+        seg[0, start:] = j + 1
+    return [
+        ("causal_s4096", dict(s=4096, hq=32, hkv=32, dtype=bf)),
+        ("gqa_s2048", dict(s=2048, hq=32, hkv=8, dtype=bf)),
+        ("packed_s2048_4seg", dict(s=2048, hq=32, hkv=32, dtype=bf,
+                                   seg=seg.cuda())),
+        ("causal_s512_fp32", dict(s=512, hq=32, hkv=32,
+                                  dtype=torch.float32)),
+    ]
+
+
+def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128):
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    q = _rand(gen, (1, s, hq, d), dtype)
+    k = _rand(gen, (1, s, hkv, d), dtype)
+    v = _rand(gen, (1, s, hkv, d), dtype)
+    do = _rand(gen, (1, s, hq, d), dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                   segment_ids=seg)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+        causal=True, segment_ids=seg)
+    dname = str(dtype).replace("torch.", "")
+    cmp = {n: _compare(g, r, dname) for n, g, r in zip(("dq", "dk", "dv"),
+                                                       grads, refs)}
+    del grads, refs
+    torch.cuda.empty_cache()
+    call = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, do, causal=True, segment_ids=seg)
+    ms = _cuda_ms(call)
+    split = _device_ms_by_kernel(call)
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True, segment_ids=seg), reps=3,
+        warmup=1)
+    torch.cuda.empty_cache()
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    if seg is None:
+        kw = dict(is_causal=True)
+        pairs = s * (s + 1) // 2
+    else:
+        mask = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones(
+            s, s, dtype=torch.bool, device=q.device).tril()
+        kw = dict(attn_mask=mask)
+        pairs = int(mask.sum().item())
+    fwd = lambda: tF.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, enable_gqa=True, **kw)
+    fwd_bwd = lambda: torch.autograd.grad(fwd(), (qh, kh, vh),  # noqa: E731
+                                          doh)
+    library_ms = _cuda_ms(fwd_bwd) - _cuda_ms(fwd)
+    item = q.element_size()
+    seg_bytes = seg.numel() * 4 if seg is not None else 0
+    qo_bytes = q.numel() * item             # q, out, do: one [B, S, Hq, D]
+    kv_bytes = k.numel() * item
+    # least work: the dq kernel needs S = QK^T, dP = dO V^T and dQ = dS K
+    # (3 products); the dkv kernel S, dP, dV = P^T dO and dK = dS^T Q (4);
+    # each product is 2 D flops per visible (query, key) pair and head
+    rows = {}
+    for name, products, nbytes in (
+            ("dq", 3, 3 * qo_bytes + 2 * kv_bytes + lse.numel() * 8
+             + seg_bytes + q.numel() * 4),
+            ("dkv", 4, 3 * qo_bytes + 2 * kv_bytes + lse.numel() * 8
+             + seg_bytes + 2 * k.numel() * 4)):
+        flops = 2 * products * d * hq * pairs
+        bound_ms, bound_by = _bound(nbytes, flops, dname)
+        kms = _kernel_ms(split, f"flash_bwd_{name}_kernel")
+        errs = [cmp["dq"]] if name == "dq" else [cmp["dk"], cmp["dv"]]
+        rows[name] = dict(
+            ms=kms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+            tflops=flops / kms / 1e9,
+            max_abs_err=max(c["max_abs_err"] for c in errs),
+            max_rel_err=max(c["max_rel_err"] for c in errs))
+    ok = all(c["ok"] for c in cmp.values())
+    # the whole function's least work: 5 products (S, dP, dV, dQ, dK)
+    bound_ms, bound_by = _bound(
+        3 * qo_bytes + 2 * kv_bytes + lse.numel() * 4 + seg_bytes
+        + (q.numel() + 2 * k.numel()) * 4, 10 * d * hq * pairs, dname)
+    return dict(cmp=cmp, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                kernels=rows, tol=TOL[dname], rtol=RTOL[dname])
+
+
+def ce_cases():
+    import torch
+
+    bf = torch.bfloat16
+    return [
+        ("n4096_h4096_v32000", dict(n=4096, h=4096, v=32000, dtype=bf)),
+        ("ragged_n1000_ignored", dict(n=1000, h=4096, v=32000, dtype=bf,
+                                      ignored=True)),
+        ("fp32_n300_h256_v1000", dict(n=300, h=256, v=1000,
+                                      dtype=torch.float32, ignored=True)),
+    ]
+
+
+def run_ce_case(gen, n, h, v, dtype, ignored=False):
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_ce as fc
+
+    # hidden states after RMSNorm (unit scale) against a head of std 0.02,
+    # as in the model
+    x = torch.randn((n, h), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((v, h), generator=gen, device="cuda") * 0.02).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    if ignored:
+        labels[::7] = -100
+        labels[3] = v                    # past the vocab: no column matches
+    got = fc.ce_stats(x, w, labels)
+    torch.cuda.synchronize()
+    ref = fc.ce_stats_reference(x, w, labels)
+    lse_g, lse_r = got[0] + torch.log(got[1]), ref[0] + torch.log(ref[1])
+    errs = {name: (a - b).abs().max().item() for name, a, b in (
+        ("m", got[0], ref[0]), ("lse", lse_g, lse_r), ("t", got[2], ref[2]),
+        ("sl", got[3], ref[3]))}
+    ok = (max(errs["m"], errs["lse"], errs["t"]) <= CE_TOL
+          and errs["sl"] <= CE_SL_TOL * v)
+    ms = _cuda_ms(lambda: fc.ce_stats(x, w, labels), reps=5)
+    plain_ms = _cuda_ms(lambda: fc.ce_stats_reference(x, w, labels), reps=3,
+                        warmup=1)
+    safe = labels.clamp(0, v - 1)[:, None]
+
+    def library():
+        logits = (x @ w.T).float()
+        return (logits.amax(-1), torch.logsumexp(logits, -1),
+                logits.gather(1, safe)[:, 0], logits.sum(-1))
+
+    library_ms = _cuda_ms(library, reps=5)
+    flops = 2 * n * v * h
+    nbytes = (n + v) * h * x.element_size() + n * 4 + 4 * n * 4
+    bound_ms, bound_by = _bound(nbytes, flops,
+                                str(dtype).replace("torch.", ""))
+    return dict(errs=errs, max_abs_err=max(errs["m"], errs["lse"],
+                                           errs["t"]),
+                ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                tflops=flops / ms / 1e9)
+
+
 def phase_kernels(seed, report):
     import torch
 
@@ -273,8 +482,33 @@ def phase_kernels(seed, report):
               flush=True)
     report["flash_cases"], report["paged_cases"] = flash, paged
     torch.cuda.empty_cache()      # the plain versions' S=4096 scores
+    bwd = {}
+    for label, kw in flash_bwd_cases(gen):
+        bwd[label] = r = run_flash_bwd_case(gen, **kw)
+        errs = " ".join(f"{n} {c['max_abs_err']:.3g}/{c['max_rel_err']:.3g}"
+                        for n, c in r["cmp"].items())
+        kern = " ".join(f"{n} {k['ms']:.3f} ms ({k['tflops']:.2f} TFLOP/s, "
+                        f"bound {k['bound_ms']:.4f})"
+                        for n, k in r["kernels"].items())
+        print(f"flash_bwd {label}: abs/row-rel err {errs} (tol {r['tol']}, "
+              f"rtol {r['rtol']:.3g}) ms {r['ms']:.3f} [{kern}] plain_ms "
+              f"{r['plain_ms']:.3f} library_ms {r['library_ms']:.3f} "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+        torch.cuda.empty_cache()
+    ce = {}
+    for label, kw in ce_cases():
+        ce[label] = r = run_ce_case(gen, **kw)
+        print(f"ce_stats {label}: errs {json.dumps(r['errs'])} (tol "
+              f"{CE_TOL}, sl {CE_SL_TOL} * V) ms {r['ms']:.3f} plain_ms "
+              f"{r['plain_ms']:.3f} library_ms {r['library_ms']:.3f} "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"{r['tflops']:.2f} TFLOP/s", flush=True)
+        torch.cuda.empty_cache()
+    report["flash_bwd_cases"], report["ce_cases"] = bwd, ce
     bad = [f"flash {k}" for k, r in flash.items() if not r["ok"]] + \
-          [f"paged {k}" for k, r in paged.items() if not r["ok"]]
+          [f"paged {k}" for k, r in paged.items() if not r["ok"]] + \
+          [f"flash_bwd {k}" for k, r in bwd.items() if not r["ok"]] + \
+          [f"ce_stats {k}" for k, r in ce.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
@@ -387,14 +621,14 @@ def phase_full_width(args, report):
                              f"{[len(s) for s in streams]}")
     if out["packed_frames"] < 1:
         raise AssertionError("no packed prefill frame ran")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ("flash_fwd", "paged_decode") if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
     return eng, prompts
 
 
-def _device_profile(fn, steps):
+def _device_profile(fn, steps, top=8):
     """torch.profiler over `fn` (one step): wall ms per step, device ms
     per step (kernels, copies), the device's busy share and the top
     device entries."""
@@ -421,7 +655,7 @@ def _device_profile(fn, steps):
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms if dev else None,
             "device_busy_share": device_ms / wall_ms if dev else None,
-            "top_device_ms": [(k[:90], ms) for k, ms in dev[:8]]}
+            "top_device_ms": [(k[:90], ms) for k, ms in dev[:top]]}
 
 
 def _profile_serving(eng, rng, vocab, steps=4):
@@ -489,24 +723,184 @@ def phase_http(eng, prompt, report):
         raise AssertionError(f"HTTP round trip failed: {report['http']}")
 
 
+def _packed_batch(seed, vocab, seq, rows):
+    """One packed dict batch (pack_examples: segment_ids, position_ids,
+    labels -100 at document ends and on padding)."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import pack_examples
+
+    rng = np.random.RandomState(seed)
+    docs = [rng.randint(1, vocab, n) for n in
+            (37, 100, 64, 20, 150, 90, 33, 7, 200, 41)]
+    return next(pack_examples(docs, seq_len=seq, batch_size=rows))
+
+
+def _fused_loss(out, labels):
+    return out                  # the model computed the fused head loss
+
+
+def phase_train_cuda_vs_cpu(seed, report):
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    lr = 1e-3
+    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=512)
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 2)
+    models = {"cpu": LlamaForCausalLM(cfg, device="cpu", seed=seed)}
+    models["cuda"] = LlamaForCausalLM(cfg, device="cuda")
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    losses = {}
+    for dev, model in models.items():
+        opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                    weight_decay=0.01)
+        step = TrainStep(model, _fused_loss, opt)
+        losses[dev] = [float(step(batch)) for _ in range(3)]
+    cpu = dict(models["cpu"].named_parameters())
+    worst_p, worst_g, median_p = 0.0, 0.0, []
+    for name, p in models["cuda"].named_parameters():
+        dp = (p.detach().cpu() - cpu[name].detach()).abs()
+        worst_p = max(worst_p, dp.max().item())
+        median_p.append(dp.median().item())
+        g, gc = p.grad.cpu(), cpu[name].grad
+        worst_g = max(worst_g, ((g - gc).abs().max()
+                                / gc.abs().max().clamp_min(1e-7)).item())
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    out = {"losses": losses, "loss_rel_err": loss_rel,
+           "grad_rel_err": worst_g, "param_max_abs_err": worst_p,
+           "param_median_abs_err_max": max(median_p),
+           "tolerance": {"loss_rel": 1e-4, "grad_rel": 1e-3, "param": lr}}
+    report["train_cuda_vs_cpu"] = out
+    print("train cuda vs cpu: " + json.dumps(out), flush=True)
+    if not (loss_rel <= 1e-4 and worst_g <= 1e-3 and worst_p <= lr):
+        raise AssertionError("CUDA and CPU training steps differ")
+
+
+def phase_train_full_width(args, report):
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=args.seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _fused_loss, opt, collect_metrics=True)
+    rng = np.random.RandomState(args.seed)
+    ids = torch.from_numpy(
+        rng.randint(1, cfg.vocab_size, (1, TRAIN_SEQ + 1))).cuda()
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    n_params = sum(p.numel() for p in model.parameters())
+    # 6 N T for every matmul weight (the embedding gather is none), plus
+    # causal attention: forward 4 D per visible (query, key) pair and head,
+    # the backward 2.5 times that
+    d = cfg.hidden_size // cfg.num_attention_heads
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    matmul_params = n_params - cfg.vocab_size * cfg.hidden_size
+    flops = (6 * matmul_params * TRAIN_SEQ
+             + cfg.num_hidden_layers * 3.5 * 4 * d
+             * cfg.num_attention_heads * pairs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    losses = []
+    for _ in range(2):                       # warm-up: cuBLAS, allocator
+        losses.append(float(step(batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    times = []
+    for _ in range(8):
+        t1 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    launches = port_cuda.launch_counts()     # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    proj_grads = {
+        f"{i}.{n}": (None if p.grad is None
+                     else float(p.grad.float().abs().sum()))
+        for i, layer in enumerate(model.llama.layers)
+        for n, p in (("q_proj", layer.self_attn.q_proj.weight),
+                     ("k_proj", layer.self_attn.k_proj.weight),
+                     ("v_proj", layer.self_attn.v_proj.weight))}
+    step_s = statistics.median(times)
+    out = {
+        "layers": cfg.num_hidden_layers, "params": n_params,
+        "seq": TRAIN_SEQ, "batch": 1, "setup_s": setup_s,
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "median_step_ms": step_s * 1e3,
+        "tokens_per_s": TRAIN_SEQ / step_s,
+        "flops_per_step": flops, "mfu": flops / step_s / PEAK_FLOPS[
+            "bfloat16"],
+        "peak_mem_gb": peak, "launches": launches,
+        "launches_per_step": {k: n / 8 for k, n in launches.items()},
+        "metrics": step.last_metrics(), "proj_grad_abs_sum": proj_grads,
+    }
+    out["profile"] = _device_profile(lambda: step(batch), 1, top=16)
+    report["train_full_width"] = out
+    print("train full width: " + json.dumps(
+        {k: v for k, v in out.items() if k != "profile"}), flush=True)
+    print("train profile: " + json.dumps(out["profile"]), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not (losses[-1] < losses[0] and max(losses[-3:]) < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(proj_grads.values()):
+        raise AssertionError(f"attention projections without a gradient: "
+                             f"{proj_grads}")
+    layers = cfg.num_hidden_layers           # one flash call per layer
+    need = {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "ce_stats": 1}
+    short = {k: n for k, n in out["launches_per_step"].items()
+             if k in need and n < need[k]}
+    if short:
+        raise AssertionError(f"kernels not launched on the training path: "
+                             f"{short}")
+
+
 def kernels_line(report):
+    """One row per kernel; `launches` counts the main paths' runs (the
+    7B serve and the timed training steps), each read around its run."""
     from paddle_tpu_torch.ops.cuda import _build
 
-    launches = report.get("full_width", {}).get("launches", {})
+    serve = report.get("full_width", {}).get("launches", {})
+    train = report.get("train_full_width", {}).get("launches", {})
+    flash = report.get("flash_cases", {}).get("causal_s2048") or {}
+    paged = report.get("paged_cases", {}).get("decode_b8_h32") or {}
+    bwd = report.get("flash_bwd_cases", {}).get("causal_s4096") or {}
+    ce = report.get("ce_cases", {}).get("n4096_h4096_v32000") or {}
+    pallas = "paddle_tpu/ops/pallas/"
+    specs = [
+        ("flash_fwd", "flash_fwd.cu", "flash_attention.py:119", flash),
+        ("paged_decode", "paged_attention.cu", "paged_attention.py:103",
+         paged),
+        ("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:309",
+         dict(bwd, **bwd.get("kernels", {}).get("dq", {}))),
+        ("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:362",
+         dict(bwd, **bwd.get("kernels", {}).get("dkv", {}))),
+        ("ce_stats", "fused_ce.cu", "fused_ce.py:246", ce)]
     rows = []
-    specs = [("flash_fwd", "flash_fwd.cu",
-              "paddle_tpu/ops/pallas/flash_attention.py:119",
-              report.get("flash_cases", {}).get("causal_s2048")),
-             ("paged_decode", "paged_attention.cu",
-              "paddle_tpu/ops/pallas/paged_attention.py:103",
-              report.get("paged_cases", {}).get("decode_b8_h32"))]
     for name, src, replaces, case in specs:
-        case = case or {}
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(os.path.join(_build.CSRC_DIR, src),
                                       REPO),
-            "replaces": replaces, "launches": launches.get(name, 0),
+            "replaces": pallas + replaces,
+            "launches": serve.get(name, 0) + train.get(name, 0),
             "max_abs_err": case.get("max_abs_err"), "ms": case.get("ms"),
             "plain_ms": case.get("plain_ms"),
             "bound_ms": case.get("bound_ms"),
@@ -519,8 +913,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=32,
-                    help="decoder depth of the full-width phase")
+                    help="decoder depth of the full-width serving phase")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases to run")
     args = ap.parse_args(argv)
+    wanted = args.phases.split(",")
+    unknown = sorted(set(wanted) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
 
     import torch
 
@@ -559,8 +959,21 @@ def main(argv=None) -> int:
             raise RuntimeError("the full-width phase built no engine")
         phase_http(state["eng"], state["prompts"][1], report)
 
-    phases += [("full_width", full_width), ("http", http)]
+    def release_serving():
+        # the 7B serving engine's weights and KV pool make room for training
+        state.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phases += [("full_width", full_width), ("http", http),
+               ("train_cuda_vs_cpu",
+                lambda: (release_serving(),
+                         phase_train_cuda_vs_cpu(args.seed, report))),
+               ("train_full_width",
+                lambda: phase_train_full_width(args, report))]
     for name, fn in phases:
+        if name not in wanted:
+            continue
         t0 = time.perf_counter()
         try:
             fn()

@@ -10,7 +10,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any
 
-__all__ = ["define_flag", "flag"]
+__all__ = ["define_flag", "flag", "set_flags"]
 
 _lock = threading.Lock()
 
@@ -54,6 +54,18 @@ def flag(name: str):
     return _REGISTRY[name].value
 
 
+def set_flags(flags: dict) -> None:
+    """Update registered flags by name (with or without the FLAGS_
+    prefix), as ``paddle.set_flags``."""
+    for key, val in flags.items():
+        name = key[6:] if key.startswith("FLAGS_") else key
+        with _lock:
+            if name not in _REGISTRY:
+                raise KeyError(f"unknown flag: {key}")
+            f = _REGISTRY[name]
+            f.value = _coerce(f.type, val)
+
+
 define_flag("serving_page_size", 16,
             "KV-cache page size in tokens (page granularity of the paged "
             "decode kernel and the serving allocator)", type=int)
@@ -92,3 +104,13 @@ define_flag("serving_max_body_mb", 8,
 define_flag("router_retry_after_s", 1.0,
             "Retry-After seconds advertised on admission-control 503s",
             type=float)
+define_flag("use_fused_head_loss", True,
+            "LlamaForCausalLM with labels computes the head projection and "
+            "CE in one chunked fused op (no [tokens, vocab] logits); False "
+            "restores the unfused logits + cross_entropy path")
+define_flag("fused_ce_chunk_tokens", 0,
+            "fused-CE token chunk of the backward's recomputed logits tiles "
+            "(0 = auto, ~4M-element tiles)", type=int)
+define_flag("fused_ce_chunk_vocab", 0,
+            "fused-CE vocab chunk override (0 = auto); the port has only the "
+            "token-chunked variant, so nothing reads it yet", type=int)

@@ -1,4 +1,4 @@
-"""Carry weights from a paddle_tpu model into the port.
+"""Carry weights and optimizer state from a paddle_tpu model into the port.
 
 ``from_paddle_tpu_params`` takes plain numpy arrays keyed by the JAX
 package's parameter names, e.g.
@@ -6,6 +6,9 @@ package's parameter names, e.g.
 (this module imports nothing of JAX or paddle_tpu). Names map one to one;
 linear weights are transposed from paddle's ``[in, out]`` to PyTorch's
 ``[out, in]``; the embedding table is ``[vocab, hidden]`` in both.
+``optimizer_state_from_paddle_tpu`` carries a JAX optimizer's
+``state_dict()`` (numpy m, v, master and the step) the same way, so a
+resumed port step matches the JAX one.
 """
 from __future__ import annotations
 
@@ -15,7 +18,13 @@ import torch
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_paddle_tpu_params"]
+__all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu"]
+
+
+def _to_port_layout(name: str, arr: np.ndarray) -> np.ndarray:
+    if name.endswith("_proj.weight") or name == "lm_head.weight":
+        return arr.T                        # paddle [in, out] -> [out, in]
+    return arr
 
 
 @torch.no_grad()
@@ -33,11 +42,40 @@ def from_paddle_tpu_params(named: dict, config: LlamaConfig,
         raise KeyError(f"parameter names differ: missing {missing[:5]}, "
                        f"unexpected {extra[:5]}")
     for name, p in params.items():
-        arr = np.asarray(named[name])
-        if name.endswith("_proj.weight") or name == "lm_head.weight":
-            arr = arr.T                     # paddle [in, out] -> [out, in]
+        arr = _to_port_layout(name, np.asarray(named[name]))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
                              f"fit {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr, copy=True)))
     return model
+
+
+def optimizer_state_from_paddle_tpu(state: dict, names, model,
+                                    optimizer) -> None:
+    """Load a paddle_tpu optimizer's ``state_dict()`` into the port's
+    `optimizer` over `model`. ``names[i]`` is the parameter name of the JAX
+    optimizer's i-th parameter (``[n for n, _ in
+    jax_model.named_parameters()]`` when it was built from
+    ``jax_model.parameters()``); each state array is put in the port's
+    layout as the weights are (linear moments and masters transposed).
+    Raises on a name the port model lacks or a misshapen entry."""
+    port_name = {id(p): n for n, p in model.named_parameters()}
+    jax_index = {n: i for i, n in enumerate(names)}
+    out = {"step": int(state.get("step", 0))}
+    for j, p in enumerate(optimizer._params):
+        name = port_name.get(id(p))
+        if name is None or name not in jax_index:
+            raise KeyError(f"optimizer parameter {j} ({name}) has no "
+                           f"paddle_tpu counterpart")
+        saved = state.get(f"param_{jax_index[name]}")
+        if saved is None:
+            continue
+        entry = {}
+        for k, v in saved.items():
+            arr = _to_port_layout(name, np.asarray(v))
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}.{k}: shape {tuple(arr.shape)} "
+                                 f"does not fit {tuple(p.shape)}")
+            entry[k] = arr
+        out[f"param_{j}"] = entry
+    optimizer.set_state_dict(out)

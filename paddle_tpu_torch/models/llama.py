@@ -1,4 +1,5 @@
-"""LLaMA-2 family for serving (``paddle_tpu.models.llama`` counterpart).
+"""LLaMA-2 family for training and serving (``paddle_tpu.models.llama``
+counterpart).
 
 Same module tree and parameter names as the JAX package, so
 ``models.convert.from_paddle_tpu_params`` maps weights one to one. The
@@ -7,10 +8,12 @@ fleet mp layers (Column/Row/VocabParallel) become plain single-device
 Linear weights are PyTorch's ``[out, in]``.
 
 Attention runs the port's hand-written Hopper kernels on CUDA tensors:
-prefill through the flash forward kernel (via
-``F.scaled_dot_product_attention``), decode through the paged kernel.
-CPU tensors take their plain PyTorch versions. Inference only: the
-full-sequence ``forward`` has no loss head and no backward.
+prefill and training through the flash kernels (forward, and the dq/dkv
+backward under autograd, via ``F.scaled_dot_product_attention``), decode
+through the paged kernel. With labels, ``LlamaForCausalLM.forward`` returns
+the loss of ``LlamaPretrainingCriterion``; its fused path runs the
+hand-written CE statistics kernel and never forms the [tokens, vocab]
+logits. CPU tensors take the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -20,13 +23,14 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import RMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
-           "LlamaDecoderLayer", "llama_tiny_config", "llama_7b_config",
-           "apply_rotary"]
+           "LlamaDecoderLayer", "LlamaPretrainingCriterion",
+           "llama_tiny_config", "llama_7b_config", "apply_rotary"]
 
 
 @dataclass
@@ -40,6 +44,9 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # per-token CE, then the mean over ALL tokens (ignored ones count as
+    # 0); False: the mean over the non-ignored tokens
+    use_parallel_cross_entropy: bool = True
     dtype: str = "float32"
     # size of the ONE RoPE cos/sin table pair (absolute-position indexed by
     # the decode path); 0 = max_position_embeddings. A position at or past
@@ -148,7 +155,7 @@ class LlamaAttention(nn.Module):
             c, sn = cos[:s], sin[:s]
         q, k = apply_rotary(q, k, c.to(q.dtype), sn.to(q.dtype))
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                             training=False,
+                                             training=self.training,
                                              segment_ids=segment_ids)
         return self.o_proj(out.reshape(b, s, -1))
 
@@ -308,11 +315,43 @@ class LlamaModel(nn.Module):
         return self.norm(x), cache
 
 
+class LlamaPretrainingCriterion(nn.Module):
+    """Causal-LM loss (paddle_tpu ``LlamaPretrainingCriterion``). With
+    ``use_parallel_cross_entropy`` (the default): per-token CE, then the
+    mean over ALL tokens, ignored ones counting as 0; without it: the mean
+    over the non-ignored tokens. Labels are the next-token targets, already
+    shifted by the caller (the packer does it), ``ignore_index`` -100."""
+
+    ignore_index = -100
+
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.parallel = config.use_parallel_cross_entropy
+
+    def forward(self, logits, labels):
+        if self.parallel:
+            return F.parallel_cross_entropy(
+                logits, labels, ignore_index=self.ignore_index).mean()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1),
+                               ignore_index=self.ignore_index)
+
+    def forward_fused(self, hidden, lm_head, labels):
+        """The head projection and the CE in one fused op: the
+        [tokens, vocab] logits never exist, and the reduction is this
+        criterion's own."""
+        reduction = "none" if self.parallel else "mean"
+        loss = F.fused_linear_cross_entropy(
+            hidden, lm_head.weight, labels, bias=lm_head.bias,
+            ignore_index=self.ignore_index, reduction=reduction)
+        return loss.mean() if self.parallel else loss
+
+
 class LlamaForCausalLM(nn.Module):
-    """LLaMA with its LM head. ``device`` defaults to "cuda" (raises when
-    CUDA is absent); ``dtype`` defaults to ``config.dtype``. ``seed``
-    draws the weights from a seeded ``torch.Generator`` (N(0, 0.02) for
-    the matrices, ones for the norms) on the target device."""
+    """LLaMA with its LM head and loss. ``device`` defaults to "cuda"
+    (raises when CUDA is absent); ``dtype`` defaults to ``config.dtype``.
+    ``seed`` draws the weights from a seeded ``torch.Generator`` (N(0,
+    0.02) for the matrices, ones for the norms) on the target device."""
 
     def __init__(self, config: LlamaConfig, device=DEFAULT_DEVICE,
                  dtype=None, seed: int | None = None):
@@ -323,6 +362,7 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, dev, dtype)
         self.lm_head = _linear(config.hidden_size, config.vocab_size, dev,
                                dtype)
+        self.criterion = LlamaPretrainingCriterion(config)
         if seed is not None:
             self.init_weights(seed)
 
@@ -340,11 +380,18 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, std, generator=gen)
 
-    def forward(self, input_ids, segment_ids=None, position_ids=None):
-        """Full-sequence logits [B, S, vocab] (inference)."""
+    def forward(self, input_ids, labels=None, segment_ids=None,
+                position_ids=None):
+        """Full-sequence logits [B, S, vocab]; with ``labels`` [B, S] the
+        scalar loss instead, through the fused head loss unless the
+        ``use_fused_head_loss`` flag is off."""
         hidden = self.llama(input_ids, segment_ids=segment_ids,
                             position_ids=position_ids)
-        return self.lm_head(hidden)
+        if labels is None:
+            return self.lm_head(hidden)
+        if flag("use_fused_head_loss"):
+            return self.criterion.forward_fused(hidden, self.lm_head, labels)
+        return self.criterion(self.lm_head(hidden), labels)
 
     def decode_forward(self, input_ids, cache, page_table, context_lens,
                        position_ids, ctx_pad=None, segment_ids=None):

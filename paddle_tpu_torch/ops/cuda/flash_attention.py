@@ -1,24 +1,33 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels,
+their plain PyTorch versions, and the ``torch.autograd.Function`` that
+joins them.
 
 Replaces ``paddle_tpu/ops/pallas/flash_attention.py`` ``_fwd_kernel``
-(launched by ``_flash_fwd``, the ``pallas_call`` at :288). The CUDA source
-is ``csrc/flash_fwd.cu``.
+(launched by ``_flash_fwd``, the ``pallas_call`` at :288) with
+``csrc/flash_fwd.cu``, and ``_dq_kernel`` / ``_dkv_kernel`` (launched by
+``_flash_bwd``, the ``pallas_call`` at :449 and :482) with
+``csrc/flash_bwd.cu``.
 
-What bounds it on the H100: at prefill lengths attention does about
-4·S·D flops per byte it reads, so it is bound by operations. The kernel does
-its math in fp32 on the CUDA cores (67 TFLOP/s), not on the tensor cores
-(989 TFLOP/s bf16), so it runs far from the bound; that is the price of a
-simple first kernel (``mma.sync``/``wgmma`` and TMA are later work). What
-the design does about the operation count: the causal loop stops at the
-diagonal tile, and a packed frame skips every K tile whose segment range
-cannot touch the q tile's, so a packed frame costs O(sum of len_i^2), not
-O(frame^2). The 64x128 q tile is staged once in shared memory, and each
-32-key K/V tile is read once per q tile.
+What bounds them on the H100: at prefill and training lengths attention
+does about 4·S·D flops per byte it reads (the backward 2.5 times the
+forward's work, plus the recompute of the scores), so it is bound by
+operations. The kernels do their math in fp32 on the CUDA cores (67 TFLOP/s),
+not on the tensor cores (989 TFLOP/s bf16), so they run far from the bound;
+that is the price of simple first kernels (``mma.sync``/``wgmma`` and TMA
+are later work). What the design does about the operation count: the
+causal loops stop at the diagonal tile, and a packed frame skips every tile
+pair whose segment ranges cannot touch (``ptt::blocks_can_touch``, the same
+predicate in all three kernels), so a packed frame costs O(sum of len_i^2),
+not O(frame^2). The forward stages a 64x128 q tile once and reads each
+32-key K/V tile once per q tile; the backward follows the JAX split, which
+needs no atomics: the dq kernel owns a q tile and walks K tiles, the dkv
+kernel owns a K tile and walks the q tiles of every query head of its GQA
+group.
 
-On a CUDA tensor ``flash_attention_fwd`` launches the kernel or raises; on
-a CPU tensor it runs ``flash_attention_reference``. ``LAUNCHES`` counts
-kernel launches.
+On a CUDA tensor ``flash_attention_fwd`` / ``flash_attention_bwd`` launch
+the kernels or raise; on a CPU tensor they run ``flash_attention_reference``
+/ ``flash_attention_bwd_reference``. ``LAUNCHES`` counts kernel launches by
+kernel name.
 """
 from __future__ import annotations
 
@@ -27,21 +36,22 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_fwd", "flash_attention_reference", "LAUNCHES",
-           "reset_launches", "launches"]
+__all__ = ["flash_attention_fwd", "flash_attention_reference",
+           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "FlashAttention", "LAUNCHES", "reset_launches", "launch_counts"]
 
 _NEG_INF = -1e30
 
-LAUNCHES = 0
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
-def launches() -> int:
-    return LAUNCHES
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _check(q, k, v, segment_ids):
@@ -62,6 +72,19 @@ def _check(q, k, v, segment_ids):
     return b, s, hq, hkv, d
 
 
+def _mask(s, causal, segment_ids, device):
+    """[B, 1, 1, S, S] (or [1, 1, 1, S, S]) bool: key t visible to query s."""
+    valid = torch.ones(s, s, dtype=torch.bool, device=device)
+    if causal:
+        valid = torch.tril(valid)
+    valid = valid.view(1, 1, 1, s, s)
+    if segment_ids is not None:
+        seg = segment_ids.to(device)
+        valid = valid & (seg[:, None, None, :, None]
+                         == seg[:, None, None, None, :])
+    return valid
+
+
 def flash_attention_reference(q, k, v, causal: bool = False,
                               scale: float | None = None, segment_ids=None):
     """Plain PyTorch version of the kernel: q [B, S, Hq, D], k/v
@@ -75,14 +98,7 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     kf = k.float().permute(0, 2, 1, 3)                     # [B, Hkv, S, D]
     vf = v.float().permute(0, 2, 1, 3)
     scores = torch.einsum("bhgsd,bhtd->bhgst", qf, kf)
-    valid = torch.ones(s, s, dtype=torch.bool, device=q.device)
-    if causal:
-        valid = torch.tril(valid)
-    valid = valid.view(1, 1, 1, s, s)
-    if segment_ids is not None:
-        seg = segment_ids.to(q.device)
-        valid = valid & (seg[:, None, None, :, None]
-                         == seg[:, None, None, None, :])
+    valid = _mask(s, causal, segment_ids, q.device)
     scores = scores.masked_fill(~valid, _NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m).masked_fill(~valid, 0.0)
@@ -109,7 +125,6 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def _launch(q, k, v, causal, scale, segment_ids):
-    global LAUNCHES
     b, s, hq, hkv, d = _check(q, k, v, segment_ids)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
@@ -145,7 +160,7 @@ def _launch(q, k, v, causal, scale, segment_ids):
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
@@ -160,3 +175,136 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return flash_attention_reference(q, k, v, causal=causal, scale=scale,
                                      segment_ids=segment_ids)
 
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
+                                  scale: float | None = None,
+                                  segment_ids=None):
+    """Plain PyTorch version of the backward kernels: (dq [B, S, Hq, D],
+    dk, dv [B, S, Hkv, D]), all fp32, from q, k, v, the forward's out
+    [B, S, Hq, D] and lse [B, Hq, S], and the output gradient do. It forms
+    the flash-2 products explicitly as ``_flash_bwd`` does (P recomputed
+    from the saved lse, delta = rowsum(do * out), dS = P * (dP - delta) *
+    scale), in fp32, with masked pairs at P = 0 exactly; it is not
+    autograd through the forward."""
+    b, s, hq, hkv, d = _check(q, k, v, segment_ids)
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+
+    def heads(t, n):                     # [B, S, H, D] -> [B, Hkv, g, S, D]
+        return t.float().permute(0, 2, 1, 3).reshape(b, hkv, n, s, d)
+
+    qf, dof, of = heads(q, g), heads(do, g), heads(out, g)
+    kf = k.float().permute(0, 2, 1, 3)                     # [B, Hkv, S, D]
+    vf = v.float().permute(0, 2, 1, 3)
+    lse5 = lse.float().reshape(b, hkv, g, s, 1)
+    delta = (dof * of).sum(-1, keepdim=True)
+    valid = _mask(s, causal, segment_ids, q.device)
+    scores = torch.einsum("bhgsd,bhtd->bhgst", qf * scale, kf)
+    p = torch.exp(scores - lse5).masked_fill(~valid, 0.0)
+    del scores
+    dp = torch.einsum("bhgsd,bhtd->bhgst", dof, vf)
+    ds = p * (dp - delta) * scale
+    del dp
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dof)
+    del p
+    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, kf)
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qf)
+
+    def back(t, n):                      # [B, Hkv, (g,) S, D] -> [B, S, H, D]
+        return t.reshape(b, n, s, d).permute(0, 2, 1, 3).contiguous()
+
+    return back(dq, hq), back(dk, hkv), back(dv, hkv)
+
+
+def _bwd_lib():
+    from paddle_tpu_torch.ops.cuda._build import load
+
+    fn = load("flash_bwd").ptt_flash_bwd
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids):
+    b, s, hq, hkv, d = _check(q, k, v, segment_ids)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"flash kernel takes head_dim 64 or 128, got {d}")
+    for name, t in (("k", k), ("v", v), ("out", out), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must share q's device and dtype")
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out/do {tuple(out.shape)}/{tuple(do.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if tuple(lse.shape) != (b, hq, s) or lse.device != q.device:
+        raise ValueError(f"lse must be [batch, q_heads, seq]=({b}, {hq}, "
+                         f"{s}) on q's device, got {tuple(lse.shape)}")
+    # the kernels read [B, S, H, D] rows with a contiguous head_dim; the
+    # training path hands them contiguous tensors, so these are no-ops there
+    q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    lse = lse.float().contiguous()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    seg_ptr = None
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(device=q.device,
+                                     dtype=torch.int32).contiguous()
+        seg_ptr = segment_ids.data_ptr()
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dq = torch.empty((b, s, hq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), seg_ptr, dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d,
+                     int(bool(causal)), float(scale), _DTYPES[q.dtype],
+                     q.device.index or 0,
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd launch failed: cudaError {err}")
+    LAUNCHES["flash_bwd_dq"] += 1
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        scale: float | None = None, segment_ids=None):
+    """(dq, dk, dv) in fp32 for the forward ``out, lse =
+    flash_attention_fwd(q, k, v, ...)`` and the output gradient ``do``
+    (delta = rowsum(do * out) is formed here, outside the kernels, as the
+    JAX package forms it outside Pallas). CUDA tensors launch the dq and
+    dkv kernels; CPU tensors take the plain version."""
+    if q.is_cuda:
+        return _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids)
+    return flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                         causal=causal, scale=scale,
+                                         segment_ids=segment_ids)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over [B, S, H, D] q/k/v
+    (``jax.custom_vjp`` around ``_flash_fwd``/``_flash_bwd`` in the JAX
+    package): the forward kernel saves its lse, the backward kernels
+    recompute P from it. Gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None, segment_ids=None):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                       segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         segment_ids=segment_ids)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)

@@ -24,7 +24,7 @@ softmax states a second small kernel merges.
 
 On a CUDA tensor ``paged_attention`` launches the kernel or raises; on a
 CPU tensor it runs ``paged_attention_reference``. ``LAUNCHES`` counts
-kernel launches.
+kernel launches by kernel name.
 """
 from __future__ import annotations
 
@@ -34,21 +34,21 @@ import math
 import torch
 
 __all__ = ["paged_attention", "paged_attention_reference", "LAUNCHES",
-           "reset_launches", "launches", "MAX_FRAME_ROWS"]
+           "reset_launches", "launch_counts", "MAX_FRAME_ROWS"]
 
 _NEG_INF = -1e30
 MAX_FRAME_ROWS = 64     # T * group bound of the kernel's shared memory
 
-LAUNCHES = 0
+LAUNCHES = {"paged_decode": 0}
 
 
-def launches() -> int:
-    return LAUNCHES
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _check_shapes(q, k_pages, v_pages, page_table, context_lens):
@@ -134,7 +134,6 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def _launch(q, k_pages, v_pages, page_table, context_lens, scale):
-    global LAUNCHES
     b, hq, hkv, ps, d = _check_shapes(q, k_pages, v_pages, page_table,
                                       context_lens)
     squeeze = q.dim() == 3
@@ -174,7 +173,7 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale):
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
-    LAUNCHES += 1
+    LAUNCHES["paged_decode"] += 1
     return out[:, 0] if squeeze else out
 
 

@@ -131,7 +131,9 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         rng, 2, 1, 4, 2, 16, 4, 5, [3, 7]))
     assert torch.equal(paged_attention(qp, kp, vp, pt, lens),
                        paged_attention_reference(qp, kp, vp, pt, lens))
-    assert port_cuda.launch_counts() == {"flash_fwd": 0, "paged_decode": 0}
+    assert port_cuda.launch_counts() == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "paged_decode": 0, "ce_stats": 0}
 
 
 def test_shape_errors_raise():
