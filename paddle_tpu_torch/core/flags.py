@@ -111,6 +111,3 @@ define_flag("use_fused_head_loss", True,
 define_flag("fused_ce_chunk_tokens", 0,
             "fused-CE token chunk of the backward's recomputed logits tiles "
             "(0 = auto, ~4M-element tiles)", type=int)
-define_flag("fused_ce_chunk_vocab", 0,
-            "fused-CE vocab chunk override (0 = auto); the port has only the "
-            "token-chunked variant, so nothing reads it yet", type=int)

@@ -38,7 +38,8 @@ import torch
 
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
-           "FlashAttention", "LAUNCHES", "reset_launches", "launch_counts"]
+           "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv_reference", "FlashAttention", "LAUNCHES", "reset_launches", "launch_counts"]
 
 _NEG_INF = -1e30
 
@@ -177,16 +178,12 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
 
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
-                                  scale: float | None = None,
-                                  segment_ids=None):
-    """Plain PyTorch version of the backward kernels: (dq [B, S, Hq, D],
-    dk, dv [B, S, Hkv, D]), all fp32, from q, k, v, the forward's out
-    [B, S, Hq, D] and lse [B, Hq, S], and the output gradient do. It forms
-    the flash-2 products explicitly as ``_flash_bwd`` does (P recomputed
-    from the saved lse, delta = rowsum(do * out), dS = P * (dP - delta) *
-    scale), in fp32, with masked pairs at P = 0 exactly; it is not
-    autograd through the forward."""
+def _bwd_reference_ds(q, k, v, out, lse, do, causal, scale, segment_ids):
+    """What both backward kernels recompute first: P from the saved lse
+    and dS = P * (dP - delta) * scale ([B, Hkv, g, S, S] fp32, masked
+    pairs at P = 0 exactly), with the fp32 head views [B, Hkv, g, S, D]
+    of q and do, k [B, Hkv, S, D], and ``back``, which returns a
+    [B, Hkv, (g,) S, D] gradient to [B, S, H, D]."""
     b, s, hq, hkv, d = _check(q, k, v, segment_ids)
     g = hq // hkv
     if scale is None:
@@ -207,15 +204,51 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
     dp = torch.einsum("bhgsd,bhtd->bhgst", dof, vf)
     ds = p * (dp - delta) * scale
     del dp
-    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dof)
-    del p
-    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, kf)
-    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qf)
 
-    def back(t, n):                      # [B, Hkv, (g,) S, D] -> [B, S, H, D]
+    def back(t, n):
         return t.reshape(b, n, s, d).permute(0, 2, 1, 3).contiguous()
 
-    return back(dq, hq), back(dk, hkv), back(dv, hkv)
+    return p, ds, qf, dof, kf, back
+
+
+def flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
+                                     causal: bool = False,
+                                     scale: float | None = None,
+                                     segment_ids=None):
+    """Plain PyTorch version of the dq kernel: dq = dS·K [B, S, Hq, D]
+    fp32 (arguments as ``flash_attention_bwd_reference``)."""
+    _, ds, _, _, kf, back = _bwd_reference_ds(q, k, v, out, lse, do, causal,
+                                              scale, segment_ids)
+    return back(torch.einsum("bhgst,bhtd->bhgsd", ds, kf), q.shape[2])
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
+                                      causal: bool = False,
+                                      scale: float | None = None,
+                                      segment_ids=None):
+    """Plain PyTorch version of the dkv kernel: (dk = dSᵀ·Q, dv = Pᵀ·dO),
+    each [B, S, Hkv, D] fp32, summed over the GQA group."""
+    p, ds, qf, dof, _, back = _bwd_reference_ds(q, k, v, out, lse, do,
+                                                causal, scale, segment_ids)
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dof)
+    del p
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qf)
+    return back(dk, k.shape[2]), back(dv, k.shape[2])
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
+                                  scale: float | None = None,
+                                  segment_ids=None):
+    """Plain PyTorch version of the backward kernels: (dq [B, S, Hq, D],
+    dk, dv [B, S, Hkv, D]), all fp32, from q, k, v, the forward's out
+    [B, S, Hq, D] and lse [B, Hq, S], and the output gradient do. Like the
+    two kernels (and ``_flash_bwd``) it recomputes P from the saved lse and
+    forms the flash-2 products explicitly (delta = rowsum(do * out),
+    dS = P * (dP - delta) * scale) in fp32, once for dq and once for
+    dk/dv; it is not autograd through the forward."""
+    args = (q, k, v, out, lse, do, causal, scale, segment_ids)
+    return (flash_attention_bwd_dq_reference(*args),
+            *flash_attention_bwd_dkv_reference(*args))
 
 
 def _bwd_lib():

@@ -42,7 +42,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.collect_metrics = collect_metrics
         self.device = next(model.parameters()).device
-        self._step_i = int(getattr(optimizer, "_step_count", 0) or 0)
+        self._steps = 0           # the step count when there is no optimizer
         self._metrics = None
 
     def _place(self, value):
@@ -71,20 +71,26 @@ class TrainStep:
             labels = args[-1]
         loss = self.loss_fn(out, labels)
         loss.backward()
-        self._step_i += 1
         if self.collect_metrics:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
-            self._metrics = {"step": self._step_i, "loss": loss.detach(),
+            self._metrics = {"loss": loss.detach(),
                              "grad_norm": global_norm(grads)}
         if self.optimizer is not None:
             self.optimizer.step()
-            self.optimizer._step_count = self._step_i
+            step = self.optimizer._step_count
+        else:
+            self._steps += 1
+            step = self._steps
+        if self.collect_metrics:
+            self._metrics["step"] = step
         return loss.detach()
 
     def last_metrics(self) -> dict | None:
         """{step, loss, grad_norm} of the last step as Python numbers, or
-        None before the first step or with ``collect_metrics`` off."""
+        None before the first step or with ``collect_metrics`` off.
+        ``step`` is the optimizer's own step count (the one its bias
+        correction uses), or the steps this object took without one."""
         if self._metrics is None:
             return None
         return {k: (float(v) if isinstance(v, torch.Tensor) else v)

@@ -259,6 +259,53 @@ def test_train_step_tuple_batch_and_clip():
         step({"input_ids": ids})
 
 
+def test_train_step_follows_optimizer_state_loaded_after_it():
+    """State loaded after the TrainStep is built, and a step taken outside
+    it, set the step count (and so the bias correction) of later steps."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg = llama_tiny_config(num_key_value_heads=2)
+    rng = np.random.RandomState(6)
+    ids = torch.from_numpy(rng.randint(0, 256, (2, 16)))
+    labels = torch.from_numpy(rng.randint(0, 256, (2, 16)))
+
+    def plain_step(model, opt):
+        opt.clear_grad()
+        model.criterion(model(ids), labels).backward()
+        opt.step()
+
+    src = LlamaForCausalLM(cfg, device="cpu", seed=6)
+    src_opt = AdamW(learning_rate=LR, parameters=src.parameters())
+    for _ in range(5):
+        plain_step(src, src_opt)
+    saved = src_opt.state_dict()
+
+    model = LlamaForCausalLM(cfg, device="cpu", seed=7)
+    opt = AdamW(learning_rate=LR, parameters=model.parameters())
+    step = TrainStep(model, lambda logits, lab: model.criterion(logits, lab),
+                     opt, collect_metrics=True)
+    opt.set_state_dict(saved)
+    step(ids, labels)
+    plain_step(model, opt)
+    step(ids, labels)
+    assert opt._step_count == 8 and step.last_metrics()["step"] == 8
+
+    ref = LlamaForCausalLM(cfg, device="cpu", seed=7)
+    ref_opt = AdamW(learning_rate=LR, parameters=ref.parameters())
+    ref_opt.set_state_dict(saved)
+    for _ in range(3):
+        plain_step(ref, ref_opt)
+    assert ref_opt._step_count == 8
+    for (name, p), r in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p, r), name
+
+    alone = TrainStep(model, lambda logits, lab: model.criterion(logits, lab),
+                      collect_metrics=True)
+    alone(ids, labels)
+    alone(ids, labels)
+    assert alone.last_metrics()["step"] == 2 and opt._step_count == 8
+
+
 def test_packer_matches_jax():
     docs = _docs(5, 100, [3, 17, 8, 40, 2, 9, 25, 31, 6])
     ours = list(pack_examples(docs, seq_len=32, batch_size=3))
