@@ -78,6 +78,8 @@ NEW_TOKENS = 32                                  # per full-width request
 TRAIN_LAYERS = 3           # full-width training: the 32-layer state
 TRAIN_SEQ = 4096           # (about 108 GB) does not fit in 80 GB
 TRAIN_LR = 1e-4
+MOE_BATCH = 4              # GPT-MoE: 4 x 2048 tokens, 2 warm-up steps
+MOE_STEPS = 8              # and 8 timed ones
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -155,6 +157,9 @@ def flash_cases(gen):
                                chunk=(2816, 256))),
         ("chunk_ctx4096_fp32", dict(s=4096, hq=32, hkv=32,
                                     dtype=torch.float32, chunk=(2816, 256))),
+        # GPT-MoE attention: batch 4, 16 heads of 64
+        ("causal_s2048_d64_b4", dict(s=2048, hq=16, hkv=16, dtype=bf, d=64,
+                                     b=4)),
     ]
 
 
@@ -179,16 +184,16 @@ def _chunk_prefill_qkv(gen, s, hq, hkv, d, dtype, chunk, ps=16):
     return q, k, v
 
 
-def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128):
+def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1):
     import torch
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     if chunk is None:
-        q = _rand(gen, (1, s, hq, d), dtype)
-        k = _rand(gen, (1, s, hkv, d), dtype)
-        v = _rand(gen, (1, s, hkv, d), dtype)
+        q = _rand(gen, (b, s, hq, d), dtype)
+        k = _rand(gen, (b, s, hkv, d), dtype)
+        v = _rand(gen, (b, s, hkv, d), dtype)
     else:
         q, k, v = _chunk_prefill_qkv(gen, s, hq, hkv, d, dtype, chunk)
         if k.is_contiguous():
@@ -222,7 +227,7 @@ def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128):
     item = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * item \
         + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
-    flops = 4 * d * hq * pairs
+    flops = 4 * d * hq * pairs * b
     bound_ms, bound_by = _bound(nbytes, flops, dname)
     return dict(cmp, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -320,19 +325,21 @@ def flash_bwd_cases(gen):
                                    seg=seg.cuda())),
         ("causal_s512_fp32", dict(s=512, hq=32, hkv=32,
                                   dtype=torch.float32)),
+        ("causal_s2048_d64_b4", dict(s=2048, hq=16, hkv=16, dtype=bf, d=64,
+                                     b=4)),
     ]
 
 
-def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128):
+def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1):
     import torch
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-    q = _rand(gen, (1, s, hq, d), dtype)
-    k = _rand(gen, (1, s, hkv, d), dtype)
-    v = _rand(gen, (1, s, hkv, d), dtype)
-    do = _rand(gen, (1, s, hq, d), dtype)
+    q = _rand(gen, (b, s, hq, d), dtype)
+    k = _rand(gen, (b, s, hkv, d), dtype)
+    v = _rand(gen, (b, s, hkv, d), dtype)
+    do = _rand(gen, (b, s, hq, d), dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
                                    segment_ids=seg)
@@ -385,7 +392,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128):
             ("dkv", 4, 3 * qo_bytes + 2 * kv_bytes + lse.numel() * 8
              + seg_bytes + 2 * k.numel() * 4,
              fa.flash_attention_bwd_dkv_reference)):
-        flops = 2 * products * d * hq * pairs
+        flops = 2 * products * d * hq * pairs * b
         bound_ms, bound_by = _bound(nbytes, flops, dname)
         kms = _kernel_ms(split, f"flash_bwd_{name}_kernel")
         kplain_ms = _cuda_ms(lambda: plain(  # noqa: B023
@@ -402,7 +409,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128):
     # the whole function's least work: 5 products (S, dP, dV, dQ, dK)
     bound_ms, bound_by = _bound(
         3 * qo_bytes + 2 * kv_bytes + lse.numel() * 4 + seg_bytes
-        + (q.numel() + 2 * k.numel()) * 4, 10 * d * hq * pairs, dname)
+        + (q.numel() + 2 * k.numel()) * 4, 10 * d * hq * pairs * b, dname)
     return dict(cmp=cmp, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 kernels=rows, tol=TOL[dname], rtol=RTOL[dname])
@@ -465,6 +472,229 @@ def run_ce_case(gen, n, h, v, dtype, ignored=False):
                 tflops=flops / ms / 1e9)
 
 
+def _dispatch_layout(gen, n_tokens, experts, k):
+    """The dropless dispatcher's bucket gids for the top-k of random gate
+    logits: ([M] int32, block_rows, routed rows)."""
+    import torch
+
+    from paddle_tpu_torch.incubate.distributed.models.moe.dropless import \
+        ragged_layout
+    from paddle_tpu_torch.ops.cuda.grouped_matmul import pick_block_rows
+
+    logits = torch.randn((n_tokens, experts), generator=gen, device="cuda")
+    topi = logits.topk(k, dim=-1).indices.reshape(-1)
+    bm = pick_block_rows(n_tokens * k, experts)
+    return ragged_layout(topi, experts, bm)[3], bm, n_tokens * k
+
+
+def _unaligned_layout(gen, rows, groups, trash):
+    """A grouped layout whose groups start anywhere (one of them empty),
+    then `trash` rows of id G: 8-row blocks span several groups."""
+    import torch
+
+    cuts = torch.sort(torch.randint(0, rows - trash + 1, (groups - 1,),
+                                    generator=gen, device="cuda"))[0]
+    cuts[1] = cuts[0]                           # group 1 is empty
+    gids = torch.searchsorted(cuts, torch.arange(rows - trash, device="cuda"),
+                              right=True)
+    return torch.cat([gids, torch.full((trash,), groups,
+                                       device="cuda")]).to(torch.int32)
+
+
+def _group_offsets(gids, groups):
+    import torch
+
+    return torch.searchsorted(gids, torch.arange(groups, dtype=torch.int32,
+                                                 device=gids.device),
+                              right=True).to(torch.int32)
+
+
+def gmm_layouts(gen):
+    """{name: (gids, block_rows, rows the data needs, groups)}: the
+    full-width dispatcher layout (4 x 2048 tokens, top-2 of 8 experts) and a
+    1000-row unaligned layout for block_rows 8."""
+    full, bm, routed = _dispatch_layout(gen, 4 * 2048, 8, 2)
+    unal = _unaligned_layout(gen, 1000, 8, 37)
+    return {"dispatch": (full, bm, routed, 8),
+            "unaligned_bm8": (unal, 8, int((unal < 8).sum()), 8)}
+
+
+def gmm_fwd_cases(layouts):
+    """(label, layout, x shape/dtype/std, w shape/dtype, transposed): the
+    main path's four products at full width (h1 and y in bf16 on the tensor
+    cores; the backward's dx in fp32 over w^T) and the unaligned layout.
+    Activations are unit scale, weights std 0.02 and gradients std 1e-3, as
+    in training."""
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("h1_bf16", "dispatch", 1024, 4096, bf, 1.0, False),
+        ("y_bf16", "dispatch", 4096, 1024, bf, 1.0, False),
+        ("dx_of_y_fp32", "dispatch", 1024, 4096, f32, 1e-3, True),
+        ("dx_of_h1_fp32", "dispatch", 4096, 1024, f32, 1e-3, True),
+        ("unaligned_bm8_bf16", "unaligned_bm8", 256, 512, bf, 1.0, False),
+        ("unaligned_bm8_fp32", "unaligned_bm8", 256, 512, f32, 1.0, False),
+    ]
+
+
+def _grouped_mm_ms(x, w, gids, groups):
+    """torch._grouped_mm (bf16 out) over the same groups, where the card's
+    torch has it; (ms, note)."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm missing"
+    offs = _group_offsets(gids, groups)
+    wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+    try:
+        return _cuda_ms(lambda: torch._grouped_mm(x, wt, offs=offs)), \
+            "torch._grouped_mm, bf16 output"
+    except Exception as e:       # reported, never on the port's path
+        return None, f"torch._grouped_mm failed: {e!r}"[:200]
+
+
+def run_gmm_fwd_case(gen, layout, d, h, dtype, std, transposed):
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    gids, _, need_rows, groups = layout
+    m = gids.shape[0]
+    x = (torch.randn((m, d), generator=gen, device="cuda") * std).to(dtype)
+    if transposed:              # dx: the fp32 copy of w^T the VJP hands in
+        w = (torch.randn((groups, h, d), generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16).transpose(1, 2).float().contiguous()
+    else:
+        w = (torch.randn((groups, d, h), generator=gen, device="cuda")
+             * 0.02).to(dtype)
+    out = gm.gmm_fwd(x, w, gids)
+    torch.cuda.synchronize()
+    ref = gm.grouped_matmul_reference(x, w, gids)
+    cmp = _compare(out, ref, "float32")
+    trash_zero = bool((out[gids == groups] == 0).all())
+    del ref
+    ms = _cuda_ms(lambda: gm.gmm_fwd(x, w, gids))
+    plain_ms = _cuda_ms(lambda: gm.grouped_matmul_reference(x, w, gids),
+                        reps=3, warmup=1)
+    library_ms, library = (None, "none: no PyTorch call computes an fp32 "
+                           "grouped product")
+    if dtype == torch.bfloat16:
+        library_ms, library = _grouped_mm_ms(x, w, gids, groups)
+    dname = str(dtype).replace("torch.", "")
+    flops = 2 * need_rows * d * h
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + m * h * 4 + m * 4)
+    bound_ms, bound_by = _bound(nbytes, flops, dname)
+    return dict(cmp, ok=cmp["ok"] and trash_zero, trash_zero=trash_zero,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library=library, bound_ms=bound_ms, bound_by=bound_by,
+                flops=flops, tflops=flops / ms / 1e9, m=m, d=d, h=h)
+
+
+def gmm_dw_cases():
+    import torch
+
+    bf = torch.bfloat16
+    return [("dw1_bf16x", "dispatch", 1024, 4096, bf),
+            ("dw2_bf16x", "dispatch", 4096, 1024, bf),
+            ("unaligned_bm8_bf16x", "unaligned_bm8", 256, 512, bf),
+            ("unaligned_bm8_fp32x", "unaligned_bm8", 256, 512,
+             torch.float32)]
+
+
+def run_gmm_dw_case(gen, layout, d, h, dtype):
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    gids, _, need_rows, groups = layout
+    m = gids.shape[0]
+    x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((m, h), generator=gen, device="cuda") * 1e-3
+    dw = gm.gmm_dw(x, dy, gids, groups)
+    torch.cuda.synchronize()
+    ref = gm.grouped_matmul_dw_reference(x, dy, gids, groups)
+    cmp = _compare(dw, ref, "float32")
+    present = torch.isin(torch.arange(groups, device="cuda"), gids)
+    empty_zero = bool((dw[~present] == 0).all())
+    del ref
+    ms = _cuda_ms(lambda: gm.gmm_dw(x, dy, gids, groups))
+    plain_ms = _cuda_ms(lambda: gm.grouped_matmul_dw_reference(
+        x, dy, gids, groups), reps=3, warmup=1)
+    flops = 2 * need_rows * d * h
+    nbytes = (x.numel() * x.element_size() + dy.numel() * 4 + m * 4
+              + groups * d * h * 4)
+    bound_ms, bound_by = _bound(nbytes, flops, "float32")
+    return dict(cmp, ok=cmp["ok"] and empty_zero, empty_groups_zero=empty_zero,
+                empty_groups=int((~present).sum()), ms=ms, plain_ms=plain_ms,
+                library_ms=None, library="none: no PyTorch call computes "
+                "bf16 x against fp32 dy per group", bound_ms=bound_ms,
+                bound_by=bound_by, flops=flops, tflops=flops / ms / 1e9)
+
+
+def run_gmm_visit_case(layout):
+    import numpy as np
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    gids, bm, _, groups = layout
+    got = gm.grouped_matmul_visit_counts(gids, groups, bm)
+    plain = gm.grouped_matmul_visit_reference(gids, groups, bm)
+    want = gm.expected_visit_counts(gids.cpu().numpy(), groups, bm)
+    exact = (bool((got == plain).all())
+             and np.array_equal(got.cpu().numpy(), want))
+    ms = _cuda_ms(lambda: gm.grouped_matmul_visit_counts(gids, groups, bm))
+    plain_ms = _cuda_ms(lambda: gm.grouped_matmul_visit_reference(
+        gids, groups, bm))
+    blocks = gids.shape[0] // bm
+    bound_ms, bound_by = _bound(gids.shape[0] * 4 + blocks * 4,
+                                blocks * groups, "float32")
+    return dict(ok=exact, max_abs_err=0 if exact else None,
+                visited_tiles=int(got.sum()), total_tiles=blocks * groups,
+                blocks=blocks, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_gmm(gen, report):
+    import torch
+
+    layouts = gmm_layouts(gen)
+    fwd, dw, visit = {}, {}, {}
+    for label, lay, d, h, dtype, std, tr in gmm_fwd_cases(layouts):
+        fwd[label] = r = run_gmm_fwd_case(gen, layouts[lay], d, h, dtype,
+                                          std, tr)
+        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
+               else "none")
+        print(f"gmm_fwd {label}: err {r['max_abs_err']:.3g} row rel "
+              f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) trash zero "
+              f"{r['trash_zero']} ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.3f} library_ms {lib} ({r['library']}) "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"{r['tflops']:.1f} TFLOP/s", flush=True)
+        torch.cuda.empty_cache()
+    for label, lay, d, h, dtype in gmm_dw_cases():
+        dw[label] = r = run_gmm_dw_case(gen, layouts[lay], d, h, dtype)
+        print(f"gmm_dw {label}: err {r['max_abs_err']:.3g} row rel "
+              f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) empty groups "
+              f"{r['empty_groups']} zero {r['empty_groups_zero']} ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.3f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) {r['tflops']:.1f} "
+              f"TFLOP/s", flush=True)
+        torch.cuda.empty_cache()
+    for label, lay in layouts.items():
+        visit[label] = r = run_gmm_visit_case(lay)
+        print(f"gmm_visit {label}: exact {r['ok']} visited "
+              f"{r['visited_tiles']}/{r['total_tiles']} ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f}",
+              flush=True)
+    report["gmm_fwd_cases"], report["gmm_dw_cases"] = fwd, dw
+    report["gmm_visit_cases"] = visit
+    return ([f"gmm_fwd {k}" for k, r in fwd.items() if not r["ok"]]
+            + [f"gmm_dw {k}" for k, r in dw.items() if not r["ok"]]
+            + [f"gmm_visit {k}" for k, r in visit.items() if not r["ok"]])
+
+
 def phase_kernels(seed, report):
     import torch
 
@@ -514,7 +744,8 @@ def phase_kernels(seed, report):
     bad = [f"flash {k}" for k, r in flash.items() if not r["ok"]] + \
           [f"paged {k}" for k, r in paged.items() if not r["ok"]] + \
           [f"flash_bwd {k}" for k, r in bwd.items() if not r["ok"]] + \
-          [f"ce_stats {k}" for k, r in ce.items() if not r["ok"]]
+          [f"ce_stats {k}" for k, r in ce.items() if not r["ok"]] + \
+          phase_gmm(gen, report)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
@@ -746,28 +977,20 @@ def _fused_loss(out, labels):
     return out                  # the model computed the fused head loss
 
 
-def phase_train_cuda_vs_cpu(seed, report):
-    import torch
-
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+def _train_cuda_vs_cpu(models, batch, lr, label, report):
+    """3 TrainStep steps of AdamW on the CPU and on CUDA from the same
+    weights: per-step losses within 1e-4 relative, last gradients within
+    1e-3 of each tensor's max |grad|, final parameters within lr."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
-    lr = 1e-3
-    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                            intermediate_size=1024, num_hidden_layers=2,
-                            num_attention_heads=4, num_key_value_heads=2,
-                            max_position_embeddings=512)
-    batch = _packed_batch(seed, cfg.vocab_size, 256, 2)
-    models = {"cpu": LlamaForCausalLM(cfg, device="cpu", seed=seed)}
-    models["cuda"] = LlamaForCausalLM(cfg, device="cuda")
-    models["cuda"].load_state_dict(models["cpu"].state_dict())
-    losses = {}
+    losses, metrics = {}, {}
     for dev, model in models.items():
         opt = AdamW(learning_rate=lr, parameters=model.parameters(),
                     weight_decay=0.01)
-        step = TrainStep(model, _fused_loss, opt)
+        step = TrainStep(model, _fused_loss, opt, collect_metrics=True)
         losses[dev] = [float(step(batch)) for _ in range(3)]
+        metrics[dev] = step.last_metrics()
     cpu = dict(models["cpu"].named_parameters())
     worst_p, worst_g, median_p = 0.0, 0.0, []
     for name, p in models["cuda"].named_parameters():
@@ -779,14 +1002,58 @@ def phase_train_cuda_vs_cpu(seed, report):
                                 / gc.abs().max().clamp_min(1e-7)).item())
     loss_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(losses["cuda"], losses["cpu"]))
-    out = {"losses": losses, "loss_rel_err": loss_rel,
-           "grad_rel_err": worst_g, "param_max_abs_err": worst_p,
+    out = {"losses": losses, "last_metrics": metrics,
+           "loss_rel_err": loss_rel, "grad_rel_err": worst_g,
+           "param_max_abs_err": worst_p,
            "param_median_abs_err_max": max(median_p),
            "tolerance": {"loss_rel": 1e-4, "grad_rel": 1e-3, "param": lr}}
-    report["train_cuda_vs_cpu"] = out
-    print("train cuda vs cpu: " + json.dumps(out), flush=True)
+    report[label] = out
+    print(f"{label}: " + json.dumps(out), flush=True)
     if not (loss_rel <= 1e-4 and worst_g <= 1e-3 and worst_p <= lr):
         raise AssertionError("CUDA and CPU training steps differ")
+
+
+def phase_train_cuda_vs_cpu(seed, report):
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+
+    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=512)
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 2)
+    models = {"cpu": LlamaForCausalLM(cfg, device="cpu", seed=seed)}
+    models["cuda"] = LlamaForCausalLM(cfg, device="cuda")
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    _train_cuda_vs_cpu(models, batch, 1e-3, "train_cuda_vs_cpu", report)
+
+
+def phase_train_moe_cuda_vs_cpu(seed, report):
+    """Tiny fp32 GPT-MoE, dropless, deterministic GShard gates (the CPU and
+    CUDA generators give different streams): 64 tokens a row make 256
+    routed copies over 4 experts, so the buckets align to 32 rows and the
+    CUDA tiles (64 fp32 rows) span two experts."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import GptMoeForCausalLM, gpt_moe_tiny_config
+
+    cfg = gpt_moe_tiny_config(vocab_size=1024, hidden_size=256,
+                              num_attention_heads=4, expert_hidden_size=512,
+                              max_position_embeddings=256,
+                              moe_dispatch="dropless")
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(1, cfg.vocab_size, (2, 65)))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    models = {"cpu": GptMoeForCausalLM(cfg, device="cpu", seed=seed)}
+    models["cuda"] = GptMoeForCausalLM(cfg, device="cuda")
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    for model in models.values():
+        for moe in model.moe_layers():
+            moe.gate.random_routing = False
+    _train_cuda_vs_cpu(models, batch, 1e-3, "train_moe_cuda_vs_cpu", report)
+    bms = [moe.last_layout[1] for moe in models["cuda"].moe_layers()]
+    if bms != [32] * cfg.num_hidden_layers:
+        raise AssertionError(f"expected 32-row buckets, got {bms}")
 
 
 def phase_train_full_width(args, report):
@@ -878,13 +1145,131 @@ def phase_train_full_width(args, report):
                              f"{short}")
 
 
+def phase_train_moe_full_width(args, report):
+    """GPT-MoE at its own full width and depth (GptMoeConfig defaults: 12
+    layers, hidden 1024, 16 heads, 8 experts of 4096, top-2 GShard with
+    random routing, vocab 50304), dropless, bf16, batch 4 x seq 2048."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import GptMoeConfig, GptMoeForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = GptMoeConfig(moe_dispatch="dropless")
+    b, s = MOE_BATCH, cfg.max_position_embeddings
+    t0 = time.perf_counter()
+    model = GptMoeForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                              seed=args.seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _fused_loss, opt, collect_metrics=True)
+    rng = np.random.RandomState(args.seed)
+    ids = torch.from_numpy(rng.randint(1, cfg.vocab_size, (b, s + 1))).cuda()
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    losses = []
+    for _ in range(2):                       # warm-up: cuBLAS, allocator
+        losses.append(float(step(batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    times = []
+    for _ in range(MOE_STEPS):
+        t1 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    # the visit counter over each layer's bucket layout of the last step,
+    # cross-checked with the predicate in numpy
+    visits = []
+    for moe in model.moe_layers():
+        gids, bm = moe.last_layout
+        vc = gm.grouped_matmul_visit_counts(gids, cfg.num_experts, bm)
+        want = gm.expected_visit_counts(gids.cpu().numpy(), cfg.num_experts,
+                                        bm)
+        real = int((gids.reshape(-1, bm)[:, 0] < cfg.num_experts).sum())
+        visits.append({"block_rows": bm, "blocks": int(vc.numel()),
+                       "visited_tiles": int(vc.sum()), "real_blocks": real,
+                       "counts_match_predicate": bool(np.array_equal(
+                           vc.cpu().numpy(), want))})
+    launches = port_cuda.launch_counts()     # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = [moe.last_stats for moe in model.moe_layers()]
+    expert_grads = {
+        f"{i}.{n}": [float(p.grad[e].float().abs().sum())
+                     for e in range(cfg.num_experts)]
+        for i, moe in enumerate(model.moe_layers())
+        for n, p in (("w1", moe.experts.w1), ("w2", moe.experts.w2))}
+    step_s = statistics.median(times)
+    tokens = b * s
+    # flops of the last step: 6 per weight and token for the dense matmuls
+    # (attention projections, gates, head), 6 per expert weight and routed
+    # copy (the routed copies this step's random routing kept), causal
+    # attention 3.5 x 4 D per visible (query, key) pair and head
+    d, f = cfg.hidden_size, cfg.expert_hidden_size
+    dense = cfg.num_hidden_layers * (4 * d * d + d * cfg.num_experts) \
+        + cfg.vocab_size * d
+    routed = sum(sum(st["expert_tokens"]) for st in stats)
+    pairs = s * (s + 1) // 2
+    flops = (6 * dense * tokens + 6 * 2 * d * f * routed
+             + cfg.num_hidden_layers * 3.5 * 4 * d * pairs * b)
+    out = {
+        "layers": cfg.num_hidden_layers, "params": n_params, "batch": b,
+        "seq": s, "setup_s": setup_s, "losses": losses,
+        "step_ms": [t * 1e3 for t in times], "median_step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / PEAK_FLOPS["bfloat16"], "peak_mem_gb": peak,
+        "launches": launches,
+        "launches_per_step": {k: n / MOE_STEPS for k, n in launches.items()},
+        "routed_copies_last_step": routed, "metrics": step.last_metrics(),
+        "moe_stats": stats, "visits": visits,
+        "expert_grad_abs_sum": expert_grads,
+    }
+    out["profile"] = _device_profile(lambda: step(batch), 1, top=20)
+    report["train_moe_full_width"] = out
+    print("train moe full width: " + json.dumps(
+        {k: v for k, v in out.items()
+         if k not in ("profile", "expert_grad_abs_sum", "moe_stats")}),
+        flush=True)
+    print("train moe layer stats: " + json.dumps(
+        [{"aux": st["aux_loss"], "imbalance": st["imbalance_max_over_mean"],
+          "expert_tokens": st["expert_tokens"]} for st in stats]), flush=True)
+    print("train moe profile: " + json.dumps(out["profile"]), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not (losses[-1] < losses[0] and max(losses[-3:]) < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(all(v > 0 for v in g) for g in expert_grads.values()):
+        raise AssertionError(f"experts without a gradient: {expert_grads}")
+    if not all(v["counts_match_predicate"]
+               and v["visited_tiles"] == v["real_blocks"] for v in visits):
+        raise AssertionError(f"visit counts off the predicate: {visits}")
+    layers = cfg.num_hidden_layers
+    need = {"gmm_fwd": 4 * layers, "gmm_dw": 2 * layers,
+            "flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+    got = {k: out["launches_per_step"][k] for k in need}
+    if got != need or launches["gmm_visit"] != layers:
+        raise AssertionError(f"launches per step {got}, want {need}; "
+                             f"gmm_visit {launches['gmm_visit']}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
-    7B serve and the timed training steps), each read around its run."""
+    7B serve and the timed LLaMA and GPT-MoE training steps), each read
+    around its run."""
     from paddle_tpu_torch.ops.cuda import _build
 
     serve = report.get("full_width", {}).get("launches", {})
     train = report.get("train_full_width", {}).get("launches", {})
+    moe = report.get("train_moe_full_width", {}).get("launches", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
     paged = report.get("paged_cases", {}).get("decode_b8_h32") or {}
     bwd = report.get("flash_bwd_cases", {}).get("causal_s4096") or {}
@@ -898,7 +1283,13 @@ def kernels_line(report):
          bwd.get("kernels", {}).get("dq", {})),
         ("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:362",
          bwd.get("kernels", {}).get("dkv", {})),
-        ("ce_stats", "fused_ce.cu", "fused_ce.py:246", ce)]
+        ("ce_stats", "fused_ce.cu", "fused_ce.py:246", ce),
+        ("gmm_fwd", "grouped_matmul.cu", "grouped_matmul.py:98",
+         report.get("gmm_fwd_cases", {}).get("h1_bf16") or {}),
+        ("gmm_dw", "grouped_matmul.cu", "grouped_matmul.py:117",
+         report.get("gmm_dw_cases", {}).get("dw1_bf16x") or {}),
+        ("gmm_visit", "grouped_matmul.cu", "grouped_matmul.py:291",
+         report.get("gmm_visit_cases", {}).get("dispatch") or {})]
     rows = []
     for name, src, replaces, case in specs:
         rows.append({
@@ -906,7 +1297,8 @@ def kernels_line(report):
             "source": os.path.relpath(os.path.join(_build.CSRC_DIR, src),
                                       REPO),
             "replaces": pallas + replaces,
-            "launches": serve.get(name, 0) + train.get(name, 0),
+            "launches": (serve.get(name, 0) + train.get(name, 0)
+                         + moe.get(name, 0)),
             "max_abs_err": case.get("max_abs_err"), "ms": case.get("ms"),
             "plain_ms": case.get("plain_ms"),
             "bound_ms": case.get("bound_ms"),
@@ -959,18 +1351,24 @@ def main(argv=None) -> int:
             raise RuntimeError("the full-width phase built no engine")
         phase_http(state["eng"], state["prompts"][1], report)
 
-    def release_serving():
-        # the 7B serving engine's weights and KV pool make room for training
+    def free_memory():
+        # the 7B serving engine's weights and KV pool, and each training
+        # phase's model, make room for the next phase
         state.clear()
         gc.collect()
         torch.cuda.empty_cache()
 
     phases += [("full_width", full_width), ("http", http),
                ("train_cuda_vs_cpu",
-                lambda: (release_serving(),
+                lambda: (free_memory(),
                          phase_train_cuda_vs_cpu(args.seed, report))),
                ("train_full_width",
-                lambda: phase_train_full_width(args, report))]
+                lambda: phase_train_full_width(args, report)),
+               ("train_moe_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_train_moe_cuda_vs_cpu(args.seed, report))),
+               ("train_moe_full_width",
+                lambda: phase_train_moe_full_width(args, report))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

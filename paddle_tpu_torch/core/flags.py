@@ -111,3 +111,13 @@ define_flag("use_fused_head_loss", True,
 define_flag("fused_ce_chunk_tokens", 0,
             "fused-CE token chunk of the backward's recomputed logits tiles "
             "(0 = auto, ~4M-element tiles)", type=int)
+define_flag("moe_dispatch", "capacity",
+            "default MoELayer dispatch mode, consulted when the layer is "
+            "constructed with dispatch=None: 'capacity' (fixed [E, C, d] "
+            "buckets, overflow tokens dropped and counted) or 'dropless' "
+            "(sort-based ragged dispatch through the grouped-matmul "
+            "kernels: no capacity, no drops)")
+define_flag("moe_block_rows", 0,
+            "row alignment of the dropless MoE dispatch's expert buckets "
+            "(0 = auto: 128, stepping down for small problems); also the "
+            "grouped matmul's row-count granularity", type=int)

@@ -1,11 +1,14 @@
-"""Carry weights and optimizer state from a paddle_tpu model into the port.
+"""Carry weights and optimizer state from a paddle_tpu model into the port
+(LLaMA and GPT-MoE).
 
 ``from_paddle_tpu_params`` takes plain numpy arrays keyed by the JAX
 package's parameter names, e.g.
 ``{name: np.asarray(p._value) for name, p in jax_model.named_parameters()}``
 (this module imports nothing of JAX or paddle_tpu). Names map one to one;
 linear weights are transposed from paddle's ``[in, out]`` to PyTorch's
-``[out, in]``; the embedding table is ``[vocab, hidden]`` in both.
+``[out, in]`` (the ``*_proj.weight`` and ``lm_head.weight`` tensors); the
+embedding tables, LayerNorms, expert tensors and the MoE gate's
+``gate_weight [d, E]`` keep the JAX layout.
 ``optimizer_state_from_paddle_tpu`` carries a JAX optimizer's
 ``state_dict()`` (numpy m, v, master and the step) the same way, so a
 resumed port step matches the JAX one.
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE
+from paddle_tpu_torch.models.gpt_moe import GptMoeConfig, GptMoeForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu"]
@@ -28,13 +32,15 @@ def _to_port_layout(name: str, arr: np.ndarray) -> np.ndarray:
 
 
 @torch.no_grad()
-def from_paddle_tpu_params(named: dict, config: LlamaConfig,
-                           device=DEFAULT_DEVICE,
-                           dtype=None) -> LlamaForCausalLM:
-    """A port ``LlamaForCausalLM`` on `device` loaded from `named`
-    ({paddle_tpu parameter name: np.ndarray}). Raises on a missing,
-    unexpected or misshapen name."""
-    model = LlamaForCausalLM(config, device=device, dtype=dtype)
+def from_paddle_tpu_params(named: dict, config: LlamaConfig | GptMoeConfig,
+                           device=DEFAULT_DEVICE, dtype=None):
+    """A port ``LlamaForCausalLM`` (or ``GptMoeForCausalLM`` for a
+    ``GptMoeConfig``) on `device` loaded from `named` ({paddle_tpu
+    parameter name: np.ndarray}). Raises on a missing, unexpected or
+    misshapen name."""
+    cls = (GptMoeForCausalLM if isinstance(config, GptMoeConfig)
+           else LlamaForCausalLM)
+    model = cls(config, device=device, dtype=dtype)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(named))
     extra = sorted(set(named) - set(params))

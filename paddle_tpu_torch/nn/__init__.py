@@ -2,7 +2,7 @@
 from paddle_tpu_torch.nn import functional
 from paddle_tpu_torch.nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                                       ClipGradByValue)
-from paddle_tpu_torch.nn.layer.norm import RMSNorm
+from paddle_tpu_torch.nn.layer.norm import LayerNorm, RMSNorm
 
-__all__ = ["functional", "RMSNorm", "ClipGradByGlobalNorm",
+__all__ = ["functional", "LayerNorm", "RMSNorm", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue"]

@@ -1,7 +1,8 @@
 """Functional ops of the serving and training slices
 (``paddle_tpu.nn.functional`` counterpart): linear, embedding, the RMSNorm
-composite, silu, scaled_dot_product_attention, and the losses
-cross_entropy, parallel_cross_entropy and fused_linear_cross_entropy.
+composite, layer_norm, silu, gelu, relu, scaled_dot_product_attention, and
+the losses cross_entropy, parallel_cross_entropy and
+fused_linear_cross_entropy.
 
 Weights follow PyTorch's layout: a linear weight is ``[out, in]`` (the JAX
 package stores ``[in, out]``; ``models.convert`` transposes on load), so
@@ -17,7 +18,8 @@ from paddle_tpu_torch.ops.cuda.flash_attention import (FlashAttention,
                                                        flash_attention_fwd)
 from paddle_tpu_torch.ops.cuda.fused_ce import FusedLinearCrossEntropy
 
-__all__ = ["linear", "embedding", "rms_norm", "silu",
+__all__ = ["linear", "embedding", "rms_norm", "layer_norm", "silu", "gelu",
+           "relu",
            "scaled_dot_product_attention", "cross_entropy",
            "parallel_cross_entropy", "fused_linear_cross_entropy"]
 
@@ -45,8 +47,27 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out * weight if weight is not None else out
 
 
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes (paddle_tpu
+    F.layer_norm :634): ``(x - mean) * rsqrt(var + eps) * weight + bias``
+    with the biased variance."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    return _tF.layer_norm(x, tuple(normalized_shape), weight, bias, epsilon)
+
+
 def silu(x):
     return _tF.silu(x)
+
+
+def gelu(x, approximate=False):
+    """paddle's ``F.gelu``: the erf form by default, the tanh approximation
+    with ``approximate=True`` (``jax.nn.gelu``'s own default)."""
+    return _tF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    return _tF.relu(x)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -1,3 +1,3 @@
-from paddle_tpu_torch.nn.layer.norm import RMSNorm
+from paddle_tpu_torch.nn.layer.norm import LayerNorm, RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]

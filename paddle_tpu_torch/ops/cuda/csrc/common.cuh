@@ -1,6 +1,7 @@
-// Shared device helpers of the port's Hopper kernels (flash_fwd.cu,
-// paged_attention.cu): the block-skip predicate both attention kernels
-// run, and 8-wide vector loads that widen bf16/fp32 to fp32.
+// Shared device helpers of the port's Hopper kernels: the block-skip
+// predicate the attention and grouped-matmul kernels run, 8-wide vector
+// loads that widen bf16/fp32 to fp32, and the bf16 mma.sync product
+// (fused_ce.cu, grouped_matmul.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +70,18 @@ __device__ __forceinline__ int warp_max_i(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// c += a . b on the tensor cores: one m16n8k16 tile, bf16 inputs (a row-
+// major, b column-major fragments), fp32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace ptt

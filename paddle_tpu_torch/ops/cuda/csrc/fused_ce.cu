@@ -181,16 +181,6 @@ ce_stats_partial_kernel(const float* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __global__ void __launch_bounds__(kThreads)
 ce_stats_partial_mma_kernel(const __nv_bfloat16* __restrict__ x,
                             const __nv_bfloat16* __restrict__ w,
@@ -286,7 +276,8 @@ ce_stats_partial_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+          for (int nt = 0; nt < 4; ++nt)
+            ptt::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
       }
     }
 

@@ -9,12 +9,16 @@ projections. CUDA graphs over the step, remat, GradScaler and the meshes
 of ``CompiledTrainStep`` are later work. Unlike ``CompiledTrainStep``,
 whose compiled update never applies ``optimizer._grad_clip``, the port
 applies it, as ``apply_optimizer_update`` and the eager ``AdamW.step`` do.
+For a model with MoE layers, ``collect_metrics`` also keeps the summed
+load-balance aux loss and dropped-token count (``moe_aux``,
+``moe_dropped``), as ``CompiledTrainStep``'s step telemetry does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 from paddle_tpu_torch.nn.clip import global_norm
 
 __all__ = ["TrainStep"]
@@ -32,8 +36,9 @@ class TrainStep:
     model that computes its loss from ``labels`` (the fused head loss) pairs
     with ``loss_fn=lambda out, labels: out``. numpy arrays are moved to the
     model's device. ``collect_metrics`` keeps the step's loss and the
-    global norm of the gradients before the clip; ``last_metrics()``
-    reads them (a host sync at read time only)."""
+    global norm of the gradients before the clip, plus ``moe_aux`` and
+    ``moe_dropped`` summed over the model's ``MoELayer``s when it has any;
+    ``last_metrics()`` reads them (a host sync at read time only)."""
 
     def __init__(self, model, loss_fn, optimizer=None,
                  collect_metrics: bool = False):
@@ -44,6 +49,9 @@ class TrainStep:
         self.device = next(model.parameters()).device
         self._steps = 0           # the step count when there is no optimizer
         self._metrics = None
+        self._moe_layers = ([m for m in model.modules()
+                             if isinstance(m, MoELayer)]
+                            if collect_metrics else [])
 
     def _place(self, value):
         if isinstance(value, np.ndarray):
@@ -70,12 +78,13 @@ class TrainStep:
             out = self.model(*args[:-1])
             labels = args[-1]
         loss = self.loss_fn(out, labels)
+        moe = self._moe_stats()
         loss.backward()
         if self.collect_metrics:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
             self._metrics = {"loss": loss.detach(),
-                             "grad_norm": global_norm(grads)}
+                             "grad_norm": global_norm(grads), **moe}
         if self.optimizer is not None:
             self.optimizer.step()
             step = self.optimizer._step_count
@@ -86,8 +95,18 @@ class TrainStep:
             self._metrics["step"] = step
         return loss.detach()
 
+    def _moe_stats(self) -> dict:
+        """{moe_aux, moe_dropped}: this forward's stats summed over the MoE
+        layers, as device scalars (no host sync)."""
+        if not self._moe_layers:
+            return {}
+        aux = sum(m.l_aux.detach().float() for m in self._moe_layers)
+        dropped = sum(m.tokens_dropped.detach().float()
+                      for m in self._moe_layers)
+        return {"moe_aux": aux, "moe_dropped": dropped}
+
     def last_metrics(self) -> dict | None:
-        """{step, loss, grad_norm} of the last step as Python numbers, or
+        """{step, loss, grad_norm[, moe_aux, moe_dropped]} of the last step as Python numbers, or
         None before the first step or with ``collect_metrics`` off.
         ``step`` is the optimizer's own step count (the one its bias
         correction uses), or the steps this object took without one."""

@@ -133,7 +133,8 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
                        paged_attention_reference(qp, kp, vp, pt, lens))
     assert port_cuda.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "paged_decode": 0, "ce_stats": 0}
+        "paged_decode": 0, "ce_stats": 0, "gmm_fwd": 0, "gmm_dw": 0,
+        "gmm_visit": 0}
 
 
 def test_shape_errors_raise():

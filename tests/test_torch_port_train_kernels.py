@@ -250,7 +250,8 @@ def test_train_wrappers_take_plain_path_on_cpu_and_count_no_launch():
                                                  ce_stats_reference(*args)))
     assert port_cuda.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "paged_decode": 0, "ce_stats": 0}
+        "paged_decode": 0, "ce_stats": 0, "gmm_fwd": 0, "gmm_dw": 0,
+        "gmm_visit": 0}
 
 
 def test_train_kernel_shape_errors_raise():
