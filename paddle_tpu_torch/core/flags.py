@@ -117,6 +117,9 @@ define_flag("moe_dispatch", "capacity",
             "buckets, overflow tokens dropped and counted) or 'dropless' "
             "(sort-based ragged dispatch through the grouped-matmul "
             "kernels: no capacity, no drops)")
+# Kept for parity with the JAX package's flag of the same name. In the port
+# it changes padding only: the CUDA grouped-matmul tile is fixed (128 rows
+# bf16, 64 fp32) and exact for any layout, whatever this value is.
 define_flag("moe_block_rows", 0,
             "row alignment of the dropless MoE dispatch's expert buckets "
             "(0 = auto: 128, stepping down for small problems); also the "

@@ -73,21 +73,48 @@ def _act(h, act):
     return _tF.gelu(h, approximate="tanh") if act == "gelu" else _tF.relu(h)
 
 
-def _expert_ffn_grouped(x, gids, w1, b1, w2, b2, act, block_rows):
+class _GroupBias(torch.autograd.Function):
+    """Row i's bias ``b[gids[i]]`` in fp32 for b [G, h], zero for trash rows
+    (``gids == G``). The forward is an exact gather. The backward sums each
+    group's rows of dy as one matmul, ``onehot^T @ dy``, where the JAX
+    package's gather of an appended zero row would scatter M rows into
+    G + 1 (PyTorch's indexing backward sorts them). That matmul runs with
+    the fp32 matmul precision pinned to "highest", so a caller's TF32
+    setting cannot round dy."""
+
+    @staticmethod
+    def forward(ctx, b, gids):
+        ctx.save_for_backward(gids)
+        ctx.num_groups, ctx.b_dtype = b.shape[0], b.dtype
+        bz = torch.cat([b.float(), b.new_zeros((1, b.shape[1]),
+                                               dtype=torch.float32)])
+        return bz.index_select(0, gids)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (gids,) = ctx.saved_tensors
+        onehot = (gids[:, None] == torch.arange(
+            ctx.num_groups, device=gids.device)).to(dy.dtype)
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            db = onehot.T @ dy
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        return db.to(ctx.b_dtype), None
+
+
+def _expert_ffn_grouped(x, gids, w1, b1, w2, b2, act, bm):
     """Two grouped matmuls plus biases over ragged expert buckets: x [M, d],
-    gids [M] in [0, G] (G = trash). Returns fp32 [M, d]; trash rows stay
-    zero, alignment rows carry their bucket's id and are never gathered
-    back. Each row's bias is its one-hot group row times the [G, h] biases:
-    exact in fp32 (one term, the rest zeros; a trash row's one-hot row is
-    all zero), and its backward is one matmul where the JAX package's
-    gather of an appended zero row would scatter M rows into G + 1."""
+    gids [M] in [0, G] (G = trash), rows aligned to ``bm``. Returns fp32
+    [M, d]; trash rows stay zero, alignment rows carry their bucket's id and
+    are never gathered back."""
     g = w1.shape[0]
-    onehot = (gids[:, None] == torch.arange(g, device=gids.device)).float()
-    h1 = grouped_matmul(x, w1, gids, block_rows=block_rows)
-    h1 = h1 + onehot @ b1.reshape(g, -1).float()
+    h1 = grouped_matmul(x, w1, gids, block_rows=bm)
+    h1 = h1 + _GroupBias.apply(b1.reshape(g, -1), gids)
     a = _act(h1, act).to(x.dtype)
-    y = grouped_matmul(a, w2, gids, block_rows=block_rows)
-    return y + onehot @ b2.reshape(g, -1).float()
+    y = grouped_matmul(a, w2, gids, block_rows=bm)
+    return y + _GroupBias.apply(b2.reshape(g, -1), gids)
 
 
 def _shared_ffn(xv, shared, act):
@@ -116,12 +143,12 @@ def _reduce_stats(l_aux, dropped, counts):
 
 
 def _dropless_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k, act,
-                  ep=1, routing=(), block_rows=0):
+                  ep=1, routing=()):
     """Token-choice dropless dispatch: xv [N, d] tokens, gv [N, E] gate
     logits, expert weights [E, ...]; ``shared`` optionally the
     shared-expert MLP (sw1, sb1, sw2, sb2); ``generator`` feeds random
-    routing. Returns (out [N, d], l_aux, dropped = 0, counts [E],
-    layout)."""
+    routing. Buckets align to ``pick_block_rows``. Returns (out [N, d],
+    l_aux, dropped = 0, counts [E], layout)."""
     from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import \
         _route
 
@@ -129,7 +156,7 @@ def _dropless_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k, act,
         raise NotImplementedError(EP_NOT_PORTED)
     n, d = xv.shape
     topv, topi, probs = _route(gv.float(), generator, k=k, routing=routing)
-    bm = block_rows or pick_block_rows(n * k, E)
+    bm = pick_block_rows(n * k, E)
     flat_e = topi.reshape(-1)                                    # [Nk]
     routed = flat_e >= 0
     # -1 (GShard random-routing drop) -> the trash group E: those copies
@@ -158,7 +185,7 @@ def _dropless_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k, act,
 
 
 def _expert_choice_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k,
-                       act, ep=1, routing=(), block_rows=0):
+                       act, ep=1, routing=()):
     """Expert-choice routing (Zhou et al.): every expert picks its top-C
     tokens by router score, C = k*N/E rounded to the block size, so the
     buckets are full, equal and block-aligned by construction. A token may
@@ -170,7 +197,7 @@ def _expert_choice_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k,
     n, d = xv.shape
     probs = torch.softmax(gv.float(), dim=-1)                    # [N, E]
     c0 = max(1, (k * n + E - 1) // E)
-    bm = block_rows or pick_block_rows(E * _round_up(c0, 8), E)
+    bm = pick_block_rows(E * _round_up(c0, 8), E)
     bm = min(bm, max(8, n))
     c = min(_round_up(c0, bm), (n // bm) * bm) or n
     if c % bm:

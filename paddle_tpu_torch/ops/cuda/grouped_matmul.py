@@ -194,6 +194,8 @@ def gmm_fwd(x, w, gids):
         raise ValueError(f"gmm_fwd takes a depth that is a multiple of "
                          f"{step} and a width that is a multiple of 8 "
                          f"({x.dtype}), got d {d}, h {h}")
+    if not (m and d and h and g):    # nothing to launch: an empty or zero y
+        return torch.zeros((m, h), dtype=torch.float32, device=x.device)
     x, w = x.contiguous(), w.contiguous()
     _aligned(x, w)
     gids = _gids_on(gids, x)
@@ -227,6 +229,9 @@ def gmm_dw(x, dy, gids, num_groups: int):
         raise TypeError(f"gmm_dw takes bf16 or fp32 x and fp32 dy, got "
                         f"{x.dtype} and {dy.dtype}")
     bf16 = x.dtype == torch.bfloat16
+    if not (num_groups and d and h):  # nothing to launch: an empty dw
+        return torch.zeros((num_groups, d, h), dtype=torch.float32,
+                           device=x.device)
     x, dy = x.contiguous(), dy.contiguous()
     _aligned(x, dy)
     gids = _gids_on(gids, x)
@@ -257,6 +262,8 @@ def grouped_matmul_visit_counts(gids, num_groups: int, block_rows: int):
     gids = gids.to(torch.int32).contiguous()
     counts = torch.empty((m // block_rows,), dtype=torch.int32,
                          device=gids.device)
+    if m == 0:                       # nothing to launch: no blocks
+        return counts
     err = _fn("ptt_gmm_visit", 2, 4)(
         gids.data_ptr(), counts.data_ptr(), m, num_groups, block_rows,
         gids.device.index or 0, _stream(gids))

@@ -301,6 +301,31 @@ def test_random_routing_drops_to_trash_and_repeats_with_a_seed():
     assert not torch.equal(layer(x), a)           # the stream moves on
 
 
+def test_group_bias_is_exact_whatever_the_matmul_precision():
+    from paddle_tpu_torch.incubate.distributed.models.moe.dropless import \
+        _GroupBias
+
+    rs = np.random.RandomState(9)
+    G, h = 4, 24
+    gids = torch.from_numpy(np.sort(rs.randint(0, G + 1, 40))).to(torch.int32)
+    b = torch.from_numpy(rs.randn(G, h).astype(np.float32)).requires_grad_()
+    dy = torch.from_numpy(rs.randn(40, h).astype(np.float32))
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        rows = _GroupBias.apply(b, gids)
+        rows.backward(dy)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    g = gids.long().numpy()
+    want = np.concatenate([b.detach().numpy(), np.zeros((1, h), np.float32)])
+    assert torch.equal(rows, torch.from_numpy(want[g]))   # trash rows zero
+    want_db = np.stack([dy.numpy()[g == e].astype(np.float64).sum(0)
+                        for e in range(G)])
+    np.testing.assert_allclose(b.grad.numpy(), want_db, rtol=1e-6, atol=1e-6)
+
+
 def test_moe_modules_import_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch.incubate.distributed.models.moe\n"
