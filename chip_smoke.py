@@ -22,10 +22,22 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     the CE statistics kernel's m, lse = m + log s and target logit t within
     1e-3 of ``ce_stats_reference`` (fp32 math on the same inputs; the sums
     run over H = 4096 products in another order) and the logit sum sl
-    within 1e-5 * V of it (a sum over V logits);
+    within 1e-5 * V of it (a sum over V logits). The paged kernel's int8
+    and fp8 branch runs on codes and fp32 scales made by the model's
+    quantize-on-write: with fp32 q within 1e-5 of its plain version, with
+    bf16 q within 1e-3 beyond the rounding of the fp32 result to bf16
+    (2^-8 of |ref|) plus the row check; the page and flash visit counters
+    must equal their plain versions (and ceil(len / page_size)) exactly;
  3. the engine on CUDA (kernels) against the engine on the CPU (plain
     versions): a 2-layer fp32 GQA model with the same weights serves the
-    same prompts; the greedy streams must be equal;
+    same prompts; the greedy streams must be equal; then the same with
+    int8 and with fp8 pools, prefix sharing and a host tier: requests
+    sharing a system prompt, and a prompt whose pages demote to the host
+    and promote back; streams and allocator counters must be equal, and
+    the promoted prompt's stream equal to its first; then the same model
+    in bf16 with int8 and fp8 pools: the first decode step's logits
+    within 2^-5 of each row's max |logit| (bf16 rounds in another order
+    on each device), the streams' agreement reported;
  4. the LLaMA-2-7B geometry (32 layers, hidden 4096, 32 heads, bf16, random
     weights from --seed) serving 8 greedy requests of mixed prompt length
     (packed, single-chunk and multi-chunk prefill), with every kernel's
@@ -33,6 +45,19 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     time to first token and peak memory, then profiles (torch.profiler)
     one 3000-token prefill and a few decode steps outside that run;
  5. HTTP: serve_http, one streamed POST /generate, clean shutdown;
+    then, on the same model with the bf16 pools freed: a fresh bf16
+    engine serves phase 4's prompts again and once more with K/V moved by
+    int8's rounding size (the agreement a rounding-sized change leaves at
+    random weights); an int8 and an fp8 engine at the same 16 GiB budget
+    (int8: at least 1.9x the bf16 pages) serve phase 4's prompts alone in
+    the timed window, the int8 one then 8 requests sharing a 1024-token
+    system prompt apart; both visit counters run after the serves over
+    the recorded decode lengths and packed frames; the page writes'
+    (quantize-on-write) and chunk gathers' (dequant) device ms are
+    measured apart; an int8 tier run at 384 pages and a 2 GiB pinned host
+    store demotes a 1000-token prompt's pages and promotes them byte-exact,
+    the promoted serve's stream equal to a serve that adopted the same
+    pages cold in device memory;
  6. training on CUDA (kernels) against training on the CPU (plain
     versions): a 2-layer fp32 GQA model with the same weights takes 3
     ``TrainStep`` steps of AdamW on the same packed dict batch; per-step
@@ -56,6 +81,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -269,6 +295,8 @@ def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256):
     dname = str(dtype).replace("torch.", "")
     cmp = _compare(out, ref, dname)
     ms = _cuda_ms(lambda: pa.paged_attention(q, kp, vp, pt, ln))
+    device_ms = _paged_device_ms(lambda: pa.paged_attention(q, kp, vp, pt,
+                                                            ln))
     plain_ms = _cuda_ms(lambda: pa.paged_attention_reference(
         q, kp, vp, pt, ln), reps=5)
     item = q.element_size()
@@ -280,8 +308,169 @@ def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256):
               + pages_read * 4 + b * 4)
     flops = 4 * d * hq * sum(n + i for n in lens if n > 0 for i in range(t))
     bound_ms, bound_by = _bound(nbytes, flops, dname)
-    return dict(cmp, ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(cmp, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
+
+
+QBF16_EXCESS = 1e-3      # quantized, bf16 q: error beyond bf16 rounding
+
+
+def paged_quant_cases():
+    """The quantized branch at row 2's shapes (B 8, H 32/32, page 16, the
+    8 mixed lengths), bf16 q as the 7B engine runs it and fp32 q for the
+    tight check, plus a T = 4 frame (GQA 8) and head_dim 64."""
+    import torch
+
+    lens = [0, 1, 17, 4095, 100, 2048, 300, 3000]
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for mode in ("int8", "fp8"):
+        cases += [
+            (f"{mode}_decode_b8_h32", dict(mode=mode, t=1, hq=32, hkv=32,
+                                           lens=lens, dtype=bf)),
+            (f"{mode}_decode_b8_h32_fp32", dict(mode=mode, t=1, hq=32,
+                                                hkv=32, lens=lens,
+                                                dtype=f32)),
+            (f"{mode}_frame4_gqa8", dict(mode=mode, t=4, hq=32, hkv=8,
+                                         lens=lens[:-1] + [4092], dtype=bf)),
+            (f"{mode}_decode_b8_d64", dict(mode=mode, t=1, hq=16, hkv=16,
+                                           lens=lens, dtype=bf, d=64))]
+    return cases
+
+
+def _quantize_pool(x, mode):
+    """The model's quantize-on-write over a [..., D] pool: codes and fp32
+    per-slot-per-head scales."""
+    import torch
+
+    from paddle_tpu_torch.quantization import quantize_kv
+
+    return quantize_kv(x, torch.int8 if mode == "int8"
+                       else torch.float8_e4m3fn)
+
+
+def run_paged_quant_case(gen, mode, t, hq, hkv, lens, dtype, d=128, ps=16,
+                         pages=256):
+    """The quantized kernel against its plain version on the same codes and
+    scales: fp32 q within 1e-5 absolute; bf16 q within QBF16_EXCESS beyond
+    the rounding of the fp32 result to bf16 (2^-8 of |ref|), and the row
+    check."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    b = len(lens)
+    num_pages = b * pages + 1
+    kc, ks = _quantize_pool(torch.randn((hkv, num_pages, ps, d),
+                                        generator=gen, device="cuda"), mode)
+    vc, vs = _quantize_pool(torch.randn((hkv, num_pages, ps, d),
+                                        generator=gen, device="cuda"), mode)
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    pt = perm[:b * pages].view(b, pages).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = _rand(gen, (b, hq, d) if t == 1 else (b, t, hq, d), dtype)
+    counter = f"paged_decode_{mode}"
+    before = pa.launch_counts()[counter]
+    out = pa.paged_attention(q, kc, vc, pt, ln, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    launched = pa.launch_counts()[counter] - before
+    ref = pa.paged_attention_reference(q.float(), kc, vc, pt, ln,
+                                       k_scales=ks, v_scales=vs)
+    dname = str(dtype).replace("torch.", "")
+    cmp = _compare(out, ref, dname)
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        excess = err.max().item()
+        ok = excess <= 1e-5
+    else:
+        excess = (err - ref.abs() * 2.0 ** -8).max().item()
+        ok = cmp["ok"] and excess <= QBF16_EXCESS
+    call = lambda: pa.paged_attention(  # noqa: E731
+        q, kc, vc, pt, ln, k_scales=ks, v_scales=vs)
+    ms = _cuda_ms(call)
+    device_ms = _paged_device_ms(call)
+    plain_ms = _cuda_ms(lambda: pa.paged_attention_reference(
+        q, kc, vc, pt, ln, k_scales=ks, v_scales=vs), reps=5)
+    item = q.element_size()
+    # the keys each row needs: 1-byte codes of K and V plus their fp32
+    # scales, q in and out, a page id per page touched, the lens
+    keys = [n + t - 1 if n > 0 else 0 for n in lens]
+    pages_read = sum(-(-n // ps) for n in keys)
+    nbytes = (2 * q.numel() * item + 2 * sum(keys) * hkv * (d + 4)
+              + pages_read * 4 + b * 4)
+    flops = 4 * d * hq * sum(n + i for n in lens if n > 0 for i in range(t))
+    bound_ms, bound_by = _bound(nbytes, flops, dname)
+    return dict(cmp, ok=ok and launched == 1, excess_err=excess,
+                excess_tol=1e-5 if dtype == torch.float32 else QBF16_EXCESS,
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
+
+
+def engine_frame_segments():
+    """Segment ids of the one packed frame the 7B engine builds for phase
+    4's prompts (17, 60 and 100 tokens at 32-row aligned starts of a
+    256-row frame; pads carry segment 3), and a [4, 2048] frame of the
+    packer's layout (documents of 37-700 tokens back to back)."""
+    import torch
+
+    frame = torch.full((1, 256), 3, dtype=torch.int32)
+    off = 0
+    for j, n in enumerate((17, 60, 100)):
+        frame[0, off:off + n] = j
+        off += -(-n // 32) * 32
+    rows = torch.zeros((4, 2048), dtype=torch.int32)
+    docs = [37, 100, 700, 64, 20, 150, 500, 90, 33, 7, 200, 41]
+    for r in range(4):
+        pos, j = 0, 0
+        while pos < 2048:
+            n = min(docs[(r + j) % len(docs)], 2048 - pos)
+            rows[r, pos:pos + n] = j
+            pos, j = pos + n, j + 1
+    return {"engine_frame_s256": frame.cuda(), "packed_b4_s2048": rows.cuda()}
+
+
+def run_flash_visit_case(seg):
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    got = fa.segment_block_visit_counts(seg)
+    plain = fa.segment_block_visit_reference(seg)
+    exact = bool((got == plain).all())
+    ms = _cuda_ms(lambda: fa.segment_block_visit_counts(seg))
+    plain_ms = _cuda_ms(lambda: fa.segment_block_visit_reference(seg))
+    b, s = seg.shape
+    nq, nk = s // fa.FWD_BLOCK_Q, s // fa.FWD_BLOCK_K
+    # each id read once, a count written; one range test a causal pair of
+    # blocks plus the min/max of each block's ids
+    tests = b * sum(min(((i + 1) * fa.FWD_BLOCK_Q + fa.FWD_BLOCK_K - 1)
+                        // fa.FWD_BLOCK_K, nk) for i in range(nq))
+    bound_ms, bound_by = _bound(seg.numel() * 4 + b * nq * 4,
+                                2 * seg.numel() + 2 * tests, "float32")
+    return dict(ok=exact, max_abs_err=0 if exact else None,
+                visited=int(got.sum()), causal_blocks=tests, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def run_page_visit_case(lens, ps=16, pages_per_seq=256):
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = pa.page_visit_counts(ln, ps, pages_per_seq)
+    plain = pa.page_visit_reference(ln, ps, pages_per_seq)
+    closed = [min(-(-n // ps), pages_per_seq) for n in lens]
+    exact = bool((got == plain).all()) and got.tolist() == closed
+    ms = _cuda_ms(lambda: pa.page_visit_counts(ln, ps, pages_per_seq))
+    plain_ms = _cuda_ms(lambda: pa.page_visit_reference(ln, ps,
+                                                        pages_per_seq))
+    bound_ms, bound_by = _bound(8 * len(lens), len(lens) * pages_per_seq,
+                                "float32")
+    return dict(ok=exact, max_abs_err=0 if exact else None,
+                visited=int(got.sum()), pages=len(lens) * pages_per_seq,
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _device_ms_by_kernel(fn, reps=5):
@@ -308,6 +497,14 @@ def _kernel_ms(by_kernel, name):
         raise AssertionError(f"profiler found {len(hits)} kernels named "
                              f"{name}: {sorted(by_kernel)}")
     return hits[0]
+
+
+def _paged_device_ms(fn):
+    """Device ms per call of a paged-attention wrapper: the decode kernel
+    plus the split-K merge, without the wrapper's host work that the
+    event-timed ms includes."""
+    return sum(ms for key, ms in _device_ms_by_kernel(fn).items()
+               if "paged_decode_kernel" in key or "paged_combine_kernel" in key)
 
 
 def flash_bwd_cases(gen):
@@ -733,11 +930,34 @@ def phase_kernels(seed, report):
     for label, kw in paged_cases():
         paged[label] = r = run_paged_case(gen, **kw)
         print(f"paged {label}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
-              f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) {r['gbps']:.1f} GB/s",
               flush=True)
     report["flash_cases"], report["paged_cases"] = flash, paged
     torch.cuda.empty_cache()      # the plain versions' S=4096 scores
+    paged_q = {}
+    for label, kw in paged_quant_cases():
+        paged_q[label] = r = run_paged_quant_case(gen, **kw)
+        print(f"paged {label}: err {r['max_abs_err']:.3g} beyond rounding "
+              f"{r['excess_err']:.3g} (tol {r['excess_tol']}) row rel "
+              f"{r['max_rel_err']:.3g} ms {r['ms']:.4f} device_ms "
+              f"{r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) {r['gbps']:.1f} GB/s",
+              flush=True)
+        torch.cuda.empty_cache()
+    visits = {}
+    for label, seg in engine_frame_segments().items():
+        visits[f"flash_{label}"] = r = run_flash_visit_case(seg)
+        print(f"flash_visit {label}: exact {r['ok']} visited {r['visited']}"
+              f"/{r['causal_blocks']} ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.6f}",
+              flush=True)
+    visits["paged_decode_b8"] = r = run_page_visit_case(
+        [0, 1, 17, 4095, 100, 2048, 300, 3000])
+    print(f"paged_visit decode_b8: exact {r['ok']} visited {r['visited']}/"
+          f"{r['pages']} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+          f"bound_ms {r['bound_ms']:.6f}", flush=True)
+    report["paged_quant_cases"], report["visit_cases"] = paged_q, visits
     bwd = {}
     for label, kw in flash_bwd_cases(gen):
         bwd[label] = r = run_flash_bwd_case(gen, **kw)
@@ -764,6 +984,8 @@ def phase_kernels(seed, report):
     report["flash_bwd_cases"], report["ce_cases"] = bwd, ce
     bad = [f"flash {k}" for k, r in flash.items() if not r["ok"]] + \
           [f"paged {k}" for k, r in paged.items() if not r["ok"]] + \
+          [f"paged {k}" for k, r in paged_q.items() if not r["ok"]] + \
+          [f"visit {k}" for k, r in visits.items() if not r["ok"]] + \
           [f"flash_bwd {k}" for k, r in bwd.items() if not r["ok"]] + \
           [f"ce_stats {k}" for k, r in ce.items() if not r["ok"]] + \
           phase_gmm(gen, report)
@@ -807,6 +1029,152 @@ def phase_cuda_vs_cpu(seed, report):
     print(f"cuda vs cpu greedy streams equal: {equal}", flush=True)
     if not equal:
         raise AssertionError("CUDA and CPU greedy streams differ")
+
+
+def _tier_run(eng, prompt, fillers, new_tokens):
+    """Serve `prompt`, then `fillers` (which must push the prompt's cold
+    pages to the host), then `prompt` again (its match promotes them):
+    (first stream, second stream, allocator counters)."""
+    first = eng.generate([prompt], max_new_tokens=new_tokens)[0]
+    eng.generate(fillers, max_new_tokens=new_tokens)
+    demoted = eng.allocator.demotions
+    again = eng.generate([prompt], max_new_tokens=new_tokens)[0]
+    eng.allocator.check_consistency()
+    counters = {k: getattr(eng.allocator, k) for k in (
+        "prefix_matches", "prefix_tokens_matched", "cow_copies", "demotions",
+        "promotions", "cold_hits", "dropped_cold", "promote_failures")}
+    return first, again, {"demotions_before_rerun": demoted, **counters}
+
+
+def phase_kv_cuda_vs_cpu(seed, report):
+    """The KV hierarchy on CUDA (kernels) against the CPU (plain versions):
+    the phase-3 model with int8 and fp8 pools, prefix sharing and a host
+    tier serves three requests sharing a 64-token system prompt, then a
+    100-token prompt, two 200-token fillers that demote its pages to the
+    host, and the 100-token prompt again (promoted). Streams and
+    allocator counters must be equal, and the re-served stream equal to
+    the first."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=512)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = LlamaForCausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.RandomState(seed + 1)
+    system = rng.randint(1, cfg.vocab_size, 64).astype(np.int32)
+    shared = [np.concatenate([system, rng.randint(1, cfg.vocab_size, n)
+                              .astype(np.int32)]) for n in (9, 40, 0)]
+    prompt = rng.randint(1, cfg.vocab_size, 100).astype(np.int32)
+    fillers = [rng.randint(1, cfg.vocab_size, 200).astype(np.int32)
+               for _ in range(2)]
+    kw = dict(page_size=16, num_pages=24, decode_batch=4, prefill_chunk=64,
+              pack_frame=128, max_seq_len=256, prefix_sharing=True,
+              host_cache_mb=1)
+    out, bad = {}, []
+    for mode in ("int8", "fp8"):
+        runs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            eng = ServingEngine(model, _engine_cfg(kv_cache_dtype=mode, **kw),
+                                device=dev)
+            streams = eng.generate(shared, max_new_tokens=8)
+            first, again, counters = _tier_run(eng, prompt, fillers, 8)
+            runs[dev] = {"shared": streams, "first": first, "again": again,
+                         "counters": counters,
+                         "prefix_hit_rate": eng.stats()["prefix_hit_rate"]}
+        c, g = runs["cpu"], runs["cuda"]
+        equal = all(c[k] == g[k] for k in ("shared", "first", "again",
+                                           "counters"))
+        round_trip = (g["again"] == g["first"]
+                      and g["counters"]["demotions_before_rerun"] > 0
+                      and g["counters"]["promotions"] > 0)
+        shared_hit = g["counters"]["prefix_matches"] >= 2
+        out[mode] = dict(runs, equal=equal, round_trip_same_stream=round_trip,
+                         prefix_adopted=shared_hit)
+        print(f"kv {mode} cuda vs cpu: streams and counters equal {equal}, "
+              f"demote/promote round trip same stream {round_trip}, "
+              f"counters {json.dumps(g['counters'])}", flush=True)
+        if not (equal and round_trip and shared_hit):
+            bad.append(mode)
+    out["bf16"] = _kv_bf16_cuda_vs_cpu(cfg, seed, kw, shared, bad)
+    report["kv_cuda_vs_cpu"] = out
+    if bad:
+        raise AssertionError(f"KV hierarchy CUDA vs CPU failed for {bad}")
+
+
+# bf16 rounds activations, K/V and logits in another order on each device:
+# at |logit| near 2 one bf16 step is 2^-6, and a code one quantization
+# step apart adds a step or two; a lost or misapplied scale moves the
+# logits by their own size (tests/test_torch_port_kv_hierarchy.py holds
+# the CPU path to JAX's bf16 model within the same bound)
+BF16_LOGIT_RTOL = 2.0 ** -5
+
+
+def _first_decode_logits(eng, prompts, new_tokens):
+    """Serve `prompts`; return (streams, the first decode step's logits
+    [rows, vocab] fp32 on the CPU), read by a forward hook on the LM head
+    (prefill never runs the head)."""
+    seen = []
+
+    def hook(_mod, _inp, out):
+        if not seen:
+            seen.append(out[:len(prompts), 0].float().cpu())
+
+    handle = eng.model.lm_head.register_forward_hook(hook)
+    try:
+        streams = eng.generate(prompts, max_new_tokens=new_tokens)
+    finally:
+        handle.remove()
+    return streams, seen[0]
+
+
+def _kv_bf16_cuda_vs_cpu(cfg, seed, kw, prompts, bad):
+    """The phase's model in bf16 with int8 and fp8 pools, prefix sharing
+    off: the shared-prompt requests (packed and chunked prefill, bf16 q
+    through the quantized paged kernel) on CUDA against the CPU plain
+    versions. The first decode step's logits must agree within
+    BF16_LOGIT_RTOL of each row's max |logit|; the streams' agreement is
+    reported (bf16 near-ties may part them)."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    cpu_model = LlamaForCausalLM(bcfg, device="cpu", seed=seed)
+    gpu_model = LlamaForCausalLM(bcfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    kw = dict(kw, prefix_sharing=False, host_cache_mb=0, num_pages=64)
+    out = {}
+    for mode in ("int8", "fp8"):
+        runs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            eng = ServingEngine(model, _engine_cfg(kv_cache_dtype=mode, **kw),
+                                device=dev)
+            runs[dev] = _first_decode_logits(eng, prompts, 8)
+        (cs, cl), (gs, gl) = runs["cpu"], runs["cuda"]
+        row_err = (gl - cl).abs().amax(-1)
+        row_rel = row_err / cl.abs().amax(-1)
+        ok = bool((row_rel <= BF16_LOGIT_RTOL).all())
+        agree = [sum(a == b for a, b in zip(x, y)) / len(y)
+                 for x, y in zip(gs, cs)]
+        out[mode] = {"first_logits_max_rel_err": row_rel.max().item(),
+                     "first_logits_max_abs_err": row_err.max().item(),
+                     "rtol": BF16_LOGIT_RTOL, "ok": ok,
+                     "first_tokens_equal": [x[0] == y[0]
+                                            for x, y in zip(gs, cs)],
+                     "stream_agreement": agree}
+        print(f"kv {mode} bf16 model cuda vs cpu: first-step logits max "
+              f"rel err {row_rel.max().item():.4g} (<= {BF16_LOGIT_RTOL}) "
+              f"{ok}, stream agreement {agree}", flush=True)
+        if not ok:
+            bad.append(f"{mode} bf16")
+    return out
 
 
 def phase_full_width(args, report):
@@ -883,13 +1251,387 @@ def phase_full_width(args, report):
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
-    return eng, prompts
+    return eng, prompts, streams
+
+
+SYSTEM_TOKENS = 1024       # the shared system prompt of the int8 run
+TIER_PAGES = 384           # the tier run's device pool and host store
+TIER_HOST_MB = 2048
+
+
+def _drive_recording(eng):
+    """Step `eng` until idle. Records, without a host sync, each step's
+    decode lengths and each packed frame's segment ids (the tensor the
+    engine hands the model) for the visit counters, which run after the
+    timed window, as the JAX bench reads its counters on a snapshot."""
+    import torch
+
+    lens, frames = [], []
+    llama = eng.model.llama
+    forward = llama.decode_forward
+
+    def record(*args, segment_ids=None, **kw):
+        if segment_ids is not None:
+            frames.append(segment_ids)
+        return forward(*args, segment_ids=segment_ids, **kw)
+
+    llama.decode_forward = record
+    t_first = None
+    try:
+        while eng.busy:
+            eng.step()
+            if t_first is None:
+                torch.cuda.synchronize()
+                t_first = time.perf_counter()
+            lens.append([r.total_len for r in eng.scheduler.running])
+        torch.cuda.synchronize()
+    finally:
+        del llama.decode_forward
+    return {"t_first": t_first, "t_end": time.perf_counter(), "lens": lens,
+            "frames": frames}
+
+
+def _visit_counters(eng, drives):
+    """The page-visit counter over every recorded decode batch (one
+    launch), checked against ceil(len / page_size), and the flash visit
+    counter over each recorded packed frame, checked against its plain
+    version: (page-visit fraction of the decode batches, frames, exact)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    ps, pmax, b = eng.page_size, eng.pages_per_seq, eng.decode_batch
+    rows = [n for d in drives for ln in d["lens"] if ln
+            for n in ln + [0] * (b - len(ln))]
+    got = pa.page_visit_counts(torch.tensor(rows, dtype=torch.int32,
+                                            device="cuda"), ps, pmax)
+    want = [min(-(-n // ps), pmax) for n in rows]
+    exact = got.tolist() == want
+    frames = [seg for d in drives for seg in d["frames"]]
+    for seg in frames:
+        exact &= bool((fa.segment_block_visit_counts(seg)
+                       == fa.segment_block_visit_reference(seg)).all())
+    return {"page_visit_fraction": sum(want) / (len(rows) * pmax),
+            "decode_batches_counted": len(rows) // b,
+            "packed_frames_counted": len(frames),
+            "visit_counts_exact": exact}
+
+
+def _serve_timed(eng, prompts):
+    """Submit `prompts` at once and drive them to the end: streams, the
+    recorded drive, and the first step's, decode's and TTFT's times."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    drive = _drive_recording(eng)
+    reqs = [eng.scheduler.get(r) for r in rids]
+    streams = [list(r.generated) for r in reqs]
+    ttft = [(r.token_times[0] - r.arrival_t) * 1e3 for r in reqs]
+    for r in rids:
+        eng.release(r)
+    gen_tokens = sum(len(x) for x in streams)
+    lens = [int(p.size) for p in prompts]
+    timing = {
+        "requests": len(prompts), "prompt_tokens": sum(lens),
+        "first_step_s": drive["t_first"] - t0,
+        "first_step_prefill_tokens_per_s":
+            sum(lens[:eng.decode_batch]) / (drive["t_first"] - t0),
+        "wall_s": drive["t_end"] - t0,
+        "decode_tokens_per_s": (gen_tokens - len(reqs))
+        / (drive["t_end"] - drive["t_first"]),
+        "ttft_ms_mean": statistics.mean(ttft), "ttft_ms_max": max(ttft)}
+    return streams, drive, timing
+
+
+def _agreement(streams, ref):
+    """Per stream: the share of positions equal to `ref`'s, and the
+    tokens before the first difference."""
+    share = [sum(a == b for a, b in zip(x, y)) / len(y)
+             for x, y in zip(streams, ref)]
+    lead = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                 len(y)) for x, y in zip(streams, ref)]
+    return {"mean": statistics.mean(share), "per_stream": share,
+            "tokens_before_first_difference": lead}
+
+
+def _kv_write_read_ms(eng, ctx=3072):
+    """Device time of the model's page writes for one 7B decode step (every
+    layer, the decode batch's K and V: quantize-on-write when the pools
+    are quantized) and of one prefill chunk's context gather at `ctx`
+    rows (every layer; dequant in bf16 when quantized), each through the
+    model's own functions on the engine's pools, at random pages."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import gather_context, write_kv_pages
+
+    cache, ps = eng._cache, eng.page_size
+    n_layers, hkv, _, _, d = cache["k"].shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    b = eng.decode_batch
+    k, v = (torch.randn((b, 1, hkv, d), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    pidx = torch.randint(1, eng.num_pages, (b, 1), generator=gen,
+                         device="cuda")
+    slot = torch.randint(0, ps, (b, 1), generator=gen, device="cuda")
+    table = torch.randint(1, eng.num_pages, (1, ctx // ps), generator=gen,
+                          device="cuda")
+
+    def write():
+        for layer in range(n_layers):
+            write_kv_pages(cache, layer, pidx, slot, k, v)
+
+    def gather():
+        for layer in range(n_layers):
+            gather_context(cache, layer, table, ctx, torch.bfloat16)
+
+    return {"decode_write_device_ms": sum(_device_ms_by_kernel(write)
+                                          .values()),
+            "decode_write_ms": _cuda_ms(write, reps=5),
+            "chunk_gather_ctx": ctx,
+            "chunk_gather_device_ms": sum(_device_ms_by_kernel(gather)
+                                          .values()),
+            "chunk_gather_ms": _cuda_ms(gather, reps=5)}
+
+
+KV_NOISE = 2.0 ** -8       # int8's rounding error, of the slot's absmax
+
+
+def _perturbed_bf16_serve(model, base, prompts, bf16_streams, seed):
+    """What a rounding-sized change of K/V does to greedy streams at these
+    random weights: a fresh bf16 engine (prefix sharing off, so the second
+    serve re-prefills) serves phase 4's prompts once as they are (the
+    control, against phase 4's streams) and once with every layer's K and
+    V moved by uniform noise of up to KV_NOISE of each slot's absmax over
+    head_dim (forward hooks on k_proj and v_proj), the size of int8's
+    rounding error (against the control). Both agreements are reported,
+    not held: the weights are random."""
+    import torch
+
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, _engine_cfg(hbm_budget_mb=16384,
+                                           prefix_sharing=False, **base),
+                        device="cuda")
+    d = model.config.hidden_size // model.config.num_attention_heads
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def perturb(_mod, _inp, out):
+        x = out.float().unflatten(-1, (-1, d))
+        amax = x.abs().amax(-1, keepdim=True)
+        u = torch.rand(x.shape, generator=gen, device=x.device) * 2 - 1
+        return (x + u * amax * KV_NOISE).flatten(-2).to(out.dtype)
+
+    control = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    hooks = [proj.register_forward_hook(perturb)
+             for layer in model.llama.layers
+             for proj in (layer.self_attn.k_proj, layer.self_attn.v_proj)]
+    try:
+        noisy = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {"kv_noise": KV_NOISE,
+           "control_agreement_with_phase4": _agreement(control,
+                                                       bf16_streams),
+           "perturbed_agreement_with_control": _agreement(noisy, control),
+           "pools": _kv_write_read_ms(eng)}
+    del eng
+    return out
+
+
+def phase_full_width_kv(args, model, bf16_prompts, bf16_streams, bf16_pages,
+                        report):
+    """The KV hierarchy at the 7B geometry on phase 4's model. First a
+    fresh bf16 engine repeats phase 4's serve, and serves it again with
+    K/V perturbed by int8's rounding size (the agreement baseline). Then
+    an int8 and an fp8 engine at the same 16 GiB budget each serve phase
+    4's 8 prompts with nothing else in the timed window; the int8 engine
+    then serves, apart, 8 requests sharing a 1024-token system prompt
+    (tails of 32-256 tokens). The visit counters run over the recorded
+    decode lengths and packed frames after those serves, the launch
+    counts are read around serves and counters, and the page writes'
+    and context gathers' device ms are measured apart. Last, a tier run
+    at 384 pages and a 2 GiB host store demotes a 1000-token prompt's
+    pages and promotes them byte-exact."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving import ServingEngine
+
+    vocab = model.config.vocab_size
+    base = dict(page_size=16, decode_batch=8, prefill_chunk=256,
+                max_seq_len=4096)
+    out = {"bf16": _perturbed_bf16_serve(model, base, bf16_prompts,
+                                         bf16_streams, args.seed)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("full width bf16 agreement baseline: " + json.dumps(out["bf16"]),
+          flush=True)
+    rng = np.random.RandomState(args.seed + 7)
+    system = rng.randint(1, vocab, SYSTEM_TOKENS).astype(np.int32)
+    tails = [32, 64, 96, 128, 160, 192, 224, 256]
+    shared = [np.concatenate([system, rng.randint(1, vocab, n)
+                              .astype(np.int32)]) for n in tails]
+    launches = {}
+    problems = []
+    for mode in ("int8", "fp8"):
+        eng = ServingEngine(model, _engine_cfg(kv_cache_dtype=mode,
+                                               hbm_budget_mb=16384, **base),
+                            device="cuda")
+        eng.generate([rng.randint(1, vocab, 40).astype(np.int32)],
+                     max_new_tokens=2)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        port_cuda.reset_launch_counts()      # the main path starts here
+        streams, drive, timing = _serve_timed(eng, bf16_prompts)
+        drives = [drive]
+        res = {"kv_pages": eng.num_pages, "bf16_kv_pages": bf16_pages,
+               "page_ratio": eng.num_pages / bf16_pages,
+               "kv_cache_gb": eng.kv_cache_bytes / 1e9,
+               "kv_scale_gb": eng.kv_scale_bytes / 1e9, **timing,
+               "greedy_agreement_with_bf16": _agreement(streams,
+                                                        bf16_streams)}
+        complete = [len(x) == NEW_TOKENS for x in streams]
+        in_vocab = [0 <= t < vocab for x in streams for t in x]
+        if mode == "int8":
+            matched0 = eng.allocator.prefix_tokens_matched
+            wave, wdrive, wtiming = _serve_timed(eng, shared)
+            drives.append(wdrive)
+            res["shared_wave"] = dict(
+                wtiming, prefix_hit_rate=(
+                    eng.allocator.prefix_tokens_matched - matched0)
+                / wtiming["prompt_tokens"])
+            complete += [len(x) == NEW_TOKENS for x in wave]
+            in_vocab += [0 <= t < vocab for x in wave for t in x]
+        res.update(_visit_counters(eng, drives))
+        launches[mode] = port_cuda.launch_counts()     # ... and ends here
+        st = eng.stats()
+        res.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   prefix_hit_rate=st["prefix_hit_rate"],
+                   prefix_matches=st["prefix_matches"],
+                   cow_copies=st["cow_copies"], launches=launches[mode])
+        if mode == "int8":
+            # where a decode step's time goes, outside the main-path run
+            res["profile"] = _profile_serving(eng, rng, vocab)
+        res["pools"] = _kv_write_read_ms(eng)
+        out[mode] = res
+        print(f"full width {mode}: " + json.dumps(res), flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (all(complete) and all(in_vocab)):
+            problems.append(f"{mode}: incomplete or out-of-vocab streams")
+    report["full_width_kv"] = out
+    out["tier"] = _full_width_tier(model, base, rng, vocab)
+    print("full width tier: " + json.dumps(out["tier"]), flush=True)
+    i8 = out["int8"]
+    if i8["page_ratio"] < 1.9:
+        problems.append(f"int8 holds {i8['page_ratio']:.3f}x the bf16 pages")
+    if launches["int8"]["paged_decode_int8"] <= 0:
+        problems.append("paged_decode_int8 never launched")
+    if launches["fp8"]["paged_decode_fp8"] <= 0:
+        problems.append("paged_decode_fp8 never launched")
+    for mode in ("int8", "fp8"):
+        lc = launches[mode]
+        if lc["paged_visit"] <= 0 or lc["flash_visit"] <= 0 \
+                or not out[mode]["visit_counts_exact"]:
+            problems.append(f"{mode}: visit counters not run or not exact")
+    if i8["prefix_matches"] < len(tails) - 1:
+        problems.append(f"only {i8['prefix_matches']} prefix matches")
+    if not out["tier"]["byte_exact"]:
+        problems.append("promoted pages differ from the demoted ones")
+    if out["tier"]["cold_hits"] < out["tier"]["prompt_full_pages"]:
+        problems.append("the prompt's second serve did not adopt its cold "
+                        "pages")
+    if out["tier"]["again"] != out["tier"]["cold_hit"]:
+        problems.append("the promoted serve's stream differs from the "
+                        "cold-hit serve's")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def _full_width_tier(model, base, rng, vocab):
+    """int8 at 384 pages (383 usable) with a 2 GiB host store: a 1000-token
+    prompt (62 full pages) finishes and goes cold; served again at once, it
+    adopts its cold pages where they are; two 4000-token fillers (251 pages
+    each) run one after the other, and the second's admission reclaims the
+    oldest cold pages, the prompt's first, into the host; the prompt again
+    matches them and they are promoted. The promoted pages' codes and
+    scales must equal the demoted pages' bytes, and the promoted serve's
+    stream the cold-hit serve's: both prefill the same 8-token tail over
+    the same page bytes. The first serve prefilled all 1000 tokens, in
+    chunks of other shapes, so with random weights its stream may differ;
+    it is reported, not held."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, _engine_cfg(kv_cache_dtype="int8",
+                                           num_pages=TIER_PAGES,
+                                           host_cache_mb=TIER_HOST_MB,
+                                           **base), device="cuda")
+    prompt = rng.randint(1, vocab, 1000).astype(np.int32)
+    full = prompt.size // eng.page_size
+    rid = eng.submit(prompt, max_new_tokens=4)
+    eng.step()
+    pages = eng.allocator.chain(rid)[:full]
+    eng.run_until_idle()
+    first = list(eng.scheduler.get(rid).generated)
+    eng.release(rid)
+    idx = torch.tensor(pages, device="cuda")
+    snap = {n: a.index_select(2, idx).view(torch.uint8)
+            if a.element_size() == 1 else a.index_select(2, idx)
+            for n, a in eng._cache.items()}
+    cold_hit = eng.generate([prompt], max_new_tokens=4)[0]
+    cold_hits = eng.allocator.cold_hits
+    fillers = [rng.randint(1, vocab, 4000).astype(np.int32)
+               for _ in range(2)]
+    t0 = time.perf_counter()
+    eng.generate(fillers, max_new_tokens=4)
+    fill_s = time.perf_counter() - t0
+    st0 = eng.stats()
+    rid = eng.submit(prompt, max_new_tokens=4)
+    eng.step()
+    st1 = eng.stats()
+    new = eng.allocator.chain(rid)[:full]
+    nidx = torch.tensor(new, device="cuda")
+    exact = all(torch.equal(
+        (a.index_select(2, nidx).view(torch.uint8) if a.element_size() == 1
+         else a.index_select(2, nidx)), snap[n])
+        for n, a in eng._cache.items())
+    eng.run_until_idle()
+    again = list(eng.scheduler.get(rid).generated)
+    eng.release(rid)
+    eng.allocator.check_consistency()
+    demoted = st0["kv_demotions"]
+    promoted = st1["kv_promotions"]
+    out = {
+        "num_pages": eng.num_pages, "host_pages": eng.host_pages,
+        "prompt_full_pages": full, "fillers_s": fill_s,
+        "demotions": demoted, "promotions": promoted,
+        "dropped_cold": st1["kv_dropped_cold"],
+        "demote_ms_per_page": st0["kv_demote_ms_total"] / max(demoted, 1),
+        "promote_ms_per_page": st1["kv_promote_ms_total"] / max(promoted, 1),
+        "page_mb": (eng.kv_cache_bytes + eng.kv_scale_bytes)
+        / eng.num_pages / 2 ** 20,
+        "byte_exact": exact and promoted >= full, "cold_hits": cold_hits,
+        "first": first, "cold_hit": cold_hit, "again": again,
+    }
+    return out
 
 
 def _device_profile(fn, steps, top=8):
     """torch.profiler over `fn` (one step): wall ms per step, device ms
-    per step (kernels, copies), the device's busy share and the top
-    device entries."""
+    per step (kernels, copies), the device's busy share, the top device
+    entries and the top host ops by their own CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -910,10 +1652,15 @@ def _device_profile(fn, steps, top=8):
            and e.self_device_time_total > 0]
     device_ms = sum(ms for _, ms in dev)
     dev.sort(key=lambda kv: -kv[1])
+    # host side: each op's own CPU time (launch work), under the profiler
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda kv: -kv[1])
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms if dev else None,
             "device_busy_share": device_ms / wall_ms if dev else None,
-            "top_device_ms": [(k[:90], ms) for k, ms in dev[:top]]}
+            "top_device_ms": [(k[:90], ms) for k, ms in dev[:top]],
+            "top_host_ms": [(k[:60], ms) for k, ms in host[:top]]}
 
 
 def _profile_serving(eng, rng, vocab, steps=4):
@@ -1287,13 +2034,19 @@ def phase_train_moe_full_width(args, report):
 
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
-    7B serve and the timed LLaMA and GPT-MoE training steps), each read
-    around its run. gmm_visit is off the training path, so it has 0."""
+    7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
+    and the timed LLaMA and GPT-MoE training steps), each read around its
+    run. gmm_visit is off the training path, so it has 0."""
     from paddle_tpu_torch.ops.cuda import _build
 
-    serve = report.get("full_width", {}).get("launches", {})
-    train = report.get("train_full_width", {}).get("launches", {})
-    moe = report.get("train_moe_full_width", {}).get("launches", {})
+    kv = report.get("full_width_kv", {})
+    paths = [report.get("full_width", {}).get("launches", {}),
+             kv.get("int8", {}).get("launches", {}),
+             kv.get("fp8", {}).get("launches", {}),
+             report.get("train_full_width", {}).get("launches", {}),
+             report.get("train_moe_full_width", {}).get("launches", {})]
+    quant = report.get("paged_quant_cases", {})
+    visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
     paged = report.get("paged_cases", {}).get("decode_b8_h32") or {}
     bwd = report.get("flash_bwd_cases", {}).get("causal_s4096") or {}
@@ -1313,7 +2066,15 @@ def kernels_line(report):
         ("gmm_dw", "grouped_matmul.cu", "grouped_matmul.py:117",
          report.get("gmm_dw_cases", {}).get("dw1_bf16x") or {}),
         ("gmm_visit", "grouped_matmul.cu", "grouped_matmul.py:291",
-         report.get("gmm_visit_cases", {}).get("dispatch") or {})]
+         report.get("gmm_visit_cases", {}).get("dispatch") or {}),
+        ("paged_decode_int8", "paged_attention.cu", "paged_attention.py:103",
+         quant.get("int8_decode_b8_h32") or {}),
+        ("paged_decode_fp8", "paged_attention.cu", "paged_attention.py:103",
+         quant.get("fp8_decode_b8_h32") or {}),
+        ("paged_visit", "paged_attention.cu", "paged_attention.py:372",
+         visit.get("paged_decode_b8") or {}),
+        ("flash_visit", "flash_fwd.cu", "flash_attention.py:507",
+         visit.get("flash_engine_frame_s256") or {})]
     rows = []
     for name, src, replaces, case in specs:
         rows.append({
@@ -1321,8 +2082,7 @@ def kernels_line(report):
             "source": os.path.relpath(os.path.join(_build.CSRC_DIR, src),
                                       REPO),
             "replaces": pallas + replaces,
-            "launches": (serve.get(name, 0) + train.get(name, 0)
-                         + moe.get(name, 0)),
+            "launches": sum(p.get(name, 0) for p in paths),
             "max_abs_err": case.get("max_abs_err"), "ms": case.get("ms"),
             "plain_ms": case.get("plain_ms"),
             "bound_ms": case.get("bound_ms"),
@@ -1364,25 +2124,42 @@ def main(argv=None) -> int:
                         for n in _build.kernel_names()},
               "failed": []}
     phases = [("kernels", lambda: phase_kernels(args.seed, report)),
-              ("cuda_vs_cpu", lambda: phase_cuda_vs_cpu(args.seed, report))]
+              ("cuda_vs_cpu", lambda: phase_cuda_vs_cpu(args.seed, report)),
+              ("kv_cuda_vs_cpu",
+               lambda: phase_kv_cuda_vs_cpu(args.seed, report))]
     state = {}
 
     def full_width():
-        state["eng"], state["prompts"] = phase_full_width(args, report)
+        state["eng"], state["prompts"], state["streams"] = \
+            phase_full_width(args, report)
 
     def http():
         if "eng" not in state:
             raise RuntimeError("the full-width phase built no engine")
         phase_http(state["eng"], state["prompts"][1], report)
 
+    def full_width_kv():
+        if "eng" not in state:
+            raise RuntimeError("the full-width phase built no engine")
+        # the bf16 engine's pools make room for the quantized ones
+        eng = state.pop("eng")
+        model, pages = eng.model, eng.num_pages
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        state["kv_launches"] = phase_full_width_kv(
+            args, model, state["prompts"], state["streams"], pages, report)
+
     def free_memory():
         # the 7B serving engine's weights and KV pool, and each training
         # phase's model, make room for the next phase
-        state.clear()
+        for key in ("eng", "prompts", "streams"):
+            state.pop(key, None)
         gc.collect()
         torch.cuda.empty_cache()
 
     phases += [("full_width", full_width), ("http", http),
+               ("full_width_kv", full_width_kv),
                ("train_cuda_vs_cpu",
                 lambda: (free_memory(),
                          phase_train_cuda_vs_cpu(args.seed, report))),

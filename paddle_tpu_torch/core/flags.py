@@ -91,6 +91,22 @@ define_flag("serving_prefill_pack", 1,
 define_flag("serving_pack_frame", 0,
             "packed-prefill frame length in tokens (rounded down to 32); "
             "0 = serving_prefill_chunk", type=int)
+define_flag("serving_prefix_sharing", 1,
+            "copy-on-write shared-prefix KV page reuse: admission matches "
+            "the longest committed full-page prefix of the new context in "
+            "the allocator's radix index and links those pages (refcounted) "
+            "into the new chain, so prefill runs only the unmatched tail; "
+            "writes into shared pages copy on write. 0 = off", type=int)
+define_flag("serving_kv_cache_dtype", "model",
+            "KV page-pool storage: 'model' stores pages in the weight dtype, "
+            "'int8'/'fp8' store codes (int8, float8_e4m3fn) with fp32 "
+            "per-slot-per-head absmax scales in side pools, dequantized "
+            "inside the paged kernel", type=str)
+define_flag("serving_host_cache_mb", 0,
+            "host-RAM cold tier for committed KV pages: when > 0, indexed "
+            "pages whose last holder frees them stay cold and demote to a "
+            "host pool of this many MB (pinned on CUDA) under pressure; a "
+            "later prefix match promotes them back; 0 = off", type=int)
 define_flag("serving_waiting_queue_limit", 128,
             "bound on the scheduler's waiting queue (QueueFull past it); "
             "0 = unbounded", type=int)

@@ -27,6 +27,7 @@ from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import RMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
+from paddle_tpu_torch.quantization import quantize_kv, raw_bytes
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaPretrainingCriterion",
@@ -116,6 +117,57 @@ def _linear(n_in, n_out, device, dtype):
     return nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
 
 
+def write_kv_pages(cache, layer_idx, pidx, slot, k, v):
+    """Write K/V ``[B, T, Hkv, D]`` into slots (pidx, slot: ``[B, T]``) of
+    layer `layer_idx`'s pools, in place (``index_put_`` into the layer's
+    view, where the JAX package runs a functional scatter into pools it
+    donates to XLA). Quantized pools (``k_scale`` in the cache) are
+    written by quantize-on-write, eager PyTorch as the JAX package leaves
+    it to XLA: codes to the pools, per-slot-per-head scales to the fp32
+    side pools. Returns ((k codes, k scales), (v codes, v scales)), or
+    None for pools in a float dtype."""
+    ck, cv = cache["k"][layer_idx], cache["v"][layer_idx]
+    if "k_scale" not in cache:
+        ck[:, pidx, slot] = k.permute(2, 0, 1, 3).to(ck.dtype)
+        cv[:, pidx, slot] = v.permute(2, 0, 1, 3).to(cv.dtype)
+        return None
+    written = []
+    for x, pool, scales in ((k, ck, cache["k_scale"][layer_idx]),
+                            (v, cv, cache["v_scale"][layer_idx])):
+        codes, sc = quantize_kv(x, pool.dtype)
+        raw_bytes(pool)[:, pidx, slot] = raw_bytes(codes).permute(2, 0, 1, 3)
+        scales[:, pidx, slot] = sc.permute(2, 0, 1)
+        written.append((codes, sc))
+    return tuple(written)
+
+
+def dequantize_kv(codes, scales, dtype):
+    """Codes ``[..., D]`` times their scales ``[...]``, both cast to
+    `dtype` first: the model dtype, in which the JAX model dequantizes
+    prefill K/V (the paged kernel dequantizes in fp32)."""
+    return codes.to(dtype) * scales[..., None].to(dtype)
+
+
+def gather_context(cache, layer_idx, page_table, ctx_pad, dtype):
+    """Rows 0..ctx_pad-1 of each page chain of ``page_table [B, pages]``
+    gathered back from layer `layer_idx`'s pools: (K, V), each
+    ``[B, ctx_pad, Hkv, D]`` in `dtype`, dequantized when the pools hold
+    codes (the pools stay quantized)."""
+    ps = cache["k"].shape[3]
+    pos = torch.arange(ctx_pad, device=page_table.device)
+    pidx = page_table[:, pos // ps]                               # [B, S]
+    slot = (pos % ps).expand(page_table.shape[0], ctx_pad)
+    out = []
+    for name in ("k", "v"):
+        x = cache[name][layer_idx][:, pidx, slot].permute(1, 2, 0, 3)
+        if "k_scale" in cache:
+            sc = cache[name + "_scale"][layer_idx][:, pidx, slot]
+            out.append(dequantize_kv(x, sc.permute(1, 2, 0), dtype))
+        else:
+            out.append(x.to(dtype))
+    return tuple(out)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -170,7 +222,11 @@ class LlamaAttention(nn.Module):
         segment-aware flash kernel over the frame itself; page_table is
         then [n_segments + 1, pages], one chain per segment plus an
         all-null row for pad/gap tokens, and position_ids are
-        segment-local). ``cache`` is {"k", "v": [L, Hkv, P, page_size, D]};
+        segment-local). ``cache`` is {"k", "v": [L, Hkv, P, page_size, D]},
+        plus {"k_scale", "v_scale": [L, Hkv, P, page_size] fp32} when the
+        pools hold int8 or float8_e4m3fn codes: writes then quantize with
+        per-slot-per-head absmax scales and reads dequantize (inside the
+        paged kernel for decode, in the model dtype for prefill);
         position_ids [B, T] are absolute positions; context_lens [B]
         counts valid cache tokens including this chunk. Returns
         (out, cache)."""
@@ -191,22 +247,26 @@ class LlamaAttention(nn.Module):
             pidx = page_table[segment_ids, position_ids // ps]
         else:
             pidx = torch.gather(page_table, 1, (position_ids // ps).long())
-        slot = position_ids % ps
-        # in-place pool writes (index_put_ into this layer's view of the
-        # pool) where the JAX package runs a functional scatter into pools
-        # it donates to XLA
-        ck[:, pidx, slot] = k.permute(2, 0, 1, 3).to(ck.dtype)
-        cv[:, pidx, slot] = v.permute(2, 0, 1, 3).to(cv.dtype)
+        written = write_kv_pages(cache, layer_idx, pidx, position_ids % ps,
+                                 k, v)
 
         if t == 1:
-            out = paged_attention(q[:, 0], ck, cv, page_table,
-                                  context_lens)[:, None]
+            k_sc = cache["k_scale"][layer_idx] if written else None
+            v_sc = cache["v_scale"][layer_idx] if written else None
+            out = paged_attention(q[:, 0], ck, cv, page_table, context_lens,
+                                  k_scales=k_sc, v_scales=v_sc)[:, None]
         elif packed:
             # every segment is a fresh prompt whose whole K/V sits in this
-            # frame; the round trip through the pool dtype keeps packed
+            # frame; the round trip through the pool dtype (and, quantized,
+            # the chunked gather's dequant in the model dtype) keeps packed
             # outputs equal to sequential chunked prefill
-            k_in = k.to(ck.dtype).to(q.dtype)
-            v_in = v.to(cv.dtype).to(q.dtype)
+            if written:
+                (kc, sck), (vc, scv) = written
+                k_in = dequantize_kv(kc, sck, q.dtype)
+                v_in = dequantize_kv(vc, scv, q.dtype)
+            else:
+                k_in = k.to(ck.dtype).to(q.dtype)
+                v_in = v.to(cv.dtype).to(q.dtype)
             out = F.scaled_dot_product_attention(
                 q, k_in, v_in, is_causal=True, training=False,
                 segment_ids=segment_ids)
@@ -219,11 +279,8 @@ class LlamaAttention(nn.Module):
             if ctx_pad is None:
                 raise ValueError("prefill chunks need ctx_pad (the padded "
                                  "context bucket)")
-            pos_full = torch.arange(ctx_pad, device=x.device)
-            pidx_f = page_table[:, pos_full // ps]                # [B, S]
-            slot_f = (pos_full % ps).expand(b, ctx_pad)
-            k_full = ck[:, pidx_f, slot_f].permute(1, 2, 0, 3).to(q.dtype)
-            v_full = cv[:, pidx_f, slot_f].permute(1, 2, 0, 3).to(q.dtype)
+            k_full, v_full = gather_context(cache, layer_idx, page_table,
+                                            ctx_pad, q.dtype)
             q_full = q.new_zeros((b, ctx_pad) + tuple(q.shape[2:]))
             bidx = torch.arange(b, device=x.device)[:, None]
             q_full[bidx, position_ids] = q

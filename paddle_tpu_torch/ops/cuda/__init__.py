@@ -17,8 +17,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """{kernel name: launches since the last reset}: flash_fwd,
-    flash_bwd_dq, flash_bwd_dkv, paged_decode, ce_stats, gmm_fwd, gmm_dw,
-    gmm_visit."""
+    flash_bwd_dq, flash_bwd_dkv, flash_visit, paged_decode,
+    paged_decode_int8, paged_decode_fp8, paged_visit, ce_stats, gmm_fwd,
+    gmm_dw, gmm_visit."""
     counts = {}
     for mod in _MODULES:
         counts.update(mod.launch_counts())

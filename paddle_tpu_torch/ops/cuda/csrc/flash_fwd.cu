@@ -1,7 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA cores, fp32 math.
+// Flash-attention forward for Hopper (sm_90a), CUDA cores, fp32 math, and
+// the block-visit counter.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
-// `_fwd_kernel` (launched by `_flash_fwd`). One block per (batch * q-head,
+// Replaces the TPU kernels paddle_tpu/ops/pallas/flash_attention.py
+// `_fwd_kernel` (launched by `_flash_fwd`) and `_visit_kernel` (launched by
+// `segment_block_visit_counts`). One block per (batch * q-head,
 // 64-row q tile); 32-key K/V tiles stream through shared memory with an
 // online softmax (fp32 running max and denominator). Writes o and lse.
 //
@@ -12,6 +14,10 @@
 //    ptt::blocks_can_touch (the predicate the paged kernel shares);
 //  * ragged S: rows and keys past S are masked here, S need not divide
 //    the tile sizes.
+//  * flash_visit_kernel counts, per (row, block_q rows), the K blocks that
+//    ptt::blocks_can_touch and the causal bound admit, the forward's own
+//    skip rules; at block_q 64, block_k 32 it counts the tiles this kernel
+//    visits.
 //
 // Layout: q [B, S, Hq, D], k/v [B, S, Hkv, D] given by element strides
 // (head_dim contiguous), o [B, S, Hq, D] contiguous, lse [B, Hq, S] fp32.
@@ -205,7 +211,54 @@ int launch(const void* q, const void* k, const void* v, const int* seg,
   return (int)cudaGetLastError();
 }
 
+// One warp a (q block, row): the block's segment-id range, then the count
+// of K blocks kb < last whose range can touch it, last = ceil((qi + 1) bq /
+// bk) when causal (the JAX kernel's bound), S / bk otherwise.
+__global__ void flash_visit_kernel(const int* __restrict__ seg,
+                                   int* __restrict__ counts, int S, int bq,
+                                   int bk, int causal) {
+  const int qi = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  const int* row = seg + (long long)b * S;
+  int qmin = INT_MAX, qmax = INT_MIN;
+  for (int r = lane; r < bq; r += 32) {
+    const int s = row[qi * bq + r];
+    qmin = min(qmin, s);
+    qmax = max(qmax, s);
+  }
+  qmin = ptt::warp_min_i(qmin);
+  qmax = ptt::warp_max_i(qmax);
+  const int last = causal ? ((qi + 1) * bq + bk - 1) / bk : S / bk;
+  int n = 0;
+  for (int kb = 0; kb < last; ++kb) {
+    int kmin = INT_MAX, kmax = INT_MIN;
+    for (int r = lane; r < bk; r += 32) {
+      const int s = row[kb * bk + r];
+      kmin = min(kmin, s);
+      kmax = max(kmax, s);
+    }
+    kmin = ptt::warp_min_i(kmin);
+    kmax = ptt::warp_max_i(kmax);
+    n += ptt::blocks_can_touch(qmin, qmax, kmin, kmax) ? 1 : 0;
+  }
+  if (lane == 0) counts[(long long)b * gridDim.x + qi] = n;
+}
+
 }  // namespace
+
+// Block-visit counter: counts [B, S / bq] int32 from segment ids [B, S]
+// int32; S must be a multiple of bq and bk (the wrapper checks).
+extern "C" int ptt_flash_visit(const int* seg, int* counts, int B, int S,
+                               int bq, int bk, int causal, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || S <= 0) return 0;
+  if (bq <= 0 || bk <= 0 || S % bq || S % bk) return (int)cudaErrorInvalidValue;
+  flash_visit_kernel<<<dim3(S / bq, B), 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(seg, counts, S, bq,
+                                                            bk, causal);
+  return (int)cudaGetLastError();
+}
 
 // Plain C entry point (bound with ctypes). strides: 9 element strides,
 // (batch, seq, head) for q, k, v in that order. is_bf16: 1 bf16, 0 fp32.

@@ -1,7 +1,10 @@
-// Paged decode attention for Hopper (sm_90a), CUDA cores, fp32 math.
+// Paged decode attention for Hopper (sm_90a), CUDA cores, fp32 math, and
+// the page-visit counter.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
-// `_decode_kernel` (launched by `paged_decode_attention`). One block per
+// Replaces the TPU kernels paddle_tpu/ops/pallas/paged_attention.py
+// `_decode_kernel` (launched by `paged_decode_attention`), its quantized
+// branch included, and `_visit_kernel` (launched by `page_visit_counts`).
+// One block per
 // (row, kv head) covers all T * group query rows of that kv head (GQA: K/V
 // are never repeated). The block walks the row's context in 64-key chunks,
 // reading each key's page id from the page table itself (what scalar
@@ -20,8 +23,22 @@
 //    reads ceil((len + T - 1) / page_size) pages, not pages_per_seq;
 //  * rows with len 0 write zeros.
 //
+// Quantized pools (int8 or fp8-e4m3 codes with fp32 per-slot-per-head
+// scales [Hkv, P, page_size]): the pool's type is a template parameter apart
+// from q's. A thread loads 16 codes with one 16-byte load, widens them in
+// registers ((float)(int8_t), or cvt.rn.f16x2.e4m3x2 through
+// __nv_cvt_fp8x2_to_halfraw2) and multiplies by its key's scale, loaded
+// beside the codes rather than staged with the chunk's page ids, which
+// would add a dependent global read before every chunk: dequantized K/V
+// exist only in the fp32 shared-memory tiles, never in HBM, and a step
+// moves 1 byte a value plus 4 bytes a key and head of scales. The dequant
+// is code * scale after the fp32 cast, as in the TPU kernel.
+//
 // Layout: q/o [B, T, Hq, D] contiguous; pools [Hkv, P, page_size, D]
 // contiguous; page_table [B, pages_per_seq] int32; lens [B] int32.
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
 #include "common.cuh"
 
 namespace {
@@ -30,6 +47,63 @@ constexpr int kCH = 64;  // keys per chunk
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 64;  // T * group bound (shared memory)
 constexpr int kSplitKeys = 512;  // keys per split-K block
+
+// fp8-e4m3 code storage (the bits of torch.float8_e4m3fn)
+struct e4m3 {
+  uint8_t bits;
+};
+
+// How a pool's values reach fp32: kVec values a load, and whether they are
+// codes to multiply by their key's scale.
+template <typename KV>
+struct KVLoad;
+
+template <>
+struct KVLoad<float> {
+  static constexpr int kVec = 8;
+  static constexpr bool kQuant = false;
+  __device__ static void load(const float* p, float* o) { ptt::load8(p, o); }
+};
+
+template <>
+struct KVLoad<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static constexpr bool kQuant = false;
+  __device__ static void load(const __nv_bfloat16* p, float* o) {
+    ptt::load8(p, o);
+  }
+};
+
+template <>
+struct KVLoad<int8_t> {
+  static constexpr int kVec = 16;
+  static constexpr bool kQuant = true;
+  __device__ static void load(const int8_t* p, float* o) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = (float)c[i];
+  }
+};
+
+template <>
+struct KVLoad<e4m3> {
+  static constexpr int kVec = 16;
+  static constexpr bool kQuant = true;
+  __device__ static void load(const e4m3* p, float* o) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_fp8x2_storage_t* c =
+        reinterpret_cast<const __nv_fp8x2_storage_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // e4m3 values are exact in fp16: low byte -> .x, high byte -> .y
+      const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(c[i], __NV_E4M3);
+      const float2 f = __half22float2(__half2(r));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+};
 
 int paged_splits(int pages_per_seq, int ps, int Tq) {
   const int keys = pages_per_seq * ps + Tq - 1;
@@ -43,14 +117,19 @@ size_t smem_bytes(int tg) {
          sizeof(int) * kCH;
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ pt,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                    const KV* __restrict__ vp,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
+                    const int* __restrict__ pt,
                     const int* __restrict__ lens, float* __restrict__ ws_acc,
                     float* __restrict__ ws_ml, int Tq, int Hq, int Hkv, int P,
                     int ps, int pages_per_seq, float scale) {
   constexpr int DP = D + 4;
+  constexpr int V = KVLoad<KV>::kVec;
+  constexpr bool kQuant = KVLoad<KV>::kQuant;
   const int group = Hq / Hkv;
   const int TG = Tq * group;
   extern __shared__ float4 smem4[];
@@ -109,23 +188,34 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     : -1;
     }
     __syncthreads();
-    for (int e = tid * 8; e < kCH * D; e += kThreads * 8) {
+    for (int e = tid * V; e < kCH * D; e += kThreads * V) {
       const int r = e / D, c = e % D, pos = c0 + r;
-      float tk[8], tv[8];
+      float tk[V], tv[V];
       if (pg[r] >= 0) {
-        const long long off = (((long long)hk * P + pg[r]) * ps + pos % ps) * D + c;
-        ptt::load8(kp + off, tk);
-        ptt::load8(vp + off, tv);
+        const long long key = ((long long)hk * P + pg[r]) * ps + pos % ps;
+        KVLoad<KV>::load(kp + key * D + c, tk);
+        KVLoad<KV>::load(vp + key * D + c, tv);
+        if constexpr (kQuant) {
+          // the key's scales load beside its codes (the D / V threads of
+          // a key read the same word), not before them
+          const float a = k_scales[key], b = v_scales[key];
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            tk[i] *= a;
+            tv[i] *= b;
+          }
+        }
       } else {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) tk[i] = tv[i] = 0.f;
+        for (int i = 0; i < V; ++i) tk[i] = tv[i] = 0.f;
       }
       float4* dk = reinterpret_cast<float4*>(ks + r * DP + c);
       float4* dv = reinterpret_cast<float4*>(vs + r * D + c);
-      dk[0] = make_float4(tk[0], tk[1], tk[2], tk[3]);
-      dk[1] = make_float4(tk[4], tk[5], tk[6], tk[7]);
-      dv[0] = make_float4(tv[0], tv[1], tv[2], tv[3]);
-      dv[1] = make_float4(tv[4], tv[5], tv[6], tv[7]);
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i) {
+        dk[i] = make_float4(tk[4 * i], tk[4 * i + 1], tk[4 * i + 2], tk[4 * i + 3]);
+        dv[i] = make_float4(tv[4 * i], tv[4 * i + 1], tv[4 * i + 2], tv[4 * i + 3]);
+      }
     }
     __syncthreads();
 
@@ -221,28 +311,67 @@ paged_combine_kernel(const float* __restrict__ ws_acc,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* pt,
-           const int* lens, void* o, float* ws_acc, float* ws_ml, int B,
-           int Tq, int Hq, int Hkv, int P, int ps, int pages_per_seq,
-           float scale, cudaStream_t stream) {
+template <typename T, typename KV, int D>
+int launch(const void* q, const void* k, const void* v, const float* ksc,
+           const float* vsc, const int* pt, const int* lens, void* o,
+           float* ws_acc, float* ws_ml, int B, int Tq, int Hq, int Hkv, int P,
+           int ps, int pages_per_seq, float scale, cudaStream_t stream) {
   const int tg = Tq * (Hq / Hkv);
   if (tg > kMaxRows) return (int)cudaErrorInvalidValue;
-  auto kern = paged_decode_kernel<T, D>;
+  if (KVLoad<KV>::kQuant && (ksc == nullptr || vsc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kern = paged_decode_kernel<T, KV, D>;
   const size_t smem = smem_bytes<D>(tg);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_splits = paged_splits(pages_per_seq, ps, Tq);
   kern<<<dim3(Hkv, B, n_splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pt, lens, ws_acc, ws_ml, Tq, Hq, Hkv, P, ps,
-      pages_per_seq, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ksc, vsc, pt, lens, ws_acc, ws_ml, Tq, Hq,
+      Hkv, P, ps, pages_per_seq, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   paged_combine_kernel<T, D><<<dim3(Hkv, B), kThreads, 0, stream>>>(
       ws_acc, ws_ml, lens, static_cast<T*>(o), Tq, Hq, Hkv, n_splits);
   return (int)cudaGetLastError();
+}
+
+// kv_kind: 0 the pool holds q's type, 1 int8 codes, 2 fp8-e4m3 codes.
+template <typename T>
+int launch_kv(int kv_kind, int D, const void* q, const void* k,
+              const void* v, const float* ksc, const float* vsc,
+              const int* pt, const int* lens, void* o, float* ws_acc,
+              float* ws_ml, int B, int Tq, int Hq, int Hkv, int P, int ps,
+              int pages_per_seq, float scale, cudaStream_t st) {
+#define PTT_PAGED(KV, DD)                                                   \
+  return launch<T, KV, DD>(q, k, v, ksc, vsc, pt, lens, o, ws_acc, ws_ml, B, \
+                           Tq, Hq, Hkv, P, ps, pages_per_seq, scale, st)
+  if (D == 64) {
+    if (kv_kind == 0) PTT_PAGED(T, 64);
+    if (kv_kind == 1) PTT_PAGED(int8_t, 64);
+    if (kv_kind == 2) PTT_PAGED(e4m3, 64);
+  } else if (D == 128) {
+    if (kv_kind == 0) PTT_PAGED(T, 128);
+    if (kv_kind == 1) PTT_PAGED(int8_t, 128);
+    if (kv_kind == 2) PTT_PAGED(e4m3, 128);
+  }
+#undef PTT_PAGED
+  return (int)cudaErrorInvalidValue;
+}
+
+// One thread a row: the pages the decode kernel computes on, by its own
+// predicate over [0, len - 1] (len 0 visits none).
+__global__ void page_visit_kernel(const int* __restrict__ lens,
+                                  int* __restrict__ counts, int B, int ps,
+                                  int pages_per_seq) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int len = lens[b];
+  int n = 0;
+  for (int p = 0; p < pages_per_seq; ++p)
+    n += ptt::blocks_can_touch(0, len - 1, p * ps, p * ps + ps - 1) ? 1 : 0;
+  counts[b] = n;
 }
 
 }  // namespace
@@ -253,27 +382,43 @@ extern "C" int ptt_paged_splits(int pages_per_seq, int ps, int Tq) {
   return paged_splits(pages_per_seq, ps, Tq);
 }
 
-// Plain C entry point (bound with ctypes). is_bf16: 1 bf16, 0 fp32.
-// ws_acc: [B, Hkv, splits, T*group, D] fp32 and ws_ml: [B, Hkv, splits,
-// T*group, 2] fp32 scratch. Returns cudaGetLastError() after the launches
-// (0 = launched).
+// Plain C entry point (bound with ctypes). is_bf16: q and o are bf16 (1)
+// or fp32 (0); kv_kind: 0 the pools hold q's type, 1 int8 codes, 2
+// fp8-e4m3 codes, with k_scales/v_scales [Hkv, P, ps] fp32 (null when
+// kv_kind is 0). ws_acc: [B, Hkv, splits, T*group, D] fp32 and ws_ml: [B,
+// Hkv, splits, T*group, 2] fp32 scratch. Returns cudaGetLastError() after
+// the launches (0 = launched).
 extern "C" int ptt_paged_decode(const void* q, const void* k, const void* v,
+                                const float* k_scales, const float* v_scales,
                                 const int* page_table, const int* lens,
                                 void* o, float* ws_acc, float* ws_ml, int B,
                                 int Tq, int Hq, int Hkv, int P, int ps,
                                 int pages_per_seq, int D, float scale,
-                                int is_bf16, int device, void* stream) {
+                                int is_bf16, int kv_kind, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return launch<__nv_bfloat16, 64>(q, k, v, page_table, lens, o, ws_acc, ws_ml, B, Tq, Hq, Hkv, P, ps, pages_per_seq, scale, st);
-    if (D == 128) return launch<__nv_bfloat16, 128>(q, k, v, page_table, lens, o, ws_acc, ws_ml, B, Tq, Hq, Hkv, P, ps, pages_per_seq, scale, st);
-  } else {
-    if (D == 64) return launch<float, 64>(q, k, v, page_table, lens, o, ws_acc, ws_ml, B, Tq, Hq, Hkv, P, ps, pages_per_seq, scale, st);
-    if (D == 128) return launch<float, 128>(q, k, v, page_table, lens, o, ws_acc, ws_ml, B, Tq, Hq, Hkv, P, ps, pages_per_seq, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return launch_kv<__nv_bfloat16>(kv_kind, D, q, k, v, k_scales, v_scales,
+                                    page_table, lens, o, ws_acc, ws_ml, B, Tq,
+                                    Hq, Hkv, P, ps, pages_per_seq, scale, st);
+  return launch_kv<float>(kv_kind, D, q, k, v, k_scales, v_scales, page_table,
+                          lens, o, ws_acc, ws_ml, B, Tq, Hq, Hkv, P, ps,
+                          pages_per_seq, scale, st);
+}
+
+// Page-visit counter: counts [B] int32 from lens [B] int32.
+extern "C" int ptt_page_visit(const int* lens, int* counts, int B, int ps,
+                              int pages_per_seq, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0) return 0;
+  if (ps <= 0 || pages_per_seq < 0) return (int)cudaErrorInvalidValue;
+  page_visit_kernel<<<(B + 127) / 128, 128, 0,
+                      static_cast<cudaStream_t>(stream)>>>(lens, counts, B, ps,
+                                                           pages_per_seq);
+  return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ Replaces ``paddle_tpu/ops/pallas/flash_attention.py`` ``_fwd_kernel``
 (launched by ``_flash_fwd``, the ``pallas_call`` at :288) with
 ``csrc/flash_fwd.cu``, and ``_dq_kernel`` / ``_dkv_kernel`` (launched by
 ``_flash_bwd``, the ``pallas_call`` at :449 and :482) with
-``csrc/flash_bwd.cu``.
+``csrc/flash_bwd.cu``, and the block-visit counter ``_visit_kernel`` (:507,
+launched by ``segment_block_visit_counts``, the ``pallas_call`` at :550)
+with ``flash_visit_kernel`` in ``csrc/flash_fwd.cu``.
 
 What bounds them on the H100: at prefill and training lengths attention
 does about 4·S·D flops per byte it reads (the backward 2.5 times the
@@ -24,9 +26,10 @@ needs no atomics: the dq kernel owns a q tile and walks K tiles, the dkv
 kernel owns a K tile and walks the q tiles of every query head of its GQA
 group.
 
-On a CUDA tensor ``flash_attention_fwd`` / ``flash_attention_bwd`` launch
-the kernels or raise; on a CPU tensor they run ``flash_attention_reference``
-/ ``flash_attention_bwd_reference``. ``LAUNCHES`` counts kernel launches by
+On a CUDA tensor ``flash_attention_fwd`` / ``flash_attention_bwd`` /
+``segment_block_visit_counts`` launch the kernels or raise; on a CPU tensor
+they run ``flash_attention_reference`` / ``flash_attention_bwd_reference``
+/ ``segment_block_visit_reference``. ``LAUNCHES`` counts kernel launches by
 kernel name.
 """
 from __future__ import annotations
@@ -39,11 +42,18 @@ import torch
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq_reference",
-           "flash_attention_bwd_dkv_reference", "FlashAttention", "LAUNCHES", "reset_launches", "launch_counts"]
+           "flash_attention_bwd_dkv_reference", "FlashAttention",
+           "segment_block_visit_counts", "segment_block_visit_reference",
+           "FWD_BLOCK_Q", "FWD_BLOCK_K", "LAUNCHES", "reset_launches",
+           "launch_counts"]
 
 _NEG_INF = -1e30
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_visit": 0}
+# the forward kernel's q and K tiles (kBQ, kBK in csrc/flash_fwd.cu): the
+# visit counter's default blocks, so it counts what that kernel visits
+FWD_BLOCK_Q, FWD_BLOCK_K = 64, 32
 
 
 def launch_counts() -> dict[str, int]:
@@ -341,3 +351,74 @@ class FlashAttention(torch.autograd.Function):
                                          segment_ids=segment_ids)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None)
+
+
+def _check_visit(segment_ids, block_q, block_k):
+    if segment_ids.dim() != 2:
+        raise ValueError(f"segment_ids must be [B, S], got "
+                         f"{tuple(segment_ids.shape)}")
+    s = segment_ids.shape[1]
+    if block_q <= 0 or block_k <= 0 or s % block_q or s % block_k:
+        raise ValueError(f"sequence length {s} must be a multiple of "
+                         f"block_q={block_q} and block_k={block_k}")
+
+
+def segment_block_visit_reference(segment_ids, block_q: int = FWD_BLOCK_Q,
+                                  block_k: int = FWD_BLOCK_K,
+                                  causal: bool = True):
+    """Plain version of the block-visit counter: per (row, q block), the K
+    blocks kb < last whose segment-id range can touch the q block's, last
+    = ceil((qi + 1) * block_q / block_k) when causal, S / block_k
+    otherwise; int32 [B, S / block_q]."""
+    _check_visit(segment_ids, block_q, block_k)
+    b, s = segment_ids.shape
+    seg = segment_ids.to(torch.int64)
+    qb = seg.reshape(b, s // block_q, block_q)
+    kb = seg.reshape(b, s // block_k, block_k)
+    qmin, qmax = qb.amin(-1)[:, :, None], qb.amax(-1)[:, :, None]
+    kmin, kmax = kb.amin(-1)[:, None, :], kb.amax(-1)[:, None, :]
+    touch = (kmin <= qmax) & (kmax >= qmin)           # [B, nq, nk]
+    if causal:
+        qi = torch.arange(s // block_q, device=seg.device)[:, None]
+        last = ((qi + 1) * block_q + block_k - 1) // block_k
+        touch = touch & (torch.arange(s // block_k,
+                                      device=seg.device)[None] < last)
+    return touch.sum(-1).to(torch.int32)
+
+
+def _lib_visit():
+    from paddle_tpu_torch.ops.cuda._build import load
+
+    fn = load("flash_fwd").ptt_flash_visit
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+def segment_block_visit_counts(segment_ids, block_q: int = FWD_BLOCK_Q,
+                               block_k: int = FWD_BLOCK_K,
+                               causal: bool = True):
+    """Per-(row, q block) count of the K blocks the segment-aware forward
+    visits, by its own skip rules (``ptt::blocks_can_touch`` over segment-id
+    ranges plus the causal bound); int32 [B, S / block_q]. The blocks
+    default to the forward kernel's tiles. The kernel on a CUDA tensor, the
+    plain version on a CPU one."""
+    _check_visit(segment_ids, block_q, block_k)
+    if not segment_ids.is_cuda:
+        return segment_block_visit_reference(segment_ids, block_q, block_k,
+                                             causal)
+    seg = segment_ids.to(torch.int32).contiguous()
+    b, s = seg.shape
+    counts = torch.empty((b, s // block_q), dtype=torch.int32,
+                         device=seg.device)
+    if counts.numel() == 0:
+        return counts
+    err = _lib_visit()(seg.data_ptr(), counts.data_ptr(), b, s, block_q,
+                       block_k, int(bool(causal)), seg.device.index or 0,
+                       torch.cuda.current_stream(seg.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_visit launch failed: cudaError {err}")
+    LAUNCHES["flash_visit"] += 1
+    return counts

@@ -1,9 +1,11 @@
-"""Paged decode attention: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Paged decode attention and the page-visit counter: the hand-written
+Hopper kernels and their plain PyTorch versions.
 
 Replaces ``paddle_tpu/ops/pallas/paged_attention.py`` ``_decode_kernel``
-(launched by ``paged_decode_attention``, the ``pallas_call`` at :282). The
-CUDA source is ``csrc/paged_attention.cu``.
+(launched by ``paged_decode_attention``, the ``pallas_call`` at :282), its
+int8/fp8 branch included, and ``_visit_kernel`` (:372, launched by
+``page_visit_counts``, the ``pallas_call`` at :400). The CUDA source is
+``csrc/paged_attention.cu``.
 
 Layout as in the JAX package: K/V page pools ``[Hkv, P, page_size, D]``
 (page 0 is the reserved null page), page table ``[B, pages_per_seq]``
@@ -20,11 +22,16 @@ pages past the last query's key range are never read (the page predicate
 the flash kernel shares), so a step moves O(sum of live tokens) bytes. A
 long row next to short ones would leave SMs idle while one block walks it,
 so the context is split into 512-key blocks (split-K) whose partial
-softmax states a second small kernel merges.
+softmax states a second small kernel merges. Quantized pools (int8 or
+fp8-e4m3 codes with fp32 ``[Hkv, P, page_size]`` scales) are dequantized
+where the kernel fills its fp32 shared-memory tiles, so a step reads 1 byte
+a value plus the scales and bf16 K/V never exist in device memory.
 
-On a CUDA tensor ``paged_attention`` launches the kernel or raises; on a
-CPU tensor it runs ``paged_attention_reference``. ``LAUNCHES`` counts
-kernel launches by kernel name.
+On a CUDA tensor ``paged_attention`` and ``page_visit_counts`` launch their
+kernels or raise; on a CPU tensor they run ``paged_attention_reference`` and
+``page_visit_reference``. ``LAUNCHES`` counts kernel launches by kernel
+name: ``paged_decode`` (bf16/fp32 pools), ``paged_decode_int8``,
+``paged_decode_fp8`` and ``paged_visit``.
 """
 from __future__ import annotations
 
@@ -33,13 +40,18 @@ import math
 
 import torch
 
-__all__ = ["paged_attention", "paged_attention_reference", "LAUNCHES",
+__all__ = ["paged_attention", "paged_attention_reference",
+           "page_visit_counts", "page_visit_reference", "LAUNCHES",
            "reset_launches", "launch_counts", "MAX_FRAME_ROWS"]
 
 _NEG_INF = -1e30
 MAX_FRAME_ROWS = 64     # T * group bound of the kernel's shared memory
 
-LAUNCHES = {"paged_decode": 0}
+LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0,
+            "paged_decode_fp8": 0, "paged_visit": 0}
+# code pools the kernel dequantizes: dtype -> (kv_kind, launch-counter name)
+_CODES = {torch.int8: (1, "paged_decode_int8"),
+          torch.float8_e4m3fn: (2, "paged_decode_fp8")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -49,6 +61,22 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _check_scales(k_pages, k_scales, v_scales):
+    """True for quantized pools; the scales must be [Hkv, P, page_size],
+    one of them alone is an error (JAX :218-226)."""
+    if k_scales is None and v_scales is None:
+        return False
+    if k_scales is None or v_scales is None:
+        raise ValueError("k_scales and v_scales go together: got only "
+                         + ("k_scales" if v_scales is None else "v_scales"))
+    want = tuple(k_pages.shape[:3])
+    if tuple(k_scales.shape) != want or tuple(v_scales.shape) != want:
+        raise ValueError(
+            f"k/v scales must be [Hkv, P, page_size]={want}, got "
+            f"{tuple(k_scales.shape)} and {tuple(v_scales.shape)}")
+    return True
 
 
 def _check_shapes(q, k_pages, v_pages, page_table, context_lens):
@@ -81,12 +109,16 @@ def _check_shapes(q, k_pages, v_pages, page_table, context_lens):
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, context_lens,
-                              scale: float | None = None):
+                              scale: float | None = None, k_scales=None,
+                              v_scales=None):
     """Plain PyTorch version: gather every page of the table, then a masked
     softmax in fp32. Same layouts and per-query causal limits as the
-    kernel; returns q's shape and dtype."""
+    kernel; quantized pools are dequantized after the fp32 cast (codes
+    times their ``[Hkv, P, page_size]`` scales). Returns q's shape and
+    dtype."""
     b, hq, hkv, ps, d = _check_shapes(q, k_pages, v_pages, page_table,
                                       context_lens)
+    quantized = _check_scales(k_pages, k_scales, v_scales)
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -100,6 +132,11 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, context_lens,
     # [Hkv, B, pages, ps, D] -> [B, Hkv, S, D]
     k = k_pages[:, pt].transpose(0, 1).reshape(b, hkv, s_max, d).float()
     v = v_pages[:, pt].transpose(0, 1).reshape(b, hkv, s_max, d).float()
+    if quantized:
+        ks = k_scales.float()[:, pt].transpose(0, 1).reshape(b, hkv, s_max)
+        vs = v_scales.float()[:, pt].transpose(0, 1).reshape(b, hkv, s_max)
+        k = k * ks[..., None]
+        v = v * vs[..., None]
     qg = q.reshape(b, t, hkv, group, d).float() * scale
     s = torch.einsum("bthgd,bhsd->bthgs", qg, k)
     pos = torch.arange(s_max, device=q.device)
@@ -122,8 +159,8 @@ def _lib():
     fn, splits = lib.ptt_paged_decode, lib.ptt_paged_splits
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                       ci, ci, ci, ctypes.c_float, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                       ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp]
         fn.restype = ci
         splits.argtypes = [ci, ci, ci]
         splits.restype = ci
@@ -133,25 +170,40 @@ def _lib():
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
-def _launch(q, k_pages, v_pages, page_table, context_lens, scale):
+def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
+            k_scales=None, v_scales=None):
     b, hq, hkv, ps, d = _check_shapes(q, k_pages, v_pages, page_table,
                                       context_lens)
+    quantized = _check_scales(k_pages, k_scales, v_scales)
     squeeze = q.dim() == 3
     q4 = (q[:, None] if squeeze else q).contiguous()
     t = q4.shape[1]
     if q.dtype not in _DTYPES:
-        raise TypeError(f"paged kernel takes bf16 or fp32, got {q.dtype}")
+        raise TypeError(f"paged kernel takes bf16 or fp32 q, got {q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"paged kernel takes head_dim 64 or 128, got {d}")
     if t * (hq // hkv) > MAX_FRAME_ROWS:
         raise ValueError(f"T * group = {t * (hq // hkv)} query rows per kv "
                          f"head exceeds the kernel's {MAX_FRAME_ROWS}")
+    if quantized:
+        if k_pages.dtype not in _CODES:
+            raise TypeError(f"scaled pools must hold int8 or float8_e4m3fn "
+                            f"codes, got {k_pages.dtype}")
+        kv_kind, counter = _CODES[k_pages.dtype]
+    else:
+        kv_kind, counter = 0, "paged_decode"
+    want = k_pages.dtype if quantized else q.dtype
     for name, a in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if a.device != q.device or a.dtype != q.dtype:
-            raise ValueError(f"{name} must share q's device and dtype")
+        if a.device != q.device or a.dtype != want:
+            raise ValueError(f"{name} must be on q's device and hold "
+                             f"{want}, got {a.device} {a.dtype}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
+    ks = vs = None
+    if quantized:
+        ks = k_scales.to(device=q.device, dtype=torch.float32).contiguous()
+        vs = v_scales.to(device=q.device, dtype=torch.float32).contiguous()
     pt = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if scale is None:
@@ -166,23 +218,78 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale):
     ws_ml = torch.empty((b, hkv, n_splits, tg, 2), dtype=torch.float32,
                         device=q.device)
     err = fn(q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             ks.data_ptr() if quantized else None,
+             vs.data_ptr() if quantized else None,
              pt.data_ptr(), lens.data_ptr(), out.data_ptr(),
              ws_acc.data_ptr(), ws_ml.data_ptr(), b, t, hq, hkv,
              k_pages.shape[1], ps, pt.shape[1], d, float(scale),
-             _DTYPES[q.dtype], q.device.index or 0,
+             _DTYPES[q.dtype], kv_kind, q.device.index or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
-    LAUNCHES["paged_decode"] += 1
+        raise RuntimeError(f"{counter} launch failed: cudaError {err}")
+    LAUNCHES[counter] += 1
     return out[:, 0] if squeeze else out
 
 
 def paged_attention(q, k_pages, v_pages, page_table, context_lens,
-                    scale: float | None = None):
+                    scale: float | None = None, k_scales=None,
+                    v_scales=None):
     """Attention over the paged KV cache (what the model's decode path
-    calls). CUDA tensors launch the kernel; CPU tensors take the plain
+    calls). CUDA tensors launch the kernel (the quantized one when
+    ``k_scales``/``v_scales`` are given); CPU tensors take the plain
     version."""
     if q.is_cuda:
-        return _launch(q, k_pages, v_pages, page_table, context_lens, scale)
+        return _launch(q, k_pages, v_pages, page_table, context_lens, scale,
+                       k_scales, v_scales)
     return paged_attention_reference(q, k_pages, v_pages, page_table,
-                                     context_lens, scale=scale)
+                                     context_lens, scale=scale,
+                                     k_scales=k_scales, v_scales=v_scales)
+
+
+def page_visit_reference(context_lens, page_size: int, pages_per_seq: int):
+    """Plain version of the page-visit counter: per row, the pages p <
+    pages_per_seq whose positions [p*ps, p*ps + ps - 1] the predicate
+    admits against [0, len - 1]; int32 [B]."""
+    lens = context_lens.to(torch.int64).reshape(-1, 1)
+    first = torch.arange(pages_per_seq, device=lens.device) * page_size
+    hit = (first <= lens - 1) & (first + page_size - 1 >= 0)
+    return hit.sum(dim=1).to(torch.int32)
+
+
+def page_visit_counts(context_lens, page_size: int, pages_per_seq: int):
+    """Per-row count of the cache pages the decode kernel computes on, by
+    its own predicate (``ptt::blocks_can_touch`` over the page's position
+    range and [0, len - 1]); int32 [B], equal to ceil(len / page_size) up
+    to pages_per_seq. The kernel on a CUDA tensor, the plain version on a
+    CPU one."""
+    if page_size <= 0 or pages_per_seq < 0:
+        raise ValueError(f"page_size must be positive and pages_per_seq "
+                         f">= 0, got {page_size} and {pages_per_seq}")
+    if context_lens.dim() != 1:
+        raise ValueError(f"context_lens must be [B], got "
+                         f"{tuple(context_lens.shape)}")
+    if not context_lens.is_cuda:
+        return page_visit_reference(context_lens, page_size, pages_per_seq)
+    lens = context_lens.to(torch.int32).contiguous()
+    counts = torch.empty_like(lens)
+    if lens.numel() == 0:
+        return counts
+    fn = _lib_visit()
+    err = fn(lens.data_ptr(), counts.data_ptr(), lens.numel(), page_size,
+             pages_per_seq, lens.device.index or 0,
+             torch.cuda.current_stream(lens.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_visit launch failed: cudaError {err}")
+    LAUNCHES["paged_visit"] += 1
+    return counts
+
+
+def _lib_visit():
+    from paddle_tpu_torch.ops.cuda._build import load
+
+    fn = load("paged_attention").ptt_page_visit
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    return fn

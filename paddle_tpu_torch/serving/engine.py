@@ -8,20 +8,33 @@ Same scheduling as the JAX engine, run eagerly by PyTorch:
     inactive slots are len-0 rows the paged kernel writes zeros for;
   * admissions arriving together are PACKED into one ``[1, frame]``
     segment-id prefill frame (first-fit over 32-aligned rows, one page
-    chain per segment); prompts longer than the frame and solo arrivals
-    run chunked prefill, one request at a time in chunks of
-    ``prefill_chunk`` tokens, with chunk and context lengths rounded up to
+    chain per segment); prompts longer than the frame, solo arrivals and
+    requests that adopted a shared prefix run chunked prefill, one request
+    at a time in chunks of ``prefill_chunk`` tokens from the first
+    unmatched token, with chunk and context lengths rounded up to
     power-of-two buckets as in the JAX engine;
   * a prefill writes every prompt token's K/V; the first decode step
     re-feeds the last prompt token at its own position (the rewrite that
-    mints the first generated token), so prefill never samples.
+    mints the first generated token), so prefill never samples;
+  * prefix sharing (``serving_prefix_sharing``, on by default): a request's
+    committed full pages are registered in the allocator's prefix index
+    after its prefill, later admissions adopt them, and a decode write into
+    a shared page copies it first;
+  * the KV hierarchy: ``kv_cache_dtype`` "int8"/"fp8" stores codes
+    (``torch.int8``, ``torch.float8_e4m3fn``) with fp32 per-slot-per-head
+    scales in side pools, dequantized inside the paged kernel;
+    ``host_cache_mb`` keeps cold indexed pages in a host store (pinned on
+    CUDA) they demote to under pressure and promote back from on a prefix
+    match.
+
+Ordering contract, as in the JAX engine: queued tier copies (demotes, then
+promotes), then copy-on-write copies, then any prefill or decode write.
 
 On CUDA both attention paths run the port's hand-written Hopper kernels
 (``ops/cuda``); the K/V pools are updated in place.
 
 Not ported yet (raise NotImplementedError): speculative decoding
-(``spec_k > 0``), prefix sharing, quantized KV pools, the host cache tier,
-the prefill/decode roles and LoRA adapters.
+(``spec_k > 0``), the prefill/decode roles and LoRA adapters.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ import torch
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
+from paddle_tpu_torch.quantization import raw_bytes
 from paddle_tpu_torch.serving.kv_cache import (PageAllocator, kv_page_bytes,
                                                pages_for_budget)
 from paddle_tpu_torch.serving.sampling import request_generator, sample_tokens
@@ -53,12 +67,13 @@ class ServingConfig:
     prefill_chunk: int = 0          # 0 -> FLAGS_serving_prefill_chunk
     max_seq_len: int = 0            # 0 -> FLAGS_serving_max_seq_len or model
     kv_dtype: object = None         # None -> model param dtype
-    kv_cache_dtype: str = "model"   # only "model" is ported
-    host_cache_mb: int = 0          # only 0 is ported
+    kv_cache_dtype: str = ""        # "" -> FLAGS_serving_kv_cache_dtype
+                                    #   ("model" | "int8" | "fp8")
+    host_cache_mb: int = -1         # <0 -> FLAGS_serving_host_cache_mb
     sample_seed: int = 0
     max_waiting: int = 0            # 0 -> FLAGS_serving_waiting_queue_limit
     spec_k: int = 0                 # only 0 is ported
-    prefix_sharing: bool = False    # only False is ported
+    prefix_sharing: bool | None = None  # None -> FLAGS_serving_prefix_sharing
     role: str = "mixed"             # only "mixed" is ported
     prefill_pack: bool | None = None    # None -> FLAGS_serving_prefill_pack
     pack_frame: int = 0             # 0 -> FLAGS_serving_pack_frame,
@@ -68,17 +83,15 @@ class ServingConfig:
         unported = []
         if self.spec_k:
             unported.append(f"spec_k={self.spec_k} (speculative decoding)")
-        if self.prefix_sharing:
-            unported.append("prefix_sharing=True")
-        if (self.kv_cache_dtype or "model").lower() != "model":
-            unported.append(f"kv_cache_dtype={self.kv_cache_dtype!r}")
-        if self.host_cache_mb > 0:
-            unported.append(f"host_cache_mb={self.host_cache_mb}")
         if (self.role or "mixed").lower() != "mixed":
             unported.append(f"role={self.role!r}")
         if unported:
             raise NotImplementedError(
                 "not ported to paddle_tpu_torch yet: " + ", ".join(unported))
+
+
+# KV storage modes that keep codes, and the pool dtype of each
+_CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 def _buckets(lo: int, hi: int) -> list[int]:
@@ -141,7 +154,21 @@ class ServingEngine:
                 f"LlamaConfig.rope_max_position to serve longer contexts")
         self.pages_per_seq = -(-self.max_seq_len // self.page_size)
 
-        self.kv_dtype = cfg.kv_dtype or next(model.parameters()).dtype
+        self.prefix_sharing = bool(flag("serving_prefix_sharing")
+                                   if cfg.prefix_sharing is None
+                                   else cfg.prefix_sharing)
+        # KV storage mode: "model" keeps pages in the weight (or kv_dtype)
+        # dtype; "int8"/"fp8" keep codes with fp32 per-slot-per-head absmax
+        # scales in side pools, so a page costs 1 byte a value
+        kv_mode = (cfg.kv_cache_dtype
+                   or flag("serving_kv_cache_dtype")).lower()
+        if kv_mode not in ("model", "int8", "fp8"):
+            raise ValueError(f"serving_kv_cache_dtype must be one of "
+                             f"model/int8/fp8, got {kv_mode!r}")
+        self.kv_mode = kv_mode
+        self.kv_quantized = kv_mode != "model"
+        self.kv_dtype = (_CODE_DTYPES[kv_mode] if self.kv_quantized
+                         else cfg.kv_dtype or next(model.parameters()).dtype)
         page_bytes = kv_page_bytes(self.num_layers, self.num_kv_heads,
                                    self.page_size, self.head_dim,
                                    torch.empty((), dtype=self.kv_dtype)
@@ -157,19 +184,46 @@ class ServingEngine:
                 f"serving_max_seq_len")
         self.num_pages = int(num_pages)
         self.kv_cache_bytes = page_bytes * self.num_pages
+        # fp32 scale side pools (k + v), reported apart from the page
+        # budget: 4 bytes a slot and head
+        scale_page_bytes = (2 * self.num_layers * self.num_kv_heads
+                            * self.page_size * 4) if self.kv_quantized else 0
+        self.kv_scale_bytes = scale_page_bytes * self.num_pages
+        # host cold tier, sized over full page bytes (codes + scales)
+        host_mb = int(cfg.host_cache_mb if cfg.host_cache_mb >= 0
+                      else flag("serving_host_cache_mb"))
+        self.host_pages = ((host_mb << 20) // (page_bytes + scale_page_bytes)
+                           if host_mb > 0 else 0)
 
-        self.allocator = PageAllocator(self.num_pages, self.page_size)
+        self.allocator = PageAllocator(self.num_pages, self.page_size,
+                                       host_pages=self.host_pages)
         self.scheduler = ContinuousBatchingScheduler(
             self.allocator, self.decode_batch, self.max_seq_len,
-            max_waiting=self.max_waiting)
+            max_waiting=self.max_waiting, prefix_sharing=self.prefix_sharing)
         shape = (self.num_layers, self.num_kv_heads, self.num_pages,
                  self.page_size, self.head_dim)
         # the K/V page pools, written in place by every prefill and decode
-        # step (the JAX engine donates a functional cache pytree instead)
+        # step (the JAX engine donates a functional cache pytree instead);
+        # the model's decode path quantizes on write when "k_scale" is there
         self._cache = {"k": torch.zeros(shape, dtype=self.kv_dtype,
                                         device=self.device),
                        "v": torch.zeros(shape, dtype=self.kv_dtype,
                                         device=self.device)}
+        if self.kv_quantized:
+            for name in ("k_scale", "v_scale"):
+                self._cache[name] = torch.zeros(shape[:4],
+                                                dtype=torch.float32,
+                                                device=self.device)
+        # host store of demoted pages, one slot a page ([slot, L, Hkv, ps(,
+        # D)] per pool, so a page is one contiguous row); pinned on CUDA so
+        # the blocking tier copies are DMA
+        pin = self.device.type == "cuda"
+        self._host_store = {
+            name: torch.zeros((self.host_pages,) + tuple(a.shape[:2])
+                              + tuple(a.shape[3:]), dtype=a.dtype,
+                              pin_memory=pin)
+            for name, a in self._cache.items()} if self.host_pages else {}
+        self._tier_ms = {"demote": 0.0, "promote": 0.0}
 
         self._chunk_buckets = _buckets(min(8, self.prefill_chunk),
                                        self.prefill_chunk)
@@ -194,6 +248,8 @@ class ServingEngine:
         self._pack_fill_tokens = 0
         self._pack_frame_tokens = 0
         self._prefill_tokens = 0
+        self._prefix_admit_tokens = 0
+        self._prefix_matched_tokens = 0
         self._committed_tokens = 0
         self._decode_steps = 0
         self._http_lock = threading.Lock()
@@ -236,14 +292,21 @@ class ServingEngine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def _run_prefill(self, req: Request):
-        """Chunked prefill of one request's whole context."""
+        """Chunked prefill of one request's context from its first
+        unmatched token: adopted shared pages already hold the matched
+        prefix, and each chunk's attention gathers the whole context back
+        from the pages, shared ones included. A full match skips prefill;
+        the first decode step's rewrite of the last token (copied first if
+        its page is shared) keeps the stream exact."""
         ctx = req.context
         total = int(ctx.size)
         row = self._tensor(self.allocator.page_table_row(
             req.rid, self.pages_per_seq))[None]
         cap = self._ctx_cap()
-        off = 0
-        self._prefill_tokens += total
+        off = int(req.matched_tokens)
+        self._prefix_admit_tokens += total
+        self._prefix_matched_tokens += off
+        self._prefill_tokens += total - off
         while off < total:
             t = min(self.prefill_chunk, total - off)
             cpad = _bucket(t, self._chunk_buckets)
@@ -314,6 +377,7 @@ class ServingEngine:
         return cache
 
     def _run_prefill_packed(self, reqs):
+        self._prefix_admit_tokens += sum(int(r.context.size) for r in reqs)
         items = [(np.asarray(r.context, np.int32),
                   self.allocator.page_table_row(r.rid, self.pages_per_seq))
                  for r in reqs]
@@ -361,21 +425,83 @@ class ServingEngine:
         self._committed_tokens += len(active)
         self._decode_steps += 1
 
+    @torch.inference_mode()
+    def _apply_cow(self):
+        """Apply the scheduler's pending copy-on-write page copies on the
+        device, in every pool (codes and scales split together): src keeps
+        its sharers, dst is the writer's private copy."""
+        copies = self.scheduler.pending_cow
+        if not copies:
+            return
+        self.scheduler.pending_cow = []
+        src = self._tensor(np.array([c[0] for c in copies], np.int64))
+        dst = self._tensor(np.array([c[1] for c in copies], np.int64))
+        for a in self._cache.values():
+            a = raw_bytes(a)
+            a.index_copy_(2, dst, a.index_select(2, src))
+
+    @torch.inference_mode()
+    def _apply_tier_ops(self):
+        """Drain the allocator's queued tier copies: demotes first (a
+        reclaimed cold page's bytes move to the host store BEFORE anything
+        overwrites the device page), then promotes (a host page restores
+        into its fresh pool page). Both are blocking copies, so a demoted
+        page's bytes are on the host before the page can be reused."""
+        if not self.allocator.tier_enabled:
+            return
+        demotes, promotes = self.allocator.take_tier_ops()
+        t0 = time.perf_counter()
+        for page, slot in demotes:
+            for name, store in self._host_store.items():
+                raw_bytes(store[slot]).copy_(
+                    raw_bytes(self._cache[name][:, :, page]))
+        t1 = time.perf_counter()
+        for slot, page in promotes:
+            for name, store in self._host_store.items():
+                raw_bytes(self._cache[name][:, :, page]).copy_(
+                    raw_bytes(store[slot]))
+        if promotes and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._tier_ms["demote"] += (t1 - t0) * 1e3
+        self._tier_ms["promote"] += (time.perf_counter() - t1) * 1e3
+
     # ------------------------------------------------------------------
     # the serving loop
     # ------------------------------------------------------------------
     def _packable(self, req: Request) -> bool:
-        return self.prefill_pack and int(req.context.size) <= self.pack_frame
+        return (self.prefill_pack and req.matched_tokens == 0
+                and int(req.context.size) <= self.pack_frame)
+
+    def _pack_collides(self, head: Request, batch) -> bool:
+        """Would the waiting head prefix-match a collected but unflushed
+        batch member? Its pages register only at the flush, so the caller
+        flushes first to keep the adoption."""
+        if not self.prefix_sharing:
+            return False
+        ps = self.page_size
+        ctx = head.context
+        if int(ctx.size) < ps:
+            return False
+        h = np.asarray(ctx[:ps])
+        return any(int(r.context.size) >= ps
+                   and np.array_equal(np.asarray(r.context[:ps]), h)
+                   for r in batch)
 
     def _admit(self):
         """Drain the waiting queue into prefills: packable admissions
-        collect into a batch flushed as packed frames; everything else
-        flushes the batch first and runs the chunked path."""
+        (fresh full prompts that fit the pack frame) collect into a batch
+        flushed as packed frames; everything else (adopted-prefix tails,
+        prompts longer than the frame, a head that would prefix-match a
+        collected member) flushes the batch first and runs the chunked
+        path. A request's pages are registered before the next prefix
+        match runs, and queued tier copies land before any prefill
+        writes."""
         batch: list[Request] = []
 
         def flush():
             if not batch:
                 return
+            self._apply_tier_ops()
             for frame in self._plan_frames(batch, lambda r: r.context.size):
                 if len(frame) == 1:
                     # a frame of one gains nothing over the chunked path
@@ -383,14 +509,21 @@ class ServingEngine:
                 else:
                     self._run_prefill_packed(frame)
             for r in batch:
+                if self.prefix_sharing:
+                    self.allocator.register_prefix(r.rid, r.context)
                 self.scheduler.activate(r)
             batch.clear()
 
         while True:
             if len(self.scheduler.running) + len(batch) >= self.decode_batch:
                 break
-            if not self.scheduler.waiting:
+            head = (self.scheduler.waiting[0]
+                    if self.scheduler.waiting else None)
+            if head is None:
                 break
+            if batch and self._pack_collides(head, batch):
+                flush()
+                continue
             admitted = self.scheduler.admissions(limit=1)
             if not admitted:
                 break
@@ -399,7 +532,13 @@ class ServingEngine:
                 batch.append(req)
                 continue
             flush()
+            # tier copies queued by this admission's match (promotions) and
+            # allocation (demotions) land before the tail prefill writes
+            self._apply_tier_ops()
             self._run_prefill(req)
+            if self.prefix_sharing:
+                # the committed context becomes matchable once written
+                self.allocator.register_prefix(req.rid, req.context)
             self.scheduler.activate(req)
         flush()
 
@@ -409,11 +548,14 @@ class ServingEngine:
 
     def step(self) -> bool:
         """One scheduler iteration: admissions (+ their packed/chunked
-        prefills), chain growth/eviction, then ONE decode step. Returns
-        False when nothing is running."""
+        prefills and prefix registration), chain growth/eviction, tier and
+        copy-on-write copies, then ONE decode step. Returns False when
+        nothing is running."""
         with self._step_lock:
             self._admit()
             self.scheduler.grow()
+            self._apply_tier_ops()      # grow's reclaims demote first
+            self._apply_cow()
             running = list(self.scheduler.running)
             if not running:
                 if self.scheduler.waiting:
@@ -422,7 +564,9 @@ class ServingEngine:
                         f"serving deadlock: request {blocked.rid} "
                         f"({blocked.total_len + 1} tokens) cannot be "
                         f"admitted with {self.allocator.free_pages} free "
-                        f"pages and nothing left to evict")
+                        f"pages ({self.allocator.reclaimable_pages} "
+                        f"reclaimable incl. cold) and nothing left to "
+                        f"evict")
                 return False
             self._decode_once(running, self.scheduler.finish)
             return True
@@ -604,7 +748,23 @@ class ServingEngine:
             "free_pages": self.allocator.free_pages,
             "waiting_limit": self.max_waiting,
             "spec_k": self.spec_k,
-            "kv_cache_dtype": str(self.kv_dtype).replace("torch.", ""),
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "cow_copies": self.allocator.cow_copies,
+            "kv_cache_dtype": (self.kv_mode if self.kv_quantized
+                               else str(self.kv_dtype).replace("torch.", "")),
+            "kv_scale_bytes": self.kv_scale_bytes,
+            "kv_cold_pages": self.allocator.cold_pages,
+            "kv_host_pages": self.host_pages,
+            "kv_host_used": self.allocator.host_used,
+            "kv_demotions": self.allocator.demotions,
+            "kv_promotions": self.allocator.promotions,
+            "kv_cold_hits": self.allocator.cold_hits,
+            "kv_dropped_cold": self.allocator.dropped_cold,
+            "kv_promote_failures": self.allocator.promote_failures,
+            "kv_demote_ms_total": round(self._tier_ms["demote"], 3),
+            "kv_promote_ms_total": round(self._tier_ms["promote"], 3),
+            "prefix_matches": self.allocator.prefix_matches,
+            "prefix_tokens_matched": self.allocator.prefix_tokens_matched,
             "role": self.role,
             "device": str(self.device),
             "prefill_batch_fill": self.prefill_batch_fill,
@@ -614,6 +774,14 @@ class ServingEngine:
             "committed_tokens": self._committed_tokens,
             "decode_steps": self._decode_steps,
         }
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admission context tokens covered by adopted shared
+        prefix pages (prefill skipped for exactly these tokens)."""
+        return round(self._prefix_matched_tokens
+                     / self._prefix_admit_tokens, 4) \
+            if self._prefix_admit_tokens else 0.0
 
     @property
     def prefill_batch_fill(self) -> float:

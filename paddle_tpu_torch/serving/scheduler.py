@@ -1,14 +1,15 @@
 """Iteration-level (continuous-batching) scheduler
 (``paddle_tpu.serving.scheduler`` counterpart; observability spans and
-events, prefix adoption and the speculative write horizon wait for later
-slices).
+events and the speculative write horizon wait for later slices).
 
 Requests join and leave the decode batch BETWEEN decode steps:
 `admissions()` fills free decode slots from the waiting queue whenever the
-allocator can back the whole context plus one step, `grow()` extends page
-chains one decode step ahead, and page exhaustion triggers copy-free
-eviction of the youngest running request, which re-queues at the FRONT to
-be re-prefilled (prompt + tokens generated so far).
+allocator can back the whole context plus one step (with prefix sharing,
+adopting the longest indexed prefix first), `grow()` extends page chains
+one decode step ahead and makes the page the step writes private
+(copy-on-write), and page exhaustion triggers copy-free eviction of the
+youngest running request, which re-queues at the FRONT to be re-prefilled
+(prompt + tokens generated so far).
 """
 from __future__ import annotations
 
@@ -62,6 +63,9 @@ class Request:
     arrival_t: float = field(default_factory=time.perf_counter)
     token_times: list = field(default_factory=list)
     evictions: int = 0
+    # tokens of the context covered by prefix-shared pages adopted at the
+    # LAST admission: prefill starts here (0 = no match); reset on eviction
+    matched_tokens: int = 0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -87,13 +91,19 @@ class Request:
 
 class ContinuousBatchingScheduler:
     def __init__(self, allocator: PageAllocator, max_batch: int,
-                 max_seq_len: int, max_waiting: int = 0):
+                 max_seq_len: int, max_waiting: int = 0,
+                 prefix_sharing: bool = False):
         self.allocator = allocator
         self.max_batch = int(max_batch)
         self.max_seq_len = int(max_seq_len)
         # bound on NEW submissions only: eviction re-queues bypass it, so
         # a full queue can never deadlock an eviction. 0 = unbounded.
         self.max_waiting = int(max_waiting)
+        # admission adopts the longest indexed prefix of the context; a
+        # decode write into a shared page is copied first (pending_cow: the
+        # engine applies the device copies before its next decode step)
+        self.prefix_sharing = bool(prefix_sharing)
+        self.pending_cow: list[tuple[int, int]] = []
         self.waiting: list[Request] = []
         self.running: list[Request] = []        # admission order == age
         self._by_rid: dict[int, Request] = {}
@@ -130,16 +140,24 @@ class ContinuousBatchingScheduler:
 
     def admissions(self, limit: int = 0) -> list[Request]:
         """Pop waiting requests into free decode slots while the allocator
-        can back each FULL context plus one decode step; `limit` caps the
-        pops (0 = fill every slot). Admitted requests must be prefilled by
-        the engine before the next decode step."""
+        can back each FULL context plus one decode step; with prefix
+        sharing the longest indexed prefix of the context is adopted
+        (shared pages) instead of allocated, and the engine's prefill skips
+        it (`req.matched_tokens`). `limit` caps the pops (0 = fill every
+        slot). Admitted requests must be prefilled by the engine before the
+        next decode step."""
         admitted = []
         while (self.waiting and
                len(self.running) + len(admitted) < self.max_batch and
                (not limit or len(admitted) < limit)):
             req = self.waiting[0]
-            if not self.allocator.ensure(req.rid, req.total_len + 1):
+            adopt, matched = ([], 0)
+            if self.prefix_sharing:
+                adopt, matched = self.allocator.match_prefix(req.context)
+            if not self.allocator.ensure(req.rid, req.total_len + 1,
+                                         adopt=adopt or None):
                 break                       # exhausted: keep FIFO order
+            req.matched_tokens = matched
             self.waiting.pop(0)
             req.state = RequestState.RUNNING
             admitted.append(req)
@@ -150,23 +168,41 @@ class ContinuousBatchingScheduler:
 
     def grow(self) -> list[Request]:
         """Before a decode step every running request's chain must cover
-        its context + the token the step writes. On exhaustion evict the
+        its context + the token the step writes, and a SHARED page the
+        step writes must be made private first (copy-on-write; the device
+        copies accumulate in `pending_cow`). On exhaustion evict the
         YOUNGEST running request and retry (the requester itself can be
         the victim). Returns the evicted requests."""
         evicted = []
         for req in list(self.running):
-            while req in self.running and not self.allocator.ensure(
-                    req.rid, min(req.total_len, self.max_seq_len)):
+            while req in self.running and not self._grow_one(req):
                 victim = self.running[-1]
                 self._evict(victim)
                 evicted.append(victim)
         return evicted
 
+    def _grow_one(self, req: Request) -> bool:
+        """Chain coverage + writability for ONE request's next step; False
+        on pool exhaustion (nothing allocated: `ensure` and
+        `make_writable` are both all-or-nothing)."""
+        if not self.allocator.ensure(req.rid, req.total_len):
+            return False
+        copies = self.allocator.make_writable(req.rid, req.total_len - 1,
+                                              req.total_len - 1)
+        if copies is None:
+            return False
+        self.pending_cow.extend(copies)
+        return True
+
     def _evict(self, victim: Request):
+        """Copy-free: drop the chain (prefix sharers keep their refcounted
+        pages) and re-queue at the FRONT for re-prefill of prompt +
+        generated-so-far (minus whatever prefix still matches then)."""
         self.allocator.free_request(victim.rid)
         self.running.remove(victim)
         victim.state = RequestState.WAITING
         victim.evictions += 1
+        victim.matched_tokens = 0
         self.waiting.insert(0, victim)
 
     def finish(self, req: Request, state: RequestState = RequestState.FINISHED):

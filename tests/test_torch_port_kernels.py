@@ -23,9 +23,10 @@ from paddle_tpu.ops.pallas.paged_attention import \
     paged_attention_reference as jax_paged_reference
 from paddle_tpu_torch.ops import cuda as port_cuda
 from paddle_tpu_torch.ops.cuda.flash_attention import (
-    flash_attention_fwd, flash_attention_reference)
+    flash_attention_fwd, flash_attention_reference,
+    segment_block_visit_counts)
 from paddle_tpu_torch.ops.cuda.paged_attention import (
-    paged_attention, paged_attention_reference)
+    page_visit_counts, paged_attention, paged_attention_reference)
 
 TOL = 1e-5
 
@@ -131,10 +132,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         rng, 2, 1, 4, 2, 16, 4, 5, [3, 7]))
     assert torch.equal(paged_attention(qp, kp, vp, pt, lens),
                        paged_attention_reference(qp, kp, vp, pt, lens))
+    assert page_visit_counts(lens, 4, 5).tolist() == [1, 2]
+    assert segment_block_visit_counts(
+        torch.zeros(1, 64, dtype=torch.int32)).tolist() == [[2]]
     assert port_cuda.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "paged_decode": 0, "ce_stats": 0, "gmm_fwd": 0, "gmm_dw": 0,
-        "gmm_visit": 0}
+        "flash_visit": 0, "paged_decode": 0, "paged_decode_int8": 0,
+        "paged_decode_fp8": 0, "paged_visit": 0, "ce_stats": 0,
+        "gmm_fwd": 0, "gmm_dw": 0, "gmm_visit": 0}
 
 
 def test_shape_errors_raise():

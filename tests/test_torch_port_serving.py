@@ -52,7 +52,8 @@ def test_greedy_streams_and_page_tables_equal_jax_engine(models):
     jm, tm = models
     jeng = JaxServingEngine(jm, JaxServingConfig(
         prefix_sharing=False, spec_k=0, **ENGINE))
-    teng = ServingEngine(tm, ServingConfig(**ENGINE), device="cpu")
+    teng = ServingEngine(tm, ServingConfig(prefix_sharing=False, **ENGINE),
+                         device="cpu")
     prompts = _prompts()
     jr = [jeng.submit(p, max_new_tokens=6) for p in prompts]
     tr = [teng.submit(p, max_new_tokens=6) for p in prompts]
@@ -138,11 +139,12 @@ def test_allocator_all_or_nothing_and_scheduler_limits():
 
 def test_unported_options_raise(models):
     _, tm = models
-    for kw in (dict(spec_k=2), dict(prefix_sharing=True),
-               dict(kv_cache_dtype="int8"), dict(host_cache_mb=4),
-               dict(role="decode")):
+    for kw in (dict(spec_k=2), dict(role="decode")):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServingEngine(tm, ServingConfig(**ENGINE, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServingEngine(tm, ServingConfig(**ENGINE), adapter_store=object(),
+                      device="cpu")
 
 
 def test_cuda_requested_without_cuda_raises(models, monkeypatch):
