@@ -1,7 +1,11 @@
 """Flag registry of the port (``paddle_tpu.core.flags`` counterpart).
 
-Same names, types and defaults as the JAX package for the flags this slice
-reads; ``FLAGS_<name>`` in the environment overrides a default.
+Same names, types and defaults as the JAX package for the flags the port
+reads; ``FLAGS_<name>`` in the environment overrides a default. A flag set
+by that variable or by ``set_flags`` counts as explicitly set
+(``flag_explicit``), which is how the tuning resolver tells an override of
+a flag whose default is a real value (``serving_page_size``) from the
+default.
 """
 from __future__ import annotations
 
@@ -10,7 +14,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any
 
-__all__ = ["define_flag", "flag", "set_flags"]
+__all__ = ["define_flag", "flag", "flag_explicit", "set_flags"]
 
 _lock = threading.Lock()
 
@@ -22,6 +26,7 @@ class _Flag:
     default: Any
     help: str
     value: Any
+    explicit: bool = False
 
 
 _REGISTRY: dict[str, _Flag] = {}
@@ -45,7 +50,7 @@ def define_flag(name: str, default: Any, help: str = "",
             return _REGISTRY[name]
         env = os.environ.get(f"FLAGS_{name}")
         value = default if env is None else _coerce(typ, env)
-        f = _Flag(name, typ, default, help, value)
+        f = _Flag(name, typ, default, help, value, env is not None)
         _REGISTRY[name] = f
         return f
 
@@ -64,6 +69,13 @@ def set_flags(flags: dict) -> None:
                 raise KeyError(f"unknown flag: {key}")
             f = _REGISTRY[name]
             f.value = _coerce(f.type, val)
+            f.explicit = True
+
+
+def flag_explicit(name: str) -> bool:
+    """True when the flag was set by the user (``FLAGS_<name>`` at
+    definition or a ``set_flags`` call), not left at its default."""
+    return _REGISTRY[name].explicit
 
 
 define_flag("serving_page_size", 16,
@@ -126,7 +138,7 @@ define_flag("use_fused_head_loss", True,
             "restores the unfused logits + cross_entropy path")
 define_flag("fused_ce_chunk_tokens", 0,
             "fused-CE token chunk of the backward's recomputed logits tiles "
-            "(0 = auto, ~4M-element tiles)", type=int)
+            "(0 = auto: tuning cache, then ~4M-element tiles)", type=int)
 define_flag("moe_dispatch", "capacity",
             "default MoELayer dispatch mode, consulted when the layer is "
             "constructed with dispatch=None: 'capacity' (fixed [E, C, d] "
@@ -138,5 +150,20 @@ define_flag("moe_dispatch", "capacity",
 # bf16, 64 fp32) and exact for any layout, whatever this value is.
 define_flag("moe_block_rows", 0,
             "row alignment of the dropless MoE dispatch's expert buckets "
-            "(0 = auto: 128, stepping down for small problems); also the "
+            "(0 = auto: tuning cache, then 128, stepping down for small "
+            "problems); also the "
             "grouped matmul's row-count granularity", type=int)
+define_flag("rmsnorm_block_rows", 0,
+            "RMSNorm kernel row-block override (0 = auto: tuning cache, "
+            "then the smallest block that keeps the grid within 1024 "
+            "blocks, clamped to the row count)", type=int)
+define_flag("autotune", "off",
+            "block-size tuning mode of the shared kernel resolver "
+            "(tuning.blocks.resolve_blocks): 'off' = flags and heuristics "
+            "only, 'load' = consult the JSON tuning cache under "
+            "FLAGS_tuning_cache_dir and fall back to the heuristic on a "
+            "miss, 'search' = on a miss also time the legal block lattice "
+            "on the card now, persist the winner, and use it")
+define_flag("tuning_cache_dir", "",
+            "directory of the JSON block-shape tuning cache read by "
+            "FLAGS_autotune=load|search; empty disables the cache tier")

@@ -156,7 +156,7 @@ def _dropless_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k, act,
         raise NotImplementedError(EP_NOT_PORTED)
     n, d = xv.shape
     topv, topi, probs = _route(gv.float(), generator, k=k, routing=routing)
-    bm = pick_block_rows(n * k, E)
+    bm = pick_block_rows(n * k, E, xv.device)
     flat_e = topi.reshape(-1)                                    # [Nk]
     routed = flat_e >= 0
     # -1 (GShard random-routing drop) -> the trash group E: those copies
@@ -197,7 +197,7 @@ def _expert_choice_moe(xv, gv, generator, w1, b1, w2, b2, *shared, E, k,
     n, d = xv.shape
     probs = torch.softmax(gv.float(), dim=-1)                    # [N, E]
     c0 = max(1, (k * n + E - 1) // E)
-    bm = pick_block_rows(E * _round_up(c0, 8), E)
+    bm = pick_block_rows(E * _round_up(c0, 8), E, xv.device)
     bm = min(bm, max(8, n))
     c = min(_round_up(c0, bm), (n // bm) * bm) or n
     if c % bm:

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as _tF
 
-from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.ops.cuda.flash_attention import (FlashAttention,
                                                        flash_attention_fwd)
 from paddle_tpu_torch.ops.cuda.fused_ce import FusedLinearCrossEntropy
@@ -158,7 +157,8 @@ def fused_linear_cross_entropy(x, weight, label, bias=None, ignore_index=-100,
     PyTorch layout); label: integer [...]. The statistics run the
     hand-written ``ce_stats`` kernel on CUDA tensors (its plain version on
     CPU ones); ``reduction="mean"`` averages over the non-ignored tokens.
-    ``chunk_tokens`` (0 = the ``fused_ce_chunk_tokens`` flag, then
+    ``chunk_tokens`` (0 = resolved through the tuning resolver: the
+    ``fused_ce_chunk_tokens`` flag, the tuning cache, then
     ``resolve_chunks``) sets the backward's token chunk. The JAX package's
     vocab-chunked and mp-sharded variants, fp8 and ``bias`` are not on the
     single-card LLaMA path and not ported."""
@@ -166,7 +166,6 @@ def fused_linear_cross_entropy(x, weight, label, bias=None, ignore_index=-100,
         raise NotImplementedError("a bias on the fused head loss is not "
                                   "ported yet")
     _check_labels(label)
-    chunk_tokens = chunk_tokens or flag("fused_ce_chunk_tokens")
     flat = x.reshape(-1, x.shape[-1])
     labf = label.reshape(-1)
     nll = FusedLinearCrossEntropy.apply(flat, weight, labf, ignore_index,

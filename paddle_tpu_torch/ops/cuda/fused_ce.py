@@ -35,8 +35,8 @@ import ctypes
 import torch
 
 __all__ = ["ce_stats", "ce_stats_reference", "resolve_chunks",
-           "FusedLinearCrossEntropy", "LAUNCHES", "reset_launches",
-           "launch_counts"]
+           "pick_chunk_tokens", "FusedLinearCrossEntropy", "LAUNCHES",
+           "reset_launches", "launch_counts"]
 
 _BV = 128                  # vocab columns per kernel tile (csrc/fused_ce.cu)
 _BR = 64                   # tokens per kernel block
@@ -65,6 +65,22 @@ def resolve_chunks(n_tokens: int, vocab: int, chunk_tokens: int = 0,
     cv = chunk_vocab if chunk_vocab > 0 else max(
         128, min(vocab, target // max(n_tokens, 1)))
     return min(ct, max(n_tokens, 1)), min(cv, max(vocab, 1))
+
+
+def pick_chunk_tokens(n_tokens: int, vocab: int, chunk_tokens: int = 0,
+                      device=None) -> int:
+    """The backward's token chunk: `chunk_tokens` when positive, else
+    through the shared resolver with geometry ``{n_tokens, vocab}``
+    (FLAGS_fused_ce_chunk_tokens > tuning-cache entry > ``resolve_chunks``;
+    ``fused_ce.py:549-562``), clamped to the token count."""
+    if chunk_tokens > 0:
+        return resolve_chunks(n_tokens, vocab, chunk_tokens)[0]
+    from paddle_tpu_torch.tuning.blocks import resolve_blocks
+
+    res = resolve_blocks(
+        "fused_ce", {"n_tokens": int(n_tokens), "vocab": int(vocab)},
+        default=lambda g: resolve_chunks(n_tokens, vocab), device=device)
+    return min(int(res.values["chunk_tokens"]), max(int(n_tokens), 1))
 
 
 def _check(x, w, labels):
@@ -173,12 +189,15 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
     logits: x [N, H], W [V, H], labels [N] int; ignored tokens give 0.
     ``label_smoothing`` mixes in the uniform target, ``z_loss`` adds
     ``z·lse²``; both reach value and gradient, as in ``_fwd_impl`` /
-    ``_bwd_tokens``. ``chunk_tokens`` (0 = ``resolve_chunks``) sets the
-    backward's token chunk."""
+    ``_bwd_tokens``. ``chunk_tokens`` (0 = ``pick_chunk_tokens``) sets the
+    backward's token chunk; it resolves here in the forward, on the
+    caller's thread, and the backward reuses it."""
 
     @staticmethod
     def forward(ctx, x, w, labels, ignore_index=-100, label_smoothing=0.0,
                 z_loss=0.0, chunk_tokens=0):
+        n, v, _ = _check(x, w, labels)
+        chunk = pick_chunk_tokens(n, v, chunk_tokens, x.device)
         m, s, t, sl = ce_stats(x, w, labels)
         lse = m + torch.log(s)
         eps = float(label_smoothing)
@@ -189,20 +208,19 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
         if z_loss:
             nll = nll + z_loss * lse * lse
         ctx.save_for_backward(x, w, labels, lse)
-        ctx.cfg = (int(ignore_index), eps, float(z_loss), int(chunk_tokens))
+        ctx.cfg = (int(ignore_index), eps, float(z_loss), chunk)
         return torch.where(labels != ignore_index, nll, 0.0)
 
     @staticmethod
     def backward(ctx, ct):
         x, w, labels, lse = ctx.saved_tensors
-        ignore_index, eps, z_loss, chunk_tokens = ctx.cfg
+        ignore_index, eps, z_loss, c = ctx.cfg
         n, v = x.shape[0], w.shape[0]
         ctv = torch.where(labels != ignore_index, ct.float(), 0.0)
         coef = ctv * (1.0 + 2.0 * z_loss * lse) if z_loss else ctv
         lab = labels.long()
         hit = ((lab >= 0) & (lab < v)).float()
         safe = lab.clamp(0, v - 1)
-        c = resolve_chunks(n, v, chunk_tokens)[0]
         wf = w.float()
         dx = torch.empty((n, x.shape[1]), dtype=torch.float32,
                          device=x.device)

@@ -45,8 +45,6 @@ import ctypes
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.flags import flag
-
 __all__ = ["grouped_matmul", "GroupedMatmul", "grouped_matmul_reference",
            "grouped_matmul_dw_reference", "grouped_matmul_visit_counts",
            "grouped_matmul_visit_reference", "expected_visit_counts",
@@ -74,16 +72,18 @@ def _heuristic_block_rows(n_rows: int, num_groups: int) -> int:
     return 8
 
 
-def pick_block_rows(n_rows: int, num_groups: int) -> int:
-    """Row alignment of the expert buckets: the ``moe_block_rows`` flag
-    when positive, else 128 when buckets are large enough that per-group
-    padding stays small, stepping down to 32 and 8 for small problems
-    (``grouped_matmul.py:60``). The JAX package's tuning cache comes with
-    ROADMAP A10."""
-    override = int(flag("moe_block_rows"))
-    if override > 0:
-        return override
-    return _heuristic_block_rows(n_rows, num_groups)
+def pick_block_rows(n_rows: int, num_groups: int, device=None) -> int:
+    """Row alignment of the expert buckets, through the shared resolver
+    (``grouped_matmul.py:67``): FLAGS_moe_block_rows override > tuning-cache
+    entry > 128 when buckets are large enough that per-group padding stays
+    small, stepping down to 32 and 8 for small problems."""
+    from paddle_tpu_torch.tuning.blocks import resolve_blocks
+
+    res = resolve_blocks(
+        "grouped_matmul", {"n_rows": n_rows, "num_groups": num_groups},
+        default=lambda g: (_heuristic_block_rows(n_rows, num_groups),),
+        device=device)
+    return res.values["block_rows"]
 
 
 # ---------------------------------------------------------------------------
@@ -311,14 +311,18 @@ def grouped_matmul(x, w, gids, *, block_rows: int | None = None):
     num_groups = w.shape[0]
     if tuple(gids.shape) != (m,):
         raise ValueError(f"gids shape {tuple(gids.shape)} != ({m},)")
-    bm = block_rows or pick_block_rows(m, num_groups)
+    bm = block_rows or pick_block_rows(m, num_groups, x.device)
     if m % bm:
         if block_rows is not None:
             src = f"block_rows={block_rows} (caller-supplied)"
-        elif int(flag("moe_block_rows")) > 0:
-            src = f"block_rows={bm} (FLAGS_moe_block_rows override)"
         else:
-            src = f"block_rows={bm} (auto-picked)"
+            from paddle_tpu_torch.tuning.blocks import last_resolution
+
+            prov = last_resolution("grouped_matmul").provenance
+            detail = {"flag": "FLAGS_moe_block_rows override",
+                      "tuned": "tuning-cache entry",
+                      "default": "auto-picked"}.get(prov, prov)
+            src = f"block_rows={bm} ({detail})"
         raise ValueError(
             f"grouped_matmul: rows {m} not a multiple of {src}; pad the "
             f"row count to a multiple of the block, or set "

@@ -152,6 +152,21 @@ class ServingEngine:
                 f"serving_max_seq_len={self.max_seq_len} exceeds the hoisted "
                 f"RoPE table (rope_max_position={rope_limit}); raise "
                 f"LlamaConfig.rope_max_position to serve longer contexts")
+        if cfg.page_size == 0:
+            # the page size is the paged kernel's K-block granularity, so
+            # it resolves through the shared helper like every kernel block
+            # knob: explicit FLAGS_serving_page_size > tuned entry > the
+            # flag's default (engine.py:294-308 of the JAX package)
+            from paddle_tpu_torch.tuning.blocks import resolve_blocks
+
+            heur = self.page_size
+            res = resolve_blocks(
+                "paged_attention",
+                {"num_kv_heads": self.num_kv_heads,
+                 "head_dim": self.head_dim,
+                 "max_seq_len": self.max_seq_len},
+                default=lambda g: (heur,), device=self.device)
+            self.page_size = int(res.values["page_size"])
         self.pages_per_seq = -(-self.max_seq_len // self.page_size)
 
         self.prefix_sharing = bool(flag("serving_prefix_sharing")
