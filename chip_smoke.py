@@ -18,7 +18,12 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     TB/s or flops over the peak of the input type, whichever is larger).
     The flash backward's dq, dk and dv (fp32 outputs of bf16 or fp32
     inputs) are held per row the same way against
-    ``flash_attention_bwd_reference`` on the same (q, k, v, out, lse, dO);
+    ``flash_attention_bwd_reference`` on the same (q, k, v, out, lse, dO),
+    causal at S 4096, GQA, packed (GQA and head_dim 64 too), fp32 and a
+    ragged S of 1000 (causal and not); the bf16 kernels (tensor cores)
+    round P and dS to bf16 for their second products, the plain version
+    keeps fp32, and the rule stays as above; each kernel's TFLOP/s and
+    share of its bound are printed beside the library's backward;
     the CE statistics kernel's m, lse = m + log s and target logit t within
     1e-3 of ``ce_stats_reference`` (fp32 math on the same inputs; the sums
     run over H = 4096 products in another order) and the logit sum sl
@@ -553,6 +558,10 @@ def flash_bwd_cases(gen):
     seg = torch.zeros((1, 2048), dtype=torch.int32)
     for j, start in enumerate((300, 1000, 1700)):   # 4 packed documents
         seg[0, start:] = j + 1
+    seg2 = torch.zeros((2, 2048), dtype=torch.int32)  # 3 documents a row,
+    for row, starts in enumerate(((517, 1311), (64, 1900))):  # off the tiles
+        for j, start in enumerate(starts):
+            seg2[row, start:] = j + 1
     return [
         ("causal_s4096", dict(s=4096, hq=32, hkv=32, dtype=bf)),
         ("gqa_s2048", dict(s=2048, hq=32, hkv=8, dtype=bf)),
@@ -562,10 +571,17 @@ def flash_bwd_cases(gen):
                                   dtype=torch.float32)),
         ("causal_s2048_d64_b4", dict(s=2048, hq=16, hkv=16, dtype=bf, d=64,
                                      b=4)),
+        # the 64-row tiles' ragged edge: the last q and K tile hold 40 rows
+        ("causal_s1000_ragged", dict(s=1000, hq=32, hkv=32, dtype=bf)),
+        ("noncausal_s1000_ragged", dict(s=1000, hq=32, hkv=32, dtype=bf,
+                                        causal=False)),
+        ("packed_gqa_s2048_d64_b2", dict(s=2048, hq=16, hkv=4, dtype=bf,
+                                         d=64, b=2, seg=seg2.cuda())),
     ]
 
 
-def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1):
+def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
+                       causal=True):
     import torch
     import torch.nn.functional as tF
 
@@ -575,32 +591,33 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1):
     k = _rand(gen, (b, s, hkv, d), dtype)
     v = _rand(gen, (b, s, hkv, d), dtype)
     do = _rand(gen, (b, s, hq, d), dtype)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
-    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      segment_ids=seg)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                    segment_ids=seg)
     torch.cuda.synchronize()
     refs = fa.flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), out.float(), lse, do.float(),
-        causal=True, segment_ids=seg)
+        causal=causal, segment_ids=seg)
     dname = str(dtype).replace("torch.", "")
     cmp = {n: _compare(g, r, dname) for n, g, r in zip(("dq", "dk", "dv"),
                                                        grads, refs)}
     del grads, refs
     torch.cuda.empty_cache()
     call = lambda: fa.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, lse, do, causal=True, segment_ids=seg)
+        q, k, v, out, lse, do, causal=causal, segment_ids=seg)
     ms = _cuda_ms(call)
     split = _device_ms_by_kernel(call)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, causal=True, segment_ids=seg), reps=3,
+        q, k, v, out, lse, do, causal=causal, segment_ids=seg), reps=3,
         warmup=1)
     torch.cuda.empty_cache()
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
     if seg is None:
-        kw = dict(is_causal=True)
-        pairs = s * (s + 1) // 2
+        kw = dict(is_causal=causal)
+        pairs = s * (s + 1) // 2 if causal else s * s
     else:
         mask = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones(
             s, s, dtype=torch.bool, device=q.device).tril()
@@ -631,13 +648,14 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1):
         bound_ms, bound_by = _bound(nbytes, flops, dname)
         kms = _kernel_ms(split, f"flash_bwd_{name}_kernel")
         kplain_ms = _cuda_ms(lambda: plain(  # noqa: B023
-            q, k, v, out, lse, do, causal=True, segment_ids=seg), reps=3,
+            q, k, v, out, lse, do, causal=causal, segment_ids=seg), reps=3,
             warmup=1)
         torch.cuda.empty_cache()
         errs = [cmp["dq"]] if name == "dq" else [cmp["dk"], cmp["dv"]]
         rows[name] = dict(
             ms=kms, plain_ms=kplain_ms, library_ms=None, bound_ms=bound_ms,
-            bound_by=bound_by, flops=flops, tflops=flops / kms / 1e9,
+            bound_by=bound_by, bound_share=bound_ms / kms, flops=flops,
+            tflops=flops / kms / 1e9,
             max_abs_err=max(c["max_abs_err"] for c in errs),
             max_rel_err=max(c["max_rel_err"] for c in errs))
     ok = all(c["ok"] for c in cmp.values())
@@ -1002,8 +1020,8 @@ def phase_kernels(seed, report):
         errs = " ".join(f"{n} {c['max_abs_err']:.3g}/{c['max_rel_err']:.3g}"
                         for n, c in r["cmp"].items())
         kern = " ".join(f"{n} {k['ms']:.3f} ms ({k['tflops']:.2f} TFLOP/s, "
-                        f"plain {k['plain_ms']:.3f}, bound "
-                        f"{k['bound_ms']:.4f})"
+                        f"{k['bound_share']:.1%} of bound "
+                        f"{k['bound_ms']:.4f}, plain {k['plain_ms']:.3f})"
                         for n, k in r["kernels"].items())
         print(f"flash_bwd {label}: abs/row-rel err {errs} (tol {r['tol']}, "
               f"rtol {r['rtol']:.3g}) ms {r['ms']:.3f} [{kern}] plain_ms "
@@ -2663,7 +2681,8 @@ def main(argv=None) -> int:
     print(f"kernel build: {build_s:.1f} s {json.dumps(built)}", flush=True)
     report = {"gpu": smi_line, "build_s": build_s, "built": built,
               "ptxas": {n: [ln for ln in _build.build_log(n).splitlines()
-                            if "registers" in ln or "spill" in ln]
+                            if "registers" in ln or "spill" in ln
+                            or "Function properties" in ln]
                         for n in _build.kernel_names()},
               "failed": []}
     phases = [("kernels", lambda: phase_kernels(args.seed, report)),

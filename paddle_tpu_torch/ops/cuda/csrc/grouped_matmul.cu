@@ -44,39 +44,6 @@ constexpr int kMBK = 32;            // depth of a staged slice
 constexpr int kMALd = kMBK + 8;     // padded shared rows, in bf16
 constexpr int kMBLd = kMBN + 8;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 // Group ids of a block's `rows` rows into sg (rows past M count as trash,
 // G), and their min and max over the block. Every thread calls it.
 __device__ __forceinline__ void tile_gid_range(const int* __restrict__ gids,
@@ -143,24 +110,24 @@ gmm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       for (int i = 0; i < 2; ++i) {
         const int e = tid + i * kThreads, r = e >> 2, c = (e & 3) * 8;
         const bool hit = sg[r] == g;
-        cp_async16(&as[stage][r][c],
-                   x + (long long)(hit ? m0 + r : 0) * D + k0 + c,
-                   hit ? 16 : 0);
+        ptt::cp_async16(&as[stage][r][c],
+                        x + (long long)(hit ? m0 + r : 0) * D + k0 + c,
+                        hit ? 16 : 0);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int e = tid + i * kThreads, r = e >> 4, c = (e & 15) * 8;
         const bool in = n0 + c < N;
-        cp_async16(&bs[stage][r][c],
-                   wg + (long long)(k0 + r) * N + (in ? n0 + c : 0),
-                   in ? 16 : 0);
+        ptt::cp_async16(&bs[stage][r][c],
+                        wg + (long long)(k0 + r) * N + (in ? n0 + c : 0),
+                        in ? 16 : 0);
       }
-      cp_async_commit();
+      ptt::cp_async_commit();
     };
     __syncthreads();  // the previous group's readers of both stages are done
     issue(0, 0);
     for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait_all();
+      ptt::cp_async_wait_all();
       __syncthreads();  // slice kt landed; slice kt - 1's readers are done
       if (kt + 1 < nk) issue((kt + 1) & 1, (kt + 1) * kMBK);  // overlaps
       const int st = kt & 1;
@@ -169,13 +136,14 @@ gmm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
         uint32_t a[2][4], b[8][2];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4(a[mt], &as[st][wm * 32 + mt * 16 + (lane & 15)]
-                                [kk + (lane >> 4) * 8]);
+          ptt::ldmatrix_x4(a[mt], &as[st][wm * 32 + mt * 16 + (lane & 15)]
+                                     [kk + (lane >> 4) * 8]);
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t r[4];
-          ldmatrix_x4_trans(r, &bs[st][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
-                                  [wn * 64 + np * 16 + (lane >> 4) * 8]);
+          ptt::ldmatrix_x4_trans(
+              r, &bs[st][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
+                        [wn * 64 + np * 16 + (lane >> 4) * 8]);
           b[2 * np][0] = r[0];
           b[2 * np][1] = r[1];
           b[2 * np + 1][0] = r[2];

@@ -13,18 +13,21 @@ with ``flash_visit_kernel`` in ``csrc/flash_fwd.cu``.
 What bounds them on the H100: at prefill and training lengths attention
 does about 4·S·D flops per byte it reads (the backward 2.5 times the
 forward's work, plus the recompute of the scores), so it is bound by
-operations. The kernels do their math in fp32 on the CUDA cores (67 TFLOP/s),
-not on the tensor cores (989 TFLOP/s bf16), so they run far from the bound;
-that is the price of simple first kernels (``mma.sync``/``wgmma`` and TMA
-are later work). What the design does about the operation count: the
-causal loops stop at the diagonal tile, and a packed frame skips every tile
-pair whose segment ranges cannot touch (``ptt::blocks_can_touch``, the same
-predicate in all three kernels), so a packed frame costs O(sum of len_i^2),
-not O(frame^2). The forward stages a 64x128 q tile once and reads each
-32-key K/V tile once per q tile; the backward follows the JAX split, which
-needs no atomics: the dq kernel owns a q tile and walks K tiles, the dkv
-kernel owns a K tile and walks the q tiles of every query head of its GQA
-group.
+operations. The forward does its math in fp32 on the CUDA cores (67
+TFLOP/s), far from the bound (tensor cores are later work). The backward
+runs bf16 inputs on the tensor cores (``mma.sync`` m16n8k16, operands
+through a two-stage ``cp.async`` ring and ``ldmatrix``; P and dS rounded
+to bf16 for the second products, as the library's backward does) and fp32
+inputs on the CUDA cores, where the tensor cores would round to tf32.
+What the design does about the operation count: the causal loops stop at
+the diagonal tile, and a packed frame skips every tile pair whose segment
+ranges cannot touch (``ptt::blocks_can_touch``, the same predicate in all
+three kernels), so a packed frame costs O(sum of len_i^2), not
+O(frame^2). The forward stages a 64x128 q tile once and reads each 32-key
+K/V tile once per q tile; the backward follows the JAX split, which needs
+no atomics: the dq kernel owns a q tile and walks K tiles, the dkv kernel
+owns a K tile and walks the q tiles of every query head of its GQA group.
+The plain versions keep fp32 throughout.
 
 On a CUDA tensor ``flash_attention_fwd`` / ``flash_attention_bwd`` /
 ``segment_block_visit_counts`` launch the kernels or raise; on a CPU tensor
@@ -290,6 +293,10 @@ def _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids):
     # the kernels read [B, S, H, D] rows with a contiguous head_dim; the
     # training path hands them contiguous tensors, so these are no-ops there
     q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned base: the "
+                             f"kernels copy 16-byte pieces")
     lse = lse.float().contiguous()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     seg_ptr = None
