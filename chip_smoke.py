@@ -16,6 +16,11 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     max |err| <= 1e-2 (bf16) or 1e-4 (fp32); then median ms, the plain
     version's and the library call's ms, and the bound (bytes over 3.35
     TB/s or flops over the peak of the input type, whichever is larger).
+    The flash forward runs causal and non-causal, ragged, GQA and packed
+    (GQA and head_dim 64 too) cases besides the serving shapes: bf16 on
+    the tensor cores (P rounded to bf16 for P . V), fp32 on the CUDA
+    cores; its device ms (profiler), TFLOP/s and share of its bound are
+    printed beside the library's forward (SDPA).
     The flash backward's dq, dk and dv (fp32 outputs of bf16 or fp32
     inputs) are held per row the same way against
     ``flash_attention_bwd_reference`` on the same (q, k, v, out, lse, dO),
@@ -199,7 +204,7 @@ def _rand(gen, shape, dtype, device="cuda"):
 
 
 def flash_cases(gen):
-    """(label, kwargs) at the serving path's shapes."""
+    """(label, kwargs) at the serving and training paths' shapes."""
     import torch
 
     bf = torch.bfloat16
@@ -229,7 +234,27 @@ def flash_cases(gen):
         # GPT-MoE attention: batch 4, 16 heads of 64
         ("causal_s2048_d64_b4", dict(s=2048, hq=16, hkv=16, dtype=bf, d=64,
                                      b=4)),
+        # the bf16 kernel's tiles at their edges (64 x 64 at head_dim 128,
+        # 128 x 64 at 64): a ragged last q and K tile of 40 rows, every K
+        # tile of every q tile, and packed GQA rows of head_dim 64
+        ("causal_s1000_ragged", dict(s=1000, hq=32, hkv=32, dtype=bf)),
+        ("noncausal_s1024", dict(s=1024, hq=32, hkv=32, dtype=bf,
+                                 causal=False)),
+        ("packed_gqa_s2048_d64_b2", dict(s=2048, hq=16, hkv=4, dtype=bf,
+                                         d=64, b=2, seg=_packed_rows())),
     ]
+
+
+def _packed_rows():
+    """[2, 2048] segment ids on the card: 3 documents a row, their
+    boundaries off every tile."""
+    import torch
+
+    seg = torch.zeros((2, 2048), dtype=torch.int32)
+    for row, starts in enumerate(((517, 1311), (64, 1900))):
+        for j, start in enumerate(starts):
+            seg[row, start:] = j + 1
+    return seg.cuda()
 
 
 def _chunk_prefill_qkv(gen, s, hq, hkv, d, dtype, chunk, ps=16):
@@ -253,7 +278,8 @@ def _chunk_prefill_qkv(gen, s, hq, hkv, d, dtype, chunk, ps=16):
     return q, k, v
 
 
-def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1):
+def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1,
+                   causal=True):
     import torch
     import torch.nn.functional as tF
 
@@ -268,24 +294,28 @@ def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1):
         if k.is_contiguous():
             raise AssertionError("the chunked-prefill case lost its "
                                  "strided k/v views")
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      segment_ids=seg)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(),
-                                                v.float(), causal=True,
+                                                v.float(), causal=causal,
                                                 segment_ids=seg)
     dname = str(dtype).replace("torch.", "")
     cmp = _compare(out, ref, dname)
     lse_err = (lse - ref_lse).abs().max().item()
     del ref, ref_lse
-    ms = _cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True,
-                                                 segment_ids=seg))
+    call = lambda: fa.flash_attention_fwd(q, k, v,  # noqa: E731
+                                          causal=causal, segment_ids=seg)
+    # the kernel's device time; call_ms adds the wrapper's host work
+    ms = _kernel_ms(_device_ms_by_kernel(call), "flash_fwd_kernel")
+    call_ms = _cuda_ms(call)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(
-        q, k, v, causal=True, segment_ids=seg), reps=5)
+        q, k, v, causal=causal, segment_ids=seg), reps=5)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if seg is None:
         lib = lambda: tF.scaled_dot_product_attention(  # noqa: E731
-            qh, kh, vh, is_causal=True, enable_gqa=True)
-        pairs = s * (s + 1) // 2
+            qh, kh, vh, is_causal=causal, enable_gqa=True)
+        pairs = b * (s * (s + 1) // 2 if causal else s * s)
     else:
         mask = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones(
             s, s, dtype=torch.bool, device=q.device).tril()
@@ -296,10 +326,11 @@ def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1):
     item = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * item \
         + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
-    flops = 4 * d * hq * pairs * b
+    flops = 4 * d * hq * pairs
     bound_ms, bound_by = _bound(nbytes, flops, dname)
-    return dict(cmp, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+    return dict(cmp, lse_err=lse_err, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms,
                 tflops=flops / ms / 1e9, ok=cmp["ok"] and lse_err <= 1e-3)
 
 
@@ -517,7 +548,11 @@ def run_page_visit_case(lens, ps=16, pages_per_seq=256):
 
 
 def _device_ms_by_kernel(fn, reps=5):
-    """{kernel name: device ms per call of `fn`} from torch.profiler."""
+    """{kernel name: device ms per call of `fn`} over `reps` calls, from
+    torch.profiler: a kernel's mean over the launches the profiler
+    recorded, times its launches a call. The profiler can drop a launch's
+    event late in a long process, so the recorded launches are counted,
+    and the launches a call are their count over `reps`, rounded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -528,7 +563,8 @@ def _device_ms_by_kernel(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            * max(1, round(e.count / reps))
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0}
@@ -558,10 +594,6 @@ def flash_bwd_cases(gen):
     seg = torch.zeros((1, 2048), dtype=torch.int32)
     for j, start in enumerate((300, 1000, 1700)):   # 4 packed documents
         seg[0, start:] = j + 1
-    seg2 = torch.zeros((2, 2048), dtype=torch.int32)  # 3 documents a row,
-    for row, starts in enumerate(((517, 1311), (64, 1900))):  # off the tiles
-        for j, start in enumerate(starts):
-            seg2[row, start:] = j + 1
     return [
         ("causal_s4096", dict(s=4096, hq=32, hkv=32, dtype=bf)),
         ("gqa_s2048", dict(s=2048, hq=32, hkv=8, dtype=bf)),
@@ -576,7 +608,7 @@ def flash_bwd_cases(gen):
         ("noncausal_s1000_ragged", dict(s=1000, hq=32, hkv=32, dtype=bf,
                                         causal=False)),
         ("packed_gqa_s2048_d64_b2", dict(s=2048, hq=16, hkv=4, dtype=bf,
-                                         d=64, b=2, seg=seg2.cuda())),
+                                         d=64, b=2, seg=_packed_rows())),
     ]
 
 
@@ -617,7 +649,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
     doh = do.transpose(1, 2).contiguous()
     if seg is None:
         kw = dict(is_causal=causal)
-        pairs = s * (s + 1) // 2 if causal else s * s
+        pairs = b * (s * (s + 1) // 2 if causal else s * s)
     else:
         mask = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones(
             s, s, dtype=torch.bool, device=q.device).tril()
@@ -644,7 +676,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
             ("dkv", 4, 3 * qo_bytes + 2 * kv_bytes + lse.numel() * 8
              + seg_bytes + 2 * k.numel() * 4,
              fa.flash_attention_bwd_dkv_reference)):
-        flops = 2 * products * d * hq * pairs * b
+        flops = 2 * products * d * hq * pairs
         bound_ms, bound_by = _bound(nbytes, flops, dname)
         kms = _kernel_ms(split, f"flash_bwd_{name}_kernel")
         kplain_ms = _cuda_ms(lambda: plain(  # noqa: B023
@@ -662,7 +694,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
     # the whole function's least work: 5 products (S, dP, dV, dQ, dK)
     bound_ms, bound_by = _bound(
         3 * qo_bytes + 2 * kv_bytes + lse.numel() * 4 + seg_bytes
-        + (q.numel() + 2 * k.numel()) * 4, 10 * d * hq * pairs * b, dname)
+        + (q.numel() + 2 * k.numel()) * 4, 10 * d * hq * pairs, dname)
     return dict(cmp=cmp, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 kernels=rows, tol=TOL[dname], rtol=RTOL[dname])
@@ -978,10 +1010,12 @@ def phase_kernels(seed, report):
     for label, kw in flash_cases(gen):
         flash[label] = r = run_flash_case(gen, **kw)
         print(f"flash {label}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
-              f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) lse_err {r['lse_err']:.3g} ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['tflops']:.2f} TFLOP/s", flush=True)
+              f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) "
+              f"lse_err {r['lse_err']:.3g} ms {r['ms']:.4f} (device; call "
+              f"{r['call_ms']:.4f}) {r['tflops']:.2f} TFLOP/s, "
+              f"{r['bound_share']:.1%} of bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library_ms {r['library_ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f}", flush=True)
     paged = {}
     for label, kw in paged_cases():
         paged[label] = r = run_paged_case(gen, **kw)
@@ -1715,6 +1749,8 @@ def _device_profile(fn, steps, top=8):
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms if dev else None,
             "device_busy_share": device_ms / wall_ms if dev else None,
+            "flash_fwd_ms_per_step": sum(ms for k, ms in dev
+                                         if "flash_fwd_kernel" in k),
             "top_device_ms": [(k[:90], ms) for k, ms in dev[:top]],
             "top_host_ms": [(k[:60], ms) for k, ms in host[:top]]}
 

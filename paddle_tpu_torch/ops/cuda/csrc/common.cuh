@@ -2,7 +2,9 @@
 // predicate the attention and grouped-matmul kernels run, 8-wide vector
 // loads that widen bf16/fp32 to fp32, and the tensor-core pieces: the bf16
 // mma.sync product, cp.async copies into shared memory and ldmatrix
-// fragment loads (fused_ce.cu, grouped_matmul.cu, flash_bwd.cu).
+// fragment loads (fused_ce.cu, grouped_matmul.cu, flash_fwd.cu,
+// flash_bwd.cu), with the flash kernels' padded tiles and fragment
+// helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -135,6 +137,102 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
+}
+
+// ---- the flash kernels' tensor-core pieces (flash_fwd.cu, flash_bwd.cu) --
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// bf16 row stride of a shared [rows][D] tile: 16 bytes of padding keep
+// every ldmatrix of the tile free of bank conflicts
+template <int D>
+constexpr int kTileLd = D + 8;
+
+// the segment-id range of rows [r0, r0 + 32 * n), reduced over the warp so
+// every warp of the block reaches the same skip decision
+__device__ __forceinline__ void seg_range(const int* segb, int r0, int n,
+                                          int S, int& mn, int& mx) {
+  const int lane = threadIdx.x & 31;
+  int a = INT_MAX, b = INT_MIN;
+  for (int i = 0; i < n; ++i) {
+    const int r = r0 + 32 * i + lane;
+    if (r < S) {
+      a = min(a, segb[r]);
+      b = max(b, segb[r]);
+    }
+  }
+  mn = warp_min_i(a);
+  mx = warp_max_i(b);
+}
+
+// rows [r0, r0 + ROWS) of a [S, D] bf16 slice with row stride `ss` into a
+// padded shared tile by cp.async, spread over a block of THREADS threads;
+// rows past S are zero-filled
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int r0, int S) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  static_assert(ROWS * kChunks % THREADS == 0, "tile must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * kTileLd<D> + c,
+               src + (in ? (long long)(r0 + r) * ss : 0) + c, in ? 16 : 0);
+  }
+}
+
+// A fragment of the 16 x 16 block at (r0, c0) of a row-major tile
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* t, int r0,
+                                       int c0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, t + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n8 tiles, columns n0.. and n0 + 8.., depth c0..c0 + 15,
+// from a tile that holds B transposed ([n][k], as K for Q . K^T): b[0..1]
+// the first tile, b[2..3] the second
+template <int LD>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[4],
+                                        const __nv_bfloat16* t, int n0,
+                                        int c0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
+                     ((lane >> 3) & 1) * 8);
+}
+
+// the same two n8 tiles from a tile that holds B itself ([k][n], as V for
+// P . V or K for dS . K), depth rows k0..k0 + 15, read transposed by
+// ldmatrix.trans
+template <int LD>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4],
+                                       const __nv_bfloat16* t, int k0,
+                                       int n0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                           n0 + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+  mma_bf16_16816(c0, a, b0);
+  mma_bf16_16816(c1, a, b1);
+}
+
+// the 16-column chunk j of a 16 x 64 accumulator block (c[nt][i]: row
+// gid + 8 (i / 2), column 8 nt + 2 tig + i % 2) as a bf16 A fragment
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&c)[8][4], int j) {
+  a[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+  a[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+  a[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+  a[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
 }
 
 }  // namespace ptt

@@ -105,23 +105,6 @@ __device__ __forceinline__ void stage_rows(const T* base, long long ss, int r0,
   }
 }
 
-// the segment-id range of rows [r0, r0 + 32 * n) (n = 1 or 2), reduced over
-// the warp so every warp of the block reaches the same skip decision
-__device__ __forceinline__ void seg_range(const int* segb, int r0, int n,
-                                          int S, int& mn, int& mx) {
-  const int lane = threadIdx.x & 31;
-  int a = INT_MAX, b = INT_MIN;
-  for (int i = 0; i < n; ++i) {
-    const int r = r0 + 32 * i + lane;
-    if (r < S) {
-      a = min(a, segb[r]);
-      b = max(b, segb[r]);
-    }
-  }
-  mn = ptt::warp_min_i(a);
-  mx = ptt::warp_max_i(b);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -164,7 +147,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qseg[i] = (segb && r < S) ? segb[r] : -1;
   }
   int q_min = 0, q_max = 0;
-  if (segb) seg_range(segb, q0, kDqBQ / 32, S, q_min, q_max);
+  if (segb) ptt::seg_range(segb, q0, kDqBQ / 32, S, q_min, q_max);
 
   float acc[kDqRows][CPL];
 #pragma unroll
@@ -181,7 +164,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kseg = (segb && kpos < S) ? segb[kpos] : 0;
     if (segb) {
       int mn, mx;
-      seg_range(segb, k0, 1, S, mn, mx);
+      ptt::seg_range(segb, k0, 1, S, mn, mx);
       if (!ptt::blocks_can_touch(q_min, q_max, mn, mx)) continue;
     }
     __syncthreads();  // the previous tile's readers (and the staging) are done
@@ -277,7 +260,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kKvKeys; ++i)
     kseg[i] = (segb && key0 + i < S) ? segb[key0 + i] : 0;
   int k_min = 0, k_max = 0;
-  if (segb) seg_range(segb, k0, kKvBK / 32, S, k_min, k_max);
+  if (segb) ptt::seg_range(segb, k0, kKvBK / 32, S, k_min, k_max);
 
   float dka[kKvKeys][CPL], dva[kKvKeys][CPL];
 #pragma unroll
@@ -302,7 +285,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qseg = (segb && qpos < S) ? segb[qpos] : -1;
       if (segb) {
         int mn, mx;
-        seg_range(segb, q0, 1, S, mn, mx);
+        ptt::seg_range(segb, q0, 1, S, mn, mx);
         if (!ptt::blocks_can_touch(mn, mx, k_min, k_max)) continue;
       }
       const float lse_l = qpos < S ? lseb[qpos] : 0.f;
@@ -381,11 +364,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---- bf16: tensor cores ---------------------------------------------------
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the kept tile each
 constexpr int kMmaB = 64;         // rows of every tile: q rows and keys
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct MmaTile {
-  static constexpr int kLd = D + 8;  // padded bf16 row
+  static constexpr int kLd = ptt::kTileLd<D>;
   static constexpr int kElems = kMmaB * kLd;
 };
 
@@ -395,74 +377,6 @@ template <int D>
 constexpr size_t mma_smem_bytes(bool dkv) {
   return sizeof(__nv_bfloat16) * 6 * MmaTile<D>::kElems +
          (dkv ? sizeof(float) * 2 * 2 * kMmaB : 0);
-}
-
-// rows [r0, r0 + 64) of a [S, D] bf16 slice with row stride `ss` into a
-// padded shared tile by cp.async; rows past S are zero-filled
-template <int D>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int r0, int S) {
-  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
-#pragma unroll
-  for (int i = 0; i < kMmaB * kChunks / kMmaThreads; ++i) {
-    const int e = threadIdx.x + i * kMmaThreads;
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const bool in = r0 + r < S;
-    ptt::cp_async16(dst + r * MmaTile<D>::kLd + c,
-                    src + (in ? (long long)(r0 + r) * ss : 0) + c,
-                    in ? 16 : 0);
-  }
-}
-
-// A fragment of the 16 x 16 block at (r0, c0) of a row-major tile
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* t, int r0,
-                                       int c0) {
-  const int lane = threadIdx.x & 31;
-  ptt::ldmatrix_x4(a, t + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles, columns n0.. and n0 + 8.., depth c0..c0 + 15,
-// from a tile that holds B transposed ([n][k], as K for Q . K^T): b[0..1]
-// the first tile, b[2..3] the second
-template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t (&b)[4],
-                                        const __nv_bfloat16* t, int n0,
-                                        int c0) {
-  const int lane = threadIdx.x & 31;
-  ptt::ldmatrix_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
-                          ((lane >> 3) & 1) * 8);
-}
-
-// the same two n8 tiles from a tile that holds B itself ([k][n], as K for
-// dS . K), depth rows k0..k0 + 15, read transposed by ldmatrix.trans
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4],
-                                       const __nv_bfloat16* t, int k0,
-                                       int n0) {
-  const int lane = threadIdx.x & 31;
-  ptt::ldmatrix_x4_trans(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                    LD + n0 + (lane >> 4) * 8);
-}
-
-__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[4]) {
-  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-  ptt::mma_bf16_16816(c0, a, b0);
-  ptt::mma_bf16_16816(c1, a, b1);
-}
-
-// the 16-column chunk j of a 16 x 64 accumulator block (c[nt][i]: row
-// gid + 8 (i / 2), column 8 nt + 2 tig + i % 2) as a bf16 A fragment
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         float (&c)[8][4], int j) {
-  a[0] = ptt::pack_bf16(c[2 * j][0], c[2 * j][1]);
-  a[1] = ptt::pack_bf16(c[2 * j][2], c[2 * j][3]);
-  a[2] = ptt::pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-  a[3] = ptt::pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
 }
 
 template <int D>
@@ -497,20 +411,20 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const float* deltab = delta + ((long long)b * Hq + h) * S;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
 
-  copy_tile<D>(qs, qb, q_ss, q0, S);
-  copy_tile<D>(dos, dob, q_ss, q0, S);
+  ptt::copy_tile<kMmaB, D, kMmaThreads>(qs, qb, q_ss, q0, S);
+  ptt::copy_tile<kMmaB, D, kMmaThreads>(dos, dob, q_ss, q0, S);
 
   // this thread's accumulator rows: ra (i = 0, 1) and rb = ra + 8 (i = 2, 3)
   const int ra = q0 + 16 * warp + gid, rb = ra + 8;
-  const float lse_a = ra < S ? lseb[ra] * kLog2e : 0.f;
-  const float lse_b = rb < S ? lseb[rb] * kLog2e : 0.f;
+  const float lse_a = ra < S ? lseb[ra] * ptt::kLog2e : 0.f;
+  const float lse_b = rb < S ? lseb[rb] * ptt::kLog2e : 0.f;
   const float delta_a = ra < S ? deltab[ra] : 0.f;
   const float delta_b = rb < S ? deltab[rb] : 0.f;
   const int qseg_a = (segb && ra < S) ? segb[ra] : -1;
   const int qseg_b = (segb && rb < S) ? segb[rb] : -1;
-  const float sl2 = scale * kLog2e;
+  const float sl2 = scale * ptt::kLog2e;
   int q_min = 0, q_max = 0;
-  if (segb) seg_range(segb, q0, 2, S, q_min, q_max);
+  if (segb) ptt::seg_range(segb, q0, 2, S, q_min, q_max);
 
   int n_kt = (S + kMmaB - 1) / kMmaB;
   if (causal) n_kt = min(n_kt, qt + 1);
@@ -518,14 +432,16 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
   auto next_tile = [&](int t) {
     for (; t < n_kt && segb; ++t) {
       int mn, mx;
-      seg_range(segb, t * kMmaB, 2, S, mn, mx);
+      ptt::seg_range(segb, t * kMmaB, 2, S, mn, mx);
       if (ptt::blocks_can_touch(q_min, q_max, mn, mx)) break;
     }
     return t;
   };
   auto issue = [&](int stage, int t) {
-    copy_tile<D>(ks + stage * TE, kb, k_ss, t * kMmaB, S);
-    copy_tile<D>(vs + stage * TE, vb, k_ss, t * kMmaB, S);
+    ptt::copy_tile<kMmaB, D, kMmaThreads>(ks + stage * TE, kb, k_ss,
+                                          t * kMmaB, S);
+    ptt::copy_tile<kMmaB, D, kMmaThreads>(vs + stage * TE, vb, k_ss,
+                                          t * kMmaB, S);
   };
 
   float acc[NT][4];
@@ -555,15 +471,15 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
       uint32_t aq[4], ad[4];
-      frag_a<LD>(aq, qs, 16 * warp, kk);
-      frag_a<LD>(ad, dos, 16 * warp, kk);
+      ptt::frag_a<LD>(aq, qs, 16 * warp, kk);
+      ptt::frag_a<LD>(ad, dos, 16 * warp, kk);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4], bv[4];
-        frag_bt<LD>(bk, kst, 16 * np, kk);
-        frag_bt<LD>(bv, vst, 16 * np, kk);
-        mma_pair(s[2 * np], s[2 * np + 1], aq, bk);
-        mma_pair(dp[2 * np], dp[2 * np + 1], ad, bv);
+        ptt::frag_bt<LD>(bk, kst, 16 * np, kk);
+        ptt::frag_bt<LD>(bv, vst, 16 * np, kk);
+        ptt::mma_pair(s[2 * np], s[2 * np + 1], aq, bk);
+        ptt::mma_pair(dp[2 * np], dp[2 * np + 1], ad, bv);
       }
     }
 
@@ -592,12 +508,12 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint32_t a[4];
-      acc_to_a(a, s, j);
+      ptt::acc_to_a(a, s, j);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bk[4];
-        frag_b<LD>(bk, kst, 16 * j, 16 * np);
-        mma_pair(acc[2 * np], acc[2 * np + 1], a, bk);
+        ptt::frag_b<LD>(bk, kst, 16 * j, 16 * np);
+        ptt::mma_pair(acc[2 * np], acc[2 * np + 1], a, bk);
       }
     }
     cur = nxt;
@@ -646,18 +562,17 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const long long q_ss = (long long)Hq * D, k_ss = (long long)Hkv * D;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
 
-  copy_tile<D>(ks, k + (long long)b * S * k_ss + (long long)hk * D, k_ss, k0,
-               S);
-  copy_tile<D>(vs, v + (long long)b * S * k_ss + (long long)hk * D, k_ss, k0,
-               S);
+  const long long kv_off = (long long)b * S * k_ss + (long long)hk * D;
+  ptt::copy_tile<kMmaB, D, kMmaThreads>(ks, k + kv_off, k_ss, k0, S);
+  ptt::copy_tile<kMmaB, D, kMmaThreads>(vs, v + kv_off, k_ss, k0, S);
 
   // this thread's accumulator rows (keys): ka (i = 0, 1), kb = ka + 8
   const int ka = k0 + 16 * warp + gid, kb = ka + 8;
   const int kseg_a = (segb && ka < S) ? segb[ka] : -1;
   const int kseg_b = (segb && kb < S) ? segb[kb] : -1;
-  const float sl2 = scale * kLog2e;
+  const float sl2 = scale * ptt::kLog2e;
   int k_min = 0, k_max = 0;
-  if (segb) seg_range(segb, k0, 2, S, k_min, k_max);
+  if (segb) ptt::seg_range(segb, k0, 2, S, k_min, k_max);
 
   // the walk: item j is q tile first_qt + j % per_head of the group's query
   // head j / per_head; causal q tiles above this K tile contribute nothing
@@ -667,7 +582,7 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
   auto next_item = [&](int j) {
     for (; j < n_items && segb; ++j) {
       int mn, mx;
-      seg_range(segb, (first_qt + j % per_head) * kMmaB, 2, S, mn, mx);
+      ptt::seg_range(segb, (first_qt + j % per_head) * kMmaB, 2, S, mn, mx);
       if (ptt::blocks_can_touch(mn, mx, k_min, k_max)) break;
     }
     return j;
@@ -676,8 +591,10 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const int h = hk * group + j / per_head;
     const int q0 = (first_qt + j % per_head) * kMmaB;
     const long long off = (long long)b * S * q_ss + (long long)h * D;
-    copy_tile<D>(qs + stage * TE, q + off, q_ss, q0, S);
-    copy_tile<D>(dos + stage * TE, dout + off, q_ss, q0, S);
+    ptt::copy_tile<kMmaB, D, kMmaThreads>(qs + stage * TE, q + off, q_ss,
+                                          q0, S);
+    ptt::copy_tile<kMmaB, D, kMmaThreads>(dos + stage * TE, dout + off,
+                                          q_ss, q0, S);
     // one lse (threads 0-63) or delta (64-127) value a thread
     const int r = tid & (kMmaB - 1);
     const float* src = (tid < kMmaB ? lse : delta) +
@@ -717,15 +634,15 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
       uint32_t ak[4], av[4];
-      frag_a<LD>(ak, ks, 16 * warp, kk);
-      frag_a<LD>(av, vs, 16 * warp, kk);
+      ptt::frag_a<LD>(ak, ks, 16 * warp, kk);
+      ptt::frag_a<LD>(av, vs, 16 * warp, kk);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bq[4], bd[4];
-        frag_bt<LD>(bq, qst, 16 * np, kk);
-        frag_bt<LD>(bd, dost, 16 * np, kk);
-        mma_pair(st[2 * np], st[2 * np + 1], ak, bq);
-        mma_pair(dpt[2 * np], dpt[2 * np + 1], av, bd);
+        ptt::frag_bt<LD>(bq, qst, 16 * np, kk);
+        ptt::frag_bt<LD>(bd, dost, 16 * np, kk);
+        ptt::mma_pair(st[2 * np], st[2 * np + 1], ak, bq);
+        ptt::mma_pair(dpt[2 * np], dpt[2 * np + 1], av, bd);
       }
     }
 
@@ -741,7 +658,8 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool odd = i & 1;
-        float p = exp2f(fmaf(st[nt][i], sl2, -(odd ? l2.y : l2.x) * kLog2e));
+        float p = exp2f(
+            fmaf(st[nt][i], sl2, -(odd ? l2.y : l2.x) * ptt::kLog2e));
         if (mask) {
           const int qpos = q0 + c + odd;
           const int kpos = i >= 2 ? kb : ka;
@@ -760,15 +678,15 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint32_t ap[4], ads[4];
-      acc_to_a(ap, st, j);
-      acc_to_a(ads, dpt, j);
+      ptt::acc_to_a(ap, st, j);
+      ptt::acc_to_a(ads, dpt, j);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bd[4], bq[4];
-        frag_b<LD>(bd, dost, 16 * j, 16 * np);
-        mma_pair(dva[2 * np], dva[2 * np + 1], ap, bd);
-        frag_b<LD>(bq, qst, 16 * j, 16 * np);
-        mma_pair(dka[2 * np], dka[2 * np + 1], ads, bq);
+        ptt::frag_b<LD>(bd, dost, 16 * j, 16 * np);
+        ptt::mma_pair(dva[2 * np], dva[2 * np + 1], ap, bd);
+        ptt::frag_b<LD>(bq, qst, 16 * j, 16 * np);
+        ptt::mma_pair(dka[2 * np], dka[2 * np + 1], ads, bq);
       }
     }
     cur = nxt;

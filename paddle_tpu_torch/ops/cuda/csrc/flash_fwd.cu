@@ -1,35 +1,75 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA cores, fp32 math, and
-// the block-visit counter.
+// Flash-attention forward for Hopper (sm_90a): bf16 on the tensor cores,
+// fp32 on the CUDA cores; and the block-visit counter.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/flash_attention.py
 // `_fwd_kernel` (launched by `_flash_fwd`) and `_visit_kernel` (launched by
-// `segment_block_visit_counts`). One block per (batch * q-head,
-// 64-row q tile); 32-key K/V tiles stream through shared memory with an
-// online softmax (fp32 running max and denominator). Writes o and lse.
+// `segment_block_visit_counts`). Each block owns one q tile of one (batch,
+// q-head) and streams K/V tiles past it with an online softmax (fp32
+// running max and denominator). Writes o and lse = m + log(l).
 //
 //  * causal: K tiles past the q tile's diagonal are never loaded;
 //  * GQA: q head h reads kv head h / group, K/V are never repeated;
 //  * segment_ids: q_seg != k_seg is masked inside a tile, and a whole K
 //    tile whose segment range cannot touch the q tile's is skipped through
-//    ptt::blocks_can_touch (the predicate the paged kernel shares);
+//    ptt::blocks_can_touch (the predicate the backward and the paged
+//    kernel share);
 //  * ragged S: rows and keys past S are masked here, S need not divide
-//    the tile sizes.
+//    the tile sizes. A masked pair gets P = 0 by selection.
 //  * flash_visit_kernel counts, per (row, block_q rows), the K blocks that
 //    ptt::blocks_can_touch and the causal bound admit, the forward's own
-//    skip rules; at block_q 64, block_k 32 it counts the tiles this kernel
-//    visits.
+//    skip rules; at the tiles of FwdTile below (64 x 64 at head_dim 128,
+//    the serving path's) it counts the tiles the bf16 kernel visits, at
+//    64 x 32 the fp32 kernel's.
+//
+// What bounds it: two products of 2 D flops per visible (query, key) pair
+// and head against O(S D) bytes, so operations at prefill and training
+// lengths.
+//
+// bf16 inputs (flash_fwd_kernel_mma): FlashAttention-2's forward on
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate). 4 warps own the rows of
+// the block's q tile and all 64 keys of each streamed K/V tile. At head_dim
+// 64 a warp owns 32 rows (two m16 tiles, a 128-row q tile), so each K or V
+// fragment it loads by ldmatrix serves 4 mma; at head_dim 128 the output
+// and score accumulators of 32 rows overflow the registers (ptxas: 255 and
+// a spill), so a warp owns 16 rows (a 64-row q tile), as in the backward.
+//  * Q is copied once as bf16 by cp.async and its A fragments are read from
+//    shared memory each step; K and V stream through a two-stage cp.async
+//    ring, the next admitted tile in flight while the current one is
+//    computed; rows past S are zero-filled. Rows are padded by 16 bytes, so
+//    ldmatrix is free of bank conflicts (87 KB at head_dim 128, two blocks
+//    an SM).
+//  * Q . K^T takes K by ldmatrix; P . V takes V by ldmatrix.trans, so
+//    nothing is transposed in shared memory.
+//  * The online softmax runs in the accumulators: a row of an m16n8 tile
+//    lives in one quad of 4 lanes, so its max takes two shuffles and its
+//    sum none until the end (each lane keeps its share of l). exp2 with
+//    scale * log2(e) folded into one multiply-add a score, on the SFU with
+//    subnormals flushed. Only the diagonal, ragged and segmented tiles run
+//    the masking code; the others take a copy without it. P leaves the
+//    fp32 accumulators straight as bf16 A fragments of P . V.
+//  * Numerics: S is exact bf16 products summed in fp32, scaled in fp32;
+//    l sums the unrounded fp32 P; P is rounded to bf16 for P . V, as the
+//    library's forward does; o is normalised by 1 / l in fp32 and rounded
+//    to bf16 once.
+//  * q tiles are launched longest causal row first.
+//
+// fp32 inputs (flash_fwd_kernel<float>): the CUDA cores (the tensor cores
+// would round to tf32). One block per (batch * q-head, 64-row q tile);
+// 32-key K/V tiles go through shared memory widened to fp32. 8 warps; warp
+// w owns q rows 8w..8w+7 of the tile, lane l owns key l of the K tile for
+// the scores and head-dim columns l + 32j of the output; the PV product
+// broadcasts each probability from the lane that owns its key.
 //
 // Layout: q [B, S, Hq, D], k/v [B, S, Hkv, D] given by element strides
-// (head_dim contiguous), o [B, S, Hq, D] contiguous, lse [B, Hq, S] fp32.
-//
-// Thread map: 8 warps; warp w owns q rows 8w..8w+7 of the tile, lane l owns
-// key l of the K tile for the scores and head-dim columns l + 32j of the
-// output. P never goes through shared memory: the PV product broadcasts
-// each probability from the lane that owns its key with a shuffle.
+// (head_dim contiguous, 16-byte aligned rows), o [B, S, Hq, D] contiguous,
+// lse [B, Hq, S] fp32.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
+// ---- fp32: CUDA cores ----------------------------------------------------
 constexpr int kBQ = 64;
 constexpr int kBK = 32;
 constexpr int kThreads = 256;
@@ -211,6 +251,268 @@ int launch(const void* q, const void* k, const void* v, const int* seg,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16: tensor cores ---------------------------------------------------
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kMmaBK = 64;        // keys of a streamed K/V tile
+
+// the q tile of a block: each warp owns kMT m16 row tiles (one compiled
+// tile a head_dim; why, in the note at the top)
+template <int D>
+struct FwdTile {
+  static constexpr int kMT = D == 128 ? 1 : 2;
+  static constexpr int kBQ = 16 * kMT * kMmaThreads / 32;
+};
+
+// 2^x on the SFU, subnormal results flushed to 0: exp2f wraps the same
+// instruction in a rescaling for subnormals, several more instructions a
+// score, and a probability below 2^-126 adds nothing to a row's sum
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the Q tile and two stages of K and V
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (FwdTile<D>::kBQ + 4 * kMmaBK) *
+         ptt::kTileLd<D>;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const int* __restrict__ seg,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int S, int Hq, int group, long long q_sb, long long q_ss,
+                     long long q_sh, long long k_sb, long long k_ss,
+                     long long k_sh, long long v_sb, long long v_ss,
+                     long long v_sh, int causal, float scale) {
+  constexpr int MT = FwdTile<D>::kMT, BQ = FwdTile<D>::kBQ;
+  constexpr int LD = ptt::kTileLd<D>;
+  constexpr int TK = kMmaBK * LD;
+  constexpr int NT = D / 8;          // n8 tiles over the head dim
+  constexpr int KS = D / 16;         // k16 steps over the head dim
+  extern __shared__ uint4 smem_mma[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* ks = qs + BQ * LD;  // [2][64][LD]
+  __nv_bfloat16* vs = ks + 2 * TK;   // [2][64][LD]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, hk = h / group;
+  // the last q tile (the longest causal rows) is launched first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
+  const int* segb = seg ? seg + (long long)b * S : nullptr;
+
+  ptt::copy_tile<BQ, D, kMmaThreads>(qs, qb, q_ss, q0, S);
+
+  // this thread's rows: rw + 16 mt + 8 hi holds the accumulators c[mt][.][i]
+  // with i = 2 hi, 2 hi + 1
+  const int wr = 16 * MT * warp, rw = q0 + wr + gid;
+  int qseg[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = rw + 16 * mt + 8 * hi;
+      qseg[mt][hi] = (segb && r < S) ? segb[r] : -1;
+    }
+  int q_min = 0, q_max = 0;
+  if (segb) ptt::seg_range(segb, q0, BQ / 32, S, q_min, q_max);
+  const float sl2 = scale * ptt::kLog2e;
+
+  int n_kt = (S + kMmaBK - 1) / kMmaBK;
+  if (causal) n_kt = min(n_kt, (min(q0 + BQ, S) + kMmaBK - 1) / kMmaBK);
+  // the first K tile at or after t that the segment skip lets through
+  auto next_tile = [&](int t) {
+    for (; t < n_kt && segb; ++t) {
+      int mn, mx;
+      ptt::seg_range(segb, t * kMmaBK, kMmaBK / 32, S, mn, mx);
+      if (ptt::blocks_can_touch(q_min, q_max, mn, mx)) break;
+    }
+    return t;
+  };
+  auto issue = [&](int stage, int t) {
+    ptt::copy_tile<kMmaBK, D, kMmaThreads>(ks + stage * TK, kb, k_ss,
+                                           t * kMmaBK, S);
+    ptt::copy_tile<kMmaBK, D, kMmaThreads>(vs + stage * TK, vb, v_ss,
+                                           t * kMmaBK, S);
+  };
+
+  // m: the running max of the raw scores; l: this lane's share of the
+  // running sum (the quad's four shares are added at the end)
+  float acc[MT][NT][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      m[mt][hi] = ptt::kNegInf;
+      l[mt][hi] = 0.f;
+    }
+  }
+  int cur = next_tile(0), stage = 0;
+  if (cur < n_kt) issue(0, cur);
+  ptt::cp_async_commit();  // with Q
+  while (cur < n_kt) {
+    const int nxt = next_tile(cur + 1);
+    ptt::cp_async_wait_all();
+    __syncthreads();  // tile `cur` landed; the other stage's readers are done
+    if (nxt < n_kt) issue(stage ^ 1, nxt);  // overlaps this tile's products
+    ptt::cp_async_commit();
+    const __nv_bfloat16* kst = ks + stage * TK;
+    const __nv_bfloat16* vst = vs + stage * TK;
+    const int k0 = cur * kMmaBK;
+
+    // S = Q . K^T over this warp's rows and the tile's 64 keys
+    float s[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ptt::frag_a<LD>(a[mt], qs, wr + 16 * mt, 16 * kk);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ptt::frag_bt<LD>(bk, kst, 16 * np, 16 * kk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ptt::mma_pair(s[mt][2 * np], s[mt][2 * np + 1], a[mt], bk);
+      }
+    }
+
+    // the online softmax, row by row. Pairs are masked only on the
+    // diagonal and ragged tiles and under segments, and the other tiles
+    // take a copy of this code without the mask (rows past S are never
+    // written, so they need none).
+    auto softmax = [&](auto mask_tag) {
+      constexpr bool kMasked = decltype(mask_tag)::value;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int qpos = rw + 16 * mt + 8 * hi;
+          uint32_t vis = 0xffffu;  // bit 2 nt + e: key 8 nt + 2 tig + e
+          float mx = m[mt][hi];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int bit = 2 * nt + e;
+              if constexpr (kMasked) {
+                const int kpos = k0 + 8 * nt + 2 * tig + e;
+                const bool valid = kpos < S && (!causal || qpos >= kpos) &&
+                                   (!segb || qseg[mt][hi] == segb[kpos]);
+                if (!valid) vis &= ~(1u << bit);
+              }
+              if (vis >> bit & 1u) mx = fmaxf(mx, s[mt][nt][2 * hi + e]);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float alpha = exp2_ftz((m[mt][hi] - mx) * sl2);
+          const float mb = mx * sl2;
+          m[mt][hi] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int bit = 2 * nt + e;
+              float& x = s[mt][nt][2 * hi + e];
+              x = (vis >> bit & 1u) ? exp2_ftz(fmaf(x, sl2, -mb)) : 0.f;
+              sum += x;
+            }
+          l[mt][hi] = l[mt][hi] * alpha + sum;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            acc[mt][nt][2 * hi] *= alpha;
+            acc[mt][nt][2 * hi + 1] *= alpha;
+          }
+        }
+    };
+    if ((causal && k0 + kMmaBK > q0) || k0 + kMmaBK > S || segb != nullptr)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+
+    // o += P . V, 16 keys a step; P leaves the accumulators as bf16
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ptt::acc_to_a(pa[mt], s[mt], j);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bv[4];
+        ptt::frag_b<LD>(bv, vst, 16 * j, 16 * np);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ptt::mma_pair(acc[mt][2 * np], acc[mt][2 * np + 1], pa[mt], bv);
+      }
+    }
+    cur = nxt;
+    stage ^= 1;
+  }
+  ptt::cp_async_wait_all();  // no copy outlives the block
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float lt = l[mt][hi];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float lc = fmaxf(lt, 1e-30f), inv = 1.f / lc;
+      const int r = rw + 16 * mt + 8 * hi;
+      if (r >= S) continue;
+      __nv_bfloat16* orow = o + (((long long)b * S + r) * Hq + h) * D;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nt + 2 * tig) =
+            __floats2bfloat162_rn(acc[mt][nt][2 * hi] * inv,
+                                  acc[mt][nt][2 * hi + 1] * inv);
+      if (tig == 0)
+        lse[((long long)b * Hq + h) * S + r] = m[mt][hi] * scale + logf(lc);
+    }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const int* seg,
+               void* o, float* lse, int B, int S, int Hq, int Hkv,
+               const long long* st, int causal, float scale,
+               cudaStream_t stream) {
+  auto kern = flash_fwd_kernel_mma<D>;
+  const size_t smem = mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  // heads on x: the blocks of every head's longest tile start first
+  dim3 grid(B * Hq, (S + FwdTile<D>::kBQ - 1) / FwdTile<D>::kBQ);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), seg, static_cast<bf*>(o), lse, S, Hq,
+      Hq / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, scale);
+  return (int)cudaGetLastError();
+}
+
 // One warp a (q block, row): the block's segment-id range, then the count
 // of K blocks kb < last whose range can touch it, last = ceil((qi + 1) bq /
 // bk) when causal (the JAX kernel's bound), S / bk otherwise.
@@ -261,7 +563,8 @@ extern "C" int ptt_flash_visit(const int* seg, int* counts, int B, int S,
 }
 
 // Plain C entry point (bound with ctypes). strides: 9 element strides,
-// (batch, seq, head) for q, k, v in that order. is_bf16: 1 bf16, 0 fp32.
+// (batch, seq, head) for q, k, v in that order. is_bf16: 1 bf16 (the
+// tensor-core kernel), 0 fp32 (the CUDA-core one).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const int* seg, void* o, float* lse, int B,
@@ -275,8 +578,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D == 64) return launch<__nv_bfloat16, 64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
-    if (D == 128) return launch<__nv_bfloat16, 128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
+    if (D == 64) return launch_mma<64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
+    if (D == 128) return launch_mma<128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
   } else {
     if (D == 64) return launch<float, 64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
     if (D == 128) return launch<float, 128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);

@@ -13,21 +13,24 @@ with ``flash_visit_kernel`` in ``csrc/flash_fwd.cu``.
 What bounds them on the H100: at prefill and training lengths attention
 does about 4·S·D flops per byte it reads (the backward 2.5 times the
 forward's work, plus the recompute of the scores), so it is bound by
-operations. The forward does its math in fp32 on the CUDA cores (67
-TFLOP/s), far from the bound (tensor cores are later work). The backward
-runs bf16 inputs on the tensor cores (``mma.sync`` m16n8k16, operands
-through a two-stage ``cp.async`` ring and ``ldmatrix``; P and dS rounded
-to bf16 for the second products, as the library's backward does) and fp32
-inputs on the CUDA cores, where the tensor cores would round to tf32.
-What the design does about the operation count: the causal loops stop at
-the diagonal tile, and a packed frame skips every tile pair whose segment
-ranges cannot touch (``ptt::blocks_can_touch``, the same predicate in all
-three kernels), so a packed frame costs O(sum of len_i^2), not
-O(frame^2). The forward stages a 64x128 q tile once and reads each 32-key
-K/V tile once per q tile; the backward follows the JAX split, which needs
-no atomics: the dq kernel owns a q tile and walks K tiles, the dkv kernel
-owns a K tile and walks the q tiles of every query head of its GQA group.
-The plain versions keep fp32 throughout.
+operations. Both directions run bf16 inputs on the tensor cores
+(``mma.sync`` m16n8k16, operands through a two-stage ``cp.async`` ring and
+``ldmatrix``) and fp32 inputs on the CUDA cores, where the tensor cores
+would round to tf32. The bf16 forward is FlashAttention-2's: 4 warps own
+a q tile (64 rows at head_dim 128, 128 at head_dim 64, where the
+registers hold 32 rows a warp) against 64-key K/V tiles, the online
+softmax in the accumulators, P rounded to bf16 for P·V as the library's
+forward does (l sums the fp32 P); the fp32 forward keeps a 64-row q tile
+against 32-key tiles. The bf16 backward rounds P and dS to bf16 for the
+second products, as the library's backward does. What the design does
+about the operation count: the causal loops stop at the diagonal tile,
+and a packed frame skips every tile pair whose segment ranges cannot
+touch (``ptt::blocks_can_touch``, the same predicate in all three
+kernels), so a packed frame costs O(sum of len_i^2), not O(frame^2). The
+backward follows the JAX split, which needs no atomics: the dq kernel
+owns a q tile and walks K tiles, the dkv kernel owns a K tile and walks
+the q tiles of every query head of its GQA group. The plain versions
+keep fp32 throughout.
 
 On a CUDA tensor ``flash_attention_fwd`` / ``flash_attention_bwd`` /
 ``segment_block_visit_counts`` launch the kernels or raise; on a CPU tensor
@@ -54,9 +57,11 @@ _NEG_INF = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_visit": 0}
-# the forward kernel's q and K tiles (kBQ, kBK in csrc/flash_fwd.cu): the
-# visit counter's default blocks, so it counts what that kernel visits
-FWD_BLOCK_Q, FWD_BLOCK_K = 64, 32
+# the bf16 forward kernel's q and K tiles at head_dim 128 (FwdTile<128>,
+# kMmaBK in csrc/flash_fwd.cu), which the serving path runs: the visit
+# counter's default blocks, so it counts what that kernel visits. At
+# head_dim 64 its q tile is 128 rows; the fp32 kernel's tiles are 64 x 32.
+FWD_BLOCK_Q, FWD_BLOCK_K = 64, 64
 
 
 def launch_counts() -> dict[str, int]:

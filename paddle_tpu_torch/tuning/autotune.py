@@ -20,8 +20,8 @@ on Hopper, where the JAX package bounds TPU tiles by the VMEM budget:
   the port reads no vocab chunk.
 
 flash_fwd and flash_bwd have no lattice: each kernel is compiled for one
-tile (the forward 64 x 32, the bf16 backward 64 x 64, q x k) until the
-kernels are templated on tiles.
+tile (bf16: the forward 64 x 64 at head_dim 128 and 128 x 64 at 64, the
+backward 64 x 64, q x k) until the kernels are templated on tiles.
 
 Each candidate is validated by its call site's own check, then timed
 through the kernel's public entry point under a `trial_blocks` override,

@@ -68,11 +68,12 @@ class KernelBlocks:
 
 # Six entries for the five kernel families (flash forward and backward tile
 # apart), with the JAX package's names. The flash kernels are compiled for
-# one tile each until they are templated on tiles (forward 64 x 32, q x k;
-# backward 64 x 64 for bf16 on the tensor cores, while its fp32 CUDA-core
-# kernels stream 32-row tiles past a 64-row one), so they have no override
-# flag and nothing to tune. fused_ce.chunk_vocab has no flag: the port has
-# only the token-chunked fused CE, which reads no vocab chunk.
+# one tile each until they are templated on tiles (q x k on the tensor
+# cores for bf16: forward 64 x 64 at head_dim 128 and 128 x 64 at 64,
+# backward 64 x 64; the fp32 CUDA-core kernels stream 32-row tiles past a
+# 64-row one), so they have no override flag and nothing to tune.
+# fused_ce.chunk_vocab has no flag: the port has only the token-chunked
+# fused CE, which reads no vocab chunk.
 KERNELS: dict[str, KernelBlocks] = {
     "flash_fwd": KernelBlocks(("block_q", "block_k"), (None, None), (0, 0)),
     "flash_bwd": KernelBlocks(("block_q", "block_k"), (None, None), (0, 0)),

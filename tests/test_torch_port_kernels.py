@@ -134,7 +134,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
                        paged_attention_reference(qp, kp, vp, pt, lens))
     assert page_visit_counts(lens, 4, 5).tolist() == [1, 2]
     assert segment_block_visit_counts(
-        torch.zeros(1, 64, dtype=torch.int32)).tolist() == [[2]]
+        torch.zeros(1, 128, dtype=torch.int32)).tolist() == [[1, 2]]
     assert port_cuda.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "flash_visit": 0, "paged_decode": 0, "paged_decode_int8": 0,

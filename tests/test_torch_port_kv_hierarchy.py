@@ -766,8 +766,9 @@ def test_page_visit_counts_equal_closed_form():
 
 def test_engine_packed_frame_segments_count_visits(models):
     """The segment ids a packed prefill frame hands the model are the
-    32-row aligned layout, and the flash visit counter over them admits
-    the frame's one causal block pair."""
+    32-row aligned layout, and the flash visit counter over them, at
+    the fp32 kernel's 64 x 32 blocks, admits both K blocks of the frame's
+    causal pair."""
     _, tm = models
     eng = ServingEngine(tm, ServingConfig(**dict(SMALL, pack_frame=64,
                                                  prefill_chunk=16)),
@@ -789,5 +790,5 @@ def test_engine_packed_frame_segments_count_visits(models):
     assert eng.stats()["prefill_packed_frames"] == len(frames) == 1
     np.testing.assert_array_equal(frames[0].numpy(),
                                   _packed_segments([5, 12], 64))
-    counts = segment_block_visit_counts(frames[0])
+    counts = segment_block_visit_counts(frames[0], 64, 32)
     assert counts.shape == (1, 1) and int(counts[0, 0]) == 2
