@@ -32,7 +32,17 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     the CE statistics kernel's m, lse = m + log s and target logit t within
     1e-3 of ``ce_stats_reference`` (fp32 math on the same inputs; the sums
     run over H = 4096 products in another order) and the logit sum sl
-    within 1e-5 * V of it (a sum over V logits). The paged kernel's int8
+    within 1e-5 * V of it (a sum over V logits); the grouped matmul's
+    gmm_fwd per row (fp32 rule, trash rows exactly zero: h1, y, a depth
+    of 96, the backward's fp32 dx, the unaligned block_rows 8 layout),
+    gmm_dw per row and gmm_visit exactly. The bf16 ce_stats and gmm_fwd
+    run on the wgmma/TMA core (sm90.cuh); for them and the library call
+    beside them (bf16 x . W^T with logsumexp, gather and sum;
+    torch._grouped_mm) the device ms (profiler, every kernel of the call,
+    ce_stats with its split merge), TFLOP/s and share of the bound are
+    printed beside the event-timed call ms, with each wgmma kernel's
+    ptxas line and the count of 128-row tiles of each grouped layout
+    that hold more than one group. The paged kernel's int8
     and fp8 branch runs on codes and fp32 scales made by the model's
     quantize-on-write: with fp32 q within 1e-5 of its plain version, with
     bf16 q within 1e-3 beyond the rounding of the fp32 result to bf16
@@ -125,6 +135,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -578,6 +589,13 @@ def _kernel_ms(by_kernel, name):
     return hits[0]
 
 
+def _device_ms_sum(fn, *names):
+    """Device ms per call of `fn`, summed over its kernels whose names hold
+    one of `names` (all its kernels when none is given)."""
+    return sum(ms for key, ms in _device_ms_by_kernel(fn).items()
+               if not names or any(n in key for n in names))
+
+
 def _paged_device_ms(fn):
     """Device ms per call of a paged-attention wrapper: the decode kernel
     plus the split-K merge, without the wrapper's host work that the
@@ -735,7 +753,11 @@ def run_ce_case(gen, n, h, v, dtype, ignored=False):
         ("sl", got[3], ref[3]))}
     ok = (max(errs["m"], errs["lse"], errs["t"]) <= CE_TOL
           and errs["sl"] <= CE_SL_TOL * v)
-    ms = _cuda_ms(lambda: fc.ce_stats(x, w, labels), reps=5)
+    call = lambda: fc.ce_stats(x, w, labels)  # noqa: E731
+    # device ms: the statistics kernel and its split merge; call_ms adds
+    # the wrapper's host work
+    ms = _device_ms_sum(call, "ce_stats")
+    call_ms = _cuda_ms(call, reps=5)
     plain_ms = _cuda_ms(lambda: fc.ce_stats_reference(x, w, labels), reps=3,
                         warmup=1)
     safe = labels.clamp(0, v - 1)[:, None]
@@ -745,15 +767,18 @@ def run_ce_case(gen, n, h, v, dtype, ignored=False):
         return (logits.amax(-1), torch.logsumexp(logits, -1),
                 logits.gather(1, safe)[:, 0], logits.sum(-1))
 
-    library_ms = _cuda_ms(library, reps=5)
+    library_ms = _device_ms_sum(library)
+    library_call_ms = _cuda_ms(library, reps=5)
     flops = 2 * n * v * h
     nbytes = (n + v) * h * x.element_size() + n * 4 + 4 * n * 4
     bound_ms, bound_by = _bound(nbytes, flops,
                                 str(dtype).replace("torch.", ""))
     return dict(errs=errs, max_abs_err=max(errs["m"], errs["lse"],
                                            errs["t"]),
-                ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                ok=ok, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_call_ms=library_call_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, flops=flops,
                 tflops=flops / ms / 1e9)
 
 
@@ -807,7 +832,8 @@ def gmm_layouts(gen):
 def gmm_fwd_cases(layouts):
     """(label, layout, x shape/dtype/std, w shape/dtype, transposed): the
     main path's four products at full width (h1 and y in bf16 on the tensor
-    cores; the backward's dx in fp32 over w^T) and the unaligned layout.
+    cores; the backward's dx in fp32 over w^T), a bf16 depth of 96 (TMA's
+    zero fill past d in the last 64-deep slice) and the unaligned layout.
     Activations are unit scale, weights std 0.02 and gradients std 1e-3, as
     in training."""
     import torch
@@ -818,25 +844,27 @@ def gmm_fwd_cases(layouts):
         ("y_bf16", "dispatch", 4096, 1024, bf, 1.0, False),
         ("dx_of_y_fp32", "dispatch", 1024, 4096, f32, 1e-3, True),
         ("dx_of_h1_fp32", "dispatch", 4096, 1024, f32, 1e-3, True),
+        ("d96_bf16", "dispatch", 96, 512, bf, 1.0, False),
         ("unaligned_bm8_bf16", "unaligned_bm8", 256, 512, bf, 1.0, False),
         ("unaligned_bm8_fp32", "unaligned_bm8", 256, 512, f32, 1.0, False),
     ]
 
 
-def _grouped_mm_ms(x, w, gids, groups):
+def _grouped_mm_call(x, w, gids, groups):
     """torch._grouped_mm (bf16 out) over the same groups, where the card's
-    torch has it; (ms, note)."""
+    torch has it: (a call or None, note)."""
     import torch
 
     if not hasattr(torch, "_grouped_mm"):
         return None, "torch._grouped_mm missing"
     offs = _group_offsets(gids, groups)
     wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+    call = lambda: torch._grouped_mm(x, wt, offs=offs)  # noqa: E731
     try:
-        return _cuda_ms(lambda: torch._grouped_mm(x, wt, offs=offs)), \
-            "torch._grouped_mm, bf16 output"
+        call()
     except Exception as e:       # reported, never on the port's path
         return None, f"torch._grouped_mm failed: {e!r}"[:200]
+    return call, "torch._grouped_mm, bf16 output"
 
 
 def _grouped_mm_dw_ms(x, dy, gids, groups):
@@ -876,22 +904,29 @@ def run_gmm_fwd_case(gen, layout, d, h, dtype, std, transposed):
     cmp = _compare(out, ref, "float32")
     trash_zero = bool((out[gids == groups] == 0).all())
     del ref
-    ms = _cuda_ms(lambda: gm.gmm_fwd(x, w, gids))
+    call = lambda: gm.gmm_fwd(x, w, gids)  # noqa: E731
+    # device ms of the kernel; call_ms adds the wrapper's host work
+    ms = _kernel_ms(_device_ms_by_kernel(call), "gmm_fwd")
+    call_ms = _cuda_ms(call)
     plain_ms = _cuda_ms(lambda: gm.grouped_matmul_reference(x, w, gids),
                         reps=3, warmup=1)
-    library_ms, library = (None, "none: no PyTorch call computes an fp32 "
-                           "grouped product")
+    lib, library = (None, "none: no PyTorch call computes an fp32 grouped "
+                    "product")
     if dtype == torch.bfloat16:
-        library_ms, library = _grouped_mm_ms(x, w, gids, groups)
+        lib, library = _grouped_mm_call(x, w, gids, groups)
+    library_ms = _device_ms_sum(lib) if lib else None
+    library_call_ms = _cuda_ms(lib) if lib else None
     dname = str(dtype).replace("torch.", "")
     flops = 2 * need_rows * d * h
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + m * h * 4 + m * 4)
     bound_ms, bound_by = _bound(nbytes, flops, dname)
     return dict(cmp, ok=cmp["ok"] and trash_zero, trash_zero=trash_zero,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_call_ms=library_call_ms,
                 library=library, bound_ms=bound_ms, bound_by=bound_by,
-                flops=flops, tflops=flops / ms / 1e9, m=m, d=d, h=h)
+                bound_share=bound_ms / ms, flops=flops,
+                tflops=flops / ms / 1e9, m=m, d=d, h=h)
 
 
 def gmm_dw_cases():
@@ -959,22 +994,39 @@ def run_gmm_visit_case(layout):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _multi_group_tiles(gids, groups, rows=128):
+    """How many of the bf16 gmm_fwd kernel's 128-row tiles run more than
+    one group pass (the rows past M pad the last tile as trash)."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    g = gids.cpu().numpy()
+    g = np.concatenate([g, np.full(-len(g) % rows, groups, np.int32)])
+    return int((gm.expected_visit_counts(g, groups, rows) > 1).sum())
+
+
 def phase_gmm(gen, report):
     import torch
 
     layouts = gmm_layouts(gen)
+    multi = {label: _multi_group_tiles(lay[0], lay[3])
+             for label, lay in layouts.items()}
+    print(f"gmm layouts: 128-row tiles holding more than one group "
+          f"{json.dumps(multi)}", flush=True)
     fwd, dw, visit = {}, {}, {}
     for label, lay, d, h, dtype, std, tr in gmm_fwd_cases(layouts):
         fwd[label] = r = run_gmm_fwd_case(gen, layouts[lay], d, h, dtype,
                                           std, tr)
-        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
-               else "none")
+        lib = (f"{r['library_ms']:.4f} (call {r['library_call_ms']:.4f})"
+               if r["library_ms"] is not None else "none")
         print(f"gmm_fwd {label}: err {r['max_abs_err']:.3g} row rel "
               f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) trash zero "
-              f"{r['trash_zero']} ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.3f} library_ms {lib} ({r['library']}) "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['tflops']:.1f} TFLOP/s", flush=True)
+              f"{r['trash_zero']} ms {r['ms']:.4f} (device; call "
+              f"{r['call_ms']:.4f}) {r['tflops']:.1f} TFLOP/s, "
+              f"{r['bound_share']:.1%} of bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) plain_ms {r['plain_ms']:.3f} library_ms "
+              f"{lib} ({r['library']})", flush=True)
         torch.cuda.empty_cache()
     for label, lay, d, h, dtype in gmm_dw_cases():
         dw[label] = r = run_gmm_dw_case(gen, layouts[lay], d, h, dtype,
@@ -995,7 +1047,7 @@ def phase_gmm(gen, report):
               f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f}",
               flush=True)
     report["gmm_fwd_cases"], report["gmm_dw_cases"] = fwd, dw
-    report["gmm_visit_cases"] = visit
+    report["gmm_visit_cases"], report["gmm_multi_group_tiles"] = visit, multi
     return ([f"gmm_fwd {k}" for k, r in fwd.items() if not r["ok"]]
             + [f"gmm_dw {k}" for k, r in dw.items() if not r["ok"]]
             + [f"gmm_visit {k}" for k, r in visit.items() if not r["ok"]])
@@ -1066,10 +1118,12 @@ def phase_kernels(seed, report):
     for label, kw in ce_cases():
         ce[label] = r = run_ce_case(gen, **kw)
         print(f"ce_stats {label}: errs {json.dumps(r['errs'])} (tol "
-              f"{CE_TOL}, sl {CE_SL_TOL} * V) ms {r['ms']:.3f} plain_ms "
-              f"{r['plain_ms']:.3f} library_ms {r['library_ms']:.3f} "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['tflops']:.2f} TFLOP/s", flush=True)
+              f"{CE_TOL}, sl {CE_SL_TOL} * V) ms {r['ms']:.4f} (device, "
+              f"with the merge; call {r['call_ms']:.4f}) "
+              f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.1%} of bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+              f"{r['plain_ms']:.3f} library_ms {r['library_ms']:.4f} (call "
+              f"{r['library_call_ms']:.4f})", flush=True)
         torch.cuda.empty_cache()
     report["flash_bwd_cases"], report["ce_cases"] = bwd, ce
     bad = [f"flash {k}" for k, r in flash.items() if not r["ok"]] + \
@@ -1718,6 +1772,25 @@ def _full_width_tier(model, base, rng, vocab):
     return out
 
 
+def _port_kernel_ms(dev):
+    """{kernel name: device ms} of the port's own kernels, the __global__
+    functions of csrc/*.cu, among (profiler key, ms) pairs."""
+    from paddle_tpu_torch.ops.cuda import _build
+
+    names = set()
+    for src in _build.kernel_names():
+        with open(os.path.join(_build.CSRC_DIR, f"{src}.cu")) as fh:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)\s*\(", fh.read()))
+    out = {}
+    for key, ms in dev:
+        hit = re.search(r"\(anonymous namespace\)::(\w+)", key)
+        if hit and hit.group(1) in names:
+            out[hit.group(1)] = out.get(hit.group(1), 0.0) + ms
+    return out
+
+
 def _device_profile(fn, steps, top=8):
     """torch.profiler over `fn` (one step): wall ms per step, device ms
     per step (kernels, copies), the device's busy share, the top device
@@ -1751,6 +1824,7 @@ def _device_profile(fn, steps, top=8):
             "device_busy_share": device_ms / wall_ms if dev else None,
             "flash_fwd_ms_per_step": sum(ms for k, ms in dev
                                          if "flash_fwd_kernel" in k),
+            "port_kernel_ms_per_step": _port_kernel_ms(dev),
             "top_device_ms": [(k[:90], ms) for k, ms in dev[:top]],
             "top_host_ms": [(k[:60], ms) for k, ms in host[:top]]}
 
@@ -2718,9 +2792,15 @@ def main(argv=None) -> int:
     report = {"gpu": smi_line, "build_s": build_s, "built": built,
               "ptxas": {n: [ln for ln in _build.build_log(n).splitlines()
                             if "registers" in ln or "spill" in ln
-                            or "Function properties" in ln]
+                            or "Compiling entry" in ln or "arning" in ln]
                         for n in _build.kernel_names()},
               "failed": []}
+    for src in ("grouped_matmul", "fused_ce"):    # the sm90 core's kernels
+        lines = report["ptxas"][src]
+        for i, ln in enumerate(lines):
+            if "wgmma_kernel" in ln:
+                print("ptxas " + " | ".join(x.strip() for x in lines[i:i + 3]),
+                      flush=True)
     phases = [("kernels", lambda: phase_kernels(args.seed, report)),
               ("cuda_vs_cpu", lambda: phase_cuda_vs_cpu(args.seed, report)),
               ("kv_cuda_vs_cpu",

@@ -1,10 +1,10 @@
 // Shared device helpers of the port's Hopper kernels: the block-skip
 // predicate the attention and grouped-matmul kernels run, 8-wide vector
-// loads that widen bf16/fp32 to fp32, and the tensor-core pieces: the bf16
-// mma.sync product, cp.async copies into shared memory and ldmatrix
-// fragment loads (fused_ce.cu, grouped_matmul.cu, flash_fwd.cu,
-// flash_bwd.cu), with the flash kernels' padded tiles and fragment
-// helpers.
+// loads that widen bf16/fp32 to fp32, and the flash kernels' tensor-core
+// pieces: the bf16 mma.sync product, cp.async copies into shared memory,
+// ldmatrix fragment loads, padded tiles and fragment helpers (flash_fwd.cu,
+// flash_bwd.cu). The wgmma/TMA core of the grouped matmul and the CE
+// statistics is sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -139,9 +139,19 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(s));
 }
 
-// ---- the flash kernels' tensor-core pieces (flash_fwd.cu, flash_bwd.cu) --
+// ---- the flash kernels' tensor-core pieces (flash_fwd.cu, flash_bwd.cu);
+// kLog2e and exp2_ftz also serve fused_ce.cu ------------------------------
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU, subnormal results flushed to 0: exp2f wraps the same
+// instruction in a rescaling for subnormals, several more instructions a
+// value, and a term below 2^-126 adds nothing to a softmax sum
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // bf16 row stride of a shared [rows][D] tile: 16 bytes of padding keep
 // every ldmatrix of the tile free of bank conflicts

@@ -263,15 +263,6 @@ struct FwdTile {
   static constexpr int kBQ = 16 * kMT * kMmaThreads / 32;
 };
 
-// 2^x on the SFU, subnormal results flushed to 0: exp2f wraps the same
-// instruction in a rescaling for subnormals, several more instructions a
-// score, and a probability below 2^-126 adds nothing to a row's sum
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // the Q tile and two stages of K and V
 template <int D>
 constexpr size_t mma_smem_bytes() {
@@ -425,7 +416,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
             }
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float alpha = exp2_ftz((m[mt][hi] - mx) * sl2);
+          const float alpha = ptt::exp2_ftz((m[mt][hi] - mx) * sl2);
           const float mb = mx * sl2;
           m[mt][hi] = mx;
           float sum = 0.f;
@@ -435,7 +426,8 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
             for (int e = 0; e < 2; ++e) {
               const int bit = 2 * nt + e;
               float& x = s[mt][nt][2 * hi + e];
-              x = (vis >> bit & 1u) ? exp2_ftz(fmaf(x, sl2, -mb)) : 0.f;
+              x = (vis >> bit & 1u) ? ptt::exp2_ftz(fmaf(x, sl2, -mb))
+                                    : 0.f;
               sum += x;
             }
           l[mt][hi] = l[mt][hi] * alpha + sum;

@@ -1,6 +1,6 @@
 // Fused linear + cross-entropy statistics for Hopper (sm_90a): bf16 inputs
-// on the tensor cores (mma.sync, fp32 accumulation), fp32 inputs on the
-// CUDA cores.
+// on the tensor cores (the shared GEMM core of sm90.cuh: TMA, an mbarrier
+// ring, wgmma), fp32 inputs on the CUDA cores.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/fused_ce.py
 // `_ce_stats_kernel` (launched by `_stats_pallas`). For every token n it
@@ -8,39 +8,48 @@
 //   m  = max_v logit,  s = sum_v exp(logit - m),
 //   t  = logit[label[n]] (0 when the label is outside [0, V)),
 //   sl = sum_v logit.
-// The x . W^T tile product runs in the kernel's own body, a 64-token by
-// 128-vocab tile at a time, accumulated in fp32 registers:
-//  * bf16: 8 warps as 2 x 4, each a 32 x 32 sub-tile of m16n8k16
-//    mma.sync products over 64-wide H slices of x and W staged in shared
-//    memory (rows padded to 72 so the fragment loads hit 32 distinct
-//    banks), the next slice loaded into registers while this one computes;
-//  * fp32: 4 x 8 outputs a thread from 16-wide H slices, on the CUDA cores
-//    (the tensor cores would round fp32 to tf32).
-// Each finished tile is folded into the running (m, s, t, sl) with the
-// online-rescaling recurrence of the TPU kernel; the mma path keeps one
-// running set per warp column and merges the four through shared memory
-// at the end.
 //
-// At N = 4096 there are only 64 token blocks for 132 SMs, so the vocabulary
-// is also split across blocks: block (i, j) walks the vocab tiles of split
-// j and writes partial statistics, and a second small kernel merges the
-// splits (m = max m_j, s = sum s_j exp(m_j - m), t and sl summed), as the
-// paged kernel's split-K does.
+// What bounds it: the tile product, 2 N V H flops (1.07 TFLOP at N 4096,
+// H 4096, V 32000) against 2 (N + V) H bytes, so operations; the next
+// limit is how often W (262 MB, more than L2) and x are read again.
+//  * bf16 (ce_stats_wgmma_kernel): a persistent grid of one block an SM.
+//    A work unit is one 128-token block and one split's contiguous range
+//    of 256-column vocab tiles; a producer warp streams 64-deep slices of
+//    x and W (both K-major) by TMA into a 4-stage ring, two consumer
+//    warpgroups run wgmma m64n256k16 on them (W read from shared memory,
+//    twice the tile of the mma.sync kernel it replaces, so half the L2
+//    reads of W and x) and fold each finished 128 x 256 tile into the
+//    running (m, s, t, sl) in their accumulators: a row lives in one quad
+//    of 4 lanes, so its max takes two shuffles, and each lane keeps its
+//    share of s, t and sl until the unit ends. exp2 with log2(e) folded
+//    into one multiply-add a logit, on the SFU. Only the last vocab tile
+//    masks columns >= V (TMA reads them as zeros). Units run split-major,
+//    so the blocks running at one time share a vocab range and W streams
+//    from device memory about once a wave.
+//  * fp32 (ce_stats_partial_kernel): a 64-token x 128-vocab tile, 4 x 8
+//    outputs a thread from 16-wide H slices, on the CUDA cores (the tensor
+//    cores would round fp32 to tf32), with the same online fold.
 //
-// Layout: x [N, H] and W [V, H] contiguous (H a multiple of 64 for bf16, 16
-// for fp32), labels [N] int32; partial statistics [4, nsplit, N] fp32;
-// m, s, t, sl [N] fp32.
+// Both write partial statistics per vocab split (split j covers tiles_per_
+// split 256-column tiles), and a second small kernel merges the splits
+// (m = max m_j, s = sum s_j exp(m_j - m), t and sl summed), as the paged
+// kernel's split-K does; the wrapper picks the split so that token blocks
+// x splits fill the grid.
+//
+// Layout: x [N, H] and W [V, H] contiguous (H a multiple of 8 for bf16:
+// TMA row strides are multiples of 16 bytes; 16 for fp32), labels [N]
+// int32; partial statistics [4, nsplit, N] fp32; m, s, t, sl [N] fp32.
 #include "common.cuh"
+#include "sm90.cuh"
 
-#include <type_traits>
+namespace sm90 = ptt::sm90;
 
 namespace {
 
-constexpr int kBR = 64;    // tokens per block
-constexpr int kBV = 128;   // vocab columns per tile
+constexpr int kSplitCols = sm90::kBN;  // vocab columns a split counts in
+constexpr int kBR = 64;    // tokens per block (fp32 path)
+constexpr int kBV = 128;   // vocab columns per tile (fp32 path)
 constexpr int kBH = 16;    // H slice staged per step (fp32 path)
-constexpr int kMmaBK = 64;            // H slice staged per step (bf16 path)
-constexpr int kMmaLd = kMmaBK + 8;    // padded shared row, in bf16
 constexpr int kThreads = 256;
 
 // Fold 8 logits of one token row (column col[c], counted when < V) into
@@ -94,8 +103,8 @@ ce_stats_partial_kernel(const float* __restrict__ x,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * kBR;
   const int split = blockIdx.y, nsplit = gridDim.y;
-  const int v_begin = split * tiles_per_split * kBV;
-  const int v_end = min(V, v_begin + tiles_per_split * kBV);
+  const int v_begin = split * tiles_per_split * kSplitCols;
+  const int v_end = min(V, v_begin + tiles_per_split * kSplitCols);
 
   // thread (ty, tx) owns tokens n0 + 4 ty + r and vocab columns
   // tx * 4 + c and 64 + tx * 4 + c of each tile; the 16 threads of a
@@ -181,156 +190,120 @@ ce_stats_partial_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ce_stats_partial_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ w,
-                            const int* __restrict__ labels,
-                            float* __restrict__ part, int N, int V, int H,
-                            int tiles_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kBR][kMmaLd];
-  __shared__ __align__(16) __nv_bfloat16 ws[kBV][kMmaLd];
-  __shared__ float red[4][4][kBR];  // [statistic][warp column][token]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp >> 2, wc = warp & 3;  // 32 tokens x 32 columns each
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * kBR;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int v_begin = split * tiles_per_split * kBV;
-  const int v_end = min(V, v_begin + tiles_per_split * kBV);
-
-  // this thread's accumulator rows: 32 wr + 16 mt + gid + 8 hf
-  int lab[2][2];
-  float m[2][2], s[2][2], t[2][2], sl[2][2];
+// Fold the thread's two rows of a finished 64 x 256 accumulator tile
+// (columns col0 + 8 j + e, e < 2) into its running statistics: the row max
+// over the quad, then this lane's share of sum exp, the target logit and
+// the sum. MASK: columns >= V (zeros read past the vocab) are left out.
+template <bool MASK>
+__device__ __forceinline__ void fold_tile(const float (&acc)[128], int col0,
+                                          int V, const int (&lab)[2],
+                                          float (&m)[2], float (&s)[2],
+                                          float (&t)[2], float (&sl)[2]) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int h = 0; h < 2; ++h) {
+    float bm = ptt::kNegInf;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int n = n0 + 32 * wr + 16 * mt + gid + 8 * hf;
-      lab[mt][hf] = n < N ? labels[n] : -1;
-      m[mt][hf] = ptt::kNegInf;
-      s[mt][hf] = t[mt][hf] = sl[mt][hf] = 0.f;
-    }
-
-  // one H slice: x 64 x 64 and W 128 x 64 bf16, 16 bytes a load
-  uint4 xr[2], wreg[4];
-  auto load = [&](int v0, int h0) {
+    for (int j = 0; j < 32; ++j)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = tid + i * kThreads, r = e >> 3, c = (e & 7) * 8;
-      xr[i] = n0 + r < N ? *reinterpret_cast<const uint4*>(
-                               x + (long long)(n0 + r) * H + h0 + c)
-                         : make_uint4(0, 0, 0, 0);
-    }
+      for (int e = 0; e < 2; ++e)
+        if (!MASK || col0 + 8 * j + e < V)
+          bm = fmaxf(bm, acc[4 * j + 2 * h + e]);
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+    bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+    const float nm = fmaxf(m[h], bm), nml = nm * ptt::kLog2e;
+    const int rel = lab[h] - col0;  // the label's place in these columns
+    float se = 0.f, ss = 0.f, tt = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + i * kThreads, r = e >> 3, c = (e & 7) * 8;
-      wreg[i] = v0 + r < V ? *reinterpret_cast<const uint4*>(
-                                 w + (long long)(v0 + r) * H + h0 + c)
-                           : make_uint4(0, 0, 0, 0);
-    }
-  };
-
-  for (int v0 = v_begin; v0 < v_end; v0 += kBV) {
-    float acc[2][4][4];
+    for (int j = 0; j < 32; ++j)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-    const int nk = H / kMmaBK;
-    load(v0, 0);
-    for (int kc = 0; kc < nk; ++kc) {
-      __syncthreads();  // the previous slice's readers are done
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int e = tid + i * kThreads;
-        *reinterpret_cast<uint4*>(&xs[e >> 3][(e & 7) * 8]) = xr[i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = tid + i * kThreads;
-        *reinterpret_cast<uint4*>(&ws[e >> 3][(e & 7) * 8]) = wreg[i];
-      }
-      __syncthreads();
-      if (kc + 1 < nk) load(v0, (kc + 1) * kMmaBK);  // overlaps the products
-#pragma unroll
-      for (int kk = 0; kk < kMmaBK; kk += 16) {
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int r = 32 * wr + 16 * mt + gid, c = kk + tig * 2;
-          a[mt][0] = *reinterpret_cast<const uint32_t*>(&xs[r][c]);
-          a[mt][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][c]);
-          a[mt][2] = *reinterpret_cast<const uint32_t*>(&xs[r][c + 8]);
-          a[mt][3] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][c + 8]);
+      for (int e = 0; e < 2; ++e) {
+        const float v = acc[4 * j + 2 * h + e];
+        if (!MASK || col0 + 8 * j + e < V) {
+          se += ptt::exp2_ftz(fmaf(v, ptt::kLog2e, -nml));
+          ss += v;
+          if (8 * j + e == rel) tt = v;
         }
+      }
+    s[h] = s[h] * ptt::exp2_ftz((m[h] - nm) * ptt::kLog2e) + se;
+    m[h] = nm;
+    t[h] += tt;
+    sl[h] += ss;
+  }
+}
+
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+ce_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                      const __grid_constant__ CUtensorMap tmap_w,
+                      const int* __restrict__ labels,
+                      float* __restrict__ part, int N, int V, int H,
+                      int nsplit, int tiles_per_split) {
+  extern __shared__ unsigned char smem[];
+  sm90::Ring ring(sm90::ring_setup(smem));
+  const int nblk = (N + sm90::kBM - 1) / sm90::kBM;
+  const int units = nblk * nsplit;
+  const int nk = (H + sm90::kBK - 1) / sm90::kBK;
+  const int span = tiles_per_split * kSplitCols;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    // ---- producer: one thread issues the copies
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_map(&tmap_x);
+      sm90::prefetch_map(&tmap_w);
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int split = u / nblk, n0 = u % nblk * sm90::kBM;
+        const int v_end = min(V, (split + 1) * span);
+        for (int v0 = split * span; v0 < v_end; v0 += sm90::kBN)
+          sm90::produce(ring, nk, [&](uint32_t sa, uint32_t sb, uint32_t bar,
+                                      int k) {
+            sm90::tma_load_2d(sa, &tmap_x, bar, k * sm90::kBK, n0);
+            sm90::tma_load_2d(sb, &tmap_w, bar, k * sm90::kBK, v0);
+          });
+      }
+    }
+  } else {
+    // ---- consumers: 64 tokens of each unit a warpgroup
+    sm90::regs_inc<sm90::kConsumerRegs>();
+    const int r_in = 64 * (wg - 1) + sm90::acc_row0();
+    float acc[128];
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int split = u / nblk, n0 = u % nblk * sm90::kBM;
+      const int v_end = min(V, (split + 1) * span);
+      const int row = n0 + r_in;
+      const int lab[2] = {row < N ? labels[row] : -1,
+                          row + 8 < N ? labels[row + 8] : -1};
+      float m[2] = {ptt::kNegInf, ptt::kNegInf}, s[2] = {0.f, 0.f},
+            t[2] = {0.f, 0.f}, sl[2] = {0.f, 0.f};
+      for (int v0 = split * span; v0 < v_end; v0 += sm90::kBN) {
+        sm90::consume<0>(ring, nk, wg - 1, acc);
+        const int col0 = v0 + sm90::acc_col0();
+        if (v0 + sm90::kBN <= V)
+          fold_tile<false>(acc, col0, V, lab, m, s, t, sl);
+        else
+          fold_tile<true>(acc, col0, V, lab, m, s, t, sl);
+      }
+      // the quad's shares of each row, then the split's partial
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int r = 32 * wc + 8 * nt + gid, c = kk + tig * 2;
-          b[nt][0] = *reinterpret_cast<const uint32_t*>(&ws[r][c]);
-          b[nt][1] = *reinterpret_cast<const uint32_t*>(&ws[r][c + 8]);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], o);
+          t[h] += __shfl_xor_sync(0xffffffffu, t[h], o);
+          sl[h] += __shfl_xor_sync(0xffffffffu, sl[h], o);
         }
+      if ((threadIdx.x & 3) == 0) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            ptt::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+        for (int h = 0; h < 2; ++h) {
+          const int n = row + 8 * h;
+          if (n >= N) continue;
+          part[(0LL * nsplit + split) * N + n] = m[h];
+          part[(1LL * nsplit + split) * N + n] = s[h];
+          part[(2LL * nsplit + split) * N + n] = t[h];
+          part[(3LL * nsplit + split) * N + n] = sl[h];
+        }
       }
     }
-
-    // fold this warp's 32 columns of the tile: a row's 8 values in a
-    // thread, its 32 across the 4 lanes of a quad
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float val[8];
-        int col[8];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            val[nt * 2 + c] = acc[mt][nt][hf * 2 + c];
-            col[nt * 2 + c] = v0 + 32 * wc + 8 * nt + tig * 2 + c;
-          }
-        fold_row<4>(val, col, V, lab[mt][hf], m[mt][hf], s[mt][hf],
-                    t[mt][hf], sl[mt][hf]);
-      }
-  }
-
-  // merge the 4 warp columns of each token, then write the split's partial
-  if (tig == 0) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = 32 * wr + 16 * mt + gid + 8 * hf;
-        red[0][wc][r] = m[mt][hf];
-        red[1][wc][r] = s[mt][hf];
-        red[2][wc][r] = t[mt][hf];
-        red[3][wc][r] = sl[mt][hf];
-      }
-  }
-  __syncthreads();
-  if (tid < kBR && n0 + tid < N) {
-    float mx = ptt::kNegInf;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mx = fmaxf(mx, red[0][j][tid]);
-    float se = 0.f, tt = 0.f, ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      se += red[1][j][tid] * expf(red[0][j][tid] - mx);
-      tt += red[2][j][tid];
-      ss += red[3][j][tid];
-    }
-    const int n = n0 + tid;
-    part[(0LL * nsplit + split) * N + n] = mx;
-    part[(1LL * nsplit + split) * N + n] = se;
-    part[(2LL * nsplit + split) * N + n] = tt;
-    part[(3LL * nsplit + split) * N + n] = ss;
   }
 }
 
@@ -357,34 +330,14 @@ __global__ void ce_stats_merge_kernel(const float* __restrict__ part,
   sl[n] = ss;
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const int* labels, float* part,
-           float* m, float* s, float* t, float* sl, int N, int V, int H,
-           int nsplit, int tiles_per_split, cudaStream_t stream) {
-  dim3 grid((N + kBR - 1) / kBR, nsplit);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    ce_stats_partial_mma_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), labels, part, N, V, H,
-        tiles_per_split);
-  } else {
-    ce_stats_partial_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), labels,
-        part, N, V, H, tiles_per_split);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ce_stats_merge_kernel<<<(N + 255) / 256, 256, 0, stream>>>(part, m, s, t, sl,
-                                                           N, nsplit);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry point (bound with ctypes). nsplit vocab splits of
-// tiles_per_split 128-column tiles each (nsplit * tiles_per_split * 128 >=
+// tiles_per_split 256-column tiles each (nsplit * tiles_per_split * 256 >=
 // V); part is [4, nsplit, N] fp32 scratch. is_bf16: 1 bf16, 0 fp32.
-// Returns cudaGetLastError() after the launches (0 = launched).
+// Returns cudaGetLastError() after the launches (0 = launched), or, for a
+// tensor map that cannot be encoded, ptt::sm90_host::kNoEncoder or
+// kEncodeFailed + its CUresult.
 extern "C" int ptt_ce_stats(const void* x, const void* w, const int* labels,
                             float* part, float* m, float* s, float* t,
                             float* sl, int N, int V, int H, int nsplit,
@@ -393,13 +346,37 @@ extern "C" int ptt_ce_stats(const void* x, const void* w, const int* labels,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N <= 0) return 0;
-  if (V <= 0 || H <= 0 || H % (is_bf16 ? kMmaBK : kBH) != 0 || nsplit <= 0 ||
-      (long long)nsplit * tiles_per_split * kBV < V)
+  if (V <= 0 || H <= 0 || H % (is_bf16 ? 8 : kBH) != 0 || nsplit <= 0 ||
+      tiles_per_split <= 0 ||
+      (long long)nsplit * tiles_per_split * kSplitCols < V)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, w, labels, part, m, s, t, sl, N, V, H,
-                                 nsplit, tiles_per_split, st);
-  return launch<float>(x, w, labels, part, m, s, t, sl, N, V, H, nsplit,
-                       tiles_per_split, st);
+  if (is_bf16) {
+    namespace host = ptt::sm90_host;
+    CUtensorMap tmap_x, tmap_w;
+    const cuuint64_t stride[1] = {(cuuint64_t)H * 2};
+    const cuuint64_t xdim[2] = {(cuuint64_t)H, (cuuint64_t)N};
+    const cuuint64_t wdim[2] = {(cuuint64_t)H, (cuuint64_t)V};
+    const cuuint32_t xbox[2] = {sm90::kBK, sm90::kBM};
+    const cuuint32_t wbox[2] = {sm90::kBK, sm90::kBN};
+    int e = host::encode_bf16(&tmap_x, x, 2, xdim, stride, xbox);
+    if (e == 0) e = host::encode_bf16(&tmap_w, w, 2, wdim, stride, wbox);
+    if (e != 0) return e;
+    err = host::opt_in_smem(ce_stats_wgmma_kernel, device);
+    if (err != cudaSuccess) return (int)err;
+    const int units = (N + sm90::kBM - 1) / sm90::kBM * nsplit;
+    ce_stats_wgmma_kernel<<<host::persistent_blocks(device, units),
+                            sm90::kThreads, sm90::kSmemBytes, st>>>(
+        tmap_x, tmap_w, labels, part, N, V, H, nsplit, tiles_per_split);
+  } else {
+    dim3 grid((N + kBR - 1) / kBR, nsplit);
+    ce_stats_partial_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), labels,
+        part, N, V, H, tiles_per_split);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ce_stats_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, m, s, t, sl, N,
+                                                         nsplit);
+  return (int)cudaGetLastError();
 }

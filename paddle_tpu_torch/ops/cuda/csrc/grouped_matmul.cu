@@ -10,39 +10,47 @@
 //
 // What bounds it: each expert product is 2 * rows * d * h flops against
 // (rows * (d + h) + d * h) elements moved, hundreds of flops a byte at the
-// MoE widths, so operations. The design:
-//  * gmm_fwd, bf16 x and w: one 128-row x 128-column output tile a block,
-//    8 warps as 4 x 2 of 32 x 64 sub-tiles on mma.sync m16n8k16 with fp32
-//    accumulation, 32-deep slices of x and w double-buffered in shared
-//    memory with cp.async (rows padded so ldmatrix is conflict-free; w's
-//    [d, h] slice is read transposed by ldmatrix.trans);
+// MoE widths, so operations; at h 4096 the fp32 y (285 MB at 17408 rows)
+// comes close, so the epilogue's stores must not stall the products long.
+// The design:
+//  * gmm_fwd, bf16 x and w: the shared Hopper GEMM core (sm90.cuh). A
+//    persistent grid of one block an SM walks 128-row x 256-column output
+//    tiles, the column tiles of one row tile next to each other, so the
+//    blocks running together read one expert's w[g] (8 MB at h1) while it
+//    sits in L2. A producer warp brings 64-deep slices of x (TMA, 2-D) and
+//    of w[g] (TMA, 3-D, four 64-column boxes, MN-major) into a 4-stage
+//    ring; two consumer warpgroups run wgmma m64n256k16 on it and store
+//    fp32 float2 pairs straight from their accumulators, while the
+//    producer already loads the next tile.
+//  * The row-group skip of the TPU kernel: every warp reads the tile's gid
+//    min and max and the tile runs one full product for each group g < G
+//    that `ptt::blocks_can_touch(gmin, gmax, g, g)` admits, storing only
+//    the rows with gids == g (one pass a tile on the dispatcher's
+//    128-aligned buckets). A row's value is its own group's product, as
+//    the masked sum of the JAX kernel gives, so any grouped layout is
+//    exact; rows that no pass matched (trash) are stored as zeros. TMA's
+//    zero fill covers rows past M, columns past h and a d that is not a
+//    multiple of 64.
 //  * gmm_fwd, fp32: a 64 x 128 tile, 4 x 8 outputs a thread, on the CUDA
-//    cores (the tensor cores would round fp32 to tf32);
-//  * the row-group skip of the TPU kernel: a block reads its rows' gid
-//    min and max once and runs the d loop only for the groups g < G that
-//    `ptt::blocks_can_touch(gmin, gmax, g, g)` admits (one group per tile
-//    on the dispatcher's 128-aligned buckets), loading the rows of other
-//    groups as zeros (cp.async zero-fill), so any grouped layout is exact;
+//    cores (the tensor cores would round fp32 to tf32), with the same
+//    group skip (the rows of other groups loaded as zeros);
 //  * gmm_dw: one [64 (d), 128 (h)] tile of one group's dw[g] a block,
 //    walking the 16-row chunks of x and dy whose gid range touches g (the
 //    ranges come from a small pre-pass) with rows of other groups zeroed;
 //    fp32 math on the CUDA cores (dy is fp32, as in the JAX backward).
 //
 // Layouts, all contiguous: x [M, D], w [G, D, N], gids [M] int32, y [M, N]
-// fp32, dy [M, N] fp32, dw [G, D, N] fp32. bf16 gmm_fwd needs D % 32 == 0,
-// fp32 gmm_fwd D % 16 == 0, gmm_dw D % 8 == 0; all need N % 8 == 0.
+// fp32, dy [M, N] fp32, dw [G, D, N] fp32. bf16 gmm_fwd needs D % 8 == 0
+// (TMA row strides are multiples of 16 bytes), fp32 gmm_fwd D % 16 == 0,
+// gmm_dw D % 8 == 0; all need N % 8 == 0.
 #include "common.cuh"
+#include "sm90.cuh"
+
+namespace sm90 = ptt::sm90;
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// ---- bf16 forward: mma.sync ------------------------------------------------
-constexpr int kMBM = 128;           // rows per block
-constexpr int kMBN = 128;           // columns per block
-constexpr int kMBK = 32;            // depth of a staged slice
-constexpr int kMALd = kMBK + 8;     // padded shared rows, in bf16
-constexpr int kMBLd = kMBN + 8;
+constexpr int kThreads = 256;  // the CUDA-core kernels
 
 // Group ids of a block's `rows` rows into sg (rows past M count as trash,
 // G), and their min and max over the block. Every thread calls it.
@@ -74,106 +82,111 @@ __device__ __forceinline__ void tile_gid_range(const int* __restrict__ gids,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-gmm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
-                   const int* __restrict__ gids, float* __restrict__ y, int M,
-                   int D, int N, int G) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][kMBM][kMALd];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][kMBK][kMBLd];
-  __shared__ int sg[kMBM];
-  __shared__ int red[2 * kThreads / 32];
+// ---- bf16 forward: the sm90 GEMM core -------------------------------------
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;   // 32 rows x 64 columns a warp
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * kMBM, n0 = blockIdx.x * kMBN;
-  int gmin, gmax;
-  tile_gid_range(gids, m0, kMBM, M, G, sg, red, gmin, gmax);
+// The gid min and max of tile rows [m0, m0 + kBM) (rows past M count as
+// trash, G), reduced over one warp, so every warp of the block reaches the
+// same list of passes without a block barrier.
+__device__ __forceinline__ void warp_gid_range(const int* __restrict__ gids,
+                                               int m0, int M, int G,
+                                               int& gmin, int& gmax) {
+  int mn = INT_MAX, mx = INT_MIN;
+  for (int i = threadIdx.x & 31; i < sm90::kBM; i += 32) {
+    const int g = m0 + i < M ? gids[m0 + i] : G;
+    mn = min(mn, g);
+    mx = max(mx, g);
+  }
+  gmin = ptt::warp_min_i(mn);
+  gmax = ptt::warp_max_i(mx);
+}
 
-  float acc[2][8][4];
+// the thread's two accumulator rows (s0: row, s1: row + 8) of the 256
+// columns from n0, as fp32 pairs; zero stores 0 instead
+template <bool ZERO>
+__device__ __forceinline__ void store_rows(float* __restrict__ y,
+                                           const float (&acc)[128], int row,
+                                           int col0, int N, bool s0,
+                                           bool s1) {
+  float* y0 = y + (long long)row * N;
+  float* y1 = y0 + 8LL * N;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  for (int j = 0; j < 32; ++j) {
+    const int col = col0 + 8 * j;
+    if (col >= N) continue;
+    if (s0)
+      *reinterpret_cast<float2*>(y0 + col) =
+          ZERO ? make_float2(0.f, 0.f)
+               : make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (s1)
+      *reinterpret_cast<float2*>(y1 + col) =
+          ZERO ? make_float2(0.f, 0.f)
+               : make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
 
-  const int nk = D / kMBK;
-  for (int g = 0; g < G; ++g) {
-    if (!ptt::blocks_can_touch(gmin, gmax, g, g)) continue;
-    const __nv_bfloat16* wg = w + (long long)g * D * N;
-    // one slice: x 128 x 32 and w 32 x 128, two 16-byte copies each a
-    // thread; rows of other groups (and trash rows) are zero-filled
-    auto issue = [&](int stage, int k0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int e = tid + i * kThreads, r = e >> 2, c = (e & 3) * 8;
-        const bool hit = sg[r] == g;
-        ptt::cp_async16(&as[stage][r][c],
-                        x + (long long)(hit ? m0 + r : 0) * D + k0 + c,
-                        hit ? 16 : 0);
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+gmm_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                     const __grid_constant__ CUtensorMap tmap_w,
+                     const int* __restrict__ gids, float* __restrict__ y,
+                     int M, int D, int N, int G) {
+  extern __shared__ unsigned char smem[];
+  sm90::Ring ring(sm90::ring_setup(smem));
+  const int n_tiles = (N + sm90::kBN - 1) / sm90::kBN;
+  const int tiles = (M + sm90::kBM - 1) / sm90::kBM * n_tiles;
+  const int nk = (D + sm90::kBK - 1) / sm90::kBK;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    // ---- producer: warp 0 walks the passes, lane 0 issues the copies
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const bool issuer = threadIdx.x == 0;
+      if (issuer) {
+        sm90::prefetch_map(&tmap_x);
+        sm90::prefetch_map(&tmap_w);
       }
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / n_tiles * sm90::kBM, n0 = t % n_tiles * sm90::kBN;
+        int gmin, gmax;
+        warp_gid_range(gids, m0, M, G, gmin, gmax);
+        for (int g = 0; g < G; ++g) {
+          if (!issuer || !ptt::blocks_can_touch(gmin, gmax, g, g)) continue;
+          sm90::produce(ring, nk, [&](uint32_t sa, uint32_t sb, uint32_t bar,
+                                      int k) {
+            sm90::tma_load_2d(sa, &tmap_x, bar, k * sm90::kBK, m0);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int e = tid + i * kThreads, r = e >> 4, c = (e & 15) * 8;
-        const bool in = n0 + c < N;
-        ptt::cp_async16(&bs[stage][r][c],
-                        wg + (long long)(k0 + r) * N + (in ? n0 + c : 0),
-                        in ? 16 : 0);
-      }
-      ptt::cp_async_commit();
-    };
-    __syncthreads();  // the previous group's readers of both stages are done
-    issue(0, 0);
-    for (int kt = 0; kt < nk; ++kt) {
-      ptt::cp_async_wait_all();
-      __syncthreads();  // slice kt landed; slice kt - 1's readers are done
-      if (kt + 1 < nk) issue((kt + 1) & 1, (kt + 1) * kMBK);  // overlaps
-      const int st = kt & 1;
-#pragma unroll
-      for (int kk = 0; kk < kMBK; kk += 16) {
-        uint32_t a[2][4], b[8][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ptt::ldmatrix_x4(a[mt], &as[st][wm * 32 + mt * 16 + (lane & 15)]
-                                     [kk + (lane >> 4) * 8]);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t r[4];
-          ptt::ldmatrix_x4_trans(
-              r, &bs[st][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
-                        [wn * 64 + np * 16 + (lane >> 4) * 8]);
-          b[2 * np][0] = r[0];
-          b[2 * np][1] = r[1];
-          b[2 * np + 1][0] = r[2];
-          b[2 * np + 1][1] = r[3];
+            for (int j = 0; j < sm90::kBN / 64; ++j)
+              sm90::tma_load_3d(sb + j * sm90::kBK * 128, &tmap_w, bar,
+                                n0 + 64 * j, k * sm90::kBK, g);
+          });
         }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-            ptt::mma_bf16_16816(acc[mt][nt], a[mt], b[nt]);
+        __syncwarp();
       }
+    }
+  } else {
+    // ---- consumers: 64 rows of each tile a warpgroup
+    sm90::regs_inc<sm90::kConsumerRegs>();
+    const int c = wg - 1;
+    const int r_in = 64 * c + sm90::acc_row0();
+    float acc[128];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / n_tiles * sm90::kBM, n0 = t % n_tiles * sm90::kBN;
+      int gmin, gmax;
+      warp_gid_range(gids, m0, M, G, gmin, gmax);
+      const int row = m0 + r_in, col0 = n0 + sm90::acc_col0();
+      const bool in0 = row < M, in1 = row + 8 < M;
+      const int g0 = in0 ? gids[row] : G, g1 = in1 ? gids[row + 8] : G;
+      for (int g = 0; g < G; ++g) {
+        if (!ptt::blocks_can_touch(gmin, gmax, g, g)) continue;
+        sm90::consume<1>(ring, nk, c, acc);
+        store_rows<false>(y, acc, row, col0, N, in0 && g0 == g,
+                          in1 && g1 == g);
+      }
+      // rows no pass matched: trash (gid G) or any id outside [0, G)
+      store_rows<true>(y, acc, row, col0, N, in0 && (g0 < 0 || g0 >= G),
+                       in1 && (g1 < 0 || g1 >= G));
     }
   }
-
-  // every block writes its whole tile: rows no visited group matched
-  // (trash rows included) are zero
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int row = m0 + wm * 32 + mt * 16 + gid;
-      const int col = n0 + wn * 64 + nt * 8 + tig * 2;
-      if (col >= N) continue;
-      if (row < M)
-        *reinterpret_cast<float2*>(y + (long long)row * N + col) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<float2*>(y + (long long)(row + 8) * N + col) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
 }
 
 // ---- fp32 paths: CUDA cores -----------------------------------------------
@@ -366,21 +379,37 @@ __global__ void gmm_visit_kernel(const int* __restrict__ gids,
 // cudaGetLastError() after its launches (0 = launched).
 
 // y [M, N] fp32 = x [M, D] @ w[gids] ([G, D, N]); is_bf16: 1 bf16 x and w
-// (tensor cores), 0 fp32 x and w (CUDA cores).
+// (tensor cores, TMA and wgmma), 0 fp32 x and w (CUDA cores). A tensor map
+// that cannot be encoded returns ptt::sm90_host::kNoEncoder or
+// kEncodeFailed + its CUresult.
 extern "C" int ptt_gmm_fwd(const void* x, const void* w, const int* gids,
                            float* y, int M, int D, int N, int G, int is_bf16,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || N <= 0) return 0;
-  if (D <= 0 || G <= 0 || N % 8 != 0 || D % (is_bf16 ? kMBK : kBK) != 0)
+  if (D <= 0 || G <= 0 || N % 8 != 0 || D % (is_bf16 ? 8 : kBK) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    dim3 grid((N + kMBN - 1) / kMBN, (M + kMBM - 1) / kMBM);
-    gmm_fwd_mma_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), gids, y, M, D, N, G);
+    namespace host = ptt::sm90_host;
+    CUtensorMap tmap_x, tmap_w;
+    const cuuint64_t xdim[2] = {(cuuint64_t)D, (cuuint64_t)M};
+    const cuuint64_t xstride[1] = {(cuuint64_t)D * 2};
+    const cuuint32_t xbox[2] = {sm90::kBK, sm90::kBM};
+    const cuuint64_t wdim[3] = {(cuuint64_t)N, (cuuint64_t)D, (cuuint64_t)G};
+    const cuuint64_t wstride[2] = {(cuuint64_t)N * 2, (cuuint64_t)D * N * 2};
+    const cuuint32_t wbox[3] = {64, sm90::kBK, 1};
+    int e = host::encode_bf16(&tmap_x, x, 2, xdim, xstride, xbox);
+    if (e == 0) e = host::encode_bf16(&tmap_w, w, 3, wdim, wstride, wbox);
+    if (e != 0) return e;
+    err = host::opt_in_smem(gmm_fwd_wgmma_kernel, device);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (M + sm90::kBM - 1) / sm90::kBM *
+                      ((N + sm90::kBN - 1) / sm90::kBN);
+    gmm_fwd_wgmma_kernel<<<host::persistent_blocks(device, tiles),
+                           sm90::kThreads, sm90::kSmemBytes, st>>>(
+        tmap_x, tmap_w, gids, y, M, D, N, G);
   } else {
     dim3 grid((N + kBN - 1) / kBN, (M + kBR - 1) / kBR);
     gmm_fwd_simt_kernel<<<grid, kThreads, 0, st>>>(

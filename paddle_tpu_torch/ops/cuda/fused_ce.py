@@ -10,12 +10,16 @@ log-sum-exp, target logit) plus the row sum for label smoothing; the
 
 What bounds it on the H100: the tile product, 2·N·V·H flops (1.07 TFLOP at
 N 4096, H 4096, V 32000) against 2·(N + V)·H bytes, so operations. The
-kernel computes the product in its own body, a 64-token x 128-vocab tile
-at a time with fp32 accumulation: bf16 inputs on the tensor cores through
-``mma.sync`` (``wgmma`` and TMA are later work), fp32 inputs on the CUDA
-cores. What the design does about the card's width: N 4096 gives only 64
-token blocks for 132 SMs, so the vocabulary is split across blocks too and
-a second small kernel merges the partial statistics.
+kernel computes the product in its own body with fp32 accumulation. bf16
+inputs run on the shared Hopper GEMM core (``csrc/sm90.cuh``): a
+persistent grid of one block an SM, TMA copies of 64-deep slices of x and
+W into a 4-stage ``mbarrier`` ring, two consumer warpgroups on ``wgmma``
+m64n256k16, so a tile is 128 tokens x 256 vocab columns, folded into the
+running statistics in the accumulators. fp32 inputs run on the CUDA cores
+(64 x 128 tiles). N 4096 gives only 32 token blocks for 132 SMs, so the
+vocabulary is split across blocks too (``_split``: token blocks x splits
+fill one wave, the blocks of a split run together and share its W range)
+and a second small kernel merges the partial statistics.
 
 The backward (``FusedLinearCrossEntropy.backward``) replays ``_bwd_tokens``:
 per token chunk it recomputes the [C, V] fp32 logits tile, forms the
@@ -38,10 +42,11 @@ __all__ = ["ce_stats", "ce_stats_reference", "resolve_chunks",
            "pick_chunk_tokens", "FusedLinearCrossEntropy", "LAUNCHES",
            "reset_launches", "launch_counts"]
 
-_BV = 128                  # vocab columns per kernel tile (csrc/fused_ce.cu)
-_BR = 64                   # tokens per kernel block
+_BV = 256                  # vocab columns per bf16 tile and split unit
+_BR = 128                  # tokens per bf16 tile (csrc/sm90.cuh kBM)
 _BH = 16                   # H slice of the fp32 path
-_BH_MMA = 64               # H slice of the bf16 (mma.sync) path
+_BH_TMA = 8                # bf16 H step: TMA row strides are 16-byte
+                           # multiples; a ragged 64-deep slice reads zeros
 
 LAUNCHES = {"ce_stats": 0}
 
@@ -132,12 +137,14 @@ def _lib():
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
-def _split(n, v, device):
-    """(nsplit, tiles_per_split): enough vocab splits that the grid holds
-    about 16 blocks per SM, none of them empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _split(n: int, v: int, sms: int) -> tuple[int, int]:
+    """(nsplit, tiles_per_split) of the vocabulary for N tokens, V columns
+    and `sms` SMs: as many splits of 256-column tiles as keep token blocks
+    x splits within one wave of the persistent grid (one split when the
+    token blocks alone fill it), none of them empty. Units run split-major,
+    so the blocks running together share a split's W range."""
     tiles = -(-v // _BV)
-    want = max(1, min(tiles, -(-16 * sms // -(-n // _BR))))
+    want = max(1, min(tiles, sms // -(-n // _BR)))
     per = -(-tiles // want)
     return -(-tiles // per), per
 
@@ -148,7 +155,7 @@ def _launch(x, w, labels):
         raise TypeError(f"ce_stats kernel takes bf16 or fp32 x and w of one "
                         f"dtype and device, got {x.dtype}/{w.dtype} on "
                         f"{x.device}/{w.device}")
-    h_step = _BH_MMA if x.dtype == torch.bfloat16 else _BH
+    h_step = _BH_TMA if x.dtype == torch.bfloat16 else _BH
     if h % h_step:
         raise ValueError(f"ce_stats kernel takes a {x.dtype} hidden size that "
                          f"is a multiple of {h_step}, got {h}")
@@ -159,7 +166,8 @@ def _launch(x, w, labels):
     stats = torch.empty((4, n), dtype=torch.float32, device=x.device)
     if n == 0:
         return tuple(stats)
-    nsplit, per = _split(n, v, x.device)
+    nsplit, per = _split(
+        n, v, torch.cuda.get_device_properties(x.device).multi_processor_count)
     part = torch.empty((4, nsplit, n), dtype=torch.float32, device=x.device)
     m, s, t, sl = stats
     err = _lib()(x.data_ptr(), w.data_ptr(), labels.data_ptr(),

@@ -7,13 +7,18 @@ Replaces ``_gmm_fwd_kernel`` (``grouped_matmul.py:98``, ``pallas_call`` at
 :142), ``_gmm_dw_kernel`` (:117, call :161) and the visit counter
 ``_visit_kernel`` (:291, call :314) with ``csrc/grouped_matmul.cu``:
 
-* ``gmm_fwd``: ``y[i] = x[i] @ w[gids[i]]`` in fp32. bf16 inputs run on the
-  tensor cores (``mma.sync``), fp32 inputs on the CUDA cores. A block owns
-  a 128-row (bf16) or 64-row (fp32) output tile; it reads its rows' group
-  range once and runs the d loop only for the groups the shared
-  ``blocks_can_touch`` predicate admits, with the rows of other groups
-  loaded as zeros, so it is exact for any grouped layout, not only the
-  dispatcher's block-aligned one. Rows with ``gids == G`` (trash) are zero.
+* ``gmm_fwd``: ``y[i] = x[i] @ w[gids[i]]`` in fp32. bf16 inputs run on
+  the shared Hopper GEMM core (``csrc/sm90.cuh``): a persistent grid of one
+  block an SM walks 128-row x 256-column output tiles, a producer warp
+  brings 64-deep slices of x and w[g] by TMA into a 4-stage ``mbarrier``
+  ring, two consumer warpgroups run ``wgmma`` (w read MN-major, as it lies)
+  and store fp32 straight from their accumulators. A tile reads its rows'
+  group range once and runs one full product for each group the shared
+  ``blocks_can_touch`` predicate admits, storing only that group's rows,
+  so it is exact for any grouped layout, not only the dispatcher's
+  block-aligned one; rows that no pass matched (``gids == G``, trash) are
+  zero. fp32 inputs run on the CUDA cores, a 64-row tile whose d loop
+  loads the rows of other groups as zeros.
 * ``gmm_dw``: ``dw[g] = sum over the rows of g of x[i]^T dy[i]``, fp32 on
   the CUDA cores; a block owns a [64, 128] tile of one group's ``dw[g]``
   and walks the 16-row chunks whose group range touches g.
@@ -21,10 +26,11 @@ Replaces ``_gmm_fwd_kernel`` (``grouped_matmul.py:98``, ``pallas_call`` at
   predicate admits; it must equal ``expected_visit_counts``.
 
 What bounds them on the H100: operations (2 * rows * d * h flops a
-product, hundreds per byte moved at the MoE widths). The forward's bf16
-products reach the tensor cores; the backward's are fp32 as in the JAX
-VJP (dy is fp32 because the forward returns fp32), so dx and dw run on the
-CUDA cores at a 67 TFLOP/s peak.
+product, hundreds per byte moved at the MoE widths; the bf16 forward's
+fp32 y comes close at h 4096). The forward's bf16 products reach the
+tensor cores; the backward's are fp32 as in the JAX VJP (dy is fp32
+because the forward returns fp32), so dx and dw run on the CUDA cores at a
+67 TFLOP/s peak.
 
 dx is the forward kernel over w transposed, as ``_gmm_vjp_bwd`` computes
 it: the wrapper hands the kernel a contiguous fp32 copy of ``w^T``
@@ -176,8 +182,8 @@ def _check_fwd(x, w, gids):
 
 def gmm_fwd(x, w, gids):
     """fp32 ``y[i] = x[i] @ w[gids[i]]`` [M, h]: the kernel on CUDA tensors
-    (bf16 x and w on the tensor cores, fp32 x and w on the CUDA cores), the
-    plain version on CPU tensors."""
+    (bf16 x and w on the tensor cores by TMA and ``wgmma``, fp32 x and w on
+    the CUDA cores), the plain version on CPU tensors."""
     _check_fwd(x, w, gids)
     if not x.is_cuda:
         return grouped_matmul_reference(x, w, gids)
@@ -189,7 +195,7 @@ def gmm_fwd(x, w, gids):
         raise TypeError(f"gmm_fwd takes bf16 or fp32 x and w of one dtype, "
                         f"got {x.dtype} and {w.dtype}")
     bf16 = x.dtype == torch.bfloat16
-    step = 32 if bf16 else 16
+    step = 8 if bf16 else 16        # bf16: TMA row strides of 16 bytes
     if d % step or h % 8:
         raise ValueError(f"gmm_fwd takes a depth that is a multiple of "
                          f"{step} and a width that is a multiple of 8 "
