@@ -34,15 +34,25 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     run over H = 4096 products in another order) and the logit sum sl
     within 1e-5 * V of it (a sum over V logits); the grouped matmul's
     gmm_fwd per row (fp32 rule, trash rows exactly zero: h1, y, a depth
-    of 96, the backward's fp32 dx, the unaligned block_rows 8 layout),
-    gmm_dw per row and gmm_visit exactly. The bf16 ce_stats and gmm_fwd
-    run on the wgmma/TMA core (sm90.cuh); for them and the library call
-    beside them (bf16 x . W^T with logsumexp, gather and sum;
-    torch._grouped_mm) the device ms (profiler, every kernel of the call,
-    ce_stats with its split merge), TFLOP/s and share of the bound are
-    printed beside the event-timed call ms, with each wgmma kernel's
-    ptxas line and the count of 128-row tiles of each grouped layout
-    that hold more than one group. The paged kernel's int8
+    of 96, the unaligned block_rows 8 layout in bf16 and fp32), the VJP's
+    dx through ``GroupedMatmul.backward`` (bf16 w, fp32 dy: dx of h1, of
+    y, unaligned), gmm_dw per row (dw1, dw2, dw1 with fp32 x, unaligned;
+    groups with no rows exactly zero) and gmm_visit exactly. All of them
+    and ce_stats run on the wgmma/TMA core (sm90.cuh): bf16 products, or
+    fp32 ones as split TF32 (2 passes with a bf16 operand, 3 with two fp32
+    ones); for them and the library call beside them (bf16 x . W^T with
+    logsumexp, gather and sum; torch._grouped_mm, for the fp32 products
+    only for scale, in bf16) the device ms (profiler, every kernel of the
+    call, ce_stats with its split merge, gmm_dw with its x^T and walk
+    passes, the wrappers' copies of w apart), TFLOP/s and share of the
+    bound (an fp32 product's bound is the card's least time for an
+    fp32-accurate product: 3 bf16 products at 989 TFLOP/s when one operand
+    is exact in bf16, 3 TF32 ones at 495 when neither is; the split-TF32
+    design's own ceiling, its 2 or 3 TF32 passes, and the CUDA-core bound
+    it replaced, "was", are printed beside it) are printed beside the
+    event-timed call ms, with each sm90
+    kernel's ptxas line (a spill fails the run) and the count of 128-row
+    tiles of each grouped layout that hold more than one group. The paged kernel's int8
     and fp8 branch runs on codes and fp32 scales made by the model's
     quantize-on-write: with fp32 q within 1e-5 of its plain version, with
     bf16 q within 1e-3 beyond the rounding of the fp32 result to bf16
@@ -144,6 +154,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "tfloat32": 495e12,  # dense tensor-core TF32
               "float32": 67e12}    # fp32 outside the tensor cores
 TOL = {"bfloat16": 1e-2, "float32": 1e-4}        # whole output, abs
 RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}  # per row, of max |ref|
@@ -830,24 +841,53 @@ def gmm_layouts(gen):
 
 
 def gmm_fwd_cases(layouts):
-    """(label, layout, x shape/dtype/std, w shape/dtype, transposed): the
-    main path's four products at full width (h1 and y in bf16 on the tensor
-    cores; the backward's dx in fp32 over w^T), a bf16 depth of 96 (TMA's
-    zero fill past d in the last 64-deep slice) and the unaligned layout.
-    Activations are unit scale, weights std 0.02 and gradients std 1e-3, as
-    in training."""
+    """(label, layout, x shape/dtype/std, w shape/dtype): the main path's
+    two forward products at full width (h1 and y in bf16), a bf16 depth of
+    96 (TMA's zero fill past d in the last 64-deep slice) and the unaligned
+    layout in bf16 and in fp32 (split TF32, 3 passes over the wrapper's
+    copy of w^T). Activations are unit scale, weights std 0.02, as in
+    training."""
     import torch
 
     bf, f32 = torch.bfloat16, torch.float32
     return [
-        ("h1_bf16", "dispatch", 1024, 4096, bf, 1.0, False),
-        ("y_bf16", "dispatch", 4096, 1024, bf, 1.0, False),
-        ("dx_of_y_fp32", "dispatch", 1024, 4096, f32, 1e-3, True),
-        ("dx_of_h1_fp32", "dispatch", 4096, 1024, f32, 1e-3, True),
-        ("d96_bf16", "dispatch", 96, 512, bf, 1.0, False),
-        ("unaligned_bm8_bf16", "unaligned_bm8", 256, 512, bf, 1.0, False),
-        ("unaligned_bm8_fp32", "unaligned_bm8", 256, 512, f32, 1.0, False),
+        ("h1_bf16", "dispatch", 1024, 4096, bf, 1.0),
+        ("y_bf16", "dispatch", 4096, 1024, bf, 1.0),
+        ("d96_bf16", "dispatch", 96, 512, bf, 1.0),
+        ("unaligned_bm8_bf16", "unaligned_bm8", 256, 512, bf, 1.0),
+        ("unaligned_bm8_fp32", "unaligned_bm8", 256, 512, f32, 1.0),
     ]
+
+
+def gmm_dx_cases():
+    """(label, layout, d, h): the VJP's dx of the main path's two products
+    (h1 = x . w1, w1 [8, 1024, 4096]; y = a . w2, w2 [8, 4096, 1024]),
+    dx [M, d] = dy [M, h] . w[g]^T through ``GroupedMatmul.backward`` with
+    bf16 w and fp32 dy (std 1e-3, as gradients are), and the unaligned
+    layout."""
+    return [("dx_of_h1", "dispatch", 1024, 4096),
+            ("dx_of_y", "dispatch", 4096, 1024),
+            ("dx_unaligned_bm8", "unaligned_bm8", 256, 512)]
+
+
+def _fp32_product_bound(nbytes, flops, passes):
+    """(bound ms, bound_by, design ms, was ms) of an fp32-accurate product
+    of `flops` whose B operand is exact in bf16 (passes 2) or fp32 (passes
+    3). The bound is the card's least time for that function: its bytes,
+    or its cheapest fp32-accurate tensor-core route, whichever is larger.
+    With one operand exact in bf16, splitting the other into three bf16
+    pieces takes 3 bf16 products at 989 TFLOP/s, less than split TF32's 2
+    at 495; with neither, split TF32's 3 products at 495 are marginally
+    less than bf16's 6 at 989. design ms is this kernel's own ceiling,
+    `passes` TF32 products at 495 (or its bytes); was ms the fp32
+    CUDA-core bound the split-TF32 kernels replaced."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops * min((3 if passes == 2 else 6) / PEAK_FLOPS["bfloat16"],
+                        passes / PEAK_FLOPS["tfloat32"])
+    design = max(t_bytes, passes * flops / PEAK_FLOPS["tfloat32"])
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", design * 1e3,
+            flops / PEAK_FLOPS["float32"] * 1e3)
 
 
 def _grouped_mm_call(x, w, gids, groups):
@@ -870,7 +910,7 @@ def _grouped_mm_call(x, w, gids, groups):
 def _grouped_mm_dw_ms(x, dy, gids, groups):
     """torch._grouped_mm in its 2-D x 2-D mode (x^T [d, M] against dy
     [M, h], offsets along M, out [G, d, h]) with dy cast to bf16 outside
-    the timing and a bf16 output; (ms, note)."""
+    the timing and a bf16 output; (device ms, note)."""
     import torch
 
     if not hasattr(torch, "_grouped_mm") or x.dtype != torch.bfloat16:
@@ -878,13 +918,14 @@ def _grouped_mm_dw_ms(x, dy, gids, groups):
     offs = _group_offsets(gids, groups)
     dyb = dy.to(torch.bfloat16)
     try:
-        return _cuda_ms(lambda: torch._grouped_mm(x.T, dyb, offs=offs)), \
-            "torch._grouped_mm, bf16 dy, bf16 output"
+        return _device_ms_sum(lambda: torch._grouped_mm(x.T, dyb,
+                                                        offs=offs)), \
+            "torch._grouped_mm device ms, bf16 dy, bf16 output"
     except Exception as e:       # reported, never on the port's path
         return None, f"torch._grouped_mm failed: {e!r}"[:200]
 
 
-def run_gmm_fwd_case(gen, layout, d, h, dtype, std, transposed):
+def run_gmm_fwd_case(gen, layout, d, h, dtype, std):
     import torch
 
     from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
@@ -892,12 +933,8 @@ def run_gmm_fwd_case(gen, layout, d, h, dtype, std, transposed):
     gids, _, need_rows, groups = layout
     m = gids.shape[0]
     x = (torch.randn((m, d), generator=gen, device="cuda") * std).to(dtype)
-    if transposed:              # dx: the fp32 copy of w^T the VJP hands in
-        w = (torch.randn((groups, h, d), generator=gen, device="cuda")
-             * 0.02).to(torch.bfloat16).transpose(1, 2).float().contiguous()
-    else:
-        w = (torch.randn((groups, d, h), generator=gen, device="cuda")
-             * 0.02).to(dtype)
+    w = (torch.randn((groups, d, h), generator=gen, device="cuda")
+         * 0.02).to(dtype)
     out = gm.gmm_fwd(x, w, gids)
     torch.cuda.synchronize()
     ref = gm.grouped_matmul_reference(x, w, gids)
@@ -905,39 +942,110 @@ def run_gmm_fwd_case(gen, layout, d, h, dtype, std, transposed):
     trash_zero = bool((out[gids == groups] == 0).all())
     del ref
     call = lambda: gm.gmm_fwd(x, w, gids)  # noqa: E731
-    # device ms of the kernel; call_ms adds the wrapper's host work
-    ms = _kernel_ms(_device_ms_by_kernel(call), "gmm_fwd")
+    # device ms of the kernel; call_ms adds the wrapper's host work (and,
+    # for fp32, its split copy of w^T, whose device ms is copy_ms)
+    by_kernel = _device_ms_by_kernel(call)
+    bf16 = dtype == torch.bfloat16
+    ms = _kernel_ms(by_kernel, "gmm_fwd_wgmma" if bf16 else "gmm_fwd_tf32")
+    copy_ms = sum(v for k, v in by_kernel.items() if "gmm_fwd" not in k)
     call_ms = _cuda_ms(call)
     plain_ms = _cuda_ms(lambda: gm.grouped_matmul_reference(x, w, gids),
                         reps=3, warmup=1)
     lib, library = (None, "none: no PyTorch call computes an fp32 grouped "
                     "product")
-    if dtype == torch.bfloat16:
+    if bf16:
         lib, library = _grouped_mm_call(x, w, gids, groups)
     library_ms = _device_ms_sum(lib) if lib else None
     library_call_ms = _cuda_ms(lib) if lib else None
-    dname = str(dtype).replace("torch.", "")
     flops = 2 * need_rows * d * h
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + m * h * 4 + m * 4)
-    bound_ms, bound_by = _bound(nbytes, flops, dname)
+    if bf16:
+        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        passes, design_ms, was_bound_ms = 1, bound_ms, None
+    else:
+        passes = 3
+        bound_ms, bound_by, design_ms, was_bound_ms = _fp32_product_bound(
+            nbytes, flops, passes)
     return dict(cmp, ok=cmp["ok"] and trash_zero, trash_zero=trash_zero,
-                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                ms=ms, copy_ms=copy_ms, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_call_ms=library_call_ms,
                 library=library, bound_ms=bound_ms, bound_by=bound_by,
-                bound_share=bound_ms / ms, flops=flops,
+                passes=passes, design_bound_ms=design_ms,
+                was_bound_ms=was_bound_ms, bound_share=bound_ms / ms,
+                design_share=design_ms / ms, flops=flops,
                 tflops=flops / ms / 1e9, m=m, d=d, h=h)
 
 
-def gmm_dw_cases():
+class _VjpCtx:
+    """What autograd hands ``GroupedMatmul.backward``: the saved (x, w,
+    gids), of which the backward reads x only for dx's dtype, and which
+    inputs need a gradient (dx alone)."""
+
+    def __init__(self, x, w, gids):
+        self.saved_tensors = (x, w, gids)
+        self.needs_input_grad = (True, False, False)
+
+
+def run_gmm_dx_case(gen, layout, d, h):
+    """dx = dy . w[g]^T through ``GroupedMatmul.backward`` itself (bf16 w
+    as the model holds it, fp32 dy). The saved x is fp32 here, so the
+    backward's cast of dx to x's dtype keeps fp32 and the fp32 rule holds
+    the kernel's own output."""
     import torch
 
-    bf = torch.bfloat16
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    gids, _, need_rows, groups = layout
+    m = gids.shape[0]
+    dy = torch.randn((m, h), generator=gen, device="cuda") * 1e-3
+    w = (torch.randn((groups, d, h), generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    ctx = _VjpCtx(torch.empty((m, d), device="cuda"), w, gids)
+    call = lambda: gm.GroupedMatmul.backward(ctx, dy)[0]  # noqa: E731
+    out = call()
+    torch.cuda.synchronize()
+    ref = gm.grouped_matmul_reference(dy, w.transpose(1, 2), gids)
+    cmp = _compare(out, ref, "float32")
+    trash_zero = bool((out[gids == groups] == 0).all())
+    del ref, out
+    # the kernel's device ms apart from the wrapper's fp32 copy of w
+    by_kernel = _device_ms_by_kernel(call)
+    ms = _kernel_ms(by_kernel, "gmm_fwd_tf32")
+    copy_ms = sum(v for k, v in by_kernel.items() if "gmm_fwd" not in k)
+    call_ms = _cuda_ms(call)
+    plain_ms = _cuda_ms(lambda: gm.grouped_matmul_reference(
+        dy, w.transpose(1, 2), gids), reps=3, warmup=1)
+    dyb = dy.to(torch.bfloat16)
+    lib, lib_note = _grouped_mm_call(dyb, w.transpose(1, 2), gids, groups)
+    flops = 2 * need_rows * d * h
+    nbytes = dy.numel() * 4 + w.numel() * 2 + m * 4 + m * d * 4
+    bound_ms, bound_by, design_ms, was_bound_ms = _fp32_product_bound(
+        nbytes, flops, 2)
+    return dict(cmp, ok=cmp["ok"] and trash_zero, trash_zero=trash_zero,
+                ms=ms, copy_ms=copy_ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=None, library="none: no PyTorch call computes "
+                "an fp32 grouped product",
+                bf16_grouped_mm_ms=_device_ms_sum(lib) if lib else None,
+                bf16_grouped_mm=lib_note + " (bf16 dy, for scale)",
+                bound_ms=bound_ms, bound_by=bound_by, passes=2,
+                design_bound_ms=design_ms, was_bound_ms=was_bound_ms,
+                bound_share=bound_ms / ms, design_share=design_ms / ms,
+                flops=flops, tflops=flops / ms / 1e9, m=m, d=d, h=h)
+
+
+def gmm_dw_cases():
+    """(label, layout, d, h, x dtype): dw1 and dw2 of the main path with
+    bf16 x (2 passes), dw1 with fp32 x (3 passes, the tiny fp32 MoE's
+    route at full width) and the unaligned layout in both."""
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
     return [("dw1_bf16x", "dispatch", 1024, 4096, bf),
             ("dw2_bf16x", "dispatch", 4096, 1024, bf),
+            ("dw1_fp32x", "dispatch", 1024, 4096, f32),
             ("unaligned_bm8_bf16x", "unaligned_bm8", 256, 512, bf),
-            ("unaligned_bm8_fp32x", "unaligned_bm8", 256, 512,
-             torch.float32)]
+            ("unaligned_bm8_fp32x", "unaligned_bm8", 256, 512, f32)]
 
 
 def run_gmm_dw_case(gen, layout, d, h, dtype, aligned):
@@ -955,20 +1063,39 @@ def run_gmm_dw_case(gen, layout, d, h, dtype, aligned):
     cmp = _compare(dw, ref, "float32")
     present = torch.isin(torch.arange(groups, device="cuda"), gids)
     empty_zero = bool((dw[~present] == 0).all())
-    del ref
-    ms = _cuda_ms(lambda: gm.gmm_dw(x, dy, gids, groups))
+    del ref, dw
+    call = lambda: gm.gmm_dw(x, dy, gids, groups)  # noqa: E731
+    # device ms: the three kernels the C entry launches (the x^T pass, the
+    # chunk walk, the product), each printed; other_ms is any other kernel
+    # of the call (none expected); call_ms is the whole wrapper, event-timed
+    by_kernel = _device_ms_by_kernel(call)
+    xt_ms = _kernel_ms(by_kernel, "gmm_xt")
+    walk_ms = _kernel_ms(by_kernel, "gmm_dw_walk")
+    product_ms = _kernel_ms(by_kernel, "gmm_dw_tf32")
+    ms = xt_ms + walk_ms + product_ms
+    other_ms = sum(by_kernel.values()) - ms
+    call_ms = _cuda_ms(call)
     plain_ms = _cuda_ms(lambda: gm.grouped_matmul_dw_reference(
         x, dy, gids, groups), reps=3, warmup=1)
-    library_ms, library = (_grouped_mm_dw_ms(x, dy, gids, groups) if aligned
-                           else (None, "not timed: groups not block-aligned"))
+    lib_ms, lib_note = (_grouped_mm_dw_ms(x, dy, gids, groups) if aligned
+                        else (None, "not timed: groups not block-aligned"))
     flops = 2 * need_rows * d * h
     nbytes = (x.numel() * x.element_size() + dy.numel() * 4 + m * 4
               + groups * d * h * 4)
-    bound_ms, bound_by = _bound(nbytes, flops, "float32")
+    passes = 2 if dtype == torch.bfloat16 else 3
+    bound_ms, bound_by, design_ms, was_bound_ms = _fp32_product_bound(
+        nbytes, flops, passes)
     return dict(cmp, ok=cmp["ok"] and empty_zero, empty_groups_zero=empty_zero,
-                empty_groups=int((~present).sum()), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, library=library, bound_ms=bound_ms,
-                bound_by=bound_by, flops=flops, tflops=flops / ms / 1e9)
+                empty_groups=int((~present).sum()), ms=ms, xt_ms=xt_ms,
+                walk_ms=walk_ms, product_ms=product_ms, other_ms=other_ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                library="none: no PyTorch call computes an fp32 grouped "
+                "product", bf16_grouped_mm_ms=lib_ms,
+                bf16_grouped_mm=lib_note + " (for scale)",
+                bound_ms=bound_ms, bound_by=bound_by, passes=passes,
+                design_bound_ms=design_ms, was_bound_ms=was_bound_ms,
+                bound_share=bound_ms / ms, design_share=design_ms / ms,
+                flops=flops, tflops=flops / ms / 1e9)
 
 
 def run_gmm_visit_case(layout):
@@ -1014,31 +1141,56 @@ def phase_gmm(gen, report):
              for label, lay in layouts.items()}
     print(f"gmm layouts: 128-row tiles holding more than one group "
           f"{json.dumps(multi)}", flush=True)
-    fwd, dw, visit = {}, {}, {}
-    for label, lay, d, h, dtype, std, tr in gmm_fwd_cases(layouts):
+    fwd, dx, dw, visit = {}, {}, {}, {}
+    for label, lay, d, h, dtype, std in gmm_fwd_cases(layouts):
         fwd[label] = r = run_gmm_fwd_case(gen, layouts[lay], d, h, dtype,
-                                          std, tr)
+                                          std)
         lib = (f"{r['library_ms']:.4f} (call {r['library_call_ms']:.4f})"
                if r["library_ms"] is not None else "none")
         print(f"gmm_fwd {label}: err {r['max_abs_err']:.3g} row rel "
               f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) trash zero "
               f"{r['trash_zero']} ms {r['ms']:.4f} (device; call "
-              f"{r['call_ms']:.4f}) {r['tflops']:.1f} TFLOP/s, "
-              f"{r['bound_share']:.1%} of bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) plain_ms {r['plain_ms']:.3f} library_ms "
-              f"{lib} ({r['library']})", flush=True)
+              f"{r['call_ms']:.4f}, copies {r['copy_ms']:.4f}) "
+              f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.1%} of bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}; design "
+              f"{r['design_bound_ms']:.4f}, {r['passes']} pass(es), "
+              f"{r['design_share']:.1%}) plain_ms {r['plain_ms']:.3f} "
+              f"library_ms {lib} ({r['library']})", flush=True)
+        torch.cuda.empty_cache()
+    for label, lay, d, h in gmm_dx_cases():
+        dx[label] = r = run_gmm_dx_case(gen, layouts[lay], d, h)
+        scale = (f"{r['bf16_grouped_mm_ms']:.4f}"
+                 if r["bf16_grouped_mm_ms"] is not None else "none")
+        print(f"gmm_dx {label}: err {r['max_abs_err']:.3g} row rel "
+              f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) trash zero "
+              f"{r['trash_zero']} ms {r['ms']:.4f} (device; w.float() "
+              f"{r['copy_ms']:.4f}; backward call {r['call_ms']:.4f}) "
+              f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.1%} of bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}; design "
+              f"{r['design_bound_ms']:.4f} in 2 TF32 passes, "
+              f"{r['design_share']:.1%}; was {r['was_bound_ms']:.4f} on the "
+              f"CUDA cores) plain_ms "
+              f"{r['plain_ms']:.3f} library_ms none; bf16 _grouped_mm "
+              f"{scale} ({r['bf16_grouped_mm']})", flush=True)
         torch.cuda.empty_cache()
     for label, lay, d, h, dtype in gmm_dw_cases():
         dw[label] = r = run_gmm_dw_case(gen, layouts[lay], d, h, dtype,
                                         lay == "dispatch")
-        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
-               else "none")
+        scale = (f"{r['bf16_grouped_mm_ms']:.4f}"
+                 if r["bf16_grouped_mm_ms"] is not None else "none")
         print(f"gmm_dw {label}: err {r['max_abs_err']:.3g} row rel "
               f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) empty groups "
               f"{r['empty_groups']} zero {r['empty_groups_zero']} ms "
-              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.3f} library_ms {lib} "
-              f"({r['library']}) bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) {r['tflops']:.1f} TFLOP/s", flush=True)
+              f"{r['ms']:.4f} (device: x^T {r['xt_ms']:.4f} + walk "
+              f"{r['walk_ms']:.4f} + product {r['product_ms']:.4f}; other "
+              f"{r['other_ms']:.4f}; call {r['call_ms']:.4f}) "
+              f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.1%} of bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}; design "
+              f"{r['design_bound_ms']:.4f} in {r['passes']} TF32 passes, "
+              f"{r['design_share']:.1%}; was {r['was_bound_ms']:.4f} on "
+              f"the CUDA cores) plain_ms "
+              f"{r['plain_ms']:.3f} library_ms none; bf16 _grouped_mm "
+              f"{scale} ({r['bf16_grouped_mm']})", flush=True)
         torch.cuda.empty_cache()
     for label, lay in layouts.items():
         visit[label] = r = run_gmm_visit_case(lay)
@@ -1047,8 +1199,10 @@ def phase_gmm(gen, report):
               f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f}",
               flush=True)
     report["gmm_fwd_cases"], report["gmm_dw_cases"] = fwd, dw
+    report["gmm_dx_cases"] = dx
     report["gmm_visit_cases"], report["gmm_multi_group_tiles"] = visit, multi
     return ([f"gmm_fwd {k}" for k, r in fwd.items() if not r["ok"]]
+            + [f"gmm_dx {k}" for k, r in dx.items() if not r["ok"]]
             + [f"gmm_dw {k}" for k, r in dw.items() if not r["ok"]]
             + [f"gmm_visit {k}" for k, r in visit.items() if not r["ok"]])
 
@@ -1965,7 +2119,8 @@ def phase_train_moe_cuda_vs_cpu(seed, report):
     """Tiny fp32 GPT-MoE, dropless, deterministic GShard gates (the CPU and
     CUDA generators give different streams): 64 tokens a row make 256
     routed copies over 4 experts, so the buckets align to 32 rows and the
-    CUDA tiles (64 fp32 rows) span two experts."""
+    CUDA tiles (128 rows; split TF32 in 3 passes, as x and w are fp32)
+    span several experts."""
     import numpy as np
     import torch
 
@@ -2171,10 +2326,18 @@ def phase_train_moe_full_width(args, report):
         "expert_grad_abs_sum": expert_grads,
     }
     out["profile"] = _device_profile(lambda: step(batch), 1, top=20)
+    out["gmm_ms_per_step"] = {
+        k: v for k, v in out["profile"]["port_kernel_ms_per_step"].items()
+        if k.startswith("gmm_")}
     report["train_moe_full_width"] = out
+    print("train moe grouped-matmul device ms a step (gmm_fwd_wgmma_kernel: "
+          "bf16 h1 and y; gmm_fwd_tf32_kernel: the fp32 dx; gmm_dw_*: dw "
+          "with its walk and x^T passes): "
+          + json.dumps(out["gmm_ms_per_step"]), flush=True)
     print("train moe full width: " + json.dumps(
         {k: v for k, v in out.items()
-         if k not in ("profile", "expert_grad_abs_sum", "moe_stats")}),
+         if k not in ("profile", "expert_grad_abs_sum", "moe_stats",
+                      "gmm_ms_per_step")}),
         flush=True)
     print("train moe layer stats: " + json.dumps(
         [{"aux": st["aux_loss"], "imbalance": st["imbalance_max_over_mean"],
@@ -2190,7 +2353,8 @@ def phase_train_moe_full_width(args, report):
                and v["visited_tiles"] == v["real_blocks"] for v in visits):
         raise AssertionError(f"visit counts off the predicate: {visits}")
     layers = cfg.num_hidden_layers
-    need = {"gmm_fwd": 4 * layers, "gmm_dw": 2 * layers,
+    need = {"gmm_fwd": 2 * layers, "gmm_fwd_tf32": 2 * layers,
+            "gmm_dw": 2 * layers,
             "flash_fwd": layers, "flash_bwd_dq": layers,
             "flash_bwd_dkv": layers}
     got = {k: out["launches_per_step"][k] for k in need}
@@ -2685,7 +2849,11 @@ def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
     and the timed LLaMA and GPT-MoE training steps), each read around its
-    run. gmm_visit is off the training path, so it has 0. The RMSNorm
+    run. gmm_fwd is the bf16 forward kernel (its row the h1 case),
+    gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
+    of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
+    three kernels its C entry launches. gmm_visit is off the training
+    path, so it has 0. The RMSNorm
     kernels' path is the tuning phase (the models keep the composite):
     their launches are its RMSNorm dispatch calls' (one in the cold
     process, one in the warm), and the autotuner's timing launches stand
@@ -2716,6 +2884,8 @@ def kernels_line(report):
         ("ce_stats", "fused_ce.cu", "fused_ce.py:246", ce),
         ("gmm_fwd", "grouped_matmul.cu", "grouped_matmul.py:98",
          report.get("gmm_fwd_cases", {}).get("h1_bf16") or {}),
+        ("gmm_fwd_tf32", "grouped_matmul.cu", "grouped_matmul.py:98",
+         report.get("gmm_dx_cases", {}).get("dx_of_h1") or {}),
         ("gmm_dw", "grouped_matmul.cu", "grouped_matmul.py:117",
          report.get("gmm_dw_cases", {}).get("dw1_bf16x") or {}),
         ("gmm_visit", "grouped_matmul.cu", "grouped_matmul.py:291",
@@ -2751,6 +2921,13 @@ def kernels_line(report):
             "bound_ms": case.get("bound_ms"),
             "bound_by": case.get("bound_by"),
             "library_ms": case.get("library_ms")})
+        if case.get("design_bound_ms") and case.get("passes", 1) > 1:
+            # split TF32: the design's ceiling beside the function's bound,
+            # and the wrapper's copy of w (dx) apart from the kernel's ms
+            rows[-1].update(passes=case["passes"],
+                            design_bound_ms=case["design_bound_ms"])
+            if "copy_ms" in case:
+                rows[-1]["copy_ms"] = case["copy_ms"]
         if name in RMS_KERNELS:
             rows[-1]["search_launches"] = tuning.get(
                 "search_launches", {}).get(name, 0)
@@ -2795,12 +2972,20 @@ def main(argv=None) -> int:
                             or "Compiling entry" in ln or "arning" in ln]
                         for n in _build.kernel_names()},
               "failed": []}
+    spills = []
     for src in ("grouped_matmul", "fused_ce"):    # the sm90 core's kernels
         lines = report["ptxas"][src]
         for i, ln in enumerate(lines):
-            if "wgmma_kernel" in ln:
+            if "wgmma_kernel" in ln or "tf32_kernel" in ln:
                 print("ptxas " + " | ".join(x.strip() for x in lines[i:i + 3]),
                       flush=True)
+                if not any("0 bytes spill stores, 0 bytes spill loads" in x
+                           for x in lines[i + 1:i + 3]):
+                    spills.append(ln.strip())
+    if spills:        # 128 accumulators a thread must stay in registers
+        print(f"ptxas: the sm90 core's kernels spill: {spills}",
+              file=sys.stderr)
+        report["failed"].append("build")
     phases = [("kernels", lambda: phase_kernels(args.seed, report)),
               ("cuda_vs_cpu", lambda: phase_cuda_vs_cpu(args.seed, report)),
               ("kv_cuda_vs_cpu",

@@ -2,8 +2,8 @@
 // products. Replaces the TPU kernels of paddle_tpu/ops/pallas/
 // grouped_matmul.py:
 //   gmm_fwd   <- `_gmm_fwd_kernel`: y[i] = x[i] @ w[gids[i]], fp32 out;
-//                also dx = dy @ w[g]^T (the wrapper hands a transposed
-//                fp32 copy of w, as the JAX VJP does);
+//                also dx = dy @ w[g]^T (the JAX VJP's dx is this forward
+//                over swapaxes(w) in fp32);
 //   gmm_dw    <- `_gmm_dw_kernel`:  dw[g] = sum_{gids[i] = g} x[i]^T dy[i];
 //   gmm_visit <- `_visit_kernel`:   groups visited per block_rows block.
 // Rows with gids == G are trash: they match no group and come out zero.
@@ -12,16 +12,16 @@
 // (rows * (d + h) + d * h) elements moved, hundreds of flops a byte at the
 // MoE widths, so operations; at h 4096 the fp32 y (285 MB at 17408 rows)
 // comes close, so the epilogue's stores must not stall the products long.
-// The design:
-//  * gmm_fwd, bf16 x and w: the shared Hopper GEMM core (sm90.cuh). A
-//    persistent grid of one block an SM walks 128-row x 256-column output
-//    tiles, the column tiles of one row tile next to each other, so the
-//    blocks running together read one expert's w[g] (8 MB at h1) while it
-//    sits in L2. A producer warp brings 64-deep slices of x (TMA, 2-D) and
-//    of w[g] (TMA, 3-D, four 64-column boxes, MN-major) into a 4-stage
-//    ring; two consumer warpgroups run wgmma m64n256k16 on it and store
-//    fp32 float2 pairs straight from their accumulators, while the
-//    producer already loads the next tile.
+// All three products run on the shared Hopper GEMM core (sm90.cuh): a
+// persistent grid of one block an SM walks 128 x 256 output tiles, a
+// producer warp brings K slices by TMA into an mbarrier ring and two
+// consumer warpgroups run wgmma on it.
+//  * gmm_fwd, bf16 x and w: 64-deep slices of x (TMA, 2-D) and of w[g]
+//    (TMA, 3-D, four 64-column boxes, MN-major) in a 4-stage ring; the
+//    consumers store fp32 float2 pairs straight from their accumulators,
+//    while the producer already loads the next tile. The column tiles of
+//    one row tile lie next to each other, so the blocks running together
+//    read one expert's w[g] (8 MB at h1) while it sits in L2.
 //  * The row-group skip of the TPU kernel: every warp reads the tile's gid
 //    min and max and the tile runs one full product for each group g < G
 //    that `ptt::blocks_can_touch(gmin, gmax, g, g)` admits, storing only
@@ -29,20 +29,31 @@
 //    128-aligned buckets). A row's value is its own group's product, as
 //    the masked sum of the JAX kernel gives, so any grouped layout is
 //    exact; rows that no pass matched (trash) are stored as zeros. TMA's
-//    zero fill covers rows past M, columns past h and a d that is not a
-//    multiple of 64.
-//  * gmm_fwd, fp32: a 64 x 128 tile, 4 x 8 outputs a thread, on the CUDA
-//    cores (the tensor cores would round fp32 to tf32), with the same
-//    group skip (the rows of other groups loaded as zeros);
-//  * gmm_dw: one [64 (d), 128 (h)] tile of one group's dw[g] a block,
-//    walking the 16-row chunks of x and dy whose gid range touches g (the
-//    ranges come from a small pre-pass) with rows of other groups zeroed;
-//    fp32 math on the CUDA cores (dy is fp32, as in the JAX backward).
+//    zero fill covers rows past M, columns past N and a depth that is not
+//    a multiple of the stage's.
+//  * gmm_fwd, fp32 x (dy for dx): the same walk as split TF32 (sm90.cuh),
+//    32-deep slices; w comes K-major as [G, N, D] (for dx that is w as it
+//    lies, [G, d, h]; for a plain fp32 forward the wrapper's copy of w^T),
+//    in hi (and lo) parts the wrapper makes; 2 passes when w came from
+//    bf16, 3 otherwise, as the wrapper says.
+//  * gmm_dw: dw[g]^T = dy_g^T . x_g, split TF32. TF32 wgmma reads only
+//    K-major operands from shared memory and K is the token rows here, so
+//    A = dy_g^T comes through registers (dy's [32 rows, 32 h] boxes as
+//    they lie, read transposed, rows of other groups zeroed there) and B
+//    = x_g^T from an fp32 copy x^T [D, M] that a transpose kernel makes
+//    first (hi and lo when x is fp32; 2 passes for bf16 x, whose values
+//    are exact in TF32, 3 for fp32). A tile of dw[g]^T (128 h x 256 d)
+//    walks only the 32-row chunks whose gid range admits g, inside g's
+//    window of chunks (a small pre-pass computes both), and is stored
+//    transposed into dw[g]; a group with no rows stores zeros. One block
+//    owns each tile: no atomics, a fixed summation order.
 //
-// Layouts, all contiguous: x [M, D], w [G, D, N], gids [M] int32, y [M, N]
-// fp32, dy [M, N] fp32, dw [G, D, N] fp32. bf16 gmm_fwd needs D % 8 == 0
-// (TMA row strides are multiples of 16 bytes), fp32 gmm_fwd D % 16 == 0,
-// gmm_dw D % 8 == 0; all need N % 8 == 0.
+// Layouts, all contiguous: x [M, D], w [G, D, N] (bf16) or [G, N, D]
+// (fp32, K-major), gids [M] int32, y [M, N] fp32, dy [M, N] fp32, dw
+// [G, D, N] fp32; the x^T scratch is [D, M] fp32 with a row stride that
+// is a multiple of 4. TMA row strides are multiples of 16 bytes: bf16
+// gmm_fwd needs D % 8 == 0 and N % 8 == 0, the fp32 kernels D % 4 == 0
+// and N % 4 == 0.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -50,39 +61,7 @@ namespace sm90 = ptt::sm90;
 
 namespace {
 
-constexpr int kThreads = 256;  // the CUDA-core kernels
-
-// Group ids of a block's `rows` rows into sg (rows past M count as trash,
-// G), and their min and max over the block. Every thread calls it.
-__device__ __forceinline__ void tile_gid_range(const int* __restrict__ gids,
-                                               int m0, int rows, int M, int G,
-                                               int* sg, int* red, int& gmin,
-                                               int& gmax) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int mn = INT_MAX, mx = INT_MIN;
-  if (tid < rows) {
-    const int r = m0 + tid;
-    const int g = r < M ? gids[r] : G;
-    sg[tid] = g;
-    mn = mx = g;
-  }
-  mn = ptt::warp_min_i(mn);
-  mx = ptt::warp_max_i(mx);
-  if (lane == 0) {
-    red[warp] = mn;
-    red[kThreads / 32 + warp] = mx;
-  }
-  __syncthreads();
-  gmin = INT_MAX;
-  gmax = INT_MIN;
-#pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) {
-    gmin = min(gmin, red[i]);
-    gmax = max(gmax, red[kThreads / 32 + i]);
-  }
-}
-
-// ---- bf16 forward: the sm90 GEMM core -------------------------------------
+// ---- the forward: the sm90 GEMM core --------------------------------------
 
 // The gid min and max of tile rows [m0, m0 + kBM) (rows past M count as
 // trash, G), reduced over one warp, so every warp of the block reaches the
@@ -189,168 +168,279 @@ gmm_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
   }
 }
 
-// ---- fp32 paths: CUDA cores -----------------------------------------------
-constexpr int kBR = 64;    // output rows per block (gmm_dw: rows of dw[g])
-constexpr int kBN = 128;   // output columns per block
-constexpr int kBK = 16;    // depth of a staged slice (gmm_dw: token rows)
-
-// acc[r][c] += sum_kk as[kk][4 ty + r] * bs[kk][col c] over one staged
-// slice; thread (ty, tx) owns rows 4 ty + r and columns 4 tx + c and
-// 64 + 4 tx + c.
-__device__ __forceinline__ void simt_slice(const float (*as)[kBR],
-                                           const float (*bs)[kBN + 4],
-                                           float (&acc)[4][8], int tx,
-                                           int ty) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] += av[r] * bv[c];
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* __restrict__ out,
-                                           const float (&acc)[4][8], int r0,
-                                           int c0, int rows, int cols,
-                                           int tx, int ty) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty * 4 + r;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = c0 + h * 64 + tx * 4;
-      if (col < cols)
-        *reinterpret_cast<float4*>(out + (long long)row * cols + col) =
-            make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                        acc[r][4 * h + 3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero8(float* v) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = 0.f;
-}
-
-__global__ void __launch_bounds__(kThreads)
-gmm_fwd_simt_kernel(const float* __restrict__ x, const float* __restrict__ w,
+template <int PASSES>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+gmm_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                    const __grid_constant__ CUtensorMap tmap_w,
+                    const __grid_constant__ CUtensorMap tmap_wlo,
                     const int* __restrict__ gids, float* __restrict__ y,
                     int M, int D, int N, int G) {
-  __shared__ __align__(16) float as[kBK][kBR];       // x slice, transposed
-  __shared__ __align__(16) float bs[kBK][kBN + 4];   // w slice
-  __shared__ int sg[kBR];
-  __shared__ int red[2 * kThreads / 32];
+  using Ring = sm90::RingTF32<PASSES>;
+  extern __shared__ unsigned char smem[];
+  Ring ring(sm90::ring_setup<Ring>(smem));
+  const int n_tiles = (N + sm90::kBN - 1) / sm90::kBN;
+  const int tiles = (M + sm90::kBM - 1) / sm90::kBM * n_tiles;
+  const int nk = (D + sm90::kBK32 - 1) / sm90::kBK32;
+  const int wg = threadIdx.x >> 7;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kBR, n0 = blockIdx.x * kBN;
-  int gmin, gmax;
-  tile_gid_range(gids, m0, kBR, M, G, sg, red, gmin, gmax);
-
-  float acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    if (!ptt::blocks_can_touch(gmin, gmax, g, g)) continue;
-    const float* wg = w + (long long)g * D * N;
-    for (int k0 = 0; k0 < D; k0 += kBK) {
-      __syncthreads();  // the previous slice's readers are done
-      float v[8];
-      if (tid < 2 * kBR) {
-        const int r = tid >> 1, c = (tid & 1) * 8;
-        if (sg[r] == g)
-          ptt::load8(x + (long long)(m0 + r) * D + k0 + c, v);
-        else
-          zero8(v);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) as[c + i][r] = v[i];
+  if (wg == 0) {
+    // ---- producer: warp 0 walks the passes, lane 0 issues the copies
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const bool issuer = threadIdx.x == 0;
+      if (issuer) {
+        sm90::prefetch_map(&tmap_x);
+        sm90::prefetch_map(&tmap_w);
+        if (PASSES == 3) sm90::prefetch_map(&tmap_wlo);
       }
-      {
-        const int r = tid >> 4, c = (tid & 15) * 8;
-        if (n0 + c < N)
-          ptt::load8(wg + (long long)(k0 + r) * N + n0 + c, v);
-        else
-          zero8(v);
-        *reinterpret_cast<float4*>(&bs[r][c]) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(&bs[r][c + 4]) = make_float4(v[4], v[5], v[6], v[7]);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / n_tiles * sm90::kBM, n0 = t % n_tiles * sm90::kBN;
+        int gmin, gmax;
+        warp_gid_range(gids, m0, M, G, gmin, gmax);
+        for (int g = 0; g < G; ++g) {
+          if (!issuer || !ptt::blocks_can_touch(gmin, gmax, g, g)) continue;
+          sm90::produce(ring, nk, [&](uint32_t sa, uint32_t sb, uint32_t bar,
+                                      int k) {
+            sm90::tma_load_2d(sa, &tmap_x, bar, k * sm90::kBK32, m0);
+            sm90::tma_load_3d(sb, &tmap_w, bar, k * sm90::kBK32, n0, g);
+            if (PASSES == 3)
+              sm90::tma_load_3d(sb + sm90::kB32Bytes, &tmap_wlo, bar,
+                                k * sm90::kBK32, n0, g);
+          });
+        }
+        __syncwarp();
       }
-      __syncthreads();
-      simt_slice(as, bs, acc, tx, ty);
+    }
+  } else {
+    // ---- consumers: 64 rows of each tile a warpgroup
+    sm90::regs_inc<sm90::kConsumerRegs>();
+    const int c = wg - 1;
+    const int r_in = 64 * c + sm90::acc_row0();
+    float acc[128];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / n_tiles * sm90::kBM, n0 = t % n_tiles * sm90::kBN;
+      int gmin, gmax;
+      warp_gid_range(gids, m0, M, G, gmin, gmax);
+      const int row = m0 + r_in, col0 = n0 + sm90::acc_col0();
+      const bool in0 = row < M, in1 = row + 8 < M;
+      const int g0 = in0 ? gids[row] : G, g1 = in1 ? gids[row + 8] : G;
+      for (int g = 0; g < G; ++g) {
+        if (!ptt::blocks_can_touch(gmin, gmax, g, g)) continue;
+        for (int k = 0; k < nk; ++k)
+          sm90::consume_tf32<PASSES, false>(ring, c, acc, k == 0, ~0u);
+        store_rows<false>(y, acc, row, col0, N, in0 && g0 == g,
+                          in1 && g1 == g);
+      }
+      store_rows<true>(y, acc, row, col0, N, in0 && (g0 < 0 || g0 >= G),
+                       in1 && (g1 < 0 || g1 >= G));
     }
   }
-  store_tile(y, acc, m0, n0, M, N, tx, ty);
 }
 
-// (min, max) gid of every kBK-row chunk of x / dy (rows past M ignored).
-__global__ void gmm_chunk_range_kernel(const int* __restrict__ gids,
-                                       int2* __restrict__ range, int M,
-                                       int nchunks) {
-  const int ci = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ci >= nchunks) return;
-  int mn = INT_MAX, mx = INT_MIN;
-  for (int r = ci * kBK; r < min(M, (ci + 1) * kBK); ++r) {
-    mn = min(mn, gids[r]);
-    mx = max(mx, gids[r]);
-  }
-  range[ci] = make_int2(mn, mx);
+// ---- dw: dw[g]^T = dy_g^T . x_g, split TF32 --------------------------------
+constexpr int kChunk = sm90::kBK32;  // token rows a dw stage
+constexpr int kWalkThreads = 256;
+constexpr int kTile = 32;             // the x^T copy's square tile
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-template <typename TX>
-__global__ void __launch_bounds__(kThreads)
-gmm_dw_kernel(const TX* __restrict__ x, const float* __restrict__ dy,
-              const int* __restrict__ gids, const int2* __restrict__ range,
-              float* __restrict__ dw, int M, int D, int N) {
-  __shared__ __align__(16) float as[kBK][kBR];       // x^T slice: [row][d]
-  __shared__ __align__(16) float bs[kBK][kBN + 4];   // dy slice: [row][h]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int g = blockIdx.z, d0 = blockIdx.y * kBR, n0 = blockIdx.x * kBN;
-  const int nchunks = (M + kBK - 1) / kBK;
-
-  float acc[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int2 rg = range[ci];
-    if (!ptt::blocks_can_touch(rg.x, rg.y, g, g)) continue;  // block-uniform
-    const int r0 = ci * kBK;
-    __syncthreads();  // the previous slice's readers are done
-    float v[8];
-    if (tid < 2 * kBR) {
-      const int r = tid >> 3, c = (tid & 7) * 8, row = r0 + r;
-      if (row < M && d0 + c < D && gids[row] == g)
-        ptt::load8(x + (long long)row * D + d0 + c, v);
-      else
-        zero8(v);
-      *reinterpret_cast<float4*>(&as[r][c]) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(&as[r][c + 4]) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-    {
-      const int r = tid >> 4, c = (tid & 15) * 8, row = r0 + r;
-      if (row < M && n0 + c < N)
-        ptt::load8(dy + (long long)row * N + n0 + c, v);
-      else
-        zero8(v);
-      *reinterpret_cast<float4*>(&bs[r][c]) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(&bs[r][c + 4]) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-    __syncthreads();
-    simt_slice(as, bs, acc, tx, ty);
+// dw's B operand: xt [D, ld] = x [M, D]^T in fp32 (SPLIT: its TF32 hi, and
+// the lo part in xt_lo), 32 x 32 tiles through shared memory so both the
+// rows of x and the rows of x^T are read and written whole.
+template <typename TX, bool SPLIT>
+__global__ void __launch_bounds__(256)
+gmm_xt_kernel(const TX* __restrict__ x, float* __restrict__ xt,
+              float* __restrict__ xt_lo, int M, int D, int ld) {
+  __shared__ float tile[kTile][kTile + 1];
+  const int m0 = blockIdx.x * kTile, d0 = blockIdx.y * kTile;
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  for (int r = row; r < kTile; r += 8) {
+    const int m = m0 + r, d = d0 + lane;
+    tile[r][lane] = m < M && d < D ? to_f32(x[(long long)m * D + d]) : 0.f;
   }
-  // a group with no rows writes zeros
-  store_tile(dw + (long long)g * D * N, acc, d0, n0, D, N, tx, ty);
+  __syncthreads();
+  for (int r = row; r < kTile; r += 8) {
+    const int d = d0 + r, m = m0 + lane;
+    if (d >= D || m >= M) continue;
+    const float v = tile[lane][r];
+    const long long o = (long long)d * ld + m;
+    if (SPLIT) {
+      const float hi = __uint_as_float(sm90::tf32_rna(v));
+      xt[o] = hi;
+      xt_lo[o] = __uint_as_float(sm90::tf32_rna(v - hi));
+    } else {
+      xt[o] = v;
+    }
+  }
+}
+
+// The dw walk, block g of G: every kChunk-row chunk's (gid min, gid max)
+// over its rows below M (block 0 stores them in range), and window[g] =
+// (first, last) chunk whose range admits g, or (INT_MAX, -1) for none.
+__global__ void __launch_bounds__(kWalkThreads)
+gmm_dw_walk_kernel(const int* __restrict__ gids, int2* __restrict__ range,
+                   int2* __restrict__ window, int M, int nchunks) {
+  __shared__ int red[2 * kWalkThreads / 32];
+  const int g = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int first = INT_MAX, last = -1;
+  for (int ci = threadIdx.x; ci < nchunks; ci += kWalkThreads) {
+    int mn = INT_MAX, mx = INT_MIN;
+    const int r0 = ci * kChunk;
+    if (r0 + kChunk <= M) {  // a whole chunk: its loads issued together
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        mn = min(mn, gids[r0 + i]);
+        mx = max(mx, gids[r0 + i]);
+      }
+    } else {
+      for (int r = r0; r < M; ++r) {
+        mn = min(mn, gids[r]);
+        mx = max(mx, gids[r]);
+      }
+    }
+    if (g == 0) range[ci] = make_int2(mn, mx);
+    if (ptt::blocks_can_touch(mn, mx, g, g)) {
+      first = min(first, ci);
+      last = max(last, ci);
+    }
+  }
+  first = ptt::warp_min_i(first);
+  last = ptt::warp_max_i(last);
+  if (lane == 0) {
+    red[warp] = first;
+    red[kWalkThreads / 32 + warp] = last;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWalkThreads / 32; ++i) {
+      first = min(first, red[i]);
+      last = max(last, red[kWalkThreads / 32 + i]);
+    }
+    window[g] = make_int2(first, last);
+  }
+}
+
+// Bit j: chunk base + j (below `end`) has a gid range that admits g; the
+// lane's own chunk's range in rg. Every lane of the warp calls it.
+__device__ __forceinline__ uint32_t chunk_mask(const int2* __restrict__ range,
+                                               int base, int end, int g,
+                                               int2& rg) {
+  const int ci = base + (threadIdx.x & 31);
+  rg = ci < end ? range[ci] : make_int2(INT_MAX, INT_MIN);
+  return __ballot_sync(0xffffffffu, ptt::blocks_can_touch(rg.x, rg.y, g, g));
+}
+
+// the thread's accumulators of a dw[g]^T tile (row: h, column: d) into
+// dw[g] [D, N]: rows h and h + 8, columns d0c + 8 j + {0, 1}
+__device__ __forceinline__ void store_dw(float* __restrict__ dwg,
+                                         const float (&acc)[128], int h,
+                                         int d0c, int D, int N) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = d0c + 8 * j + e;
+      if (d >= D) continue;
+      if (h < N) dwg[(long long)d * N + h] = acc[4 * j + e];
+      if (h + 8 < N) dwg[(long long)d * N + h + 8] = acc[4 * j + 2 + e];
+    }
+  }
+}
+
+template <int PASSES>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+gmm_dw_tf32_kernel(const __grid_constant__ CUtensorMap tmap_dy,
+                   const __grid_constant__ CUtensorMap tmap_xt,
+                   const __grid_constant__ CUtensorMap tmap_xtlo,
+                   const int* __restrict__ gids,
+                   const int2* __restrict__ range,
+                   const int2* __restrict__ window, float* __restrict__ dw,
+                   int M, int D, int N, int G) {
+  using Ring = sm90::RingTF32<PASSES>;
+  extern __shared__ unsigned char smem[];
+  Ring ring(sm90::ring_setup<Ring>(smem));
+  const int d_tiles = (D + sm90::kBN - 1) / sm90::kBN;
+  const int per_g = (N + sm90::kBM - 1) / sm90::kBM * d_tiles;
+  const int tiles = G * per_g;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+
+  if (wg == 0) {
+    // ---- producer: warp 0 walks the chunks, lane 0 issues the copies
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const bool issuer = lane == 0;
+      if (issuer) {
+        sm90::prefetch_map(&tmap_dy);
+        sm90::prefetch_map(&tmap_xt);
+        if (PASSES == 3) sm90::prefetch_map(&tmap_xtlo);
+      }
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int g = t / per_g, u = t % per_g;
+        const int h0 = u / d_tiles * sm90::kBM, d0 = u % d_tiles * sm90::kBN;
+        const int2 win = window[g];
+        for (int base = win.x; base <= win.y; base += 32) {
+          int2 rg;
+          uint32_t mask = chunk_mask(range, base, win.y + 1, g, rg);
+          while (mask) {
+            const int r0 = (base + __ffs(mask) - 1) * kChunk;
+            mask &= mask - 1;
+            if (!issuer) continue;
+            sm90::produce(ring, 1, [&](uint32_t sa, uint32_t sb,
+                                       uint32_t bar, int) {
+#pragma unroll
+              for (int j = 0; j < sm90::kBM / 32; ++j)
+                sm90::tma_load_2d(sa + j * sm90::kBK32 * 128, &tmap_dy, bar,
+                                  h0 + 32 * j, r0);
+              sm90::tma_load_2d(sb, &tmap_xt, bar, r0, d0);
+              if (PASSES == 3)
+                sm90::tma_load_2d(sb + sm90::kB32Bytes, &tmap_xtlo, bar, r0,
+                                  d0);
+            });
+          }
+        }
+        __syncwarp();
+      }
+    }
+  } else {
+    // ---- consumers: 64 h rows of each tile a warpgroup
+    sm90::regs_inc<sm90::kConsumerRegs>();
+    const int c = wg - 1;
+    const int h_in = 64 * c + sm90::acc_row0();
+    float acc[128];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int g = t / per_g, u = t % per_g;
+      const int h0 = u / d_tiles * sm90::kBM, d0 = u % d_tiles * sm90::kBN;
+      const int2 win = window[g];
+      bool first = true;
+      for (int base = win.x; base <= win.y; base += 32) {
+        int2 rg;
+        uint32_t mask = chunk_mask(range, base, win.y + 1, g, rg);
+        while (mask) {
+          const int j = __ffs(mask) - 1;
+          mask &= mask - 1;
+          // the chunk's rows of g: all of them when its range is g alone
+          // (rows past M are TMA's zeros), else by their ids
+          const bool pure = __shfl_sync(0xffffffffu, rg.x, j) == g &&
+                            __shfl_sync(0xffffffffu, rg.y, j) == g;
+          const int row = (base + j) * kChunk + lane;
+          const uint32_t keep =
+              pure ? ~0u
+                   : __ballot_sync(0xffffffffu, row < M && gids[row] == g);
+          sm90::consume_tf32<PASSES, true>(ring, c, acc, first, keep);
+          first = false;
+        }
+      }
+      if (first) {  // g has no rows: zeros
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      }
+      store_dw(dw + (long long)g * D * N, acc, h0 + h_in,
+               d0 + sm90::acc_col0(), D, N);
+    }
+  }
 }
 
 // One warp a block_rows block: its gid min and max, then the count of the
@@ -376,24 +466,68 @@ __global__ void gmm_visit_kernel(const int* __restrict__ gids,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns
-// cudaGetLastError() after its launches (0 = launched).
+// cudaGetLastError() after its launches (0 = launched). A tensor map that
+// cannot be encoded returns ptt::sm90_host::kNoEncoder or kEncodeFailed +
+// its CUresult.
 
-// y [M, N] fp32 = x [M, D] @ w[gids] ([G, D, N]); is_bf16: 1 bf16 x and w
-// (tensor cores, TMA and wgmma), 0 fp32 x and w (CUDA cores). A tensor map
-// that cannot be encoded returns ptt::sm90_host::kNoEncoder or
-// kEncodeFailed + its CUresult.
-extern "C" int ptt_gmm_fwd(const void* x, const void* w, const int* gids,
-                           float* y, int M, int D, int N, int G, int is_bf16,
-                           int device, void* stream) {
+namespace {
+
+namespace host = ptt::sm90_host;
+
+template <class Kernel, class... Args>
+int launch_persistent(Kernel* kernel, int smem, int work, int device,
+                      cudaStream_t st, Args... args) {
+  const cudaError_t err = host::opt_in_smem(kernel, device, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<host::persistent_blocks(device, work), sm90::kThreads, smem, st>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
+template <int PASSES>
+int gmm_fwd_tf32(const CUtensorMap& tx, const CUtensorMap& tw,
+                 const CUtensorMap& twlo, const int* gids, float* y, int M,
+                 int D, int N, int G, int device, cudaStream_t st) {
+  const int tiles = (M + sm90::kBM - 1) / sm90::kBM *
+                    ((N + sm90::kBN - 1) / sm90::kBN);
+  return launch_persistent(gmm_fwd_tf32_kernel<PASSES>,
+                           sm90::RingTF32<PASSES>::kSmemBytes, tiles, device,
+                           st, tx, tw, twlo, gids, y, M, D, N, G);
+}
+
+template <int PASSES>
+int gmm_dw_tf32(const CUtensorMap& tdy, const CUtensorMap& txt,
+                const CUtensorMap& txtlo, const int* gids, const int2* range,
+                const int2* window, float* dw, int M, int D, int N, int G,
+                int device, cudaStream_t st) {
+  const int tiles = G * ((N + sm90::kBM - 1) / sm90::kBM) *
+                    ((D + sm90::kBN - 1) / sm90::kBN);
+  return launch_persistent(gmm_dw_tf32_kernel<PASSES>,
+                           sm90::RingTF32<PASSES>::kSmemBytes, tiles, device,
+                           st, tdy, txt, txtlo, gids, range, window, dw, M, D,
+                           N, G);
+}
+
+}  // namespace
+
+// y [M, N] fp32 = x [M, D] @ w[gids]. passes 1: bf16 x and w, w [G, D, N]
+// (one bf16 product); 2 or 3: fp32 x and w K-major [G, N, D], split TF32,
+// w_lo w's lo part when 3 (2: w exact in TF32, w_lo unused).
+extern "C" int ptt_gmm_fwd(const void* x, const void* w, const void* w_lo,
+                           const int* gids, float* y, int M, int D, int N,
+                           int G, int passes, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || N <= 0) return 0;
-  if (D <= 0 || G <= 0 || N % 8 != 0 || D % (is_bf16 ? 8 : kBK) != 0)
+  const bool bf16 = passes == 1;
+  if (D <= 0 || G <= 0 || passes < 1 || passes > 3 ||
+      N % (bf16 ? 8 : 4) != 0 || D % (bf16 ? 8 : 4) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    namespace host = ptt::sm90_host;
-    CUtensorMap tmap_x, tmap_w;
+  const int tiles = (M + sm90::kBM - 1) / sm90::kBM *
+                    ((N + sm90::kBN - 1) / sm90::kBN);
+  CUtensorMap tmap_x, tmap_w, tmap_wlo;
+  if (bf16) {
     const cuuint64_t xdim[2] = {(cuuint64_t)D, (cuuint64_t)M};
     const cuuint64_t xstride[1] = {(cuuint64_t)D * 2};
     const cuuint32_t xbox[2] = {sm90::kBK, sm90::kBM};
@@ -403,50 +537,77 @@ extern "C" int ptt_gmm_fwd(const void* x, const void* w, const int* gids,
     int e = host::encode_bf16(&tmap_x, x, 2, xdim, xstride, xbox);
     if (e == 0) e = host::encode_bf16(&tmap_w, w, 3, wdim, wstride, wbox);
     if (e != 0) return e;
-    err = host::opt_in_smem(gmm_fwd_wgmma_kernel, device);
-    if (err != cudaSuccess) return (int)err;
-    const int tiles = (M + sm90::kBM - 1) / sm90::kBM *
-                      ((N + sm90::kBN - 1) / sm90::kBN);
-    gmm_fwd_wgmma_kernel<<<host::persistent_blocks(device, tiles),
-                           sm90::kThreads, sm90::kSmemBytes, st>>>(
-        tmap_x, tmap_w, gids, y, M, D, N, G);
-  } else {
-    dim3 grid((N + kBN - 1) / kBN, (M + kBR - 1) / kBR);
-    gmm_fwd_simt_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), gids, y,
-        M, D, N, G);
+    return launch_persistent(gmm_fwd_wgmma_kernel, sm90::kSmemBytes, tiles,
+                             device, st, tmap_x, tmap_w, gids, y, M, D, N, G);
   }
-  return (int)cudaGetLastError();
+  const cuuint64_t xdim[2] = {(cuuint64_t)D, (cuuint64_t)M};
+  const cuuint64_t xstride[1] = {(cuuint64_t)D * 4};
+  const cuuint32_t xbox[2] = {sm90::kBK32, sm90::kBM};
+  const cuuint64_t wdim[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)G};
+  const cuuint64_t wstride[2] = {(cuuint64_t)D * 4, (cuuint64_t)N * D * 4};
+  const cuuint32_t wbox[3] = {sm90::kBK32, sm90::kBN, 1};
+  int e = host::encode_f32(&tmap_x, x, 2, xdim, xstride, xbox);
+  if (e == 0) e = host::encode_f32(&tmap_w, w, 3, wdim, wstride, wbox);
+  if (e == 0)
+    e = host::encode_f32(&tmap_wlo, passes == 3 ? w_lo : w, 3, wdim, wstride,
+                         wbox);
+  if (e != 0) return e;
+  return passes == 3
+             ? gmm_fwd_tf32<3>(tmap_x, tmap_w, tmap_wlo, gids, y, M, D, N, G,
+                               device, st)
+             : gmm_fwd_tf32<2>(tmap_x, tmap_w, tmap_wlo, gids, y, M, D, N, G,
+                               device, st);
 }
 
-// dw [G, D, N] fp32 = per-group x^T dy over the rows of each group; x [M, D]
-// bf16 (x_is_bf16 1) or fp32, dy [M, N] fp32; range is int2 scratch of
-// ceil(M / 16) chunks.
+// dw [G, D, N] fp32 = per-group x^T dy over the rows of each group, split
+// TF32: x [M, D] bf16 (x_is_bf16 1: x^T exact in TF32, 2 passes) or fp32
+// (3 passes), dy [M, N] fp32; xt and xt_lo are fp32 scratch [D, xt_ld]
+// (xt_ld a multiple of 4, at least M; xt_lo unused for bf16 x) for x^T and
+// its lo part, walk int2 scratch of ceil(M / 32) + G.
 extern "C" int ptt_gmm_dw(const void* x, const float* dy, const int* gids,
-                          void* range, float* dw, int M, int D, int N, int G,
+                          float* xt, float* xt_lo, void* walk, float* dw,
+                          int M, int D, int N, int G, int xt_ld,
                           int x_is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G <= 0 || D <= 0 || N <= 0) return 0;
-  if (M < 0 || N % 8 != 0 || D % 8 != 0 || G > 65535)
+  if (M <= 0 || N % 4 != 0 || D % 4 != 0 || xt_ld % 4 != 0 || xt_ld < M ||
+      (D + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nchunks = (M + kBK - 1) / kBK;
-  int2* rg = static_cast<int2*>(range);
-  if (nchunks > 0) {
-    gmm_chunk_range_kernel<<<(nchunks + 255) / 256, 256, 0, st>>>(gids, rg, M,
-                                                                  nchunks);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((N + kBN - 1) / kBN, (D + kBR - 1) / kBR, G);
+  const int passes = x_is_bf16 ? 2 : 3;
+  const int nchunks = (M + kChunk - 1) / kChunk;
+  int2* range = static_cast<int2*>(walk);
+  int2* window = range + nchunks;
+  CUtensorMap tmap_dy, tmap_xt, tmap_xtlo;
+  const cuuint64_t ydim[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t ystride[1] = {(cuuint64_t)N * 4};
+  const cuuint32_t ybox[2] = {32, kChunk};
+  const cuuint64_t tdim[2] = {(cuuint64_t)M, (cuuint64_t)D};
+  const cuuint64_t tstride[1] = {(cuuint64_t)xt_ld * 4};
+  const cuuint32_t tbox[2] = {kChunk, sm90::kBN};
+  int e = host::encode_f32(&tmap_dy, dy, 2, ydim, ystride, ybox);
+  if (e == 0) e = host::encode_f32(&tmap_xt, xt, 2, tdim, tstride, tbox);
+  if (e == 0)
+    e = host::encode_f32(&tmap_xtlo, passes == 3 ? xt_lo : xt, 2, tdim,
+                         tstride, tbox);
+  if (e != 0) return e;
+  const dim3 tgrid((M + kTile - 1) / kTile, (D + kTile - 1) / kTile);
   if (x_is_bf16)
-    gmm_dw_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), dy, gids, rg, dw, M, D, N);
+    gmm_xt_kernel<__nv_bfloat16, false><<<tgrid, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), xt, nullptr, M, D, xt_ld);
   else
-    gmm_dw_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), dy, gids, rg, dw, M, D, N);
-  return (int)cudaGetLastError();
+    gmm_xt_kernel<float, true><<<tgrid, 256, 0, st>>>(
+        static_cast<const float*>(x), xt, xt_lo, M, D, xt_ld);
+  gmm_dw_walk_kernel<<<G, kWalkThreads, 0, st>>>(gids, range, window, M,
+                                                  nchunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return passes == 3
+             ? gmm_dw_tf32<3>(tmap_dy, tmap_xt, tmap_xtlo, gids, range,
+                              window, dw, M, D, N, G, device, st)
+             : gmm_dw_tf32<2>(tmap_dy, tmap_xt, tmap_xtlo, gids, range,
+                              window, dw, M, D, N, G, device, st);
 }
 
 // counts [M / bm] int32: groups visited per bm-row block (M % bm == 0).

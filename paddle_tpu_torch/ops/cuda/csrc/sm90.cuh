@@ -1,7 +1,9 @@
-// One Hopper (sm_90a) GEMM core, shared by the bf16 grouped-matmul forward
-// (grouped_matmul.cu) and the CE statistics (fused_ce.cu): a persistent,
+// One Hopper (sm_90a) GEMM core, shared by the grouped matmul
+// (grouped_matmul.cu: the bf16 forward, the fp32 forward that is the
+// backward's dx, dw) and the CE statistics (fused_ce.cu): a persistent,
 // warp-specialised block that forms 128 x 256 fp32 tiles of A . B from
-// bf16 operands and hands each finished tile to its kernel's epilogue.
+// bf16 operands, or fp32 ones as split TF32 (below), and hands each
+// finished tile to its kernel's epilogue.
 //
 //  * A block is 3 warpgroups. Warpgroup 0 is the producer: one thread
 //    issues TMA copies (cp.async.bulk.tensor) of 64-deep K slices of A
@@ -25,6 +27,18 @@
 //    descriptor's strides follow.
 //  * Every mbarrier wait gives up after kHangNs with __trap(), so a phase
 //    error becomes a launch error instead of a hung card.
+//  * fp32 operands (the grouped matmul's backward) run as split TF32 on
+//    the same ring: a = hi + lo, hi = tf32(a) rounded to nearest
+//    (cvt.rna), lo = tf32(a - hi), and a . b = hi . b + lo . b (+ hi . b_lo
+//    when b is not exact in TF32; a bf16 value is), three or two
+//    wgmma m64n256k8 .tf32 a K step. TF32 wgmma has no transpose bit, so
+//    both operands are K-major in their products; A (the fp32 side) comes
+//    from registers: each consumer thread reads its fragment from the
+//    landed stage with ld.shared, undoing the swizzle, zeroes the K rows
+//    its kernel masks and splits it there. B (hi, and lo as a second
+//    stream) stays in shared memory. A stage is 32 fp32 deep (one 128-byte
+//    swizzle row), so A and B take bf16's bytes: 4 stages, or 2 with the
+//    lo stream.
 //
 // Host side: the tensor maps are encoded per call by cuTensorMapEncodeTiled,
 // looked up through the CUDA runtime's entry-point query (no libcuda link),
@@ -34,6 +48,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace ptt {
 namespace sm90 {
@@ -49,6 +67,9 @@ constexpr int kStageBytes = kABytes + kBBytes;
 // the stages, 2 mbarriers a stage, and slack to align the ring to the
 // 1024-byte period of the 128B swizzle
 constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kBK32 = 32;                 // fp32 stage depth: 128 bytes
+constexpr int kA32Bytes = kBM * kBK32 * 4;  // 16 KB
+constexpr int kB32Bytes = kBN * kBK32 * 4;  // 32 KB, each of hi and lo
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr unsigned long long kHangNs = 4000000000ull;  // 4 s
@@ -249,36 +270,49 @@ __device__ __forceinline__ void regs_inc() {
 
 // The stages and their barriers in dynamic shared memory, and a walker's
 // place in them: stage index and the parity of the stage's current phase.
-// Producer and consumers each keep their own Ring and advance it once a
-// stage, so they agree on every stage's phase.
-struct Ring {
+// Producer and consumers each keep their own ring and advance it once a
+// stage, so they agree on every stage's phase. A stage is A_BYTES of A,
+// then B_BYTES of B.
+template <int STAGES, int A_BYTES, int B_BYTES>
+struct RingOf {
+  static constexpr int kStages = STAGES;
+  static constexpr int kStageBytes = A_BYTES + B_BYTES;
+  static constexpr int kSmemBytes = STAGES * kStageBytes + 2 * STAGES * 8 +
+                                    1024;
   uint32_t base;  // shared address of stage 0, 1024-byte aligned
   int stage = 0;
   uint32_t phase = 0;
 
-  __device__ explicit Ring(uint32_t b) : base(b) {}
+  __device__ explicit RingOf(uint32_t b) : base(b) {}
   __device__ uint32_t a(int s) const { return base + s * kStageBytes; }
-  __device__ uint32_t b(int s) const { return a(s) + kABytes; }
+  __device__ uint32_t b(int s) const { return a(s) + A_BYTES; }
   __device__ uint32_t full(int s) const {
-    return base + kStages * kStageBytes + 8 * s;
+    return base + STAGES * kStageBytes + 8 * s;
   }
-  __device__ uint32_t empty(int s) const { return full(s) + 8 * kStages; }
+  __device__ uint32_t empty(int s) const { return full(s) + 8 * STAGES; }
   __device__ void advance() {
-    if (++stage == kStages) {
+    if (++stage == STAGES) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
 
+using Ring = RingOf<kStages, kABytes, kBBytes>;  // bf16
+// split TF32: B hi, and B lo behind it when PASSES is 3
+template <int PASSES>
+using RingTF32 = RingOf<PASSES == 3 ? 2 : kStages, kA32Bytes,
+                        (PASSES == 3 ? 2 : 1) * kB32Bytes>;
+
 // The ring's base in the kernel's dynamic shared memory; thread 0 sets up
 // the barriers (full: the producer's one arrival plus the stage's bytes;
 // empty: one arrival from each consumer warpgroup). Every thread calls it.
+template <class R = Ring>
 __device__ __forceinline__ uint32_t ring_setup(unsigned char* smem) {
   const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
   if (threadIdx.x == 0) {
-    Ring r(base);
-    for (int s = 0; s < kStages; ++s) {
+    R r(base);
+    for (int s = 0; s < R::kStages; ++s) {
       bar_init(r.full(s), 1);
       bar_init(r.empty(s), 2);
     }
@@ -290,12 +324,12 @@ __device__ __forceinline__ uint32_t ring_setup(unsigned char* smem) {
 
 // Producer (one thread): the nk stages of one job. load(a, b, bar, k)
 // issues the TMA copies of K slice k into stage addresses a and b,
-// completing on bar; they must bring kStageBytes.
-template <class Load>
-__device__ __forceinline__ void produce(Ring& r, int nk, Load&& load) {
+// completing on bar; they must bring the stage's bytes.
+template <class R, class Load>
+__device__ __forceinline__ void produce(R& r, int nk, Load&& load) {
   for (int k = 0; k < nk; ++k) {
     bar_wait(r.empty(r.stage), r.phase ^ 1);
-    bar_arrive_expect_tx(r.full(r.stage), kStageBytes);
+    bar_arrive_expect_tx(r.full(r.stage), R::kStageBytes);
     load(r.a(r.stage), r.b(r.stage), r.full(r.stage), k);
     r.advance();
   }
@@ -340,6 +374,143 @@ __device__ __forceinline__ int acc_row0() {
 }
 __device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
 
+// ---- split TF32 ------------------------------------------------------------
+
+// v rounded to TF32, to nearest with ties away from zero (its low 13 bits
+// zero), as an fp32 bit pattern
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// the registers as the compiler sees them: written here, so their values
+// are made before and stay live until this point (an A fragment must not
+// move or be reused while a wgmma that reads it is in flight)
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 256, fp32) = A (64 x 8, tf32, registers) . B (8 x 256, tf32,
+// K-major in shared memory), plus d when `accumulate`. A fragment of a
+// thread (lane l of warp w of the warpgroup): a[0] row 16 w + l / 4,
+// column l % 4; a[1] row + 8; a[2] column + 4; a[3] both.
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128],
+                                                     const uint32_t* a,
+                                                     uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// Byte offset of A element (tile row i, depth k) in a 128B-swizzled fp32
+// stage: the 16-byte chunk k / 4 of the row's 128 bytes sits at chunk
+// (k / 4) ^ (row % 8). K-major (A [rows, K] as it lies): one 128-byte row
+// a tile row. MN-major (A^T [K, rows] as it lies): four boxes of 32 tile
+// rows, each 32 K rows of 128 bytes.
+template <bool MN_A>
+__device__ __forceinline__ uint32_t a32_offset(int i, int k) {
+  if (MN_A)
+    return (i >> 5) * (kBK32 * 128) + k * 128 +
+           ((((i & 31) >> 2) ^ (k & 7)) << 4) + (i & 3) * 4;
+  return i * 128 + (((k >> 2) ^ (i & 7)) << 4) + (k & 3) * 4;
+}
+
+// Consumer warpgroup c (0 or 1): acc (+)= its 64 rows of one stage's
+// product in split TF32 (acc = the product when `first`). The thread's 16
+// A values of the stage come by ld.shared; depth k is zeroed unless bit k
+// of `keep` is set; each splits into hi and lo. Then 4 K steps of
+// hi . B + lo . B (+ hi . B_lo, PASSES 3), in that order, and the stage is
+// released once they are done. No stage stays in flight, so a fragment's
+// registers are free after its stage; meanwhile the other consumer
+// warpgroup's products keep the tensor cores busy.
+template <int PASSES, bool MN_A, class R>
+__device__ __forceinline__ void consume_tf32(R& r, int c, float (&acc)[128],
+                                             bool first, uint32_t keep) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = 64 * c + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int t = lane & 3;
+  bar_wait(r.full(r.stage), r.phase);
+  const uint32_t sa = r.a(r.stage), sb = r.b(r.stage);
+  uint32_t hi[16], lo[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {  // K step j / 4, register j % 4
+    const int i = i0 + 8 * (j & 1), k = 8 * (j >> 2) + 4 * ((j >> 1) & 1) + t;
+    float v = lds_f32(sa + a32_offset<MN_A>(i, k));
+    v = (keep >> k) & 1u ? v : 0.f;
+    hi[j] = tf32_rna(v);
+    lo[j] = tf32_rna(v - __uint_as_float(hi[j]));
+  }
+  fence_regs(hi);
+  fence_regs(lo);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK32 / 8; ++kk) {
+    const uint64_t db = desc_k_major(sb + kk * 32);
+    wgmma_m64n256k8_tf32(acc, hi + 4 * kk, db, !first || kk > 0);
+    wgmma_m64n256k8_tf32(acc, lo + 4 * kk, db, 1);
+    if (PASSES == 3)
+      wgmma_m64n256k8_tf32(acc, hi + 4 * kk,
+                           desc_k_major(sb + kB32Bytes + kk * 32), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_regs(hi);
+  fence_regs(lo);
+  if ((threadIdx.x & 127) == 0) bar_arrive(r.empty(r.stage));
+  r.advance();
+}
+
 }  // namespace sm90
 
 // ---- host: tensor maps -----------------------------------------------------
@@ -375,34 +546,56 @@ inline EncodeTiled encoder() {
 constexpr int kNoEncoder = 100000;       // no cuTensorMapEncodeTiled
 constexpr int kEncodeFailed = 100001;    // + the CUresult
 
-// A bf16 tensor map of `rank` dims (innermost first, in elements), byte
-// strides of dims 1.. (multiples of 16), a box of `box` elements, 128B
-// swizzle, out-of-bounds elements read as zero. Returns 0 or an error code.
-inline int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+// A tensor map of `type` and `rank` dims (innermost first, in elements),
+// byte strides of dims 1.. (multiples of 16), a box of `box` elements (128
+// bytes innermost at most), 128B swizzle, out-of-bounds elements read as
+// zero. Returns 0 or an error code.
+inline int encode(CUtensorMap* map, CUtensorMapDataType type,
+                  const void* ptr, int rank, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kNoEncoder;
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                        dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
 }
 
-// Lets `kernel` take kSmemBytes of dynamic shared memory on `device`, once
-// a process: later calls (a CUDA-graph capture among them) skip the call.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                strides, box);
+}
+
+inline int encode_f32(CUtensorMap* map, const void* ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims,
+                strides, box);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on `device`, once a
+// process for each kernel and device: later calls (a CUDA-graph capture
+// among them) skip the call. Keyed by the kernel itself, as instances of
+// one template share a type but not their shared-memory size.
 template <class Kernel>
-inline cudaError_t opt_in_smem(Kernel* kernel, int device) {
-  static bool done[64] = {};
-  const bool known = device >= 0 && device < 64;
-  if (known && done[device]) return cudaSuccess;
+inline cudaError_t opt_in_smem(Kernel* kernel, int device,
+                               int bytes = sm90::kSmemBytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  const std::pair<const void*, int> key(reinterpret_cast<const void*>(kernel),
+                                        device);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& k : done)
+    if (k == key) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::kSmemBytes);
-  if (e == cudaSuccess && known) done[device] = true;
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done.push_back(key);
   return e;
 }
 
