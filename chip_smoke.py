@@ -52,12 +52,21 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     it replaced, "was", are printed beside it) are printed beside the
     event-timed call ms, with each sm90
     kernel's ptxas line (a spill fails the run) and the count of 128-row
-    tiles of each grouped layout that hold more than one group. The paged kernel's int8
-    and fp8 branch runs on codes and fp32 scales made by the model's
-    quantize-on-write: with fp32 q within 1e-5 of its plain version, with
-    bf16 q within 1e-3 beyond the rounding of the fp32 result to bf16
-    (2^-8 of |ref|) plus the row check; the page and flash visit counters
-    must equal their plain versions (and ceil(len / page_size)) exactly;
+    tiles of each grouped layout that hold more than one group. The paged
+    decode runs bf16 q on its tensor-core kernel (``paged_decode_kernel_mma``:
+    bulk copies on an mbarrier ring, codes widened in shared memory,
+    ``mma.sync``) and fp32 q on its CUDA-core kernel; each case must run
+    its dtype's kernel alone (profiler names): the 7B decode at pages of
+    8, 16, 32 and 128, GQA, frames of T 3 and of 64 rows (T 8, GQA 8), and
+    a pool holding NaN in every slot no query sees; its int8 and fp8
+    branch runs on codes and fp32 scales made by the model's
+    quantize-on-write (pages of 8, 16 and 128, an fp8 pool of NaN codes
+    and scales outside the live slots): with fp32 q within 1e-5 of its
+    plain version, with bf16 q within 1e-3 beyond the rounding of the fp32
+    result to bf16 (2^-8 of |ref|) plus the row check; each paged case
+    prints its device ms (decode kernel and split-K merge apart), GB/s and
+    share of the bound; the page and flash visit counters must equal their
+    plain versions (and ceil(len / page_size)) exactly;
  3. the engine on CUDA (kernels) against the engine on the CPU (plain
     versions): a 2-layer fp32 GQA model with the same weights serves the
     same prompts; the greedy streams must be equal; then the same with
@@ -73,7 +82,9 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     (packed, single-chunk and multi-chunk prefill), with every kernel's
     launch count read around this run; prints prefill and decode tokens/s,
     time to first token and peak memory, then profiles (torch.profiler)
-    one 3000-token prefill and a few decode steps outside that run;
+    one 3000-token prefill and a few decode steps outside that run (the
+    paged kernels' device ms a step; the decode must run the tensor-core
+    paged kernel, as the int8 and fp8 serves' decode must too);
  5. HTTP: serve_http, one streamed POST /generate, clean shutdown;
     then, on the same model with the bf16 pools freed: a fresh bf16
     engine serves phase 4's prompts again and once more with K/V moved by
@@ -356,22 +367,108 @@ def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1,
                 tflops=flops / ms / 1e9, ok=cmp["ok"] and lse_err <= 1e-3)
 
 
+PAGED_LENS = [0, 1, 17, 4095, 100, 2048, 300, 3000]
+# the paged decode kernel a case must run, by q's dtype (profiler names)
+PAGED_KERNEL = {"bfloat16": "paged_decode_kernel_mma",
+                "float32": "paged_decode_kernel"}
+
+
 def paged_cases():
+    """(label, kwargs): the 7B decode (B 8, 32/32 heads, D 128, the 8 mixed
+    lengths up to 4095) at page 16 and at the tuner's other page sizes
+    (4096 keys a row of the table), GQA, frames (T 3 at GQA 8; T 8 at GQA 8,
+    64 rows, eight 8-row tiles), a pool filled with NaN outside its live
+    slots; bf16 q runs the tensor-core kernel, fp32 q the CUDA-core one."""
     import torch
 
-    lens = [0, 1, 17, 4095, 100, 2048, 300, 3000]
+    lens = PAGED_LENS
     bf = torch.bfloat16
+    h32 = dict(t=1, hq=32, hkv=32, lens=lens, dtype=bf)
+    # own_gen: drawn from a generator of the case's own (see _paged_gen)
     return [
-        ("decode_b8_h32", dict(t=1, hq=32, hkv=32, lens=lens, dtype=bf)),
+        ("decode_b8_h32", h32),
+        ("decode_b8_h32_ps8", dict(h32, ps=8, pages=512, own_gen=True)),
+        ("decode_b8_h32_ps32", dict(h32, ps=32, pages=128, own_gen=True)),
+        ("decode_b8_h32_ps128", dict(h32, ps=128, pages=32, own_gen=True)),
         ("decode_b8_gqa8", dict(t=1, hq=32, hkv=8, lens=lens, dtype=bf)),
         ("frame3_gqa8", dict(t=3, hq=32, hkv=8, lens=lens[:-1] + [4093],
                              dtype=bf)),
+        ("frame8_gqa8_rows64", dict(t=8, hq=32, hkv=4,
+                                    lens=lens[:-1] + [4088], dtype=bf,
+                                    own_gen=True)),
+        ("nan_pool_b8_h32", dict(h32, nan_fill=True, own_gen=True)),
         ("decode_b8_fp32", dict(t=1, hq=32, hkv=32, lens=lens,
                                 dtype=torch.float32)),
     ]
 
 
-def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256):
+def _paged_gen(gen, seed, label, kw):
+    """(generator, kwargs) of a paged case: the shared one, or for a case
+    marked own_gen a CUDA generator seeded from `seed` and its label, so
+    that such a case leaves the shared draws, and so the other cases'
+    values, unchanged."""
+    import zlib
+
+    import torch
+
+    kw = dict(kw)
+    if not kw.pop("own_gen", False):
+        return gen, kw
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed * 1000003 + zlib.crc32(label.encode()))
+    return g, kw
+
+
+def _live_slots(pt, lens, t, num_pages, ps):
+    """[num_pages, ps] bool: the pool slots that hold a key some query of
+    the call may see (positions < len + T - 1 of each row's pages)."""
+    import torch
+
+    live = torch.zeros((num_pages, ps), dtype=torch.bool, device=pt.device)
+    for b, n in enumerate(lens):
+        keys = min(n + t - 1, pt.shape[1] * ps) if n > 0 else 0
+        pos = torch.arange(keys, device=pt.device)
+        live[pt[b, pos // ps].long(), pos % ps] = True
+    return live
+
+
+def _host_ms(fn, reps=20):
+    """Host ms per call of `fn` to enqueue its work, the device left to
+    run behind it (the wrapper's own cost, which a host-bound decode step
+    pays in full)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def _paged_speed(call, nbytes, flops, dname, plain):
+    """The call's event-timed ms (`call_ms`), its host enqueue ms, device
+    ms (decode kernel and split-K merge, apart too), the decode kernels
+    that ran, the plain version's ms, the bound, and GB/s and share of the
+    bound on the device ms."""
+    ms = _cuda_ms(call)
+    host_ms = _host_ms(call)
+    dev = _paged_device_ms(call)
+    bound_ms, bound_by = _bound(nbytes, flops, dname)
+    return dict(dev, ms=dev["device_ms"], call_ms=ms, host_ms=host_ms,
+                plain_ms=_cuda_ms(plain, reps=5), library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / dev["device_ms"],
+                gbps=nbytes / dev["device_ms"] / 1e6)
+
+
+def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256,
+                   nan_fill=False):
+    """The kernel against its plain version on the same inputs; with
+    `nan_fill`, the kernel's pools hold NaN in every slot no query may
+    see (the plain version's the values drawn there before)."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
@@ -384,17 +481,16 @@ def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256):
     pt = perm[:b * pages].view(b, pages).to(torch.int32)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = _rand(gen, (b, hq, d) if t == 1 else (b, t, hq, d), dtype)
-    out = pa.paged_attention(q, kp, vp, pt, ln)
-    torch.cuda.synchronize()
     ref = pa.paged_attention_reference(q.float(), kp.float(), vp.float(), pt,
                                        ln)
+    if nan_fill:
+        dead = ~_live_slots(pt, lens, t, num_pages, ps)
+        kp[:, dead] = float("nan")
+        vp[:, dead] = float("nan")
+    out = pa.paged_attention(q, kp, vp, pt, ln)
+    torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     cmp = _compare(out, ref, dname)
-    ms = _cuda_ms(lambda: pa.paged_attention(q, kp, vp, pt, ln))
-    device_ms = _paged_device_ms(lambda: pa.paged_attention(q, kp, vp, pt,
-                                                            ln))
-    plain_ms = _cuda_ms(lambda: pa.paged_attention_reference(
-        q, kp, vp, pt, ln), reps=5)
     item = q.element_size()
     # the keys each row needs (len + T - 1), not whole pages; a page id is
     # read once per page those keys touch
@@ -403,10 +499,9 @@ def run_paged_case(gen, t, hq, hkv, lens, dtype, d=128, ps=16, pages=256):
     nbytes = (2 * q.numel() * item + 2 * sum(keys) * d * hkv * item
               + pages_read * 4 + b * 4)
     flops = 4 * d * hq * sum(n + i for n in lens if n > 0 for i in range(t))
-    bound_ms, bound_by = _bound(nbytes, flops, dname)
-    return dict(cmp, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
+    return dict(cmp, **_paged_speed(
+        lambda: pa.paged_attention(q, kp, vp, pt, ln), nbytes, flops, dname,
+        lambda: pa.paged_attention_reference(q, kp, vp, pt, ln)))
 
 
 QBF16_EXCESS = 1e-3      # quantized, bf16 q: error beyond bf16 rounding
@@ -415,23 +510,32 @@ QBF16_EXCESS = 1e-3      # quantized, bf16 q: error beyond bf16 rounding
 def paged_quant_cases():
     """The quantized branch at row 2's shapes (B 8, H 32/32, page 16, the
     8 mixed lengths), bf16 q as the 7B engine runs it and fp32 q for the
-    tight check, plus a T = 4 frame (GQA 8) and head_dim 64."""
+    tight check, plus pages of 8 and 128, a T = 4 frame (GQA 8), head_dim
+    64, and an fp8 pool whose dead slots hold NaN codes and scales."""
     import torch
 
-    lens = [0, 1, 17, 4095, 100, 2048, 300, 3000]
+    lens = PAGED_LENS
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
+    # the page-size and NaN cases draw their own values (see _paged_gen)
+    # at std 0.5, as _rand does: a bf16 output of |value| 4 or more can
+    # miss TOL by its own rounding (up to 2^-8 of it), whatever computed it
+    new = dict(std=0.5, own_gen=True)
     for mode in ("int8", "fp8"):
+        h32 = dict(mode=mode, t=1, hq=32, hkv=32, lens=lens, dtype=bf)
         cases += [
-            (f"{mode}_decode_b8_h32", dict(mode=mode, t=1, hq=32, hkv=32,
-                                           lens=lens, dtype=bf)),
-            (f"{mode}_decode_b8_h32_fp32", dict(mode=mode, t=1, hq=32,
-                                                hkv=32, lens=lens,
-                                                dtype=f32)),
+            (f"{mode}_decode_b8_h32", h32),
+            (f"{mode}_decode_b8_h32_fp32", dict(h32, dtype=f32)),
+            (f"{mode}_decode_b8_h32_ps8", dict(h32, ps=8, pages=512, **new)),
+            (f"{mode}_decode_b8_h32_ps128", dict(h32, ps=128, pages=32,
+                                                 **new)),
             (f"{mode}_frame4_gqa8", dict(mode=mode, t=4, hq=32, hkv=8,
                                          lens=lens[:-1] + [4092], dtype=bf)),
             (f"{mode}_decode_b8_d64", dict(mode=mode, t=1, hq=16, hkv=16,
                                            lens=lens, dtype=bf, d=64))]
+    cases.append(("fp8_nan_pool_b8_h32",
+                  dict(mode="fp8", t=1, hq=32, hkv=32, lens=lens, dtype=bf,
+                       nan_fill=True, **new)))
     return cases
 
 
@@ -447,11 +551,12 @@ def _quantize_pool(x, mode):
 
 
 def run_paged_quant_case(gen, mode, t, hq, hkv, lens, dtype, d=128, ps=16,
-                         pages=256):
+                         pages=256, nan_fill=False, std=1.0):
     """The quantized kernel against its plain version on the same codes and
     scales: fp32 q within 1e-5 absolute; bf16 q within QBF16_EXCESS beyond
     the rounding of the fp32 result to bf16 (2^-8 of |ref|), and the row
-    check."""
+    check. With `nan_fill` the kernel's dead slots hold NaN codes (e4m3
+    0x7F) and NaN scales."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
@@ -459,20 +564,28 @@ def run_paged_quant_case(gen, mode, t, hq, hkv, lens, dtype, d=128, ps=16,
     b = len(lens)
     num_pages = b * pages + 1
     kc, ks = _quantize_pool(torch.randn((hkv, num_pages, ps, d),
-                                        generator=gen, device="cuda"), mode)
+                                        generator=gen, device="cuda") * std,
+                            mode)
     vc, vs = _quantize_pool(torch.randn((hkv, num_pages, ps, d),
-                                        generator=gen, device="cuda"), mode)
+                                        generator=gen, device="cuda") * std,
+                            mode)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     pt = perm[:b * pages].view(b, pages).to(torch.int32)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = _rand(gen, (b, hq, d) if t == 1 else (b, t, hq, d), dtype)
     counter = f"paged_decode_{mode}"
+    ref = pa.paged_attention_reference(q.float(), kc, vc, pt, ln,
+                                       k_scales=ks, v_scales=vs)
+    if nan_fill:
+        dead = ~_live_slots(pt, lens, t, num_pages, ps)
+        kc.view(torch.uint8)[:, dead] = 0x7F
+        vc.view(torch.uint8)[:, dead] = 0x7F
+        ks[:, dead] = float("nan")
+        vs[:, dead] = float("nan")
     before = pa.launch_counts()[counter]
     out = pa.paged_attention(q, kc, vc, pt, ln, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
     launched = pa.launch_counts()[counter] - before
-    ref = pa.paged_attention_reference(q.float(), kc, vc, pt, ln,
-                                       k_scales=ks, v_scales=vs)
     dname = str(dtype).replace("torch.", "")
     cmp = _compare(out, ref, dname)
     err = (out.float() - ref).abs()
@@ -482,12 +595,6 @@ def run_paged_quant_case(gen, mode, t, hq, hkv, lens, dtype, d=128, ps=16,
     else:
         excess = (err - ref.abs() * 2.0 ** -8).max().item()
         ok = cmp["ok"] and excess <= QBF16_EXCESS
-    call = lambda: pa.paged_attention(  # noqa: E731
-        q, kc, vc, pt, ln, k_scales=ks, v_scales=vs)
-    ms = _cuda_ms(call)
-    device_ms = _paged_device_ms(call)
-    plain_ms = _cuda_ms(lambda: pa.paged_attention_reference(
-        q, kc, vc, pt, ln, k_scales=ks, v_scales=vs), reps=5)
     item = q.element_size()
     # the keys each row needs: 1-byte codes of K and V plus their fp32
     # scales, q in and out, a page id per page touched, the lens
@@ -496,11 +603,14 @@ def run_paged_quant_case(gen, mode, t, hq, hkv, lens, dtype, d=128, ps=16,
     nbytes = (2 * q.numel() * item + 2 * sum(keys) * hkv * (d + 4)
               + pages_read * 4 + b * 4)
     flops = 4 * d * hq * sum(n + i for n in lens if n > 0 for i in range(t))
-    bound_ms, bound_by = _bound(nbytes, flops, dname)
     return dict(cmp, ok=ok and launched == 1, excess_err=excess,
                 excess_tol=1e-5 if dtype == torch.float32 else QBF16_EXCESS,
-                ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
+                **_paged_speed(
+                    lambda: pa.paged_attention(q, kc, vc, pt, ln, k_scales=ks,
+                                               v_scales=vs),
+                    nbytes, flops, dname,
+                    lambda: pa.paged_attention_reference(
+                        q, kc, vc, pt, ln, k_scales=ks, v_scales=vs)))
 
 
 def engine_frame_segments():
@@ -558,14 +668,16 @@ def run_page_visit_case(lens, ps=16, pages_per_seq=256):
     plain = pa.page_visit_reference(ln, ps, pages_per_seq)
     closed = [min(-(-n // ps), pages_per_seq) for n in lens]
     exact = bool((got == plain).all()) and got.tolist() == closed
-    ms = _cuda_ms(lambda: pa.page_visit_counts(ln, ps, pages_per_seq))
+    call = lambda: pa.page_visit_counts(ln, ps, pages_per_seq)  # noqa
+    call_ms = _cuda_ms(call)
+    ms = _device_ms_sum(call, "page_visit_kernel")
     plain_ms = _cuda_ms(lambda: pa.page_visit_reference(ln, ps,
                                                         pages_per_seq))
     bound_ms, bound_by = _bound(8 * len(lens), len(lens) * pages_per_seq,
                                 "float32")
     return dict(ok=exact, max_abs_err=0 if exact else None,
                 visited=int(got.sum()), pages=len(lens) * pages_per_seq,
-                ms=ms, plain_ms=plain_ms, library_ms=None,
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -609,10 +721,22 @@ def _device_ms_sum(fn, *names):
 
 def _paged_device_ms(fn):
     """Device ms per call of a paged-attention wrapper: the decode kernel
-    plus the split-K merge, without the wrapper's host work that the
-    event-timed ms includes."""
-    return sum(ms for key, ms in _device_ms_by_kernel(fn).items()
-               if "paged_decode_kernel" in key or "paged_combine_kernel" in key)
+    plus the split-K merge (`device_ms`), each apart, without the
+    wrapper's host work that the event-timed ms includes; and the names of
+    the decode kernels that ran (`kernels`)."""
+    for _ in range(3):      # the profiler can drop a whole window's events
+        by = _device_ms_by_kernel(fn)
+        dec = {re.search(r"paged_decode_kernel\w*", k).group(0): ms
+               for k, ms in by.items() if "paged_decode_kernel" in k}
+        if dec:
+            break
+    else:
+        raise AssertionError("the profiler recorded no paged decode kernel "
+                             "in 3 windows")
+    comb = sum(ms for k, ms in by.items() if "paged_combine_kernel" in k)
+    return dict(device_ms=sum(dec.values()) + comb,
+                decode_ms=sum(dec.values()), combine_ms=comb,
+                kernels=sorted(dec))
 
 
 def flash_bwd_cases(gen):
@@ -1207,6 +1331,23 @@ def phase_gmm(gen, report):
             + [f"gmm_visit {k}" for k, r in visit.items() if not r["ok"]])
 
 
+def _paged_kernel_check(r, dtype):
+    """A paged case must have run its q dtype's decode kernel, and only it
+    (bf16 q: the tensor-core kernel)."""
+    want = [PAGED_KERNEL[str(dtype).replace("torch.", "")]]
+    r["kernel_ok"] = r["kernels"] == want
+    r["ok"] = r["ok"] and r["kernel_ok"]
+
+
+def _paged_speed_text(r):
+    return (f"ms {r['ms']:.4f} (device: decode {r['decode_ms']:.4f} + "
+            f"combine {r['combine_ms']:.4f}; call {r['call_ms']:.4f}, host "
+            f"{r['host_ms']:.4f}) "
+            f"{r['gbps']:.1f} GB/s, {r['bound_share']:.1%} of bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+            f"{r['plain_ms']:.4f} kernels {r['kernels']}")
+
+
 def phase_kernels(seed, report):
     import torch
 
@@ -1224,22 +1365,23 @@ def phase_kernels(seed, report):
               f"{r['plain_ms']:.4f}", flush=True)
     paged = {}
     for label, kw in paged_cases():
-        paged[label] = r = run_paged_case(gen, **kw)
+        g, kw = _paged_gen(gen, seed, label, kw)
+        paged[label] = r = run_paged_case(g, **kw)
+        _paged_kernel_check(r, kw["dtype"])
         print(f"paged {label}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
-              f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) ms {r['ms']:.4f} device_ms {r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) {r['gbps']:.1f} GB/s",
-              flush=True)
+              f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) "
+              + _paged_speed_text(r), flush=True)
+        torch.cuda.empty_cache()
     report["flash_cases"], report["paged_cases"] = flash, paged
     torch.cuda.empty_cache()      # the plain versions' S=4096 scores
     paged_q = {}
     for label, kw in paged_quant_cases():
-        paged_q[label] = r = run_paged_quant_case(gen, **kw)
+        g, kw = _paged_gen(gen, seed, label, kw)
+        paged_q[label] = r = run_paged_quant_case(g, **kw)
+        _paged_kernel_check(r, kw["dtype"])
         print(f"paged {label}: err {r['max_abs_err']:.3g} beyond rounding "
               f"{r['excess_err']:.3g} (tol {r['excess_tol']}) row rel "
-              f"{r['max_rel_err']:.3g} ms {r['ms']:.4f} device_ms "
-              f"{r['device_ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) {r['gbps']:.1f} GB/s",
-              flush=True)
+              f"{r['max_rel_err']:.3g} " + _paged_speed_text(r), flush=True)
         torch.cuda.empty_cache()
     visits = {}
     for label, seg in engine_frame_segments().items():
@@ -1251,8 +1393,9 @@ def phase_kernels(seed, report):
     visits["paged_decode_b8"] = r = run_page_visit_case(
         [0, 1, 17, 4095, 100, 2048, 300, 3000])
     print(f"paged_visit decode_b8: exact {r['ok']} visited {r['visited']}/"
-          f"{r['pages']} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-          f"bound_ms {r['bound_ms']:.6f}", flush=True)
+          f"{r['pages']} ms {r['ms']:.4f} (device; call {r['call_ms']:.4f}) "
+          f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.6f}",
+          flush=True)
     report["paged_quant_cases"], report["visit_cases"] = paged_q, visits
     bwd = {}
     for label, kw in flash_bwd_cases(gen):
@@ -1549,7 +1692,32 @@ def phase_full_width(args, report):
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
+    _check_paged_kernels("bf16", out["profile"]["decode_8x1000"])
     return eng, prompts, streams
+
+
+def _check_paged_kernels(mode, profile):
+    """The 7B serves' q is bf16: their decode must run the tensor-core
+    paged kernel, and no other."""
+    got = profile["paged_kernels"]
+    print(f"full width {mode} decode: paged kernels {got}, "
+          f"{profile['paged_ms_per_step']:.4f} ms a step", flush=True)
+    if got != [PAGED_KERNEL["bfloat16"]]:
+        raise AssertionError(f"{mode} serve's decode ran paged kernels "
+                             f"{got}, not {PAGED_KERNEL['bfloat16']}")
+
+
+def _profile_decode_step(eng, rng, vocab):
+    """A profile of one decode step of 8 requests of 200-token prompts:
+    which paged kernel the engine's decode runs."""
+    rids = [eng.submit(rng.randint(1, vocab, 200).astype("int32"),
+                       max_new_tokens=4) for _ in range(8)]
+    eng.step()                                   # prefills + first decode
+    prof = _device_profile(eng.step, 1)
+    eng.run_until_idle()
+    for r in rids:
+        eng.release(r)
+    return prof
 
 
 SYSTEM_TOKENS = 1024       # the shared system prompt of the int8 run
@@ -1817,6 +1985,14 @@ def phase_full_width_kv(args, model, bf16_prompts, bf16_streams, bf16_pages,
         if mode == "int8":
             # where a decode step's time goes, outside the main-path run
             res["profile"] = _profile_serving(eng, rng, vocab)
+            decode_prof = res["profile"]["decode_8x1000"]
+        else:
+            decode_prof = res["decode_step_profile"] = _profile_decode_step(
+                eng, rng, vocab)
+        try:
+            _check_paged_kernels(mode, decode_prof)
+        except AssertionError as e:
+            problems.append(str(e))
         res["pools"] = _kv_write_read_ms(eng)
         out[mode] = res
         print(f"full width {mode}: " + json.dumps(res), flush=True)
@@ -1973,12 +2149,19 @@ def _device_profile(fn, steps, top=8):
     host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), key=lambda kv: -kv[1])
+    port = _port_kernel_ms(dev)
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms if dev else None,
             "device_busy_share": device_ms / wall_ms if dev else None,
             "flash_fwd_ms_per_step": sum(ms for k, ms in dev
                                          if "flash_fwd_kernel" in k),
-            "port_kernel_ms_per_step": _port_kernel_ms(dev),
+            # the paged decode kernel with its split-K merge
+            "paged_ms_per_step": sum(ms for k, ms in port.items()
+                                     if k.startswith(("paged_decode_kernel",
+                                                      "paged_combine"))),
+            "paged_kernels": sorted(k for k in port
+                                    if k.startswith("paged_decode_kernel")),
+            "port_kernel_ms_per_step": port,
             "top_device_ms": [(k[:90], ms) for k, ms in dev[:top]],
             "top_host_ms": [(k[:60], ms) for k, ms in host[:top]]}
 
@@ -2917,6 +3100,7 @@ def kernels_line(report):
                          if name in RMS_KERNELS
                          else sum(p.get(name, 0) for p in paths)),
             "max_abs_err": case.get("max_abs_err"), "ms": case.get("ms"),
+            **({"call_ms": case["call_ms"]} if "call_ms" in case else {}),
             "plain_ms": case.get("plain_ms"),
             "bound_ms": case.get("bound_ms"),
             "bound_by": case.get("bound_by"),
@@ -2973,17 +3157,19 @@ def main(argv=None) -> int:
                         for n in _build.kernel_names()},
               "failed": []}
     spills = []
-    for src in ("grouped_matmul", "fused_ce"):    # the sm90 core's kernels
+    # the sm90 core's kernels and the paged tensor-core kernel
+    for src in ("grouped_matmul", "fused_ce", "paged_attention"):
         lines = report["ptxas"][src]
         for i, ln in enumerate(lines):
-            if "wgmma_kernel" in ln or "tf32_kernel" in ln:
+            if ("wgmma_kernel" in ln or "tf32_kernel" in ln
+                    or "paged_decode_kernel_mma" in ln):
                 print("ptxas " + " | ".join(x.strip() for x in lines[i:i + 3]),
                       flush=True)
                 if not any("0 bytes spill stores, 0 bytes spill loads" in x
                            for x in lines[i + 1:i + 3]):
                     spills.append(ln.strip())
-    if spills:        # 128 accumulators a thread must stay in registers
-        print(f"ptxas: the sm90 core's kernels spill: {spills}",
+    if spills:        # accumulators must stay in registers
+        print(f"ptxas: tensor-core kernels spill: {spills}",
               file=sys.stderr)
         report["failed"].append("build")
     phases = [("kernels", lambda: phase_kernels(args.seed, report)),

@@ -235,10 +235,12 @@ __device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
   mma_bf16_16816(c1, a, b1);
 }
 
-// the 16-column chunk j of a 16 x 64 accumulator block (c[nt][i]: row
+// the 16-column chunk j of a 16 x 8N accumulator block (c[nt][i]: row
 // gid + 8 (i / 2), column 8 nt + 2 tig + i % 2) as a bf16 A fragment
+// (the flash kernels' blocks are 16 x 64, the paged kernel's 16 x 16)
+template <int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c)[8][4], int j) {
+                                         const float (&c)[N][4], int j) {
   a[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
   a[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
   a[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);

@@ -3,7 +3,9 @@
 // backward's dx, dw) and the CE statistics (fused_ce.cu): a persistent,
 // warp-specialised block that forms 128 x 256 fp32 tiles of A . B from
 // bf16 operands, or fp32 ones as split TF32 (below), and hands each
-// finished tile to its kernel's epilogue.
+// finished tile to its kernel's epilogue. Its mbarrier helpers and the
+// 1-D bulk copy (bulk_load) also feed the paged decode kernel's ring
+// (paged_attention.cu).
 //
 //  * A block is 3 warpgroups. Warpgroup 0 is the producer: one thread
 //    issues TMA copies (cp.async.bulk.tensor) of 64-deep K slices of A
@@ -146,6 +148,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes at global `src` into shared `dst` by the bulk-
+// copy engine, no tensor map (both 16-byte aligned, bytes a multiple of
+// 16); completion counts the bytes on `bar`. The paged decode kernel
+// copies its K/V rows and scales with it.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -13,19 +13,24 @@ int32, ``context_lens`` ``[B]`` int32 (0 marks an inactive row, whose
 output is zeros). q is ``[B, Hq, D]`` (decode) or ``[B, T, Hq, D]`` (a
 frame whose query i sees keys ``< len + i``).
 
-What bounds it on the H100: bytes. A decode step reads every live K/V page
+What bounds it on the H100: bytes. A decode step reads every live K/V row
 once and does about one flop per byte, far below the ~295 flops per byte
 where the tensor cores would become the limit. What the design does about
-it: one block per (row, kv head) reads each needed page exactly once for
-all ``T * group`` query rows of that kv head (GQA never repeats K/V), and
-pages past the last query's key range are never read (the page predicate
-the flash kernel shares), so a step moves O(sum of live tokens) bytes. A
-long row next to short ones would leave SMs idle while one block walks it,
-so the context is split into 512-key blocks (split-K) whose partial
-softmax states a second small kernel merges. Quantized pools (int8 or
-fp8-e4m3 codes with fp32 ``[Hkv, P, page_size]`` scales) are dequantized
-where the kernel fills its fp32 shared-memory tiles, so a step reads 1 byte
-a value plus the scales and bf16 K/V never exist in device memory.
+it: a block reads each needed key row once for all ``T * group`` query
+rows of an 8-row tile of its kv head (GQA never repeats K/V), keys past
+the last query's range are never read (the page predicate the flash
+kernels share), and a row's context is cut into splits (split-K) whose
+partial softmax states a second small kernel merges, so a long row next
+to short ones keeps every SM busy. bf16 q runs the tensor-core kernel
+(``paged_decode_kernel_mma``): one producer warp feeds a ring of 16-key
+stages with bulk copies (``cp.async.bulk`` on mbarriers), four consumer
+warps run ``mma.sync``; quantized pools (int8 or fp8-e4m3 codes with fp32
+``[Hkv, P, page_size]`` scales) arrive as codes and are widened to bf16
+in shared memory (exact), the scales applied in fp32 to the products.
+Its page size must be a multiple of 8 (the tuner's lattice is 8-128).
+fp32 q runs the CUDA-core kernel (``paged_decode_kernel``), which takes
+any page size and stages fp32 tiles. Neither ever writes dequantized K/V
+to device memory.
 
 On a CUDA tensor ``paged_attention`` and ``page_visit_counts`` launch their
 kernels or raise; on a CPU tensor they run ``paged_attention_reference`` and
@@ -162,7 +167,7 @@ def _lib():
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                        ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp]
         fn.restype = ci
-        splits.argtypes = [ci, ci, ci]
+        splits.argtypes = [ci, ci, ci, ci]
         splits.restype = ci
     return fn, splits
 
@@ -182,6 +187,10 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
         raise TypeError(f"paged kernel takes bf16 or fp32 q, got {q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"paged kernel takes head_dim 64 or 128, got {d}")
+    if q.dtype == torch.bfloat16 and ps % 8:
+        raise ValueError(f"the bf16 paged kernel takes page sizes that are "
+                         f"multiples of 8, got {ps}; fp32 q runs the "
+                         f"CUDA-core kernel, which takes any page size")
     if t * (hq // hkv) > MAX_FRAME_ROWS:
         raise ValueError(f"T * group = {t * (hq // hkv)} query rows per kv "
                          f"head exceeds the kernel's {MAX_FRAME_ROWS}")
@@ -204,6 +213,8 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
     if quantized:
         ks = k_scales.to(device=q.device, dtype=torch.float32).contiguous()
         vs = v_scales.to(device=q.device, dtype=torch.float32).contiguous()
+        if ks.data_ptr() % 16 or vs.data_ptr() % 16:
+            raise ValueError("k_scales and v_scales must be 16-byte aligned")
     pt = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if scale is None:
@@ -211,7 +222,7 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
     out = torch.empty_like(q4)
     fn, splits = _lib()
     # split-K scratch: unnormalized (acc, max, sum) per split
-    n_splits = splits(pt.shape[1], ps, t)
+    n_splits = splits(pt.shape[1], ps, t, _DTYPES[q.dtype])
     tg = t * (hq // hkv)
     ws_acc = torch.empty((b, hkv, n_splits, tg, d), dtype=torch.float32,
                          device=q.device)
@@ -235,9 +246,10 @@ def paged_attention(q, k_pages, v_pages, page_table, context_lens,
                     scale: float | None = None, k_scales=None,
                     v_scales=None):
     """Attention over the paged KV cache (what the model's decode path
-    calls). CUDA tensors launch the kernel (the quantized one when
-    ``k_scales``/``v_scales`` are given); CPU tensors take the plain
-    version."""
+    calls). CUDA tensors launch a kernel by q's dtype: bf16 the
+    tensor-core kernel, fp32 the CUDA-core one, each over bf16/fp32 pools
+    of q's dtype or, when ``k_scales``/``v_scales`` are given, int8/fp8
+    codes; CPU tensors take the plain version."""
     if q.is_cuda:
         return _launch(q, k_pages, v_pages, page_table, context_lens, scale,
                        k_scales, v_scales)
