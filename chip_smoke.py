@@ -65,8 +65,20 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     plain version, with bf16 q within 1e-3 beyond the rounding of the fp32
     result to bf16 (2^-8 of |ref|) plus the row check; each paged case
     prints its device ms (decode kernel and split-K merge apart), GB/s and
-    share of the bound; the page and flash visit counters must equal their
-    plain versions (and ceil(len / page_size)) exactly;
+    share of the bound (bf16 q at page 4, bf16, int8 and fp8 pools, runs
+    the CUDA-core kernel, which takes any page size); the page and flash
+    visit counters must equal their plain versions (and ceil(len /
+    page_size)) exactly, and with the grouped matmul's visit counter
+    print their device ms; the fused-CE backward's kernels
+    (``csrc/ce_bwd.cu``: the logits with the d-logits epilogue, dx and dW
+    as bf16 products of d's three bf16 pieces, all on the wgmma/TMA core)
+    against ``ce_bwd_reference`` at fp32 (TF32 off): dx and dW each row
+    within 1e-5 of its own max |ref|, at the LLaMA step's shape (the
+    default token chunk, 1024 and 4096), a ragged N with ignored tokens, label
+    smoothing with z-loss and a ragged V; the error against the same
+    function in fp64 is printed beside, with every kernel's device ms,
+    the fp32 cuBLAS route's device ms in the same call and the 7-product
+    bound;
  3. the engine on CUDA (kernels) against the engine on the CPU (plain
     versions): a 2-layer fp32 GQA model with the same weights serves the
     same prompts; the greedy streams must be equal; then the same with
@@ -76,7 +88,9 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     the promoted prompt's stream equal to its first; then the same model
     in bf16 with int8 and fp8 pools: the first decode step's logits
     within 2^-5 of each row's max |logit| (bf16 rounds in another order
-    on each device), the streams' agreement reported;
+    on each device), the streams' agreement reported; and the model in
+    bf16 with bf16 pages of 4 keys (the CUDA-core paged kernel): page
+    tables and greedy streams equal to the CPU engine's;
  4. the LLaMA-2-7B geometry (32 layers, hidden 4096, 32 heads, bf16, random
     weights from --seed) serving 8 greedy requests of mixed prompt length
     (packed, single-chunk and multi-chunk prefill), with every kernel's
@@ -111,8 +125,10 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     does not fit in 80 GB): AdamW(lr 1e-4, wd 0.01,
     multi_precision) with the fused head loss on one fixed batch, 2 warm-up
     and 8 timed steps; prints median step ms, tokens/s, MFU, peak memory,
-    launches per step and the losses (finite, falling), checks that the
-    attention projections got gradients, then profiles one more step;
+    launches per step (the fused-CE backward's kernels once a step, the
+    fp32 matmul route never) and the losses (finite, falling), checks
+    that the attention projections got gradients, then profiles one more
+    step;
     then GPT-MoE training: a tiny CUDA-vs-CPU check and the full width;
  8. the RMSNorm kernels (forward, backward, dw sum) against their plain
     versions at the main path's widths ([4096, 4096], [8, 4096],
@@ -127,7 +143,8 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     FLAGS_tuning_cache_dir: the cold one (FLAGS_autotune=search) runs
     ``autotune_report`` over the four resolver entries that have a
     lattice (the flash kernels are compiled for one tile) at the main
-    path's geometries, on device time (CUDA-graph replays), twice (the
+    path's geometries (fused_ce: the bf16 head's kernels at hidden 4096),
+    on device time (CUDA-graph replays), twice (the
     second into a scratch cache, to record whether the winners repeat),
     then an RMSNorm
     forward+backward at [4096, 4096] bf16 through dispatch-time search,
@@ -378,7 +395,8 @@ def paged_cases():
     lengths up to 4095) at page 16 and at the tuner's other page sizes
     (4096 keys a row of the table), GQA, frames (T 3 at GQA 8; T 8 at GQA 8,
     64 rows, eight 8-row tiles), a pool filled with NaN outside its live
-    slots; bf16 q runs the tensor-core kernel, fp32 q the CUDA-core one."""
+    slots; bf16 q runs the tensor-core kernel at page sizes that are
+    multiples of 8 and the CUDA-core one at page 4, as fp32 q does."""
     import torch
 
     lens = PAGED_LENS
@@ -387,6 +405,7 @@ def paged_cases():
     # own_gen: drawn from a generator of the case's own (see _paged_gen)
     return [
         ("decode_b8_h32", h32),
+        ("decode_b8_h32_ps4", dict(h32, ps=4, pages=1024, own_gen=True)),
         ("decode_b8_h32_ps8", dict(h32, ps=8, pages=512, own_gen=True)),
         ("decode_b8_h32_ps32", dict(h32, ps=32, pages=128, own_gen=True)),
         ("decode_b8_h32_ps128", dict(h32, ps=128, pages=32, own_gen=True)),
@@ -526,6 +545,8 @@ def paged_quant_cases():
         cases += [
             (f"{mode}_decode_b8_h32", h32),
             (f"{mode}_decode_b8_h32_fp32", dict(h32, dtype=f32)),
+            (f"{mode}_decode_b8_h32_ps4", dict(h32, ps=4, pages=1024,
+                                               **new)),
             (f"{mode}_decode_b8_h32_ps8", dict(h32, ps=8, pages=512, **new)),
             (f"{mode}_decode_b8_h32_ps128", dict(h32, ps=128, pages=32,
                                                  **new)),
@@ -642,7 +663,9 @@ def run_flash_visit_case(seg):
     got = fa.segment_block_visit_counts(seg)
     plain = fa.segment_block_visit_reference(seg)
     exact = bool((got == plain).all())
-    ms = _cuda_ms(lambda: fa.segment_block_visit_counts(seg))
+    call = lambda: fa.segment_block_visit_counts(seg)  # noqa: E731
+    call_ms = _cuda_ms(call)
+    ms = _device_ms_sum(call, "flash_visit_kernel")  # device, as row 6
     plain_ms = _cuda_ms(lambda: fa.segment_block_visit_reference(seg))
     b, s = seg.shape
     nq, nk = s // fa.FWD_BLOCK_Q, s // fa.FWD_BLOCK_K
@@ -654,8 +677,8 @@ def run_flash_visit_case(seg):
                                 2 * seg.numel() + 2 * tests, "float32")
     return dict(ok=exact, max_abs_err=0 if exact else None,
                 visited=int(got.sum()), causal_blocks=tests, ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def run_page_visit_case(lens, ps=16, pages_per_seq=256):
@@ -915,6 +938,123 @@ def run_ce_case(gen, n, h, v, dtype, ignored=False):
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms, flops=flops,
                 tflops=flops / ms / 1e9)
+
+
+CE_BWD_RTOL = 1e-5          # dx, dW of ce_bwd: each row, of its max |ref|
+
+
+def ce_bwd_cases():
+    """The fused-CE backward at the LLaMA step's shape (N 4096, H 4096, V
+    32000, bf16) at the resolver's default token chunk (131, which the
+    kernels round up to 256) and at the autotuner's 1024 and 4096; a ragged
+    N of 1000 with ignored tokens and a label = V; label smoothing 0.1 with
+    z-loss 1e-4; a ragged V of 32001 (the chunk scratch's row stride padded
+    to 32008)."""
+    main = dict(n=4096, h=4096, v=32000)
+    return [
+        ("n4096_h4096_v32000", dict(main)),
+        ("n4096_h4096_v32000_c1024", dict(main, chunk=1024)),
+        ("n4096_h4096_v32000_c4096", dict(main, chunk=4096)),
+        ("ragged_n1000_ignored", dict(n=1000, h=4096, v=32000,
+                                      ignored=True)),
+        ("smooth0.1_z1e-4_n1024", dict(n=1024, h=4096, v=32000, eps=0.1,
+                                       z=1e-4)),
+        ("ragged_v32001_n512", dict(n=512, h=4096, v=32001)),
+    ]
+
+
+def _row_rule(got, ref, rtol):
+    """(max over rows of |got - ref| / max |ref|, every row within rtol of
+    its own max |ref|; a row of zeros exactly)."""
+    import torch
+
+    err = (got.double() - ref.double()).abs().amax(-1)
+    top = ref.double().abs().amax(-1)
+    rel = torch.where(top > 0, err / top.clamp_min(1e-300),
+                      torch.where(err > 0, torch.full_like(err, math.inf),
+                                  torch.zeros_like(err)))
+    return float(rel.max()), bool((err <= rtol * top).all())
+
+
+def run_ce_bwd_case(gen, n, h, v, chunk=0, eps=0.0, z=0.0, ignored=False):
+    """``ce_bwd`` (the kernels) against ``ce_bwd_reference`` on the same
+    inputs: x, W and labels as ``run_ce_case`` makes them, lse from the
+    forward's ``ce_stats``, a cotangent of 1/N scaled by 0.5-1.5 a token.
+    The reference runs at the resolver's default chunk, as today's fp32
+    cuBLAS route of the LLaMA step does (at a 1024-token chunk its own
+    sum over V drifted by 2e-5 of a row from the fp64 result on an H100,
+    past the rule); dx and dW must hold CE_BWD_RTOL per row, and their error
+    against the same function in fp64 is printed beside, with the fp32
+    reference's own. Device ms of every kernel the C entry launches,
+    summed and apart, the reference's device ms in the same call, the
+    bound: 7 bf16 products (the logits, and dx and dW as fp32-accurate
+    products, 3 each by ``_fp32_product_bound``) or the bytes."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_ce as fc
+
+    x = torch.randn((n, h), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((v, h), generator=gen, device="cuda") * 0.02).bfloat16()
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    if ignored:
+        labels[::7] = -100
+        labels[3] = v
+    ct = (torch.rand((n,), generator=gen, device="cuda") + 0.5) / n
+    m, s, _, _ = fc.ce_stats(x, w, labels)
+    lse = m + torch.log(s)
+    args = (x, w, labels, lse, ct, -100, eps, z)
+    torch.cuda.synchronize()
+    before = fc.LAUNCHES["ce_bwd"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dx, dw = fc.ce_bwd(*args, chunk)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launched = fc.LAUNCHES["ce_bwd"] - before
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the fp32 reference must not run in TF32")
+    ref = fc.ce_bwd_reference(*args, 0)
+    cmp = {}
+    for name, got, want in (("dx", dx, ref[0]), ("dw", dw, ref[1])):
+        rel, ok = _row_rule(got, want, CE_BWD_RTOL)
+        cmp[name] = dict(max_rel_err=rel, ok=ok,
+                         max_abs_err=(got - want).abs().max().item(),
+                         finite=bool(torch.isfinite(got).all()))
+    ref64 = fc.ce_bwd_reference(x.double(), w.double(), labels,
+                                lse.double(), ct.double(), -100, eps, z, 0)
+    for name, got, want, r64 in (("dx", dx, ref[0], ref64[0]),
+                                 ("dw", dw, ref[1], ref64[1])):
+        cmp[name]["kernel_vs_fp64"] = _row_rule(got, r64, CE_BWD_RTOL)[0]
+        cmp[name]["reference_vs_fp64"] = _row_rule(want, r64,
+                                                   CE_BWD_RTOL)[0]
+    del ref, ref64
+    torch.cuda.empty_cache()
+    call = lambda: fc.ce_bwd(*args, chunk)  # noqa: E731
+    by = _device_ms_by_kernel(call, reps=3)
+    kernels = {re.search(r"ce_bwd_\w+_kernel", k).group(0): ms
+               for k, ms in by.items() if "ce_bwd" in k}
+    ms = sum(kernels.values())
+    call_ms = _cuda_ms(call, reps=3, warmup=1)
+    ref_ms = _device_ms_sum(lambda: fc.ce_bwd_reference(*args, 0))
+    flops = 2 * n * v * h
+    nbytes = (n + v) * h * 2 + 12 * n + (n + v) * h * 4
+    fp32_prod = _fp32_product_bound(0, flops, 2)[0]
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3 + 2 * fp32_prod
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    plan = fc._bwd_plan(n, v, h, fc.resolve_chunks(n, v, chunk)[0],
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    ok = (launched == 1 and all(c["ok"] and c["finite"]
+                                for c in cmp.values()))
+    return dict(cmp=cmp, ok=ok, launches=launched, plan=plan,
+                chunk=fc.resolve_chunks(n, v, chunk)[0],
+                max_abs_err=max(c["max_abs_err"] for c in cmp.values()),
+                ms=ms, kernel_ms=kernels, call_ms=call_ms, plain_ms=ref_ms,
+                library_ms=None, bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_share=bound_ms / ms, tflops=7 * flops / ms / 1e9,
+                peak_gb=peak_gb, rtol=CE_BWD_RTOL)
 
 
 def _dispatch_layout(gen, n_tokens, experts, k):
@@ -1233,7 +1373,9 @@ def run_gmm_visit_case(layout):
     want = gm.expected_visit_counts(gids.cpu().numpy(), groups, bm)
     exact = (bool((got == plain).all())
              and np.array_equal(got.cpu().numpy(), want))
-    ms = _cuda_ms(lambda: gm.grouped_matmul_visit_counts(gids, groups, bm))
+    call = lambda: gm.grouped_matmul_visit_counts(gids, groups, bm)  # noqa
+    call_ms = _cuda_ms(call)
+    ms = _device_ms_sum(call, "gmm_visit_kernel")   # device, as row 6
     plain_ms = _cuda_ms(lambda: gm.grouped_matmul_visit_reference(
         gids, groups, bm))
     blocks = gids.shape[0] // bm
@@ -1241,8 +1383,8 @@ def run_gmm_visit_case(layout):
                                 blocks * groups, "float32")
     return dict(ok=exact, max_abs_err=0 if exact else None,
                 visited_tiles=int(got.sum()), total_tiles=blocks * groups,
-                blocks=blocks, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+                blocks=blocks, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _multi_group_tiles(gids, groups, rows=128):
@@ -1320,7 +1462,8 @@ def phase_gmm(gen, report):
         visit[label] = r = run_gmm_visit_case(lay)
         print(f"gmm_visit {label}: exact {r['ok']} visited "
               f"{r['visited_tiles']}/{r['total_tiles']} ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f}",
+              f"(device; call {r['call_ms']:.4f}) plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f}",
               flush=True)
     report["gmm_fwd_cases"], report["gmm_dw_cases"] = fwd, dw
     report["gmm_dx_cases"] = dx
@@ -1331,10 +1474,14 @@ def phase_gmm(gen, report):
             + [f"gmm_visit {k}" for k, r in visit.items() if not r["ok"]])
 
 
-def _paged_kernel_check(r, dtype):
-    """A paged case must have run its q dtype's decode kernel, and only it
-    (bf16 q: the tensor-core kernel)."""
-    want = [PAGED_KERNEL[str(dtype).replace("torch.", "")]]
+def _paged_kernel_check(r, dtype, ps):
+    """A paged case must have run the decode kernel its q dtype and page
+    size route to, and only it (bf16 q at a page size that is a multiple
+    of 8: the tensor-core kernel; else the CUDA-core one)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    want = [PAGED_KERNEL["bfloat16" if pa.kernel_route(dtype, ps)
+                         == pa.ROUTE_MMA else "float32"]]
     r["kernel_ok"] = r["kernels"] == want
     r["ok"] = r["ok"] and r["kernel_ok"]
 
@@ -1367,7 +1514,7 @@ def phase_kernels(seed, report):
     for label, kw in paged_cases():
         g, kw = _paged_gen(gen, seed, label, kw)
         paged[label] = r = run_paged_case(g, **kw)
-        _paged_kernel_check(r, kw["dtype"])
+        _paged_kernel_check(r, kw["dtype"], kw.get("ps", 16))
         print(f"paged {label}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
               f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) "
               + _paged_speed_text(r), flush=True)
@@ -1378,7 +1525,7 @@ def phase_kernels(seed, report):
     for label, kw in paged_quant_cases():
         g, kw = _paged_gen(gen, seed, label, kw)
         paged_q[label] = r = run_paged_quant_case(g, **kw)
-        _paged_kernel_check(r, kw["dtype"])
+        _paged_kernel_check(r, kw["dtype"], kw.get("ps", 16))
         print(f"paged {label}: err {r['max_abs_err']:.3g} beyond rounding "
               f"{r['excess_err']:.3g} (tol {r['excess_tol']}) row rel "
               f"{r['max_rel_err']:.3g} " + _paged_speed_text(r), flush=True)
@@ -1387,9 +1534,9 @@ def phase_kernels(seed, report):
     for label, seg in engine_frame_segments().items():
         visits[f"flash_{label}"] = r = run_flash_visit_case(seg)
         print(f"flash_visit {label}: exact {r['ok']} visited {r['visited']}"
-              f"/{r['causal_blocks']} ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.6f}",
-              flush=True)
+              f"/{r['causal_blocks']} ms {r['ms']:.4f} (device; call "
+              f"{r['call_ms']:.4f}) plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.6f}", flush=True)
     visits["paged_decode_b8"] = r = run_page_visit_case(
         [0, 1, 17, 4095, 100, 2048, 300, 3000])
     print(f"paged_visit decode_b8: exact {r['ok']} visited {r['visited']}/"
@@ -1423,12 +1570,33 @@ def phase_kernels(seed, report):
               f"{r['library_call_ms']:.4f})", flush=True)
         torch.cuda.empty_cache()
     report["flash_bwd_cases"], report["ce_cases"] = bwd, ce
+    ce_bwd = {}
+    for label, kw in ce_bwd_cases():
+        ce_bwd[label] = r = run_ce_bwd_case(gen, **kw)
+        errs = " ".join(
+            f"{n} {c['max_rel_err']:.3g} (fp64: kernel "
+            f"{c['kernel_vs_fp64']:.3g}, reference "
+            f"{c['reference_vs_fp64']:.3g})" for n, c in r["cmp"].items())
+        kern = " ".join(f"{k} {v:.4f}"
+                        for k, v in sorted(r["kernel_ms"].items()))
+        print(f"ce_bwd {label}: chunk {r['chunk']} -> {r['plan']['cr']}, "
+              f"dx splits {r['plan']['splits']}; row rel err {errs} (rtol "
+              f"{r['rtol']}) launches {r['launches']} ms {r['ms']:.4f} "
+              f"(device, all kernels; call {r['call_ms']:.4f}) [{kern}] "
+              f"{r['tflops']:.1f} TFLOP/s (7 bf16 products), "
+              f"{r['bound_share']:.1%} of bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}); fp32 cuBLAS route (ce_bwd_reference) "
+              f"{r['plain_ms']:.4f} ms device; peak {r['peak_gb']:.3f} GB "
+              f"above inputs", flush=True)
+        torch.cuda.empty_cache()
+    report["ce_bwd_cases"] = ce_bwd
     bad = [f"flash {k}" for k, r in flash.items() if not r["ok"]] + \
           [f"paged {k}" for k, r in paged.items() if not r["ok"]] + \
           [f"paged {k}" for k, r in paged_q.items() if not r["ok"]] + \
           [f"visit {k}" for k, r in visits.items() if not r["ok"]] + \
           [f"flash_bwd {k}" for k, r in bwd.items() if not r["ok"]] + \
           [f"ce_stats {k}" for k, r in ce.items() if not r["ok"]] + \
+          [f"ce_bwd {k}" for k, r in ce_bwd.items() if not r["ok"]] + \
           phase_gmm(gen, report)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -1470,6 +1638,87 @@ def phase_cuda_vs_cpu(seed, report):
     print(f"cuda vs cpu greedy streams equal: {equal}", flush=True)
     if not equal:
         raise AssertionError("CUDA and CPU greedy streams differ")
+    page4 = _bf16_page4_cuda_vs_cpu(cfg, seed, prompts)
+    report["cuda_vs_cpu"]["bf16_page4"] = page4
+    if not page4["ok"]:
+        raise AssertionError(f"the bf16 page-4 engine: CUDA and CPU differ "
+                             f"or the paged kernel did not run: {page4}")
+
+
+def _bf16_page4_cuda_vs_cpu(cfg, seed, prompts):
+    """bf16 q at a page size that is not a multiple of 8, which runs the
+    CUDA-core paged kernel: the phase's model in bf16 with bf16 pages of 4
+    keys serves the phase's prompts on the CPU (plain versions), on CUDA
+    (kernels), and on CUDA with the model's paged attention swapped for
+    its plain version, so the paged kernel is the only difference from
+    the CUDA run. Gates: page tables after the first step equal to the
+    CPU's; the CUDA streams equal to the plain-paged CUDA streams; the
+    first decode step's logits within BF16_LOGIT_RTOL of the CPU's; the
+    kernel launched. The streams' agreement with the CPU is reported: a
+    bf16 model's prefill rounds in another order on each device (flash's
+    P in bf16, cuBLAS), which can part a near-tie at any page size."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models import llama as llama_mod
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    from paddle_tpu_torch.serving import ServingEngine
+
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    cpu_model = LlamaForCausalLM(bcfg, device="cpu", seed=seed)
+    gpu_model = LlamaForCausalLM(bcfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    kw = dict(page_size=4, num_pages=512, decode_batch=4, prefill_chunk=64,
+              pack_frame=128, max_seq_len=256, prefix_sharing=False)
+
+    def serve(model, dev):
+        eng = ServingEngine(model, _engine_cfg(**kw), device=dev)
+        port_cuda.reset_launch_counts()
+        tables = []
+
+        def hook(_mod, _inp, out):
+            if not tables:       # the first decode step, in admission order
+                tables.extend(
+                    eng.allocator.page_table_row(r.rid, eng.pages_per_seq)
+                    .tolist() for r in eng.scheduler.running)
+        handle = eng.model.lm_head.register_forward_hook(hook)
+        try:
+            streams, logits = _first_decode_logits(eng, prompts, 12)
+        finally:
+            handle.remove()
+        eng.allocator.check_consistency()
+        return dict(tables=tables, streams=streams, logits=logits,
+                    paged_decode=port_cuda.launch_counts()["paged_decode"])
+
+    runs = {"cpu": serve(cpu_model, "cpu"), "cuda": serve(gpu_model, "cuda")}
+    kernel = llama_mod.paged_attention
+    llama_mod.paged_attention = pa.paged_attention_reference
+    try:
+        runs["cuda_plain_paged"] = serve(gpu_model, "cuda")
+    finally:
+        llama_mod.paged_attention = kernel
+    c, g, p = runs["cpu"], runs["cuda"], runs["cuda_plain_paged"]
+    rel = ((g["logits"] - c["logits"]).abs().amax(-1)
+           / c["logits"].abs().amax(-1)).max().item()
+    out = dict(tables_equal=c["tables"] == g["tables"],
+               streams_equal_plain_paged=g["streams"] == p["streams"],
+               first_logits_max_rel_err=rel, rtol=BF16_LOGIT_RTOL,
+               paged_decode_launches=g["paged_decode"],
+               plain_paged_launches=p["paged_decode"],
+               stream_agreement_with_cpu=[
+                   sum(a == b for a, b in zip(x, y)) / len(y)
+                   for x, y in zip(g["streams"], c["streams"])],
+               streams=g["streams"])
+    out["ok"] = (out["tables_equal"] and out["streams_equal_plain_paged"]
+                 and rel <= BF16_LOGIT_RTOL and g["paged_decode"] > 0
+                 and p["paged_decode"] == 0)
+    print(f"bf16 page-4 engine: page tables equal to the cpu's "
+          f"{out['tables_equal']}, streams equal to plain-paged cuda "
+          f"{out['streams_equal_plain_paged']}, first-step logits rel err "
+          f"{rel:.4g} (<= {BF16_LOGIT_RTOL}), paged_decode launches "
+          f"{g['paged_decode']} (plain run {p['paged_decode']}), stream "
+          f"agreement with the cpu {out['stream_agreement_with_cpu']}",
+          flush=True)
+    return out
 
 
 def _tier_run(eng, prompt, fillers, new_tokens):
@@ -2334,6 +2583,7 @@ def phase_train_full_width(args, report):
 
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
     from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.ops.cuda import fused_ce
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
@@ -2374,6 +2624,7 @@ def phase_train_full_width(args, report):
         times.append(time.perf_counter() - t1)
         losses.append(float(loss))
     launches = port_cuda.launch_counts()     # ... and ends here
+    fp32_ce_bwd = fused_ce.ROUTE_CALLS["ce_bwd_fp32"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     proj_grads = {
         f"{i}.{n}": (None if p.grad is None
@@ -2393,6 +2644,7 @@ def phase_train_full_width(args, report):
             "bfloat16"],
         "peak_mem_gb": peak, "launches": launches,
         "launches_per_step": {k: n / 8 for k, n in launches.items()},
+        "fp32_ce_bwd_calls": fp32_ce_bwd,
         "metrics": step.last_metrics(), "proj_grad_abs_sum": proj_grads,
     }
     out["profile"] = _device_profile(lambda: step(batch), 1, top=16)
@@ -2409,12 +2661,15 @@ def phase_train_full_width(args, report):
                              f"{proj_grads}")
     layers = cfg.num_hidden_layers           # one flash call per layer
     need = {"flash_fwd": layers, "flash_bwd_dq": layers,
-            "flash_bwd_dkv": layers, "ce_stats": 1}
+            "flash_bwd_dkv": layers, "ce_stats": 1, "ce_bwd": 1}
     short = {k: n for k, n in out["launches_per_step"].items()
              if k in need and n < need[k]}
     if short:
         raise AssertionError(f"kernels not launched on the training path: "
                              f"{short}")
+    if out["fp32_ce_bwd_calls"]:
+        raise AssertionError(f"the fused CE backward took the fp32 matmul "
+                             f"route {out['fp32_ce_bwd_calls']} times")
 
 
 def phase_train_moe_full_width(args, report):
@@ -3035,7 +3290,10 @@ def kernels_line(report):
     run. gmm_fwd is the bf16 forward kernel (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
-    three kernels its C entry launches. gmm_visit is off the training
+    three kernels its C entry launches. ce_bwd (the fused-CE backward,
+    which the JAX package leaves to XLA) sums its C entry's kernels over
+    every token chunk, with each kernel's ms apart, and its plain_ms is
+    the fp32 cuBLAS route it replaced. gmm_visit is off the training
     path, so it has 0. The RMSNorm
     kernels' path is the tuning phase (the models keep the composite):
     their launches are its RMSNorm dispatch calls' (one in the cold
@@ -3065,6 +3323,8 @@ def kernels_line(report):
         ("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:362",
          bwd.get("kernels", {}).get("dkv", {})),
         ("ce_stats", "fused_ce.cu", "fused_ce.py:246", ce),
+        ("ce_bwd", "ce_bwd.cu", "fused_ce.py:387",
+         report.get("ce_bwd_cases", {}).get("n4096_h4096_v32000") or {}),
         ("gmm_fwd", "grouped_matmul.cu", "grouped_matmul.py:98",
          report.get("gmm_fwd_cases", {}).get("h1_bf16") or {}),
         ("gmm_fwd_tf32", "grouped_matmul.cu", "grouped_matmul.py:98",
@@ -3112,6 +3372,10 @@ def kernels_line(report):
                             design_bound_ms=case["design_bound_ms"])
             if "copy_ms" in case:
                 rows[-1]["copy_ms"] = case["copy_ms"]
+        if name == "ce_bwd":
+            rows[-1]["note"] = ("_bwd_tokens: XLA in the JAX package (a "
+                                "lax.scan of matmuls), no pallas_call")
+            rows[-1]["kernel_ms"] = case.get("kernel_ms")
         if name in RMS_KERNELS:
             rows[-1]["search_launches"] = tuning.get(
                 "search_launches", {}).get(name, 0)
@@ -3158,10 +3422,11 @@ def main(argv=None) -> int:
               "failed": []}
     spills = []
     # the sm90 core's kernels and the paged tensor-core kernel
-    for src in ("grouped_matmul", "fused_ce", "paged_attention"):
+    for src in ("grouped_matmul", "fused_ce", "ce_bwd", "paged_attention"):
         lines = report["ptxas"][src]
         for i, ln in enumerate(lines):
-            if ("wgmma_kernel" in ln or "tf32_kernel" in ln
+            if "Compiling entry" in ln and (
+                    "wgmma_kernel" in ln or "tf32_kernel" in ln
                     or "paged_decode_kernel_mma" in ln):
                 print("ptxas " + " | ".join(x.strip() for x in lines[i:i + 3]),
                       flush=True)

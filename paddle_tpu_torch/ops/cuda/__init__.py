@@ -21,8 +21,10 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict[str, int]:
     """{kernel name: launches since the last reset}: flash_fwd,
     flash_bwd_dq, flash_bwd_dkv, flash_visit, paged_decode,
-    paged_decode_int8, paged_decode_fp8, paged_visit, ce_stats, gmm_fwd,
-    gmm_fwd_tf32, gmm_dw, gmm_visit, rmsnorm_fwd, rmsnorm_bwd, rmsnorm_dw."""
+    paged_decode_int8, paged_decode_fp8, paged_visit, ce_stats, ce_bwd,
+    gmm_fwd, gmm_fwd_tf32, gmm_dw, gmm_visit, rmsnorm_fwd, rmsnorm_bwd,
+    rmsnorm_dw. ce_bwd counts the fused-CE backward's C entry, one a bf16
+    backward call (its kernels for every token chunk)."""
     counts = {}
     for mod in _MODULES:
         counts.update(mod.launch_counts())

@@ -473,16 +473,7 @@ __global__ void gmm_visit_kernel(const int* __restrict__ gids,
 namespace {
 
 namespace host = ptt::sm90_host;
-
-template <class Kernel, class... Args>
-int launch_persistent(Kernel* kernel, int smem, int work, int device,
-                      cudaStream_t st, Args... args) {
-  const cudaError_t err = host::opt_in_smem(kernel, device, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<host::persistent_blocks(device, work), sm90::kThreads, smem, st>>>(
-      args...);
-  return (int)cudaGetLastError();
-}
+using host::launch_persistent;
 
 template <int PASSES>
 int gmm_fwd_tf32(const CUtensorMap& tx, const CUtensorMap& tw,

@@ -1,6 +1,7 @@
 // Paged decode attention for Hopper (sm_90a) and the page-visit counter:
 // bf16 q on the tensor cores, fed by bulk copies on an mbarrier ring; fp32
-// q on the CUDA cores.
+// q, and bf16 q at page sizes that are not multiples of 8, on the CUDA
+// cores.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/paged_attention.py
 // `_decode_kernel` (launched by `paged_decode_attention`), its quantized
@@ -86,9 +87,12 @@
 //    no atomics are used, so a call is deterministic. Shared memory does
 //    not depend on T * group, so one opt-in a process serves every call.
 //
-// fp32 q (paged_decode_kernel, the CUDA cores, fp32 math): one block per
-// (row, kv head, 512-key split) covers all T * group rows, walking 64-key
-// chunks staged as fp32 tiles (codes widened and scaled there).
+// fp32 q, and bf16 q at a page size that is not a multiple of 8
+// (paged_decode_kernel, the CUDA cores, fp32 math): one block per (row, kv
+// head, 512-key split) covers all T * group rows, walking 64-key chunks
+// staged as fp32 tiles (bf16 rows and codes widened, codes scaled there),
+// at any page size. The wrapper picks the kernel (its route) and passes it
+// to ptt_paged_splits and ptt_paged_decode alike.
 //
 // Layout: q/o [B, T, Hq, D] contiguous; pools [Hkv, P, page_size, D]
 // contiguous; page_table [B, pages_per_seq] int32; lens [B] int32.
@@ -103,7 +107,7 @@
 
 namespace {
 
-// ---- fp32 q: CUDA cores ----------------------------------------------------
+// ---- fp32 q, and bf16 q at any page size: CUDA cores -----------------------
 constexpr int kCH = 64;  // keys per chunk
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 64;  // T * group bound (shared memory)
@@ -124,6 +128,15 @@ struct KVLoad<float> {
   static constexpr int kVec = 8;
   static constexpr bool kQuant = false;
   __device__ static void load(const float* p, float* o) { ptt::load8(p, o); }
+};
+
+template <>
+struct KVLoad<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static constexpr bool kQuant = false;
+  __device__ static void load(const __nv_bfloat16* p, float* o) {
+    ptt::load8(p, o);
+  }
 };
 
 template <>
@@ -363,7 +376,7 @@ paged_combine_kernel(const float* __restrict__ ws_acc,
   }
 }
 
-template <typename KV, int D>
+template <typename T, typename KV, int D>
 int launch(const void* q, const void* k, const void* v, const float* ksc,
            const float* vsc, const int* pt, const int* lens, void* o,
            float* ws_acc, float* ws_ml, int B, int Tq, int Hq, int Hkv, int P,
@@ -373,20 +386,20 @@ int launch(const void* q, const void* k, const void* v, const float* ksc,
   if (tg > kMaxRows) return (int)cudaErrorInvalidValue;
   if (KVLoad<KV>::kQuant && (ksc == nullptr || vsc == nullptr))
     return (int)cudaErrorInvalidValue;
-  auto kern = paged_decode_kernel<float, KV, D>;
+  auto kern = paged_decode_kernel<T, KV, D>;
   // the opt-in covers the largest frame, so it runs once a process
   cudaError_t err = ptt::sm90_host::opt_in_smem(
       kern, device, (int)smem_bytes<D>(kMaxRows));
   if (err != cudaSuccess) return (int)err;
   const int n_splits = paged_splits(pages_per_seq, ps, Tq);
   kern<<<dim3(Hkv, B, n_splits), kThreads, smem_bytes<D>(tg), stream>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k),
+      static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ksc, vsc, pt, lens, ws_acc, ws_ml, Tq, Hq,
       Hkv, P, ps, pages_per_seq, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<float, D><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      ws_acc, ws_ml, lens, static_cast<float*>(o), Tq, Hq, Hkv, n_splits);
+  paged_combine_kernel<T, D><<<dim3(Hkv, B), kThreads, 0, stream>>>(
+      ws_acc, ws_ml, lens, static_cast<T*>(o), Tq, Hq, Hkv, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -922,26 +935,46 @@ int launch_mma(const void* q, const void* k, const void* v, const float* ksc,
   return (int)cudaGetLastError();
 }
 
+// The kernel a call runs, chosen by the wrapper (kernel_route) and passed
+// to both ptt_paged_splits and ptt_paged_decode, so the workspace is sized
+// for the kernel that fills it: the tensor-core kernel takes bf16 q at a
+// page size that is a multiple of 8 (a ring stage's 8-key halves lie in
+// one page); the CUDA-core kernel takes bf16 or fp32 q at any page size.
+constexpr int kRouteCudaCore = 0;
+constexpr int kRouteMma = 1;
+
+int route_splits(int route, int pages_per_seq, int ps, int Tq) {
+  return route == kRouteMma ? mma_splits(pages_per_seq, ps)
+                            : paged_splits(pages_per_seq, ps, Tq);
+}
+
 // kv_kind: 0 the pool holds q's type, 1 int8 codes, 2 fp8-e4m3 codes.
-// bf16 q goes to the tensor-core kernel, fp32 q to the CUDA-core one.
-int launch_kv(int is_bf16, int kv_kind, int D, const void* q, const void* k,
-              const void* v, const float* ksc, const float* vsc,
-              const int* pt, const int* lens, void* o, float* ws_acc,
-              float* ws_ml, int B, int Tq, int Hq, int Hkv, int P, int ps,
-              int pages_per_seq, float scale, int dev, cudaStream_t st) {
-#define PTT_PAGED(FN, KV, DD)                                                  \
-  return FN<KV, DD>(q, k, v, ksc, vsc, pt, lens, o, ws_acc, ws_ml, B, Tq, Hq,  \
-                    Hkv, P, ps, pages_per_seq, scale, dev, st)
+int launch_kv(int is_bf16, int route, int kv_kind, int D, const void* q,
+              const void* k, const void* v, const float* ksc,
+              const float* vsc, const int* pt, const int* lens, void* o,
+              float* ws_acc, float* ws_ml, int B, int Tq, int Hq, int Hkv,
+              int P, int ps, int pages_per_seq, float scale, int dev,
+              cudaStream_t st) {
+  using bf = __nv_bfloat16;
+#define PTT_PAGED(...)                                                       \
+  return __VA_ARGS__(q, k, v, ksc, vsc, pt, lens, o, ws_acc, ws_ml, B, Tq, Hq, \
+                     Hkv, P, ps, pages_per_seq, scale, dev, st)
 #define PTT_PAGED_D(DD)                                             \
-  if (is_bf16) {                                                    \
-    if (kv_kind == 0) PTT_PAGED(launch_mma, __nv_bfloat16, DD);     \
-    if (kv_kind == 1) PTT_PAGED(launch_mma, int8_t, DD);            \
-    if (kv_kind == 2) PTT_PAGED(launch_mma, e4m3, DD);              \
+  if (route == kRouteMma) {                                         \
+    if (kv_kind == 0) PTT_PAGED(launch_mma<bf, DD>);                \
+    if (kv_kind == 1) PTT_PAGED(launch_mma<int8_t, DD>);            \
+    if (kv_kind == 2) PTT_PAGED(launch_mma<e4m3, DD>);              \
+  } else if (is_bf16) {                                             \
+    if (kv_kind == 0) PTT_PAGED(launch<bf, bf, DD>);                \
+    if (kv_kind == 1) PTT_PAGED(launch<bf, int8_t, DD>);            \
+    if (kv_kind == 2) PTT_PAGED(launch<bf, e4m3, DD>);              \
   } else {                                                          \
-    if (kv_kind == 0) PTT_PAGED(launch, float, DD);                 \
-    if (kv_kind == 1) PTT_PAGED(launch, int8_t, DD);                \
-    if (kv_kind == 2) PTT_PAGED(launch, e4m3, DD);                  \
+    if (kv_kind == 0) PTT_PAGED(launch<float, float, DD>);          \
+    if (kv_kind == 1) PTT_PAGED(launch<float, int8_t, DD>);         \
+    if (kv_kind == 2) PTT_PAGED(launch<float, e4m3, DD>);           \
   }
+  if (route != kRouteCudaCore && (route != kRouteMma || !is_bf16))
+    return (int)cudaErrorInvalidValue;
   if (D == 64) {
     PTT_PAGED_D(64)
   } else if (D == 128) {
@@ -969,19 +1002,20 @@ __global__ void page_visit_kernel(const int* __restrict__ lens,
 }  // namespace
 
 // Split-K blocks per (row, kv head) for a page table of `pages_per_seq`
-// pages and a T-query frame, for bf16 q (the tensor-core kernel's
-// 256-key splits) or fp32 q (512 keys); the wrapper sizes the workspace
-// with it.
+// pages and a T-query frame on kernel `route` (1: the tensor-core
+// kernel's 256-key splits; 0: the CUDA-core kernel's 512 keys, counting
+// the frame's T - 1 extra keys); the wrapper sizes the workspace with it
+// and passes the same route to ptt_paged_decode.
 extern "C" int ptt_paged_splits(int pages_per_seq, int ps, int Tq,
-                                int is_bf16) {
-  return is_bf16 ? mma_splits(pages_per_seq, ps)
-                 : paged_splits(pages_per_seq, ps, Tq);
+                                int route) {
+  return route_splits(route, pages_per_seq, ps, Tq);
 }
 
-// Plain C entry point (bound with ctypes). is_bf16: q and o are bf16 (1,
-// the tensor-core kernel; page_size a multiple of 8) or fp32 (0, the
-// CUDA-core kernel); kv_kind: 0 the pools hold q's type, 1 int8 codes, 2
-// fp8-e4m3 codes, with k_scales/v_scales [Hkv, P, ps] fp32 (null when
+// Plain C entry point (bound with ctypes). is_bf16: q and o are bf16 (1)
+// or fp32 (0); route: 1 the tensor-core kernel (bf16 q, page_size a
+// multiple of 8), 0 the CUDA-core kernel (any q, any page size), as given
+// to ptt_paged_splits; kv_kind: 0 the pools hold q's type, 1 int8 codes,
+// 2 fp8-e4m3 codes, with k_scales/v_scales [Hkv, P, ps] fp32 (null when
 // kv_kind is 0; 16-byte aligned). ws_acc: [B, Hkv, splits, T*group, D]
 // fp32 and ws_ml: [B, Hkv, splits, T*group, 2] fp32 scratch. Returns
 // cudaGetLastError() after the launches (0 = launched).
@@ -991,13 +1025,13 @@ extern "C" int ptt_paged_decode(const void* q, const void* k, const void* v,
                                 void* o, float* ws_acc, float* ws_ml, int B,
                                 int Tq, int Hq, int Hkv, int P, int ps,
                                 int pages_per_seq, int D, float scale,
-                                int is_bf16, int kv_kind, int device,
-                                void* stream) {
+                                int is_bf16, int route, int kv_kind,
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0) return (int)cudaErrorInvalidValue;
-  return launch_kv(is_bf16, kv_kind, D, q, k, v, k_scales, v_scales,
+  return launch_kv(is_bf16, route, kv_kind, D, q, k, v, k_scales, v_scales,
                    page_table, lens, o, ws_acc, ws_ml, B, Tq, Hq, Hkv, P, ps,
                    pages_per_seq, scale, device,
                    static_cast<cudaStream_t>(stream));

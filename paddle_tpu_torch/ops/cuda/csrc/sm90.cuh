@@ -23,10 +23,15 @@
 //  * TMA zero-fills whatever lies outside the tensor: rows past M or N, a
 //    ragged last vocab tile, a depth that is not a multiple of 64. The
 //    products of zeros are exact zeros, so no shared tile is ever masked.
-//  * A is K-major ([rows, K], K contiguous). B is K-major ([cols, K], as
-//    the CE head W [V, H]) or MN-major ([K, cols], cols contiguous, as a
-//    grouped weight w[g] [d, h]): the wgmma transpose bit and the
-//    descriptor's strides follow.
+//  * A and B are each K-major ([rows, K], K contiguous, as x and the CE
+//    head W [V, H] in the logits x . W^T) or MN-major ([K, rows], rows
+//    contiguous, as a grouped weight w[g] [d, h] for B, or the CE
+//    backward's d-logits [C, V] as the A of dW = d^T . x): bf16 wgmma has
+//    a transpose bit for each operand, and the descriptor's strides
+//    follow (MN-major A: wgmma_m64n128k16 and consume_promoted). A
+//    stage's A may hold several equal parts (the CE backward's bf16
+//    pieces of one fp32 operand), each multiplied by the stage's one B
+//    into the same accumulators.
 //  * Every mbarrier wait gives up after kHangNs with __trap(), so a phase
 //    error becomes a launch error instead of a hung card.
 //  * fp32 operands (the grouped matmul's backward) run as split TF32 on
@@ -187,7 +192,9 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
 //  MN-major (K rows of 64 columns, 128 bytes; a 256-column tile is 4 such
 //    64-column boxes of kBK rows): 8-K-row groups 1024 bytes apart
 //    (stride), the next 64 columns a box (kBK * 128 bytes) apart (leading).
-//    A k16 step advances the start by 16 rows, 2048 bytes.
+//    A k16 step advances the start by 16 rows, 2048 bytes. The same
+//    descriptor serves an MN-major A: a consumer's 64 rows are one box, so
+//    the leading offset is never stepped over.
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -214,9 +221,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // the accumulators as the compiler sees them: written here, so no use of
 // them moves across a wait
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 256, fp32) = A (64 x 16, bf16, K-major) . B (16 x 256, bf16),
@@ -269,6 +277,40 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 128, fp32) = A (64 x 16, bf16) . B (16 x 128, bf16), plus d
+// when `accumulate`. TRANS_A / TRANS_B 0: the operand is K-major, 1:
+// MN-major (the wgmma transpose bit; an MN-major A's 64 rows are one
+// 64-column box). Accumulator i of a thread holds row 16 (warp % 4) +
+// lane / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 template <int REGS>
@@ -379,6 +421,60 @@ __device__ __forceinline__ void consume(Ring& r, int nk, int c,
   wgmma_wait<0>();
   fence_acc(acc);
   if (leader) bar_arrive(r.empty(prev));
+}
+
+// Consumer warpgroup c (0 or 1) of a 128 x 128 tile (wgmma m64n128k16, B
+// 128 columns a stage; A as for consume): acc = its 64 rows over nk
+// stages, promoted: the products of each run of PROMOTE stages are summed
+// on the tensor cores into a fresh tile, which is then added to acc in
+// fp32 on the CUDA cores, rounding to nearest. The tensor cores' fp32
+// accumulation does not round to nearest from one step to the next, and
+// over thousands of k16 steps its error grows with the depth (on an H100,
+// 4e-5 of a row's max at depth 4096 and 1.6e-4 at 32000, against 1e-6 at
+// 256); a run of 256 deep bounds it. Within a run one stage's products
+// stay in flight while the next is issued, as in consume; at its end the
+// tile is waited for, added and started afresh. The registers hold the
+// tile and acc (128).
+template <int TRANS_B, int TRANS_A, int PARTS, int PROMOTE, class R>
+__device__ __forceinline__ void consume_promoted(R& r, int nk, int c,
+                                                 float (&acc)[64]) {
+  const bool leader = (threadIdx.x & 127) == 0;
+  float tile[64];
+  int prev = -1;
+  for (int k = 0; k < nk; ++k) {
+    bar_wait(r.full(r.stage), r.phase);
+    const uint32_t sa = r.a(r.stage) + c * (kABytes / 2);
+    const uint32_t sb = r.b(r.stage);
+    const bool fresh = k % PROMOTE == 0;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t db = TRANS_B ? desc_mn_major(sb + kk * 16 * 128)
+                                  : desc_k_major(sb + kk * 32);
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) {
+        const uint32_t pa = sa + p * kABytes;
+        const uint64_t da = TRANS_A ? desc_mn_major(pa + kk * 16 * 128)
+                                    : desc_k_major(pa + kk * 32);
+        wgmma_m64n128k16<TRANS_B, TRANS_A>(tile, da, db,
+                                           !fresh || (kk | p) != 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    if (prev >= 0 && leader) bar_arrive(r.empty(prev));
+    prev = r.stage;
+    r.advance();
+    if ((k + 1) % PROMOTE == 0 || k + 1 == nk) {
+      wgmma_wait<0>();
+      fence_acc(tile);
+      if (leader) bar_arrive(r.empty(prev));
+      prev = -1;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        acc[i] = k < PROMOTE ? tile[i] : acc[i] + tile[i];
+    }
+  }
 }
 
 // The consumer thread's place in its warpgroup's 64 x 256 accumulator:
@@ -622,6 +718,19 @@ inline int persistent_blocks(int device, int work) {
       sms <= 0)
     sms = 1;
   return work < sms ? work : sms;
+}
+
+// Launches a persistent kernel of the core (kThreads threads, `smem` bytes
+// of dynamic shared memory, one block an SM for `work` items) on `st`;
+// returns cudaGetLastError() (0 = launched).
+template <class Kernel, class... Args>
+int launch_persistent(Kernel* kernel, int smem, int work, int device,
+                      cudaStream_t st, Args... args) {
+  const cudaError_t err = opt_in_smem(kernel, device, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<persistent_blocks(device, work), sm90::kThreads, smem, st>>>(
+      args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90_host

@@ -21,16 +21,30 @@ vocabulary is split across blocks too (``_split``: token blocks x splits
 fill one wave, the blocks of a split run together and share its W range)
 and a second small kernel merges the partial statistics.
 
-The backward (``FusedLinearCrossEntropy.backward``) replays ``_bwd_tokens``:
-per token chunk it recomputes the [C, V] fp32 logits tile, forms the
-d-logits as ``_chunk_dlogits`` does, and accumulates dx and dW in fp32.
-Those products are ``torch.matmul``, as the JAX package leaves them to XLA
-in a ``lax.scan`` outside any Pallas kernel.
+The backward (``ce_bwd``, under ``FusedLinearCrossEntropy.backward``)
+computes what ``_bwd_tokens`` computes (``fused_ce.py:387``, which the JAX
+package leaves to XLA in a ``lax.scan``: no ``pallas_call``): per token
+chunk the [C, V] fp32 logits, the d-logits as ``_chunk_dlogits`` forms
+them, dx = d·W and dW += dᵀ·x in fp32. bf16 x and W on CUDA run it as
+hand-written kernels on the same core (``csrc/ce_bwd.cu``): the logits'
+tile product with an epilogue that forms d and splits it into three bf16
+pieces (hi + mid + lo, exact for the d a step makes) in a [3, C, V] chunk
+scratch, then dx and dW as bf16 products of the pieces against W and x
+(dW's A is the pieces transposed, bf16 ``wgmma``'s MN-major A): 7 bf16
+products of 2·N·V·H flops, the least fp32-accurate tensor-core route.
+Each 256-deep run of products is summed on the tensor cores and added
+to the 128 x 128 output tile in fp32 on the CUDA cores (the tensor
+cores' own accumulation loses bits with the depth), in a fixed order.
+The token chunk is the resolved ``chunk_tokens`` rounded up to the
+128-token tile. fp32 x and W on CUDA
+keep the fp32 ``torch.matmul`` route of ``ce_bwd_reference`` (counted
+apart in ``ROUTE_CALLS``); CPU tensors run ``ce_bwd_reference``.
 
 Weights follow PyTorch's layout: W is ``[vocab, hidden]`` (the JAX package
 takes ``[hidden, vocab]``). On a CUDA tensor ``ce_stats`` launches the
 kernel or raises; on a CPU tensor it runs ``ce_stats_reference``.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches: ``ce_stats`` one a forward,
+``ce_bwd`` one a bf16 backward (the C entry's launches for every chunk).
 """
 from __future__ import annotations
 
@@ -38,9 +52,9 @@ import ctypes
 
 import torch
 
-__all__ = ["ce_stats", "ce_stats_reference", "resolve_chunks",
-           "pick_chunk_tokens", "FusedLinearCrossEntropy", "LAUNCHES",
-           "reset_launches", "launch_counts"]
+__all__ = ["ce_stats", "ce_stats_reference", "ce_bwd", "ce_bwd_reference",
+           "resolve_chunks", "pick_chunk_tokens", "FusedLinearCrossEntropy",
+           "LAUNCHES", "ROUTE_CALLS", "reset_launches", "launch_counts"]
 
 _BV = 256                  # vocab columns per bf16 tile and split unit
 _BR = 128                  # tokens per bf16 tile (csrc/sm90.cuh kBM)
@@ -48,7 +62,13 @@ _BH = 16                   # H slice of the fp32 path
 _BH_TMA = 8                # bf16 H step: TMA row strides are 16-byte
                            # multiples; a ragged 64-deep slice reads zeros
 
-LAUNCHES = {"ce_stats": 0}
+_BWD_PIECES = 3            # bf16 pieces of the fp32 d-logits
+_BWD_BN = 128              # output tile columns of the backward kernels
+_BWD_BK = 64               # V step of the dx product (a TMA stage's depth)
+
+LAUNCHES = {"ce_stats": 0, "ce_bwd": 0}
+# backward calls that took the fp32 torch.matmul route on CUDA (no kernel)
+ROUTE_CALLS = {"ce_bwd_fp32": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -56,8 +76,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def resolve_chunks(n_tokens: int, vocab: int, chunk_tokens: int = 0,
@@ -192,6 +213,141 @@ def ce_stats(x, w, labels):
     return ce_stats_reference(x, w, labels)
 
 
+def ce_bwd_reference(x, w, labels, lse, ct, ignore_index: int = -100,
+                     label_smoothing: float = 0.0, z_loss: float = 0.0,
+                     chunk_tokens: int = 0):
+    """Plain PyTorch version of the backward (``_bwd_tokens``): (dx [N, H],
+    dW [V, H]) of the per-token loss for its cotangent ``ct`` [N] and the
+    forward's ``lse`` [N], token chunk by token chunk (``chunk_tokens``, 0
+    = ``resolve_chunks``): each chunk's logits recomputed in fp32, the
+    d-logits ``p·coef - (1 - eps)·ct·onehot - (eps/V)·ct`` formed in
+    place, dx = d·W and dW += dᵀ·x as fp32 ``torch.matmul``. Computes in
+    fp32, or in fp64 for fp64 inputs; the caller casts."""
+    n, v, _ = _check(x, w, labels)
+    c = resolve_chunks(n, v, chunk_tokens)[0]
+    ft = torch.promote_types(x.dtype, torch.float32)
+    eps = float(label_smoothing)
+    lse = lse.to(ft)
+    ctv = torch.where(labels != ignore_index, ct.to(ft), 0.0)
+    coef = ctv * (1.0 + 2.0 * z_loss * lse) if z_loss else ctv
+    lab = labels.long()
+    hit = ((lab >= 0) & (lab < v)).to(ft)
+    safe = lab.clamp(0, v - 1)
+    wf = w.to(ft)
+    dx = torch.empty((n, x.shape[1]), dtype=ft, device=x.device)
+    dw = torch.zeros((v, x.shape[1]), dtype=ft, device=x.device)
+    for i in range(0, n, c):
+        xc = x[i:i + c].to(ft)
+        # d loss / d logits of one recomputed fp32 tile, in place:
+        # p * coef - (1 - eps) * ct * onehot - (eps / V) * ct
+        d = (xc @ wf.T).sub_(lse[i:i + c, None]).exp_()
+        d.mul_(coef[i:i + c, None])
+        d.scatter_add_(1, safe[i:i + c, None],
+                       (-(1.0 - eps) * ctv[i:i + c] * hit[i:i + c])[:, None])
+        if eps:
+            d.sub_((eps / v) * ctv[i:i + c, None])
+        torch.matmul(d, wf, out=dx[i:i + c])
+        dw.addmm_(d.T, xc)
+    return dx, dw
+
+
+def _lib_bwd():
+    from paddle_tpu_torch.ops.cuda._build import load
+
+    fn = load("ce_bwd").ptt_ce_bwd
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 9 + [ci] * 8 + [cf, cf, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+def _bwd_plan(n: int, v: int, h: int, chunk: int, sms: int) -> dict:
+    """The backward kernels' plan for N tokens, V columns, hidden H, the
+    resolved token chunk and `sms` SMs: the chunk rounded up to the
+    128-token tile (`cr`), the scratch's row stride (V rounded up to 8:
+    TMA row strides are 16-byte multiples), and dx's split of its V loop
+    into `splits` ranges of `per` 64-column steps, so token tiles x H
+    tiles x splits fill one wave of the persistent grid (one split when
+    the tiles alone fill it), none of them empty."""
+    cr = -(-max(1, min(chunk, n)) // _BR) * _BR
+    tiles = cr // _BR * -(-h // _BWD_BN)
+    ksteps = -(-v // _BWD_BK)
+    want = max(1, min(ksteps, sms // tiles))
+    per = -(-ksteps // want)
+    return dict(cr=cr, vp=-(-v // 8) * 8, splits=-(-ksteps // per), per=per)
+
+
+def _launch_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, chunk):
+    n, v, h = _check(x, w, labels)
+    if x.dtype != torch.bfloat16 or w.dtype != x.dtype \
+            or w.device != x.device:
+        raise TypeError(f"ce_bwd kernel takes bf16 x and w on one device, "
+                        f"got {x.dtype}/{w.dtype} on {x.device}/{w.device}")
+    if h % _BH_TMA:
+        raise ValueError(f"ce_bwd kernel takes a hidden size that is a "
+                         f"multiple of {_BH_TMA}, got {h}")
+    if tuple(lse.shape) != (n,) or tuple(ct.shape) != (n,):
+        raise ValueError(f"lse and ct must be [N]={n}, got "
+                         f"{tuple(lse.shape)} and {tuple(ct.shape)}")
+    x, w = x.contiguous(), w.contiguous()
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("ce_bwd kernel needs 16-byte aligned x and w")
+    dev = x.device
+    dx = torch.empty((n, h), dtype=torch.float32, device=dev)
+    dw = torch.empty((v, h), dtype=torch.float32, device=dev)
+    if n == 0:
+        return dx, dw.zero_()
+    labels = labels.to(device=dev, dtype=torch.int32).contiguous()
+    lse = lse.to(device=dev, dtype=torch.float32).contiguous()
+    ct = ct.to(device=dev, dtype=torch.float32).contiguous()
+    plan = _bwd_plan(n, v, h, chunk,
+                     torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
+    dl = torch.empty((_BWD_PIECES, plan["cr"], plan["vp"]),
+                     dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((plan["splits"], plan["cr"], h),
+                        dtype=torch.float32, device=dev)
+            if plan["splits"] > 1 else None)
+    err = _lib_bwd()(x.data_ptr(), w.data_ptr(), labels.data_ptr(),
+                     lse.data_ptr(), ct.data_ptr(), dl.data_ptr(),
+                     part.data_ptr() if part is not None else None,
+                     dx.data_ptr(), dw.data_ptr(), n, v, h, plan["cr"],
+                     plan["vp"], plan["splits"], plan["per"],
+                     int(ignore_index), float(eps), float(z_loss),
+                     dev.index or 0,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ce_bwd launch failed: cudaError {err}")
+    LAUNCHES["ce_bwd"] += 1
+    return dx, dw
+
+
+def ce_bwd(x, w, labels, lse, ct, ignore_index: int = -100,
+           label_smoothing: float = 0.0, z_loss: float = 0.0,
+           chunk_tokens: int = 0):
+    """(dx [N, H], dW [V, H]), fp32, of the per-token fused CE loss for its
+    cotangent ``ct`` [N] and the forward's ``lse`` [N], in token chunks of
+    ``chunk_tokens`` (0 = ``resolve_chunks``). bf16 x and w on CUDA launch
+    the ``csrc/ce_bwd.cu`` kernels (at the chunk rounded up to 128
+    tokens) or raise; fp32 x and w on CUDA take the fp32 ``torch.matmul``
+    route of ``ce_bwd_reference`` (counted in ``ROUTE_CALLS``, no kernel);
+    CPU tensors take ``ce_bwd_reference``."""
+    n, v, _ = _check(x, w, labels)
+    chunk = resolve_chunks(n, v, chunk_tokens)[0]
+    args = (x, w, labels, lse, ct, ignore_index, label_smoothing, z_loss,
+            chunk)
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return _launch_bwd(*args)
+    if x.is_cuda:
+        if x.dtype != torch.float32 or w.dtype != torch.float32:
+            raise TypeError(f"the fused CE backward takes bf16 x and w (the "
+                            f"kernels) or fp32 (torch.matmul) on CUDA, got "
+                            f"{x.dtype}/{w.dtype}")
+        ROUTE_CALLS["ce_bwd_fp32"] += 1
+    return ce_bwd_reference(*args)
+
+
 class FusedLinearCrossEntropy(torch.autograd.Function):
     """Per-token fp32 loss of ``CE(x·Wᵀ, labels)`` without the [N, V]
     logits: x [N, H], W [V, H], labels [N] int; ignored tokens give 0.
@@ -223,28 +379,5 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
     def backward(ctx, ct):
         x, w, labels, lse = ctx.saved_tensors
         ignore_index, eps, z_loss, c = ctx.cfg
-        n, v = x.shape[0], w.shape[0]
-        ctv = torch.where(labels != ignore_index, ct.float(), 0.0)
-        coef = ctv * (1.0 + 2.0 * z_loss * lse) if z_loss else ctv
-        lab = labels.long()
-        hit = ((lab >= 0) & (lab < v)).float()
-        safe = lab.clamp(0, v - 1)
-        wf = w.float()
-        dx = torch.empty((n, x.shape[1]), dtype=torch.float32,
-                         device=x.device)
-        dw = torch.zeros((v, x.shape[1]), dtype=torch.float32,
-                         device=x.device)
-        for i in range(0, n, c):
-            xc = x[i:i + c].float()
-            # d loss / d logits of one recomputed fp32 tile, in place:
-            # p * coef - (1 - eps) * ct * onehot - (eps / V) * ct
-            d = (xc @ wf.T).sub_(lse[i:i + c, None]).exp_()
-            d.mul_(coef[i:i + c, None])
-            d.scatter_add_(1, safe[i:i + c, None],
-                           (-(1.0 - eps) * ctv[i:i + c]
-                            * hit[i:i + c])[:, None])
-            if eps:
-                d.sub_((eps / v) * ctv[i:i + c, None])
-            torch.matmul(d, wf, out=dx[i:i + c])
-            dw.addmm_(d.T, xc)
+        dx, dw = ce_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, c)
         return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None, None

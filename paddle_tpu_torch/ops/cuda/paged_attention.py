@@ -27,10 +27,12 @@ stages with bulk copies (``cp.async.bulk`` on mbarriers), four consumer
 warps run ``mma.sync``; quantized pools (int8 or fp8-e4m3 codes with fp32
 ``[Hkv, P, page_size]`` scales) arrive as codes and are widened to bf16
 in shared memory (exact), the scales applied in fp32 to the products.
-Its page size must be a multiple of 8 (the tuner's lattice is 8-128).
-fp32 q runs the CUDA-core kernel (``paged_decode_kernel``), which takes
-any page size and stages fp32 tiles. Neither ever writes dequantized K/V
-to device memory.
+It takes page sizes that are multiples of 8 (the tuner's lattice is
+8-128). fp32 q, and bf16 q at any other page size, run the CUDA-core
+kernel (``paged_decode_kernel``), which takes any page size and stages
+fp32 tiles; ``kernel_route`` picks the kernel, and the split-K workspace
+is sized for the kernel picked. Neither ever writes dequantized K/V to
+device memory.
 
 On a CUDA tensor ``paged_attention`` and ``page_visit_counts`` launch their
 kernels or raise; on a CPU tensor they run ``paged_attention_reference`` and
@@ -46,11 +48,14 @@ import math
 import torch
 
 __all__ = ["paged_attention", "paged_attention_reference",
-           "page_visit_counts", "page_visit_reference", "LAUNCHES",
-           "reset_launches", "launch_counts", "MAX_FRAME_ROWS"]
+           "page_visit_counts", "page_visit_reference", "kernel_route",
+           "ROUTE_CUDA_CORE", "ROUTE_MMA", "LAUNCHES", "reset_launches",
+           "launch_counts", "MAX_FRAME_ROWS"]
 
 _NEG_INF = -1e30
 MAX_FRAME_ROWS = 64     # T * group bound of the kernel's shared memory
+ROUTE_CUDA_CORE = 0     # paged_decode_kernel: any q dtype, any page size
+ROUTE_MMA = 1           # paged_decode_kernel_mma: bf16 q, page size % 8 == 0
 
 LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0,
             "paged_decode_fp8": 0, "paged_visit": 0}
@@ -157,6 +162,16 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, context_lens,
     return out[:, 0] if squeeze else out
 
 
+def kernel_route(q_dtype, page_size: int) -> int:
+    """The decode kernel a call runs: ``ROUTE_MMA`` (the tensor-core
+    kernel, whose ring stages take 8-key halves of one page) for bf16 q at
+    a page size that is a multiple of 8, else ``ROUTE_CUDA_CORE``. The
+    wrapper passes the same route to the split count and to the launch."""
+    if q_dtype == torch.bfloat16 and page_size % 8 == 0:
+        return ROUTE_MMA
+    return ROUTE_CUDA_CORE
+
+
 def _lib():
     from paddle_tpu_torch.ops.cuda._build import load
 
@@ -165,7 +180,8 @@ def _lib():
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                       ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp]
+                       ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci,
+                       vp]
         fn.restype = ci
         splits.argtypes = [ci, ci, ci, ci]
         splits.restype = ci
@@ -187,10 +203,6 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
         raise TypeError(f"paged kernel takes bf16 or fp32 q, got {q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"paged kernel takes head_dim 64 or 128, got {d}")
-    if q.dtype == torch.bfloat16 and ps % 8:
-        raise ValueError(f"the bf16 paged kernel takes page sizes that are "
-                         f"multiples of 8, got {ps}; fp32 q runs the "
-                         f"CUDA-core kernel, which takes any page size")
     if t * (hq // hkv) > MAX_FRAME_ROWS:
         raise ValueError(f"T * group = {t * (hq // hkv)} query rows per kv "
                          f"head exceeds the kernel's {MAX_FRAME_ROWS}")
@@ -221,8 +233,10 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q4)
     fn, splits = _lib()
-    # split-K scratch: unnormalized (acc, max, sum) per split
-    n_splits = splits(pt.shape[1], ps, t, _DTYPES[q.dtype])
+    route = kernel_route(q.dtype, ps)
+    # split-K scratch: unnormalized (acc, max, sum) per split of the
+    # kernel that will fill it
+    n_splits = splits(pt.shape[1], ps, t, route)
     tg = t * (hq // hkv)
     ws_acc = torch.empty((b, hkv, n_splits, tg, d), dtype=torch.float32,
                          device=q.device)
@@ -234,7 +248,7 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
              pt.data_ptr(), lens.data_ptr(), out.data_ptr(),
              ws_acc.data_ptr(), ws_ml.data_ptr(), b, t, hq, hkv,
              k_pages.shape[1], ps, pt.shape[1], d, float(scale),
-             _DTYPES[q.dtype], kv_kind, q.device.index or 0,
+             _DTYPES[q.dtype], route, kv_kind, q.device.index or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{counter} launch failed: cudaError {err}")
@@ -246,10 +260,11 @@ def paged_attention(q, k_pages, v_pages, page_table, context_lens,
                     scale: float | None = None, k_scales=None,
                     v_scales=None):
     """Attention over the paged KV cache (what the model's decode path
-    calls). CUDA tensors launch a kernel by q's dtype: bf16 the
-    tensor-core kernel, fp32 the CUDA-core one, each over bf16/fp32 pools
-    of q's dtype or, when ``k_scales``/``v_scales`` are given, int8/fp8
-    codes; CPU tensors take the plain version."""
+    calls). CUDA tensors launch the kernel ``kernel_route`` picks: bf16 q
+    the tensor-core kernel at page sizes that are multiples of 8, else
+    (fp32 q, or any other page size) the CUDA-core one, each over bf16/fp32
+    pools of q's dtype or, when ``k_scales``/``v_scales`` are given,
+    int8/fp8 codes; CPU tensors take the plain version."""
     if q.is_cuda:
         return _launch(q, k_pages, v_pages, page_table, context_lens, scale,
                        k_scales, v_scales)

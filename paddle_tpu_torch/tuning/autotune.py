@@ -17,7 +17,10 @@ on Hopper, where the JAX package bounds TPU tiles by the VMEM budget:
   the paged kernel takes any page size;
 * fused_ce: token chunks of the backward's recomputed logits tiles (64 to
   4096 tokens, clamped to ``n_tokens``), ``chunk_vocab`` the heuristic's:
-  the port reads no vocab chunk.
+  the port reads no vocab chunk. On the card the runner times the bf16
+  head the models train (the backward's kernels, ``ce_bwd``) at the 7B
+  head's hidden size unless a dtype is given; an fp32 search would time
+  the fp32 ``torch.matmul`` route instead.
 
 flash_fwd and flash_bwd have no lattice: each kernel is compiled for one
 tile (bf16: the forward 64 x 64 at head_dim 128 and 128 x 64 at 64, the
@@ -49,6 +52,7 @@ __all__ = ["candidate_blocks", "candidate_kernels", "make_runner",
 _GMM_ROW_BLOCKS = (8, 16, 32, 64, 128)
 _PAGE_SIZES = (8, 16, 32, 64, 128)
 _CE_CHUNK_TOKENS = (64, 256, 1024, 4096)
+_CE_HIDDEN = 4096          # the fused_ce runner's hidden size on the card
 
 
 def candidate_kernels() -> list[str]:
@@ -158,8 +162,14 @@ def make_runner(kernel: str, geometry: dict, dtype: str = "",
         from paddle_tpu_torch.nn.functional import fused_linear_cross_entropy
 
         n, v = int(geometry["n_tokens"]), int(geometry["vocab"])
-        x = randn(n, 64)
-        w = randn(v, 64, scale=0.02)
+        if dev.type == "cuda":
+            # the geometry has no hidden size: time the LLaMA-7B head's,
+            # in bf16 unless a dtype is given (the kernels' dtype)
+            h, dt = _CE_HIDDEN, getattr(torch, dtype or "bfloat16")
+        else:
+            h = 64
+        x = randn(n, h)
+        w = randn(v, h, scale=0.02)
         labels = torch.arange(n, device=dev) % v
 
         def run(values):

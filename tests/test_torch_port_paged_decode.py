@@ -31,6 +31,7 @@ version ``paged_attention_reference`` stays fp32. Inputs are made with
 numpy from a seed.
 """
 import math
+import re
 
 import ml_dtypes
 import numpy as np
@@ -283,10 +284,105 @@ def test_codes_widen_to_bf16_exactly():
     assert np.array_equal(b, exact[finite])
 
 
-def test_bf16_page_size_must_be_a_multiple_of_8():
-    q = torch.zeros((1, 2, 64), dtype=torch.bfloat16)
-    k = torch.zeros((2, 3, 12, 64), dtype=torch.bfloat16)
-    pt = torch.ones((1, 2), dtype=torch.int32)
-    lens = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="multiples of 8.*fp32 q"):
-        pa._launch(q, k, k, pt, lens, None)
+@pytest.mark.parametrize("ps,want", [(4, pa.ROUTE_CUDA_CORE),
+                                     (12, pa.ROUTE_CUDA_CORE),
+                                     (8, pa.ROUTE_MMA), (16, pa.ROUTE_MMA)])
+def test_bf16_q_routes_by_page_size(ps, want):
+    # the tensor-core kernel's ring stages take 8-key halves of one page;
+    # any other page size runs the CUDA-core kernel, as fp32 q always does
+    assert pa.kernel_route(torch.bfloat16, ps) == want
+    assert pa.kernel_route(torch.float32, ps) == pa.ROUTE_CUDA_CORE
+
+
+def _cu_const(name):
+    from paddle_tpu_torch.ops.cuda import _build
+
+    src = open(f"{_build.CSRC_DIR}/paged_attention.cu").read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _kernel_splits(route, pages_per_seq, ps, t):
+    """ptt_paged_splits of paged_attention.cu: the tensor-core kernel's
+    splits of kMmaSplitKeys keys, the CUDA-core kernel's of kSplitKeys
+    over the frame's pages_per_seq * ps + T - 1 keys."""
+    if route == pa.ROUTE_MMA:
+        keys, per = pages_per_seq * ps, _cu_const("kMmaSplitKeys")
+    else:
+        keys, per = pages_per_seq * ps + t - 1, _cu_const("kSplitKeys")
+    return -(-keys // per) if keys > per else 1
+
+
+@pytest.mark.parametrize("ps", [4, 8, 12, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_count_and_launch_name_the_same_kernel(monkeypatch, ps,
+                                                     dtype):
+    # the wrapper sizes the split-K workspace for the kernel it launches:
+    # one route goes to ptt_paged_splits and to ptt_paged_decode alike
+    seen = {}
+
+    def splits(pages_per_seq, page_size, t, route):
+        seen["splits_route"] = route
+        return _kernel_splits(route, pages_per_seq, page_size, t)
+
+    def decode(*args):
+        seen["decode_route"] = args[20]
+        return 0
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(pa, "_lib", lambda: (decode, splits))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *_: _Stream())
+    b, t, hq, hkv, d, pps = 2, 3, 8, 2, 64, 200
+    q = torch.zeros((b, t, hq, d), dtype=dtype)
+    kp = torch.zeros((hkv, b * pps + 1, ps, d), dtype=dtype)
+    pt = torch.ones((b, pps), dtype=torch.int32)
+    lens = torch.full((b,), 5, dtype=torch.int32)
+    captured = {}
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        out = real_empty(shape, **kw)
+        captured.setdefault("ws", []).append(tuple(shape))
+        return out
+
+    monkeypatch.setattr(torch, "empty", empty)
+    pa.reset_launches()
+    pa._launch(q, kp, kp, pt, lens, None)
+    route = pa.kernel_route(dtype, ps)
+    assert seen["splits_route"] == seen["decode_route"] == route
+    n = _kernel_splits(route, pps, ps, t)
+    assert captured["ws"] == [(b, hkv, n, t * hq // hkv, d),
+                              (b, hkv, n, t * hq // hkv, 2)]
+    assert pa.launch_counts()["paged_decode"] == 1
+    if dtype == torch.bfloat16 and ps in (4, 12):
+        # 512-key splits with the frame's T - 1 extra keys, not 256
+        assert n == -(-(pps * ps + t - 1) // 512)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("ps", [4, 12])
+def test_plain_version_at_page_sizes_off_the_mma_kernel(ps, mode):
+    # the pools that the CUDA-core kernel serves for bf16 q: the port's
+    # plain version (what chip_smoke.py holds that kernel against) equals
+    # JAX's reference at fp32, frames and GQA included
+    q, k, v, ks, vs, pt, lens = _inputs(7, 3, 8, 2, 64, ps, mode)
+    scales = {} if ks is None else dict(k_scales=jnp.asarray(ks),
+                                        v_scales=jnp.asarray(vs))
+    ref = np.array(jax_paged_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pt),
+        jnp.asarray(lens), **scales), dtype=np.float32)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    tsc = {} if ks is None else dict(k_scales=f(ks), v_scales=f(vs))
+    got = pa.paged_attention(f(q), f(k), f(v), torch.from_numpy(pt),
+                             torch.from_numpy(lens), **tsc)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+    # bf16 q (the engine's dtype) returns that result rounded to bf16
+    got16 = pa.paged_attention(f(q).bfloat16(), f(k), f(v),
+                               torch.from_numpy(pt), torch.from_numpy(lens),
+                               **tsc) if ks is not None else \
+        pa.paged_attention(f(q).bfloat16(), f(k).bfloat16(),
+                           f(v).bfloat16(), torch.from_numpy(pt),
+                           torch.from_numpy(lens))
+    assert got16.dtype == torch.bfloat16
+    _hold_rows(got16.float(), torch.from_numpy(ref))

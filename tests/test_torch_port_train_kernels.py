@@ -251,7 +251,7 @@ def test_train_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     assert port_cuda.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "flash_visit": 0, "paged_decode": 0, "paged_decode_int8": 0,
-        "paged_decode_fp8": 0, "paged_visit": 0, "ce_stats": 0,
+        "paged_decode_fp8": 0, "paged_visit": 0, "ce_stats": 0, "ce_bwd": 0,
         "gmm_fwd": 0, "gmm_fwd_tf32": 0, "gmm_dw": 0, "gmm_visit": 0,
         "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "rmsnorm_dw": 0}
 
