@@ -2804,7 +2804,11 @@ def rmsnorm_cases():
     """(label, rows, d, x dtype, w dtype): LLaMA-2-7B's hidden size at
     phase 7's 4096 tokens and at the decode batch, GPT-MoE's 4 x 2048
     tokens at hidden 1024, a ragged last block (4097 rows) at a width off
-    the powers of two, and a width that takes the scalar path."""
+    the powers of two, a width that takes the scalar path, and the ring's
+    edges: LLaMA-2-70B's 8192 in bf16 (512-thread blocks in the backward),
+    fp32 at 16384 (the forward on the ring at 512 threads, the backward
+    past it) and fp32 at 32768 (both kernels past the ring, on the
+    two-pass vector route)."""
     import torch
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -2813,7 +2817,10 @@ def rmsnorm_cases():
         for dt, name in ((bf, "bf16"), (f32, "fp32")):
             cases.append((f"r{rows}_d{d}_{name}", rows, d, dt, dt))
     return cases + [("r4096_d4096_bf16x_fp32w", 4096, 4096, bf, f32),
-                    ("r4097_d1001_bf16", 4097, 1001, bf, bf)]
+                    ("r4097_d1001_bf16", 4097, 1001, bf, bf),
+                    ("r2048_d8192_bf16", 2048, 8192, bf, bf),
+                    ("r1024_d16384_fp32", 1024, 16384, f32, f32),
+                    ("r512_d32768_fp32", 512, 32768, f32, f32)]
 
 
 def _dw_check(dw, ref, scale):
@@ -2848,37 +2855,16 @@ def _rmsnorm_check(x, w, dy, br):
             _dw_check(dw, ref_dw, (dy.float() * xf * rstd).abs().sum(0)))
 
 
-def _graph_ms(fn, reps=20):
-    """Device ms per call of `fn`, replayed from a CUDA graph between two
-    events: the wrapper's host work runs once, at capture, so this is the
-    kernels' time alone (the event-timed ms include the host work, which a
-    small problem waits on). None if `fn` cannot be captured: a
-    measurement beside the checks, which never fails the phase."""
-    import torch
-
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-    except Exception as e:
-        print(f"graph timing failed: {type(e).__name__}: {e}"[:300],
-              flush=True)
-        return None
+def _kernels_seen(fn, name=""):
+    """{kernel name: device ms a call} of `fn` from the profiler; a window
+    in which it recorded no kernel (whose name holds `name`) is taken
+    again (it can drop a whole window's events), at most 3 times."""
+    for _ in range(3):
+        by = _device_ms_by_kernel(fn)
+        if any(name in k for k in by):
+            return by
+    raise AssertionError(f"the profiler recorded no kernel named "
+                         f"'{name}' in 3 windows")
 
 
 def run_rmsnorm_case(gen, rows, d, dtype, w_dtype, all_blocks=False):
@@ -2922,9 +2908,12 @@ def run_rmsnorm_case(gen, rows, d, dtype, w_dtype, all_blocks=False):
     try:
         lib_f = _cuda_ms(lib_fwd)
         lib_fb = _cuda_ms(lib_fwd_bwd)
+        # the library's kernels on the device, as the kernels' are timed
+        lib_f_dev = sum(_kernels_seen(lib_fwd).values())
+        lib_b_dev = sum(_kernels_seen(lib_fwd_bwd).values()) - lib_f_dev
         lib_err = None
     except Exception as e:    # torch's op may refuse a mixed-dtype weight
-        lib_f = lib_fb = None
+        lib_f = lib_fb = lib_f_dev = lib_b_dev = None
         lib_err = f"{type(e).__name__}: {e}"[:200]
     ms_f = _cuda_ms(lambda: rk.rmsnorm_fwd(x, w, RMS_EPS, br))
     ms_b = _cuda_ms(lambda: rk.rmsnorm_bwd(x, w, dy, RMS_EPS, br))
@@ -2934,34 +2923,70 @@ def run_rmsnorm_case(gen, rows, d, dtype, w_dtype, all_blocks=False):
         lambda: rk.rmsnorm_bwd_reference(x, w, dy, RMS_EPS, br), reps=5)
     plain_dw = _cuda_ms(lambda: rk.rmsnorm_dw_reference(partials, w.dtype))
     lib_dw = _cuda_ms(lambda: torch.sum(partials, 0))
+    lib_dw_dev = sum(_kernels_seen(lambda: torch.sum(partials, 0)).values())
     # device time apart from the wrappers' host work, which the event-timed
-    # ms include (a small problem waits on the host)
-    dev_f = _graph_ms(lambda: rk.rmsnorm_fwd(x, w, RMS_EPS, br))
-    dev_b = _graph_ms(lambda: rk.rmsnorm_bwd(x, w, dy, RMS_EPS, br))
-    dev_dw = _graph_ms(lambda: rk.rmsnorm_dw(partials, w.dtype))
+    # call_ms include (a small problem waits on the host): the kernels' own
+    # time from the profiler
+    by_f = _kernels_seen(lambda: rk.rmsnorm_fwd(x, w, RMS_EPS, br),
+                         "rmsnorm_fwd")
+    by_b = _kernels_seen(lambda: rk.rmsnorm_bwd(x, w, dy, RMS_EPS, br),
+                         "rmsnorm_bwd")
+    dev_f = sum(ms for k, ms in by_f.items() if "rmsnorm_fwd" in k)
+    dev_b = sum(ms for k, ms in by_b.items()
+                if "rmsnorm_bwd" in k or "rmsnorm_dw" in k)
+    by_dw = _kernels_seen(lambda: rk.rmsnorm_dw(partials, w.dtype),
+                          "rmsnorm_dw")
+    dev_dw = sum(ms for k, ms in by_dw.items() if "rmsnorm_dw" in k)
+    # the route each kernel took, by the names the profiler recorded, and
+    # the route its plan gives (a tree older than the plan has none)
+    plan = getattr(rk, "rmsnorm_plan", None)
+    routes = {}
+    for kind, by in (("fwd", by_f), ("bwd", by_b)):
+        names = sorted(k for k in by if f"rmsnorm_{kind}" in k)
+        took = "ring" if all("_ring_" in k for k in names) else "two_pass"
+        want = plan(kind, d, dtype, br).route if plan else None
+        routes[kind] = dict(took=took, plan=want, kernels=names,
+                            ok=want is None or (took == "ring")
+                            == want.startswith("ring"))
     # bytes: each input read once, each output written once; operations in
     # fp32 whatever the storage type (about 4 a value forward, 10 backward)
     n = rows * d
     fb = _bound(2 * n * es + d * ws, 4 * n, "float32")
     bb = _bound(3 * n * es + 2 * d * ws, 10 * n, "float32")
     db = _bound(nb * d * 4 + d * ws, nb * d, "float32")
+
+    def share(bound, dev):
+        return bound / dev if dev else None
+
+    # ms and library_ms: device ms (profiler); call_ms and library_call_ms
+    # event-timed, with the host's work
     out = {
         "block_rows": br, "n_blocks": nb, "blocks": blocks,
-        "library_error": lib_err,
-        "fwd": dict(fwd_c, ok=fwd_c["rows_ok"], ms=ms_f, plain_ms=plain_f,
-                    library_ms=lib_f, device_ms=dev_f, bound_ms=fb[0],
-                    bound_by=fb[1]),
+        "routes": routes, "library_error": lib_err,
+        "fwd": dict(fwd_c, ok=fwd_c["rows_ok"], ms=dev_f, call_ms=ms_f,
+                    plain_ms=plain_f, library_ms=lib_f_dev,
+                    library_call_ms=lib_f, bound_ms=fb[0], bound_by=fb[1],
+                    bound_share=share(fb[0], dev_f)),
         "bwd": dict(dx_c, dw=dw_c, max_abs_err=max(dx_c["max_abs_err"],
                                                    dw_c["max_abs_err"]),
-                    ok=dx_c["rows_ok"] and dw_c["ok"], ms=ms_b,
-                    plain_ms=plain_b,
-                    library_ms=(None if lib_f is None else lib_fb - lib_f),
-                    device_ms=dev_b, bound_ms=bb[0], bound_by=bb[1]),
-        "dw": dict(dwk_c, ms=ms_dw, plain_ms=plain_dw, library_ms=lib_dw,
-                   device_ms=dev_dw, bound_ms=db[0], bound_by=db[1])}
+                    ok=dx_c["rows_ok"] and dw_c["ok"], ms=dev_b, call_ms=ms_b,
+                    plain_ms=plain_b, library_ms=lib_b_dev,
+                    library_call_ms=(None if lib_f is None
+                                     else lib_fb - lib_f),
+                    bound_ms=bb[0], bound_by=bb[1],
+                    bound_share=share(bb[0], dev_b)),
+        "dw": dict(dwk_c, ms=dev_dw, call_ms=ms_dw, plain_ms=plain_dw,
+                   library_ms=lib_dw_dev,
+                   library_call_ms=lib_dw, bound_ms=db[0], bound_by=db[1],
+                   bound_share=share(db[0], dev_dw))}
     out["ok"] = (out["fwd"]["ok"] and out["bwd"]["ok"] and dwk_c["ok"]
-                 and all(b["ok"] for b in blocks.values()))
+                 and all(b["ok"] for b in blocks.values())
+                 and all(r["ok"] for r in routes.values()))
     return out
+
+
+def _fmt(v):
+    return "none" if v is None else f"{v:.4f}"
 
 
 def phase_rmsnorm(seed, report):
@@ -2976,19 +3001,20 @@ def phase_rmsnorm(seed, report):
         parts = []
         for k in ("fwd", "bwd", "dw"):
             c = r[k]
-            lib = ("none" if c["library_ms"] is None
-                   else f"{c['library_ms']:.4f}")
-            dev = ("none" if c["device_ms"] is None
-                   else f"{c['device_ms']:.4f}")
-            parts.append(f"{k} err {c['max_abs_err']:.3g} ms {c['ms']:.4f} "
-                         f"device_ms {dev} "
-                         f"plain_ms {c['plain_ms']:.4f} library_ms {lib} "
+            parts.append(f"{k} err {c['max_abs_err']:.3g} "
+                         f"device_ms {c['ms']:.4f} "
+                         f"({_fmt(c['bound_share'])} of bound) "
+                         f"call_ms {c['call_ms']:.4f} "
+                         f"plain_ms {c['plain_ms']:.4f} "
+                         f"library_device_ms {_fmt(c['library_ms'])} "
+                         f"library_call_ms {_fmt(c['library_call_ms'])} "
                          f"bound_ms {c['bound_ms']:.4f} ({c['bound_by']})")
         blocks = " ".join(f"{b}:{'ok' if v['ok'] else 'BAD'}"
                           for b, v in r["blocks"].items())
+        routes = " ".join(f"{k} {v['took']}" for k, v in r["routes"].items())
         print(f"rmsnorm {label}: ok {r['ok']} block_rows {r['block_rows']} "
-              f"[{'; '.join(parts)}]" + (f" blocks {blocks}" if blocks
-                                         else ""), flush=True)
+              f"route {routes} [{'; '.join(parts)}]"
+              + (f" blocks {blocks}" if blocks else ""), flush=True)
         torch.cuda.empty_cache()
     report["rmsnorm_cases"] = cases
     bad = [k for k, r in cases.items() if not r["ok"]]
@@ -3421,23 +3447,29 @@ def main(argv=None) -> int:
                         for n in _build.kernel_names()},
               "failed": []}
     spills = []
-    # the sm90 core's kernels and the paged tensor-core kernel
-    for src in ("grouped_matmul", "fused_ce", "ce_bwd", "paged_attention"):
+    # the sm90 core's kernels, the paged tensor-core kernel and the RMSNorm
+    # ring kernels
+    for src in ("grouped_matmul", "fused_ce", "ce_bwd", "paged_attention",
+                "rmsnorm"):
         lines = report["ptxas"][src]
         for i, ln in enumerate(lines):
             if "Compiling entry" in ln and (
                     "wgmma_kernel" in ln or "tf32_kernel" in ln
-                    or "paged_decode_kernel_mma" in ln):
+                    or "paged_decode_kernel_mma" in ln
+                    or "_ring_kernel" in ln):
                 print("ptxas " + " | ".join(x.strip() for x in lines[i:i + 3]),
                       flush=True)
                 if not any("0 bytes spill stores, 0 bytes spill loads" in x
                            for x in lines[i + 1:i + 3]):
                     spills.append(ln.strip())
-    if spills:        # accumulators must stay in registers
-        print(f"ptxas: tensor-core kernels spill: {spills}",
+    if spills:        # accumulators and staged rows stay in registers
+        print(f"ptxas: kernels spill: {spills}",
               file=sys.stderr)
         report["failed"].append("build")
+    # the RMSNorm phase runs early: late in a long process the profiler
+    # drops whole windows of short kernels' events
     phases = [("kernels", lambda: phase_kernels(args.seed, report)),
+              ("rmsnorm", lambda: phase_rmsnorm(args.seed, report)),
               ("cuda_vs_cpu", lambda: phase_cuda_vs_cpu(args.seed, report)),
               ("kv_cuda_vs_cpu",
                lambda: phase_kv_cuda_vs_cpu(args.seed, report))]
@@ -3484,9 +3516,8 @@ def main(argv=None) -> int:
                          phase_train_moe_cuda_vs_cpu(args.seed, report))),
                ("train_moe_full_width",
                 lambda: phase_train_moe_full_width(args, report)),
-               ("rmsnorm",
-                lambda: (free_memory(), phase_rmsnorm(args.seed, report))),
-               ("tuning", lambda: phase_tuning(args.seed, report))]
+               ("tuning",
+                lambda: (free_memory(), phase_tuning(args.seed, report)))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

@@ -19,10 +19,15 @@ Replaces ``_rmsnorm_fwd_kernel`` (``rmsnorm_kernel.py:47``, the
   the same bits every run).
 
 What bounds them on the H100: bytes (a reduction and an elementwise pass,
-a few flops a byte); see the note in ``csrc/rmsnorm.cu``. ``block_rows``
-trades the grid's width against the partials' traffic and resolves through
-``tuning.blocks.resolve_blocks`` (FLAGS_rmsnorm_block_rows > tuning cache
-> the heuristic), once in the forward: the backward reuses it.
+a few flops a byte); see the note in ``csrc/rmsnorm.cu``. Each kernel has
+two routes, chosen by ``rmsnorm_plan`` from the width, the dtypes and the
+bases' alignment: the ring (each row read from HBM once, by bulk copies
+into shared-memory stages) where a row is a whole number of 16-byte
+vectors and its stages fit, else two passes over a block's rows.
+``block_rows`` trades the grid's width against the partials' traffic and
+resolves through ``tuning.blocks.resolve_blocks`` (FLAGS_rmsnorm_block_rows
+> tuning cache > the heuristic), once in the forward: the backward reuses
+it.
 
 The models keep the composite ``F.rms_norm``, as the JAX package does; this
 op is reached through its public entry ``rmsnorm`` and the tuning plane.
@@ -33,14 +38,15 @@ name.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 __all__ = ["rmsnorm", "RMSNormFunction", "rmsnorm_fwd", "rmsnorm_bwd",
            "rmsnorm_dw", "rmsnorm_reference", "rmsnorm_bwd_reference",
            "rmsnorm_dw_reference", "pick_block_rows", "validate_blocks",
-           "ROW_BLOCKS", "MAX_BLOCK_ROWS", "LAUNCHES", "reset_launches",
-           "launch_counts"]
+           "rmsnorm_plan", "Plan", "ROUTES", "ROW_BLOCKS", "MAX_BLOCK_ROWS",
+           "LAUNCHES", "reset_launches", "launch_counts"]
 
 MAX_BLOCK_ROWS = 1024       # csrc kMaxBlockRows: the statistics' smem rows
 # The row blocks the autotuner times; the heuristic picks from them too.
@@ -48,9 +54,88 @@ ROW_BLOCKS = (8, 16, 32, 64, 128, 256, 512)
 # At most this many blocks: 8 blocks of 256 threads fill an SM, and the
 # H100 has 132 SMs.
 _TARGET_BLOCKS = 1024
+# The row block on a card where the kernels go a warp a row: 4 stages of
+# 8 rows (`tools/rmsnorm_ab.py --sweep` on the H100; PERF.md §6).
+_WARP_ROW_BLOCK = 32
 
 LAUNCHES = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "rmsnorm_dw": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The routes, in the order of csrc kRouteScalar, kRouteVector, kRouteRing,
+# kRouteRingWarp.
+ROUTES = ("two_pass_scalar", "two_pass_vector", "ring", "ring_warp")
+_TWO_PASS_THREADS = 256     # csrc kThreads
+# The ring's plan, the csrc kRing* constants of the same names.
+RING_TARGET_THREADS = 256
+RING_MAX_THREADS = 512
+RING_WARP_THREADS = 256     # a warp a row: 8 rows a stage
+RING_WARP_MAX_ELEMS = 32    # elements of a row a lane holds
+RING_FWD_MAX_ELEMS = 32     # a block a row: elements of a row a thread
+RING_BWD_MAX_ELEMS = 16     # holds at 128 registers (more spill)
+RING_MIN_STAGES = 2
+RING_MAX_STAGES = 4
+RING_STAGE_BUDGET = 49152   # bytes of stages a block aims for
+RING_SMEM_LIMIT = 231424    # 227 KB less 1 KB of static shared memory
+
+
+class Plan(NamedTuple):
+    """A kernel launch: its route, threads a block, 16-byte vectors a
+    thread and ring stages (both 0 on the two-pass routes, which ignore
+    them), and the dynamic shared-memory bytes of its stages."""
+    route: str
+    threads: int
+    vecs: int
+    stages: int
+    smem_bytes: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def rmsnorm_plan(kind: str, d: int, dtype, block_rows: int,
+                 aligned: bool = True) -> Plan:
+    """How the `kind` ("fwd" or "bwd") kernel runs a width `d` of x in
+    `dtype` over blocks of `block_rows` rows.
+
+    The ring where a row is a whole number of 16-byte vectors, the bases
+    are `aligned` to their vectors, the threads that hold a row fit a
+    block, and RING_MIN_STAGES stages fit in RING_SMEM_LIMIT bytes; else
+    the two passes, on 16-byte vectors where the width and alignment
+    allow. A row of at most 32 * RING_WARP_MAX_ELEMS elements goes a warp
+    a row ("ring_warp": RING_WARP_THREADS threads, a stage of one row a
+    warp, a lane's vectors the smallest power of two that covers the row);
+    a wider one a block a row ("ring": a thread's vectors the smallest
+    power of two, of at most RING_{FWD,BWD}_MAX_ELEMS elements, that keeps
+    the block within RING_TARGET_THREADS threads, the block the vectors
+    over that in whole warps, so a narrow row does not idle half a block).
+    Stages are RING_STAGE_BUDGET bytes' worth, 2 to 4, at most the stages
+    a block of rows fills."""
+    if kind not in ("fwd", "bwd"):
+        raise ValueError(f"rmsnorm_plan: kind is 'fwd' or 'bwd', got {kind!r}")
+    es = dtype.itemsize
+    v = 16 // es
+    if d % v or not aligned:
+        return Plan(ROUTES[0], _TWO_PASS_THREADS, 0, 0, 0)
+    nv = d // v
+    most = (RING_FWD_MAX_ELEMS if kind == "fwd" else RING_BWD_MAX_ELEMS) // v
+    tensors = 1 if kind == "fwd" else 2
+    if d <= 32 * RING_WARP_MAX_ELEMS:         # a warp a row
+        route, threads = ROUTES[3], RING_WARP_THREADS
+        vecs, per = _pow2_at_least(-(-nv // 32)), threads // 32
+    else:                                     # a block a row
+        vecs = 1
+        while vecs < most and -(-nv // vecs) > RING_TARGET_THREADS:
+            vecs *= 2
+        route, threads, per = ROUTES[2], 32 * -(-nv // (32 * vecs)), 1
+    stage = per * d * es * tensors
+    if (threads > RING_MAX_THREADS
+            or RING_MIN_STAGES * stage > RING_SMEM_LIMIT):
+        return Plan(ROUTES[1], _TWO_PASS_THREADS, 0, 0, 0)
+    stages = max(RING_MIN_STAGES,
+                 min(RING_MAX_STAGES, RING_STAGE_BUDGET // stage))
+    stages = min(stages, -(-max(int(block_rows), 1) // per))
+    return Plan(route, threads, vecs, stages, stages * stage)
 
 
 def launch_counts() -> dict[str, int]:
@@ -62,13 +147,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _heuristic_block_rows(rows: int) -> int:
+def _heuristic_block_rows(rows: int, sms: int | None = None,
+                          warp_a_row: bool = False) -> int:
     """The smallest row block that keeps the grid within _TARGET_BLOCKS
-    blocks (8 rows give one row a warp)."""
-    for br in ROW_BLOCKS:
-        if -(-rows // br) <= _TARGET_BLOCKS:
-            return br
-    return ROW_BLOCKS[-1]
+    blocks (8 rows give one row a warp). On a card with `sms` SMs: where
+    the kernels go a warp a row, _WARP_ROW_BLOCK rows instead (four stages
+    of a row a warp, so the ring has copies in flight); and at most rows /
+    sms rounded up, so that a few rows (a decode batch) spread over the
+    SMs instead of running in series in one block."""
+    br = next((b for b in ROW_BLOCKS if -(-rows // b) <= _TARGET_BLOCKS),
+              ROW_BLOCKS[-1])
+    if not sms:
+        return br
+    if warp_a_row:
+        br = max(br, _WARP_ROW_BLOCK)
+    return min(br, max(1, -(-rows // sms)))
 
 
 def validate_blocks(values: dict, geometry: dict) -> None:
@@ -78,6 +171,19 @@ def validate_blocks(values: dict, geometry: dict) -> None:
     if not 1 <= br <= MAX_BLOCK_ROWS:
         raise ValueError(f"rmsnorm: block_rows {values['block_rows']} is "
                          f"outside the kernel's 1..{MAX_BLOCK_ROWS} rows")
+
+
+def _sm_count(device):
+    """The SM count of `device`'s card (None: the current card, where
+    there is one); None on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = "cuda"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pick_block_rows(rows: int, d: int, block_rows: int = 0,
@@ -91,8 +197,12 @@ def pick_block_rows(rows: int, d: int, block_rows: int = 0,
         return min(int(block_rows), max(int(rows), 1))
     from paddle_tpu_torch.tuning.blocks import resolve_blocks
 
-    res = resolve_blocks("rmsnorm", geometry, dtype=dtype,
-                         default=lambda g: (_heuristic_block_rows(rows),),
+    def default(g):
+        warp = bool(dtype) and rmsnorm_plan(
+            "fwd", d, getattr(torch, dtype), 1).route == "ring_warp"
+        return (_heuristic_block_rows(rows, _sm_count(device), warp),)
+
+    res = resolve_blocks("rmsnorm", geometry, dtype=dtype, default=default,
                          validate=validate_blocks, device=device)
     return min(int(res.values["block_rows"]), max(int(rows), 1))
 
@@ -181,16 +291,31 @@ def _check_err(err, name):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _vec(x, w, *others):
-    """1 when the 16-byte path applies: d a multiple of 16 / x's element
-    size and every base aligned to its vector (w's vector holds as many
+def _aligned(x, w, *others):
+    """Every base aligned to its 16-byte vector (w's vector holds as many
     elements as x's)."""
     v = 16 // x.element_size()
-    if x.shape[1] % v:
-        return 0
     if any(t.data_ptr() % 16 for t in (x, *others)):
-        return 0
-    return int(w.data_ptr() % (v * w.element_size()) == 0)
+        return False
+    return w.data_ptr() % (v * w.element_size()) == 0
+
+
+def _launch(kind, tensors, br, eps):
+    """One launch of the `kind` ("fwd" or "bwd") kernel on contiguous CUDA
+    tensors in its C entry's order: x, w, y; or x, w, dy, dx, the dw
+    partials. The plan's route, threads, vectors and stages go to the C
+    entry; returns the plan."""
+    x, w = tensors[:2]
+    rows, d = x.shape
+    plan = rmsnorm_plan(kind, d, x.dtype, br, _aligned(*tensors))
+    err = _fn(f"ptt_rmsnorm_{kind}", len(tensors), 7, True)(
+        *(t.data_ptr() for t in tensors), rows, d, br, float(eps),
+        _DTYPES[x.dtype], _DTYPES[w.dtype], ROUTES.index(plan.route),
+        plan.threads, plan.vecs, plan.stages, x.device.index or 0,
+        _stream(x))
+    _check_err(err, f"rmsnorm_{kind}")
+    LAUNCHES[f"rmsnorm_{kind}"] += 1
+    return plan
 
 
 def _block_rows(x, block_rows):
@@ -209,12 +334,7 @@ def rmsnorm_fwd(x, w, eps: float = 1e-6, block_rows: int = 0):
     y = torch.empty_like(x)
     if rows == 0 or d == 0:          # nothing to launch: an empty y
         return y
-    err = _fn("ptt_rmsnorm_fwd", 3, 4, True)(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, br, float(eps),
-        _DTYPES[x.dtype], _DTYPES[w.dtype], _vec(x, w, y),
-        x.device.index or 0, _stream(x))
-    _check_err(err, "rmsnorm_fwd")
-    LAUNCHES["rmsnorm_fwd"] += 1
+    _launch("fwd", (x, w, y), br, eps)
     return y
 
 
@@ -260,13 +380,7 @@ def rmsnorm_bwd(x, w, dy, eps: float = 1e-6, block_rows: int = 0):
     if d == 0:                       # nothing to launch: empty dx and dw
         return dx, torch.empty((0,), dtype=w.dtype, device=x.device)
     if rows:
-        err = _fn("ptt_rmsnorm_bwd", 5, 4, True)(
-            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            partials.data_ptr(), rows, d, br, float(eps), _DTYPES[x.dtype],
-            _DTYPES[w.dtype], _vec(x, w, dy, dx, partials),
-            x.device.index or 0, _stream(x))
-        _check_err(err, "rmsnorm_bwd")
-        LAUNCHES["rmsnorm_bwd"] += 1
+        _launch("bwd", (x, w, dy, dx, partials), br, eps)
     return dx, rmsnorm_dw(partials, w.dtype)
 
 
