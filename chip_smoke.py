@@ -68,8 +68,13 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     share of the bound (bf16 q at page 4, bf16, int8 and fp8 pools, runs
     the CUDA-core kernel, which takes any page size); the page and flash
     visit counters must equal their plain versions (and ceil(len /
-    page_size)) exactly, and with the grouped matmul's visit counter
-    print their device ms; the fused-CE backward's kernels
+    page_size)) exactly, over the engine frame, packed frames of B 4 x S
+    2048, B 1 x S 4096 and B 1 x S 32768, blocks (64, 32), (32, 128) and
+    (1, 1), a non-causal frame, and decode batches of 8 and 256 rows at
+    pages of 1, 4 and 16 (lens 0 and over capacity), each printing its
+    device ms beside the launch floor (one 1-element fill's device ms),
+    and with the grouped matmul's visit counter print their device ms;
+    the fused-CE backward's kernels
     (``csrc/ce_bwd.cu``: the logits with the d-logits epilogue, dx and dW
     as bf16 products of d's three bf16 pieces, all on the wgmma/TMA core)
     against ``ce_bwd_reference`` at fp32 (TF32 off): dx and dW each row
@@ -634,11 +639,29 @@ def run_paged_quant_case(gen, mode, t, hq, hkv, lens, dtype, d=128, ps=16,
                         q, kc, vc, pt, ln, k_scales=ks, v_scales=vs)))
 
 
+def _packed_segments(b, s, docs, shift=0):
+    """[b, s] int32 ids of the packer's layout: documents of the lengths
+    in `docs` (cycled, row r starting at docs[r + shift]) back to back."""
+    import torch
+
+    rows = torch.zeros((b, s), dtype=torch.int32)
+    for r in range(b):
+        pos, j = 0, 0
+        while pos < s:
+            n = min(docs[(r + shift + j) % len(docs)], s - pos)
+            rows[r, pos:pos + n] = j
+            pos, j = pos + n, j + 1
+    return rows
+
+
+VISIT_DOCS = [37, 100, 700, 64, 20, 150, 500, 90, 33, 7, 200, 41]
+
+
 def engine_frame_segments():
     """Segment ids of the one packed frame the 7B engine builds for phase
     4's prompts (17, 60 and 100 tokens at 32-row aligned starts of a
     256-row frame; pads carry segment 3), and a [4, 2048] frame of the
-    packer's layout (documents of 37-700 tokens back to back)."""
+    packer's layout (documents of 7-700 tokens back to back)."""
     import torch
 
     frame = torch.full((1, 256), 3, dtype=torch.int32)
@@ -646,39 +669,88 @@ def engine_frame_segments():
     for j, n in enumerate((17, 60, 100)):
         frame[0, off:off + n] = j
         off += -(-n // 32) * 32
-    rows = torch.zeros((4, 2048), dtype=torch.int32)
-    docs = [37, 100, 700, 64, 20, 150, 500, 90, 33, 7, 200, 41]
-    for r in range(4):
-        pos, j = 0, 0
-        while pos < 2048:
-            n = min(docs[(r + j) % len(docs)], 2048 - pos)
-            rows[r, pos:pos + n] = j
-            pos, j = pos + n, j + 1
-    return {"engine_frame_s256": frame.cuda(), "packed_b4_s2048": rows.cuda()}
+    return {"engine_frame_s256": frame.cuda(),
+            "packed_b4_s2048": _packed_segments(4, 2048, VISIT_DOCS).cuda()}
 
 
-def run_flash_visit_case(seg):
+def visit_cases():
+    """(label, kind, kwargs): the flash counter over the engine's frame and
+    packed frames (the training geometry B 1 x S 4096, a long S 32768 row,
+    blocks other than the forward's 64 x 64 and not causal) and the page
+    counter over decode batches of 8 and 256 rows at pages of 1, 4 and 16
+    (max_seq_len 4096), lens 0 and over capacity included."""
+    import numpy as np
+
+    frames = engine_frame_segments()
+    s4096 = _packed_segments(1, 4096, VISIT_DOCS).cuda()
+    cases = [(f"flash_{k}", "flash", dict(seg=v))
+             for k, v in frames.items()]
+    cases += [
+        ("flash_packed_b1_s4096", "flash", dict(seg=s4096)),
+        ("flash_packed_b1_s32768", "flash",
+         dict(seg=_packed_segments(1, 32768, VISIT_DOCS + [4000, 9000],
+                                   shift=3).cuda())),
+        ("flash_bq64_bk32_s4096", "flash", dict(seg=s4096, bq=64, bk=32)),
+        ("flash_bq32_bk128_s4096", "flash", dict(seg=s4096, bq=32, bk=128)),
+        ("flash_bq1_bk1_s4096", "flash", dict(seg=s4096, bq=1, bk=1)),
+        ("flash_packed_b4_s2048_noncausal", "flash",
+         dict(seg=frames["packed_b4_s2048"], causal=False)),
+        ("paged_decode_b8", "paged",
+         dict(lens=[0, 1, 17, 4095, 100, 2048, 300, 3000]))]
+    rng = np.random.default_rng(0)
+    for ps in (1, 4, 16):
+        pages = 4096 // ps
+        lens = [0, 0, 4096, 5000, 2**31 - 1] + rng.integers(
+            0, 4096 + 3 * ps, 251).tolist()
+        cases.append((f"paged_b256_ps{ps}", "paged",
+                      dict(lens=lens, ps=ps, pages_per_seq=pages)))
+    return cases
+
+
+def _device_ms_retry(fn, name):
+    """Device ms a call of `fn` of its kernels named `name`; the profiler
+    can drop a whole window's events, so up to 3 windows are taken."""
+    for _ in range(3):
+        by = _device_ms_by_kernel(fn)
+        hits = [ms for k, ms in by.items() if name in k]
+        if hits:
+            return sum(hits)
+    raise AssertionError(f"the profiler recorded no {name} in 3 windows")
+
+
+def launch_floor_ms():
+    """Device ms of one 1-element torch fill: what any launch costs."""
+    import torch
+
+    one = torch.empty(1, device="cuda")
+    return _device_ms_retry(lambda: one.fill_(1.0), "")
+
+
+def run_flash_visit_case(seg, bq=None, bk=None, causal=True):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-    got = fa.segment_block_visit_counts(seg)
-    plain = fa.segment_block_visit_reference(seg)
+    bq, bk = bq or fa.FWD_BLOCK_Q, bk or fa.FWD_BLOCK_K
+    got = fa.segment_block_visit_counts(seg, bq, bk, causal)
+    plain = fa.segment_block_visit_reference(seg, bq, bk, causal)
     exact = bool((got == plain).all())
-    call = lambda: fa.segment_block_visit_counts(seg)  # noqa: E731
+    call = lambda: fa.segment_block_visit_counts(seg, bq, bk, causal)  # noqa
     call_ms = _cuda_ms(call)
-    ms = _device_ms_sum(call, "flash_visit_kernel")  # device, as row 6
-    plain_ms = _cuda_ms(lambda: fa.segment_block_visit_reference(seg))
+    ms = _device_ms_retry(call, "flash_visit_kernel")
+    plain_ms = _cuda_ms(lambda: fa.segment_block_visit_reference(
+        seg, bq, bk, causal))
     b, s = seg.shape
-    nq, nk = s // fa.FWD_BLOCK_Q, s // fa.FWD_BLOCK_K
-    # each id read once, a count written; one range test a causal pair of
-    # blocks plus the min/max of each block's ids
-    tests = b * sum(min(((i + 1) * fa.FWD_BLOCK_Q + fa.FWD_BLOCK_K - 1)
-                        // fa.FWD_BLOCK_K, nk) for i in range(nq))
+    nq, nk = s // bq, s // bk
+    # each id read once, a count written; one range test a (causal) pair
+    # of blocks plus the min/max of each block's ids
+    tests = b * sum((-(-(i + 1) * bq // bk) if causal else nk)
+                    for i in range(nq))
     bound_ms, bound_by = _bound(seg.numel() * 4 + b * nq * 4,
                                 2 * seg.numel() + 2 * tests, "float32")
     return dict(ok=exact, max_abs_err=0 if exact else None,
                 visited=int(got.sum()), causal_blocks=tests, ms=ms,
                 call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, blocks=[bq, bk],
+                causal=causal)
 
 
 def run_page_visit_case(lens, ps=16, pages_per_seq=256):
@@ -693,7 +765,7 @@ def run_page_visit_case(lens, ps=16, pages_per_seq=256):
     exact = bool((got == plain).all()) and got.tolist() == closed
     call = lambda: pa.page_visit_counts(ln, ps, pages_per_seq)  # noqa
     call_ms = _cuda_ms(call)
-    ms = _device_ms_sum(call, "page_visit_kernel")
+    ms = _device_ms_retry(call, "page_visit_kernel")
     plain_ms = _cuda_ms(lambda: pa.page_visit_reference(ln, ps,
                                                         pages_per_seq))
     bound_ms, bound_by = _bound(8 * len(lens), len(lens) * pages_per_seq,
@@ -701,30 +773,57 @@ def run_page_visit_case(lens, ps=16, pages_per_seq=256):
     return dict(ok=exact, max_abs_err=0 if exact else None,
                 visited=int(got.sum()), pages=len(lens) * pages_per_seq,
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, page_size=ps)
+
+
+def run_visit_cases():
+    """{label: result} of every visit case, each with the launch floor
+    measured beside it in the same process."""
+    floor = launch_floor_ms()
+    out = {}
+    for label, kind, kw in visit_cases():
+        r = (run_flash_visit_case(**kw) if kind == "flash"
+             else run_page_visit_case(**kw))
+        r["launch_floor_ms"] = floor
+        out[label] = r
+        total = r["causal_blocks"] if kind == "flash" else r["pages"]
+        print(f"{kind}_visit {label}: exact {r['ok']} visited "
+              f"{r['visited']}/{total} ms {r['ms']:.4f} (device; launch "
+              f"floor {floor:.4f}; call {r['call_ms']:.4f}) plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.6f}",
+              flush=True)
+    return out
 
 
 def _device_ms_by_kernel(fn, reps=5):
     """{kernel name: device ms per call of `fn`} over `reps` calls, from
     torch.profiler: a kernel's mean over the launches the profiler
-    recorded, times its launches a call. The profiler can drop a launch's
-    event late in a long process, so the recorded launches are counted,
-    and the launches a call are their count over `reps`, rounded."""
+    recorded, times its launches a call. The profiler drops a launch's
+    event now and then, so the recorded launches are counted, and the
+    launches a call are their count over `reps`, rounded; it also drops
+    whole windows, now and then several in a row, so a window with no
+    kernel at all (every `fn` here launches one) is taken again after a
+    pause, up to 5 times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / e.count
-            * max(1, round(e.count / reps))
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key: e.self_device_time_total / 1e3 / e.count
+              * max(1, round(e.count / reps))
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0}
+        if by:
+            return by
+        time.sleep(0.05)
+    return by
 
 
 def _kernel_ms(by_kernel, name):
@@ -1530,19 +1629,7 @@ def phase_kernels(seed, report):
               f"{r['excess_err']:.3g} (tol {r['excess_tol']}) row rel "
               f"{r['max_rel_err']:.3g} " + _paged_speed_text(r), flush=True)
         torch.cuda.empty_cache()
-    visits = {}
-    for label, seg in engine_frame_segments().items():
-        visits[f"flash_{label}"] = r = run_flash_visit_case(seg)
-        print(f"flash_visit {label}: exact {r['ok']} visited {r['visited']}"
-              f"/{r['causal_blocks']} ms {r['ms']:.4f} (device; call "
-              f"{r['call_ms']:.4f}) plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{r['bound_ms']:.6f}", flush=True)
-    visits["paged_decode_b8"] = r = run_page_visit_case(
-        [0, 1, 17, 4095, 100, 2048, 300, 3000])
-    print(f"paged_visit decode_b8: exact {r['ok']} visited {r['visited']}/"
-          f"{r['pages']} ms {r['ms']:.4f} (device; call {r['call_ms']:.4f}) "
-          f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.6f}",
-          flush=True)
+    visits = run_visit_cases()
     report["paged_quant_cases"], report["visit_cases"] = paged_q, visits
     bwd = {}
     for label, kw in flash_bwd_cases(gen):
@@ -3387,6 +3474,8 @@ def kernels_line(report):
                          else sum(p.get(name, 0) for p in paths)),
             "max_abs_err": case.get("max_abs_err"), "ms": case.get("ms"),
             **({"call_ms": case["call_ms"]} if "call_ms" in case else {}),
+            **({"launch_floor_ms": case["launch_floor_ms"]}
+               if "launch_floor_ms" in case else {}),
             "plain_ms": case.get("plain_ms"),
             "bound_ms": case.get("bound_ms"),
             "bound_by": case.get("bound_by"),
@@ -3447,16 +3536,16 @@ def main(argv=None) -> int:
                         for n in _build.kernel_names()},
               "failed": []}
     spills = []
-    # the sm90 core's kernels, the paged tensor-core kernel and the RMSNorm
-    # ring kernels
+    # the sm90 core's kernels, the paged tensor-core kernel, the RMSNorm
+    # ring kernels and the two visit counters
     for src in ("grouped_matmul", "fused_ce", "ce_bwd", "paged_attention",
-                "rmsnorm"):
+                "rmsnorm", "flash_fwd"):
         lines = report["ptxas"][src]
         for i, ln in enumerate(lines):
             if "Compiling entry" in ln and (
                     "wgmma_kernel" in ln or "tf32_kernel" in ln
                     or "paged_decode_kernel_mma" in ln
-                    or "_ring_kernel" in ln):
+                    or "_ring_kernel" in ln or "visit_kernel" in ln):
                 print("ptxas " + " | ".join(x.strip() for x in lines[i:i + 3]),
                       flush=True)
                 if not any("0 bytes spill stores, 0 bytes spill loads" in x

@@ -19,7 +19,9 @@
 //    ptt::blocks_can_touch and the causal bound admit, the forward's own
 //    skip rules; at the tiles of FwdTile below (64 x 64 at head_dim 128,
 //    the serving path's) it counts the tiles the bf16 kernel visits, at
-//    64 x 32 the fp32 kernel's.
+//    64 x 32 the fp32 kernel's. Its design (each block's id range reduced
+//    once a CTA into shared memory, every block pair tested in parallel,
+//    counts by warp ballot) is noted above the kernel.
 //
 // What bounds it: two products of 2 D flops per visible (query, key) pair
 // and head against O(S D) bytes, so operations at prefill and training
@@ -505,52 +507,227 @@ int launch_mma(const void* q, const void* k, const void* v, const int* seg,
   return (int)cudaGetLastError();
 }
 
-// One warp a (q block, row): the block's segment-id range, then the count
-// of K blocks kb < last whose range can touch it, last = ceil((qi + 1) bq /
-// bk) when causal (the JAX kernel's bound), S / bk otherwise.
-__global__ void flash_visit_kernel(const int* __restrict__ seg,
-                                   int* __restrict__ counts, int S, int bq,
-                                   int bk, int causal) {
-  const int qi = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  const int* row = seg + (long long)b * S;
-  int qmin = INT_MAX, qmax = INT_MIN;
-  for (int r = lane; r < bq; r += 32) {
-    const int s = row[qi * bq + r];
-    qmin = min(qmin, s);
-    qmax = max(qmax, s);
-  }
-  qmin = ptt::warp_min_i(qmin);
-  qmax = ptt::warp_max_i(qmax);
-  const int last = causal ? ((qi + 1) * bq + bk - 1) / bk : S / bk;
-  int n = 0;
-  for (int kb = 0; kb < last; ++kb) {
-    int kmin = INT_MAX, kmax = INT_MIN;
-    for (int r = lane; r < bk; r += 32) {
-      const int s = row[kb * bk + r];
-      kmin = min(kmin, s);
-      kmax = max(kmax, s);
+// ---- the block-visit counter ----------------------------------------------
+// Replaces `_visit_kernel` (paddle_tpu/ops/pallas/flash_attention.py:507,
+// launched at :550), which walks the K blocks kb < last of one (row, q
+// block) a grid step, reducing each K block's ids again in every q block
+// that reaches it. What bounds it here: the bytes are one read of the ids
+// (16-128 KB at S 4096-32768) and the operations one range test a pair of
+// blocks, both far under a microsecond, so the launch and the chain of
+// dependent instructions inside a CTA set the time (on an H100 a
+// 1-element fill takes 0.0010 ms of device time, this kernel 0.0014-0.0017
+// at the forward's tiles up to S 4096). The design keeps that chain short
+// and independent of S:
+//  * A CTA owns one row's chunk of `qchunk` q blocks (the plan in
+//    flash_attention.visit_plan spreads a row over about as many CTAs as
+//    the card has SMs, longest chunks first). It reduces each K block it
+//    needs (kb below its last q block's causal bound, all of them when not
+//    causal) and each of its q blocks to (min, max) ONCE, into tables in
+//    shared memory; when bq == bk and the K blocks fit one table, the q
+//    blocks' ranges are read from the K table.
+//  * The row's ids are read once a CTA, by plain loads from L2: 16-byte
+//    loads (int4) where the row is 16-byte aligned (the pointer is tested:
+//    a view with a storage offset can break it), S % 4 == 0 and the block
+//    a multiple of 4 ids, scalar loads otherwise. Bulk copies on an
+//    mbarrier would land the same bytes in shared memory only to be read
+//    once again from there; each id is used once, so registers are enough.
+//    A block goes to a group of L lanes, L the least power of two whose
+//    lanes read it in kVisitUnroll loads each, issued together, so a CTA
+//    reads its ids in one round of loads and 2-5 shuffle steps; the plan
+//    sizes the CTA (threads) for one pass up to S 16384.
+//  * After one barrier each warp takes q blocks; its lanes stride over the
+//    K blocks kb < last (the JAX kernel's bound: ceil((qi + 1) bq / bk)
+//    when causal, S / bk otherwise) and test ptt::blocks_can_touch, the
+//    forward kernel's own skip predicate, on the tables; __ballot_sync +
+//    __popc count 32 blocks a step (every lane votes, lanes past `last`
+//    vote false). Each count has one owner warp; no atomics.
+//  * The forward's 64 x 64 tiles with 16-byte loads take an instantiation
+//    whose block arithmetic is fixed at compile time (kFast): the runtime
+//    divisions, loops and branches of the general body cost as much as
+//    the loads (on an H100, 0.0024 against 0.0016 ms at B 4 x S 2048).
+//  * Tables past kVisitKTile K blocks (bq = bk = 1 at long S) are taken in
+//    tiles of kVisitKTile, the counts summed in shared memory by their
+//    owners. Shared memory stays under 48 KB: no opt-in.
+constexpr int kVisitKTile = 2048;      // K-table entries a pass (16 KB)
+constexpr int kVisitMaxQChunk = 1024;  // q blocks a CTA
+constexpr int kVisitMinThreads = 128;
+constexpr int kVisitMaxThreads = 1024;
+constexpr int kVisitLoads = 4;         // 16-byte loads a thread, for sizing
+constexpr int kVisitUnroll = 4;        // loads a lane issues at once
+constexpr int kVisitFastBlock = 64;    // bq == bk of the forward's tiles
+static_assert(kVisitKTile * 8 + kVisitMaxQChunk * 12 <= 48 * 1024,
+              "the visit tables fit without the shared-memory opt-in");
+
+__device__ __forceinline__ int lo_of(int v) { return v; }
+__device__ __forceinline__ int hi_of(int v) { return v; }
+__device__ __forceinline__ int lo_of(int4 v) {
+  return min(min(v.x, v.y), min(v.z, v.w));
+}
+__device__ __forceinline__ int hi_of(int4 v) {
+  return max(max(v.x, v.y), max(v.z, v.w));
+}
+
+// tab[i] = (min, max) of the ids of block first + i of `bs` ids, i < n;
+// T = int4 (bs % 4 == 0, the row 16-byte aligned) or int. A block goes to
+// a group of L lanes, L the least power of two (at most 32) whose lanes
+// read it in kVisitUnroll loads each, issued together; neighbouring groups
+// take neighbouring blocks, and a group's xor shuffles stay in its lanes.
+// kPer > 0 fixes the loads a block (bs / 4 or bs) at compile time.
+template <typename T, int kPer = 0>
+__device__ __forceinline__ void visit_ranges(const int* __restrict__ row,
+                                             int first, int n, int bs,
+                                             int2* tab) {
+  constexpr int kIds = sizeof(T) / sizeof(int);
+  const int per = kPer > 0 ? kPer : bs / kIds;       // loads a block, >= 1
+  const int x = (per + kVisitUnroll - 1) / kVisitUnroll;
+  const int lg = x <= 1 ? 0 : min(5, 32 - __clz(x - 1));   // L = 2^lg
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> lg, sub = lane & ((1 << lg) - 1), groups = 32 >> lg;
+  const int step = (blockDim.x >> 5) * groups;  // blocks a pass of the CTA
+  const T* base = reinterpret_cast<const T*>(row + (long long)first * bs);
+  for (int w0 = warp * groups; w0 < n; w0 += step) {   // warp-uniform
+    const int i = w0 + g;
+    const T* blk = base + i * per;
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int j0 = sub; j0 < per; j0 += kVisitUnroll << lg) {
+      T v[kVisitUnroll];
+#pragma unroll
+      for (int u = 0; u < kVisitUnroll; ++u) {
+        v[u] = T{};
+        if (i < n && j0 + (u << lg) < per) v[u] = __ldg(blk + j0 + (u << lg));
+      }
+#pragma unroll
+      for (int u = 0; u < kVisitUnroll; ++u)
+        if (i < n && j0 + (u << lg) < per) {
+          lo = min(lo, lo_of(v[u]));
+          hi = max(hi, hi_of(v[u]));
+        }
     }
-    kmin = ptt::warp_min_i(kmin);
-    kmax = ptt::warp_max_i(kmax);
-    n += ptt::blocks_can_touch(qmin, qmax, kmin, kmax) ? 1 : 0;
+    for (int o = 1 << lg >> 1; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    if (i < n && sub == 0) tab[i] = make_int2(lo, hi);
   }
-  if (lane == 0) counts[(long long)b * gridDim.x + qi] = n;
+}
+
+// The K blocks a causal q range [0, q_end) of bq-row blocks reaches:
+// ceil(q_end bq / bk), q_end itself when bq == bk (no division).
+__device__ __forceinline__ int k_reach(int q_end, int bq, int bk) {
+  return bq == bk ? q_end : (q_end * bq + bk - 1) / bk;
+}
+
+// The K blocks kb in [k0, end) of the table (entry kb - k0) whose range
+// can touch qr: lane l tests kb0 + l, one ballot a 32 (every lane votes).
+__device__ __forceinline__ int visit_count(int2 qr, const int2* ktab, int k0,
+                                           int end) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+#pragma unroll 4
+  for (int kb0 = k0; kb0 < end; kb0 += 32) {   // warp-uniform bound
+    const int kb = kb0 + lane;
+    bool touch = false;
+    if (kb < end) {
+      const int2 kr = ktab[kb - k0];
+      touch = ptt::blocks_can_touch(qr.x, qr.y, kr.x, kr.y);
+    }
+    n += __popc(__ballot_sync(0xffffffffu, touch));
+  }
+  return n;
+}
+
+// grid (chunks, B): x the row's q-block chunk, longest first; y the row.
+// kFast: the forward's tiles (bq == bk == kVisitFastBlock, 16-byte loads,
+// one K tile, the q ranges read from the K table) with the loads a block
+// fixed at compile time; the general body otherwise. Nearly all of this
+// kernel's time is its one chain of dependent instructions, so the
+// forward's tiles get that chain with no runtime block arithmetic.
+template <bool kFast>
+__global__ void __launch_bounds__(kVisitMaxThreads)
+flash_visit_kernel(const int* __restrict__ seg, int* __restrict__ counts,
+                   int S, int nq, int nk, int bq, int bk, int causal,
+                   int qchunk, int vec) {
+  extern __shared__ int2 visit_smem[];
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * qchunk;
+  const int nqc = min(qchunk, nq - q0);
+  const int* row = seg + (long long)b * S;
+  int* out = counts + (long long)b * nq + q0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int2* ktab = visit_smem;
+  if constexpr (kFast) {
+    const int kend = causal ? q0 + nqc : nk;
+    visit_ranges<int4, kVisitFastBlock / 4>(row, 0, kend, kVisitFastBlock,
+                                            ktab);
+    __syncthreads();
+    for (int j = warp; j < nqc; j += warps) {
+      const int qb = q0 + j;
+      const int n = visit_count(ktab[qb], ktab, 0, causal ? qb + 1 : nk);
+      if (lane == 0) out[j] = n;
+    }
+    return;
+  }
+  const int kend = causal ? k_reach(q0 + nqc, bq, bk) : nk;
+  const int ktile = min(kVisitKTile, nk);
+  const bool sep = bq != bk || nk > kVisitKTile;
+  int2* qtab = sep ? ktab + ktile : ktab;
+  int* cnt = reinterpret_cast<int*>(ktab + ktile + (sep ? qchunk : 0));
+  const bool one_tile = kend <= ktile;
+  for (int k0 = 0; k0 < kend; k0 += ktile) {
+    const int k1 = min(kend, k0 + ktile);
+    if (k0 > 0) __syncthreads();   // every warp is done with the last tile
+    if (vec && bk % 4 == 0) visit_ranges<int4>(row, k0, k1 - k0, bk, ktab);
+    else visit_ranges<int>(row, k0, k1 - k0, bk, ktab);
+    if (k0 == 0 && sep) {
+      if (vec && bq % 4 == 0) visit_ranges<int4>(row, q0, nqc, bq, qtab);
+      else visit_ranges<int>(row, q0, nqc, bq, qtab);
+    }
+    __syncthreads();
+    for (int j = warp; j < nqc; j += warps) {
+      const int qb = q0 + j;
+      const int n = visit_count(qtab[sep ? j : qb], ktab, k0,
+                                min(causal ? k_reach(qb + 1, bq, bk) : nk,
+                                    k1));
+      if (lane == 0) {
+        if (one_tile) out[j] = n;
+        else cnt[j] = (k0 == 0 ? 0 : cnt[j]) + n;
+      }
+    }
+  }
+  if (!one_tile && lane == 0)
+    for (int j = warp; j < nqc; j += warps) out[j] = cnt[j];
 }
 
 }  // namespace
 
 // Block-visit counter: counts [B, S / bq] int32 from segment ids [B, S]
-// int32; S must be a multiple of bq and bk (the wrapper checks).
+// int32; S must be a multiple of bq and bk (the wrapper checks). qchunk
+// (q blocks a CTA) and threads come from flash_attention.visit_plan.
 extern "C" int ptt_flash_visit(const int* seg, int* counts, int B, int S,
-                               int bq, int bk, int causal, int device,
-                               void* stream) {
+                               int bq, int bk, int causal, int qchunk,
+                               int threads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S <= 0) return 0;
-  if (bq <= 0 || bk <= 0 || S % bq || S % bk) return (int)cudaErrorInvalidValue;
-  flash_visit_kernel<<<dim3(S / bq, B), 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(seg, counts, S, bq,
-                                                            bk, causal);
+  if (bq <= 0 || bk <= 0 || S % bq || S % bk || qchunk <= 0 ||
+      qchunk > kVisitMaxQChunk || threads < 32 ||
+      threads > kVisitMaxThreads || threads % 32 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int nq = S / bq, nk = S / bk, chunks = (nq + qchunk - 1) / qchunk;
+  const int ktile = nk < kVisitKTile ? nk : kVisitKTile;
+  const bool sep = bq != bk || nk > kVisitKTile;
+  const size_t smem = sizeof(int2) * (ktile + (sep ? qchunk : 0)) +
+                      sizeof(int) * qchunk;
+  const int vec = reinterpret_cast<uintptr_t>(seg) % 16 == 0 && S % 4 == 0;
+  const dim3 grid(chunks, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec && !sep && bk == kVisitFastBlock)
+    flash_visit_kernel<true><<<grid, threads, smem, st>>>(
+        seg, counts, S, nq, nk, bq, bk, causal, qchunk, vec);
+  else
+    flash_visit_kernel<false><<<grid, threads, smem, st>>>(
+        seg, counts, S, nq, nk, bq, bk, causal, qchunk, vec);
   return (int)cudaGetLastError();
 }
 

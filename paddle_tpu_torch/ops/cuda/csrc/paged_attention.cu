@@ -985,18 +985,35 @@ int launch_kv(int is_bf16, int route, int kv_kind, int D, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
-// One thread a row: the pages the decode kernel computes on, by its own
-// predicate over [0, len - 1] (len 0 visits none).
-__global__ void page_visit_kernel(const int* __restrict__ lens,
-                                  int* __restrict__ counts, int B, int ps,
-                                  int pages_per_seq) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// The page-visit counter: replaces `_visit_kernel` (paddle_tpu/ops/pallas/
+// paged_attention.py:372, launched at :400), a grid step a row that tests
+// the pages one after another. Here a row is a warp's (kPageVisitWarps
+// rows a block): its lanes take 32 pages a step and test each by the
+// decode kernel's own predicate, ptt::blocks_can_touch over the page's
+// positions [p ps, p ps + ps - 1] and [0, len - 1] (len <= 0 visits none;
+// p ps in int32, as the decode kernel and JAX compute it), and one
+// __ballot_sync + __popc counts the step (every lane votes, lanes past
+// pages_per_seq vote false): 8 ballots for 256 pages, not 256 serial
+// tests. Counting by the predicate, not by ceil(len / ps), is the point:
+// the counter shows what the decode kernel reads. Lane 0 writes the
+// row's count; no atomics.
+constexpr int kPageVisitWarps = 8;
+
+__global__ void __launch_bounds__(kPageVisitWarps * 32)
+page_visit_kernel(const int* __restrict__ lens, int* __restrict__ counts,
+                  int B, int ps, int pages_per_seq) {
+  const int b = blockIdx.x * kPageVisitWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;                  // the whole warp
   const int len = lens[b];
   int n = 0;
-  for (int p = 0; p < pages_per_seq; ++p)
-    n += ptt::blocks_can_touch(0, len - 1, p * ps, p * ps + ps - 1) ? 1 : 0;
-  counts[b] = n;
+  for (int p0 = 0; p0 < pages_per_seq; p0 += 32) {
+    const int p = p0 + lane;
+    const bool touch = p < pages_per_seq &&
+        ptt::blocks_can_touch(0, len - 1, p * ps, p * ps + ps - 1);
+    n += __popc(__ballot_sync(0xffffffffu, touch));
+  }
+  if (lane == 0) counts[b] = n;
 }
 
 }  // namespace
@@ -1044,7 +1061,8 @@ extern "C" int ptt_page_visit(const int* lens, int* counts, int B, int ps,
   if (err != cudaSuccess) return (int)err;
   if (B <= 0) return 0;
   if (ps <= 0 || pages_per_seq < 0) return (int)cudaErrorInvalidValue;
-  page_visit_kernel<<<(B + 127) / 128, 128, 0,
+  page_visit_kernel<<<(B + kPageVisitWarps - 1) / kPageVisitWarps,
+                      kPageVisitWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(lens, counts, B, ps,
                                                            pages_per_seq);
   return (int)cudaGetLastError();

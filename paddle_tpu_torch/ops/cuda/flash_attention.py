@@ -41,7 +41,9 @@ kernel name.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -51,7 +53,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "flash_attention_bwd_dkv_reference", "FlashAttention",
            "segment_block_visit_counts", "segment_block_visit_reference",
            "FWD_BLOCK_Q", "FWD_BLOCK_K", "LAUNCHES", "reset_launches",
-           "launch_counts"]
+           "launch_counts", "VisitPlan", "visit_plan"]
 
 _NEG_INF = -1e30
 
@@ -398,15 +400,78 @@ def segment_block_visit_reference(segment_ids, block_q: int = FWD_BLOCK_Q,
     return touch.sum(-1).to(torch.int32)
 
 
+# The block-visit counter's work plan (kVisit* in csrc/flash_fwd.cu): K
+# blocks a table pass, q blocks a CTA, threads a CTA, 16-byte loads a
+# thread the CTA is sized for.
+VISIT_K_TILE, VISIT_MAX_QCHUNK = 2048, 1024
+VISIT_MIN_THREADS, VISIT_MAX_THREADS, VISIT_LOADS = 128, 1024, 4
+
+
+class VisitPlan(NamedTuple):
+    chunks: int         # CTAs a row
+    qchunk: int         # q blocks a CTA
+    threads: int        # threads a CTA
+    ktile: int          # K-table entries a pass
+    separate_q: bool    # the q blocks' ranges in a table of their own
+    smem_bytes: int
+
+
+def visit_plan(b: int, s: int, block_q: int, block_k: int,
+               sms: int) -> VisitPlan:
+    """How ``flash_visit_kernel`` covers [b, s] ids: a row's q blocks cut
+    into about `sms` / b chunks, a CTA each (so a few rows still spread
+    over the card), each CTA sized so that it reads the up to s ids it
+    needs in about VISIT_LOADS 16-byte loads a thread and has a warp for
+    each of its q blocks, within the kernel's limits. The kernel computes
+    the same tables and shared memory from qchunk (``ptt_flash_visit``)."""
+    nq, nk = s // block_q, s // block_k
+    chunks = min(nq, max(1, -(-sms // b)))
+    qchunk = min(-(-nq // chunks), VISIT_MAX_QCHUNK)
+    chunks = -(-nq // qchunk)
+    want = max(32 * qchunk, -(-s // (4 * VISIT_LOADS)))
+    threads = VISIT_MIN_THREADS
+    while threads < min(want, VISIT_MAX_THREADS):
+        threads *= 2
+    ktile = min(VISIT_K_TILE, nk)
+    separate = block_q != block_k or nk > VISIT_K_TILE
+    return VisitPlan(chunks, qchunk, threads, ktile, separate,
+                     8 * (ktile + (qchunk if separate else 0)) + 4 * qchunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib_visit():
     from paddle_tpu_torch.ops.cuda._build import load
 
     fn = load("flash_fwd").ptt_flash_visit
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return fn
+
+
+def _launch_visit(seg, block_q, block_k, causal):
+    """One launch of ``flash_visit_kernel`` over contiguous int32 ids
+    [B, S] on the card, by ``visit_plan``."""
+    b, s = seg.shape
+    counts = torch.empty((b, s // block_q), dtype=torch.int32,
+                         device=seg.device)
+    if counts.numel() == 0:
+        return counts
+    index = seg.device.index or 0
+    plan = visit_plan(b, s, block_q, block_k, _sm_count(index))
+    err = _lib_visit()(seg.data_ptr(), counts.data_ptr(), b, s, block_q,
+                       block_k, int(bool(causal)), plan.qchunk, plan.threads,
+                       index, torch.cuda.current_stream(seg.device)
+                       .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_visit launch failed: cudaError {err}")
+    LAUNCHES["flash_visit"] += 1
+    return counts
 
 
 def segment_block_visit_counts(segment_ids, block_q: int = FWD_BLOCK_Q,
@@ -421,16 +486,5 @@ def segment_block_visit_counts(segment_ids, block_q: int = FWD_BLOCK_Q,
     if not segment_ids.is_cuda:
         return segment_block_visit_reference(segment_ids, block_q, block_k,
                                              causal)
-    seg = segment_ids.to(torch.int32).contiguous()
-    b, s = seg.shape
-    counts = torch.empty((b, s // block_q), dtype=torch.int32,
-                         device=seg.device)
-    if counts.numel() == 0:
-        return counts
-    err = _lib_visit()(seg.data_ptr(), counts.data_ptr(), b, s, block_q,
-                       block_k, int(bool(causal)), seg.device.index or 0,
-                       torch.cuda.current_stream(seg.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_visit launch failed: cudaError {err}")
-    LAUNCHES["flash_visit"] += 1
-    return counts
+    return _launch_visit(segment_ids.to(torch.int32).contiguous(), block_q,
+                         block_k, causal)

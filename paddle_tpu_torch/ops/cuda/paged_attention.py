@@ -297,14 +297,24 @@ def page_visit_counts(context_lens, page_size: int, pages_per_seq: int):
                          f"{tuple(context_lens.shape)}")
     if not context_lens.is_cuda:
         return page_visit_reference(context_lens, page_size, pages_per_seq)
-    lens = context_lens.to(torch.int32).contiguous()
+    return _launch_page_visit(context_lens.to(torch.int32).contiguous(),
+                              page_size, pages_per_seq)
+
+
+# rows a block of ``page_visit_kernel``, a warp each (kPageVisitWarps in
+# csrc/paged_attention.cu)
+PAGE_VISIT_WARPS = 8
+
+
+def _launch_page_visit(lens, page_size, pages_per_seq):
+    """One launch of ``page_visit_kernel`` over contiguous int32 lens [B]
+    on the card."""
     counts = torch.empty_like(lens)
     if lens.numel() == 0:
         return counts
-    fn = _lib_visit()
-    err = fn(lens.data_ptr(), counts.data_ptr(), lens.numel(), page_size,
-             pages_per_seq, lens.device.index or 0,
-             torch.cuda.current_stream(lens.device).cuda_stream)
+    err = _lib_visit()(lens.data_ptr(), counts.data_ptr(), lens.numel(),
+                       page_size, pages_per_seq, lens.device.index or 0,
+                       torch.cuda.current_stream(lens.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_visit launch failed: cudaError {err}")
     LAUNCHES["paged_visit"] += 1
