@@ -73,7 +73,9 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     (1, 1), a non-causal frame, and decode batches of 8 and 256 rows at
     pages of 1, 4 and 16 (lens 0 and over capacity), each printing its
     device ms beside the launch floor (one 1-element fill's device ms),
-    and with the grouped matmul's visit counter print their device ms;
+    as the grouped matmul's visit counter does over the dispatcher's
+    layout at 8 and at 64 experts and the unaligned block_rows 8 one,
+    exact against both its plain versions;
     the fused-CE backward's kernels
     (``csrc/ce_bwd.cu``: the logits with the d-logits epilogue, dx and dW
     as bf16 products of d's three bf16 pieces, all on the wgmma/TMA core)
@@ -95,7 +97,12 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     within 2^-5 of each row's max |logit| (bf16 rounds in another order
     on each device), the streams' agreement reported; and the model in
     bf16 with bf16 pages of 4 keys (the CUDA-core paged kernel): page
-    tables and greedy streams equal to the CPU engine's;
+    tables and greedy streams equal to the CPU engine's; then
+    speculative engines (the fp32 GQA model at spec_k 3 over fp32, int8
+    and fp8 pools; a GQA 8:1 model at spec_k 8, whose 72-row verify
+    frames launch the paged kernel twice a layer): streams equal to the
+    CUDA plain engine's and the CPU speculative engine's, page tables
+    and each step's committed tokens equal to the CPU's;
  4. the LLaMA-2-7B geometry (32 layers, hidden 4096, 32 heads, bf16, random
     weights from --seed) serving 8 greedy requests of mixed prompt length
     (packed, single-chunk and multi-chunk prefill), with every kernel's
@@ -105,6 +112,12 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     paged kernels' device ms a step; the decode must run the tensor-core
     paged kernel, as the int8 and fp8 serves' decode must too);
  5. HTTP: serve_http, one streamed POST /generate, clean shutdown;
+    then phase 4's prompts on its engine at spec_k 0 and at spec_k 4
+    (decode tokens/s of both, accepted tokens a verify step, the verify
+    step's paged kernel, the first verify step's position-0 logits held
+    bit for bit to plain decode's with the frame's projections run
+    position by position, the engine's own frame's error printed, the
+    streams' agreement with phase 4's; every page free after);
     then, on the same model with the bf16 pools freed: a fresh bf16
     engine serves phase 4's prompts again and once more with K/V moved by
     int8's rounding size (the agreement a rounding-sized change leaves at
@@ -1195,12 +1208,16 @@ def _group_offsets(gids, groups):
 
 def gmm_layouts(gen):
     """{name: (gids, block_rows, rows the data needs, groups)}: the
-    full-width dispatcher layout (4 x 2048 tokens, top-2 of 8 experts) and a
-    1000-row unaligned layout for block_rows 8."""
+    full-width dispatcher layout (4 x 2048 tokens, top-2 of 8 experts), a
+    1000-row unaligned layout for block_rows 8, and the dispatcher's layout
+    at 64 experts (top-2, 4 x 2048 tokens; only the visit counter runs it:
+    more groups than a ballot's 32 lanes)."""
     full, bm, routed = _dispatch_layout(gen, 4 * 2048, 8, 2)
     unal = _unaligned_layout(gen, 1000, 8, 37)
+    g64, bm64, routed64 = _dispatch_layout(gen, 4 * 2048, 64, 2)
     return {"dispatch": (full, bm, routed, 8),
-            "unaligned_bm8": (unal, 8, int((unal < 8).sum()), 8)}
+            "unaligned_bm8": (unal, 8, int((unal < 8).sum()), 8),
+            "dispatch_g64": (g64, bm64, routed64, 64)}
 
 
 def gmm_fwd_cases(layouts):
@@ -1474,7 +1491,7 @@ def run_gmm_visit_case(layout):
              and np.array_equal(got.cpu().numpy(), want))
     call = lambda: gm.grouped_matmul_visit_counts(gids, groups, bm)  # noqa
     call_ms = _cuda_ms(call)
-    ms = _device_ms_sum(call, "gmm_visit_kernel")   # device, as row 6
+    ms = _device_ms_retry(call, "gmm_visit_kernel")
     plain_ms = _cuda_ms(lambda: gm.grouped_matmul_visit_reference(
         gids, groups, bm))
     blocks = gids.shape[0] // bm
@@ -1482,8 +1499,27 @@ def run_gmm_visit_case(layout):
                                 blocks * groups, "float32")
     return dict(ok=exact, max_abs_err=0 if exact else None,
                 visited_tiles=int(got.sum()), total_tiles=blocks * groups,
-                blocks=blocks, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                blocks=blocks, block_rows=bm, groups=groups, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def run_gmm_visit_cases(layouts):
+    """{label: result} of the grouped visit counter over `layouts`
+    (``gmm_layouts``), each exact against both plain versions, with the
+    launch floor measured beside it in the same process."""
+    floor = launch_floor_ms()
+    out = {}
+    for label, lay in layouts.items():
+        out[label] = r = run_gmm_visit_case(lay)
+        r["launch_floor_ms"] = floor
+        print(f"gmm_visit {label}: exact {r['ok']} visited "
+              f"{r['visited_tiles']}/{r['total_tiles']} (block_rows "
+              f"{r['block_rows']}, G {r['groups']}) ms {r['ms']:.4f} "
+              f"(device; launch floor {floor:.4f}; call "
+              f"{r['call_ms']:.4f}) plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{r['bound_ms']:.6f}", flush=True)
+    return out
 
 
 def _multi_group_tiles(gids, groups, rows=128):
@@ -1506,7 +1542,7 @@ def phase_gmm(gen, report):
              for label, lay in layouts.items()}
     print(f"gmm layouts: 128-row tiles holding more than one group "
           f"{json.dumps(multi)}", flush=True)
-    fwd, dx, dw, visit = {}, {}, {}, {}
+    fwd, dx, dw = {}, {}, {}
     for label, lay, d, h, dtype, std in gmm_fwd_cases(layouts):
         fwd[label] = r = run_gmm_fwd_case(gen, layouts[lay], d, h, dtype,
                                           std)
@@ -1557,13 +1593,7 @@ def phase_gmm(gen, report):
               f"{r['plain_ms']:.3f} library_ms none; bf16 _grouped_mm "
               f"{scale} ({r['bf16_grouped_mm']})", flush=True)
         torch.cuda.empty_cache()
-    for label, lay in layouts.items():
-        visit[label] = r = run_gmm_visit_case(lay)
-        print(f"gmm_visit {label}: exact {r['ok']} visited "
-              f"{r['visited_tiles']}/{r['total_tiles']} ms {r['ms']:.4f} "
-              f"(device; call {r['call_ms']:.4f}) plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f}",
-              flush=True)
+    visit = run_gmm_visit_cases(layouts)
     report["gmm_fwd_cases"], report["gmm_dw_cases"] = fwd, dw
     report["gmm_dx_cases"] = dx
     report["gmm_visit_cases"], report["gmm_multi_group_tiles"] = visit, multi
@@ -1884,6 +1914,117 @@ def phase_kv_cuda_vs_cpu(seed, report):
         raise AssertionError(f"KV hierarchy CUDA vs CPU failed for {bad}")
 
 
+def _serve_trace(eng, prompts, new_tokens):
+    """Serve `prompts` one step at a time; returns (streams, trace, stats):
+    after each step, each request's committed count and page table row,
+    by submission index (what a step accepted, and the chains it grew)."""
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    trace = []
+    while eng.busy:
+        eng.step()
+        eng.allocator.check_consistency()
+        trace.append([(len(eng.scheduler.get(r).generated),
+                       eng.allocator.page_table_row(r, eng.pages_per_seq)
+                       .tolist()) for r in rids])
+    streams = [list(eng.scheduler.get(r).generated) for r in rids]
+    for r in rids:
+        eng.release(r)
+    return streams, trace, eng.stats()
+
+
+def phase_spec_cuda_vs_cpu(seed, report):
+    """Speculative decoding on CUDA (the paged kernel in its verify frame)
+    against the CPU (plain versions): phase 3's fp32 GQA model at spec_k
+    3 over fp32, int8 and fp8 pools, and a GQA 8:1 model (8 query heads
+    of 64 on one kv head) at spec_k 8, whose 72-row frames the wrapper
+    cuts into two launches; prefix sharing on, prompts behind a shared
+    system prompt and two that repeat a span (so drafts are accepted).
+    Gates: the CUDA speculative streams equal the CUDA plain engine's and
+    the CPU speculative engine's; page tables and each step's committed
+    counts (the accepted drafts) equal the CPU's; the allocator consistent
+    and every page free after the run; the paged kernel launched in every
+    verify step (twice a layer at GQA 8:1)."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving import ServingEngine
+
+    base = dict(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                num_hidden_layers=2, max_position_embeddings=512)
+    cfgs = {"gqa2": llama_tiny_config(num_attention_heads=4,
+                                      num_key_value_heads=2, **base),
+            "gqa8": llama_tiny_config(num_attention_heads=8,
+                                      num_key_value_heads=1, **base)}
+    cases = [("gqa2_fp32_k3", "gqa2", "model", 3),
+             ("gqa2_int8_k3", "gqa2", "int8", 3),
+             ("gqa2_fp8_k3", "gqa2", "fp8", 3),
+             ("gqa8_fp32_k8", "gqa8", "model", 8)]
+    kw = dict(page_size=16, num_pages=128, decode_batch=4, prefill_chunk=64,
+              pack_frame=128, max_seq_len=256, prefix_sharing=True)
+    rng = np.random.RandomState(seed + 2)
+    system = rng.randint(1, 1024, 40).astype(np.int32)
+    span = rng.randint(1, 1024, 7).astype(np.int32)
+    prompts = ([np.concatenate([system, rng.randint(1, 1024, n)
+                                .astype(np.int32)]) for n in (5, 30, 60)]
+               + [np.tile(span, 6), np.tile(span[:4], 9)])
+    models = {}
+    out, bad = {}, []
+    for label, arch, mode, k in cases:
+        if arch not in models:
+            cpu_model = LlamaForCausalLM(cfgs[arch], device="cpu", seed=seed)
+            gpu_model = LlamaForCausalLM(cfgs[arch], device="cuda")
+            gpu_model.load_state_dict(cpu_model.state_dict())
+            models[arch] = (cpu_model, gpu_model)
+        cpu_model, gpu_model = models[arch]
+        runs = {}
+        for name, dev, model, spec in (("cpu", "cpu", cpu_model, k),
+                                       ("cuda", "cuda", gpu_model, k),
+                                       ("cuda_plain", "cuda", gpu_model, 0)):
+            eng = ServingEngine(model, _engine_cfg(
+                kv_cache_dtype=mode, spec_k=spec, **kw), device=dev)
+            port_cuda.reset_launch_counts()
+            streams, trace, stats = _serve_trace(eng, prompts, 16)
+            counts = port_cuda.launch_counts()
+            runs[name] = dict(
+                streams=streams, trace=trace,
+                steps=stats["decode_steps"],
+                accepted_tokens_per_step=stats["accepted_tokens_per_step"],
+                paged_launches=sum(counts[n] for n in (
+                    "paged_decode", "paged_decode_int8", "paged_decode_fp8")),
+                all_free=eng.allocator.free_pages == eng.num_pages - 1)
+        c, g, p = runs["cpu"], runs["cuda"], runs["cuda_plain"]
+        layers = cfgs[arch].num_hidden_layers
+        per_step = 2 * layers if label.startswith("gqa8") else layers
+        r = dict(streams_equal_plain=g["streams"] == p["streams"],
+                 streams_equal_cpu=g["streams"] == c["streams"],
+                 trace_equal_cpu=g["trace"] == c["trace"],
+                 accepted_tokens_per_step=g["accepted_tokens_per_step"],
+                 cpu_accepted_tokens_per_step=c["accepted_tokens_per_step"],
+                 verify_steps=g["steps"], plain_steps=p["steps"],
+                 paged_launches=g["paged_launches"],
+                 paged_launches_want=per_step * g["steps"],
+                 all_free=g["all_free"] and c["all_free"])
+        r["ok"] = (r["streams_equal_plain"] and r["streams_equal_cpu"]
+                   and r["trace_equal_cpu"] and r["all_free"]
+                   and r["paged_launches"] == r["paged_launches_want"])
+        out[label] = r
+        print(f"spec {label} cuda vs cpu: streams equal to cuda plain "
+              f"{r['streams_equal_plain']} and to cpu "
+              f"{r['streams_equal_cpu']}, page tables and accepted counts "
+              f"equal to cpu {r['trace_equal_cpu']}, accepted tokens a "
+              f"step {r['accepted_tokens_per_step']} ({r['verify_steps']} "
+              f"verify steps against {r['plain_steps']} plain), paged "
+              f"launches {r['paged_launches']} (want "
+              f"{r['paged_launches_want']}), pages all free "
+              f"{r['all_free']}", flush=True)
+        if not r["ok"]:
+            bad.append(label)
+    report["spec_cuda_vs_cpu"] = out
+    if bad:
+        raise AssertionError(f"speculative CUDA vs CPU failed for {bad}")
+
+
 # bf16 rounds activations, K/V and logits in another order on each device:
 # at |logit| near 2 one bf16 step is 2^-6, and a code one quantization
 # step apart adds a step or two; a lost or misapplied scale moves the
@@ -2032,6 +2173,154 @@ def phase_full_width(args, report):
     return eng, prompts, streams
 
 
+SPEC_K = 4                 # the 7B speculative serve's draft window
+
+
+def _timed_serve(eng, prompts):
+    """Phase 4's timed serve of `prompts` on `eng` as it is configured:
+    (streams, launches, decode tokens/s after the first step)."""
+    import torch
+
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    torch.cuda.synchronize()
+    port_cuda.reset_launch_counts()          # the path starts here
+    rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    eng.step()                               # all prefills + step 1
+    torch.cuda.synchronize()
+    t_first = time.perf_counter()
+    at_first = sum(len(eng.scheduler.get(r).generated) for r in rids)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = port_cuda.launch_counts()     # ... and ends here
+    streams = [list(eng.scheduler.get(r).generated) for r in rids]
+    for r in rids:
+        eng.release(r)
+    total = sum(len(x) for x in streams)
+    return streams, launches, (total - at_first) / (t_end - t_first)
+
+
+def _first_step_logits(eng, prompts, spec_k, per_position=False):
+    """The position-0 logits [rows, vocab] (fp32, on the CPU) of the first
+    decode (spec_k 0) or verify step over `prompts`, read by a hook on the
+    LM head (prefill never runs it); the requests are then cancelled.
+    per_position: the step's ``nn.Linear`` calls on the [decode_batch, T >
+    1, H] verify frame (not the prefills' [1, T, H] chunks) run one
+    position at a time, each a GEMM of decode_batch rows as decode's are,
+    so everything else of the frame (RoPE, the masked page writes, the
+    paged kernel's T-query frame, the norms) is held to decode bit for
+    bit."""
+    import torch
+
+    seen = []
+    linear = torch.nn.Linear.forward
+
+    def by_position(self, x):
+        if x.dim() == 3 and x.shape[0] == eng.decode_batch \
+                and x.shape[1] > 1:
+            return torch.cat([linear(self, x[:, i:i + 1])
+                              for i in range(x.shape[1])], dim=1)
+        return linear(self, x)
+
+    handle = eng.model.lm_head.register_forward_hook(
+        lambda _m, _i, out: seen.append(out[:len(prompts), 0].float().cpu())
+        if not seen else None)
+    if per_position:
+        torch.nn.Linear.forward = by_position
+    eng.configure_speculation(spec_k=spec_k)
+    try:
+        rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        eng.step()
+        for r in rids:
+            eng.cancel(r)
+            eng.release(r)
+    finally:
+        torch.nn.Linear.forward = linear
+        handle.remove()
+        eng.configure_speculation(spec_k=0)
+    return seen[0]
+
+
+def phase_full_width_spec(eng, prompts, streams, report):
+    """Speculative decoding at the 7B geometry, on phase 4's engine and
+    prompts: a timed serve at spec_k 0, then at SPEC_K (n-gram drafts,
+    one [8, SPEC_K + 1] verify frame a step through the tensor-core paged
+    kernel). Prints decode tokens/s of both, accepted tokens a verify
+    step, the verify steps' paged launches and (profiler) the paged kernel
+    a verify step runs, and the streams' agreement with phase 4's. The
+    first verify step's position-0 logits are compared with the first
+    plain decode step's twice: as the engine computes them (the max
+    error over each row's max |logit| printed beside BF16_LOGIT_RTOL:
+    cuBLAS sums a [8 x 5]-row projection in another order than an 8-row
+    one, and 32 random-weight layers grow that rounding), and with the
+    frame's projections run position by position, which must equal
+    plain decode's bit for bit. Gates: that equality, finite logits,
+    complete streams, the tensor-core kernel alone in a verify step, one
+    paged launch a layer a step, the allocator consistent with every
+    page free."""
+    import numpy as np
+    import torch
+
+    vocab = eng.model.config.vocab_size
+    layers = eng.num_layers
+    eng.configure_speculation(spec_k=0)
+    eng.reset_stats()
+    plain, plain_launches, plain_tps = _timed_serve(eng, prompts)
+    eng.configure_speculation(spec_k=SPEC_K)
+    eng.reset_stats()
+    try:
+        spec, launches, spec_tps = _timed_serve(eng, prompts)
+        st = eng.stats()
+        profile = _profile_decode_step(eng, np.random.RandomState(7), vocab,
+                                       new_tokens=4 * (SPEC_K + 1))
+    finally:
+        eng.configure_speculation(spec_k=0)
+    base = _first_step_logits(eng, prompts, 0)
+    frame = _first_step_logits(eng, prompts, SPEC_K)
+    by_position = _first_step_logits(eng, prompts, SPEC_K, per_position=True)
+    eng.allocator.check_consistency()
+    rel = ((frame - base).abs().amax(-1) / base.abs().amax(-1)).max().item()
+    out = {
+        "spec_k": SPEC_K, "decode_tokens_per_s": spec_tps,
+        "plain_decode_tokens_per_s": plain_tps,
+        "speedup": spec_tps / plain_tps,
+        "accepted_tokens_per_step": st["accepted_tokens_per_step"],
+        "verify_steps": st["decode_steps"],
+        "draft_ms_total": st["draft_ms_total"],
+        "launches": launches, "plain_launches": plain_launches,
+        "paged_kernels": profile["paged_kernels"],
+        "paged_ms_per_verify_step": profile["paged_ms_per_step"],
+        "first_logits_max_rel_err": rel, "rtol": BF16_LOGIT_RTOL,
+        "first_logits_within_rtol": rel <= BF16_LOGIT_RTOL,
+        "first_argmax_equal": (frame.argmax(-1) == base.argmax(-1)).tolist(),
+        "by_position_bit_equal": torch.equal(by_position, base),
+        "agreement_with_phase4": _agreement(spec, streams),
+        "plain_agreement_with_phase4": _agreement(plain, streams),
+        "all_free": eng.allocator.free_pages == eng.num_pages - 1,
+        "first_tokens": [x[:4] for x in spec]}
+    report["full_width_spec"] = out
+    print("full width spec: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("first_tokens",
+                                                   "plain_launches")}),
+        flush=True)
+    bad = []
+    if not (torch.isfinite(frame).all() and out["by_position_bit_equal"]):
+        bad.append("first verify logits not finite, or not equal to plain "
+                   "decode's with the projections run by position")
+    if not all(len(x) == NEW_TOKENS and all(0 <= t < vocab for t in x)
+               for x in spec):
+        bad.append("incomplete or out-of-vocab streams")
+    if launches["paged_decode"] != layers * st["decode_steps"]:
+        bad.append(f"paged launches {launches['paged_decode']} for "
+                   f"{st['decode_steps']} verify steps of {layers} layers")
+    if not out["all_free"]:
+        bad.append("pages left held after the serve")
+    _check_paged_kernels("spec", profile)
+    if bad:
+        raise AssertionError(f"the speculative 7B serve: {bad}")
+
+
 def _check_paged_kernels(mode, profile):
     """The 7B serves' q is bf16: their decode must run the tensor-core
     paged kernel, and no other."""
@@ -2043,11 +2332,12 @@ def _check_paged_kernels(mode, profile):
                              f"{got}, not {PAGED_KERNEL['bfloat16']}")
 
 
-def _profile_decode_step(eng, rng, vocab):
-    """A profile of one decode step of 8 requests of 200-token prompts:
-    which paged kernel the engine's decode runs."""
+def _profile_decode_step(eng, rng, vocab, new_tokens=4):
+    """A profile of one decode (or verify) step of 8 requests of 200-token
+    prompts: which paged kernel the engine's decode runs. `new_tokens`
+    must outlast the first step (a verify step commits up to K + 1)."""
     rids = [eng.submit(rng.randint(1, vocab, 200).astype("int32"),
-                       max_new_tokens=4) for _ in range(8)]
+                       max_new_tokens=new_tokens) for _ in range(8)]
     eng.step()                                   # prefills + first decode
     prof = _device_profile(eng.step, 1)
     eng.run_until_idle()
@@ -3416,6 +3706,7 @@ def kernels_line(report):
 
     kv = report.get("full_width_kv", {})
     paths = [report.get("full_width", {}).get("launches", {}),
+             report.get("full_width_spec", {}).get("launches", {}),
              kv.get("int8", {}).get("launches", {}),
              kv.get("fp8", {}).get("launches", {}),
              report.get("train_full_width", {}).get("launches", {}),
@@ -3561,7 +3852,9 @@ def main(argv=None) -> int:
               ("rmsnorm", lambda: phase_rmsnorm(args.seed, report)),
               ("cuda_vs_cpu", lambda: phase_cuda_vs_cpu(args.seed, report)),
               ("kv_cuda_vs_cpu",
-               lambda: phase_kv_cuda_vs_cpu(args.seed, report))]
+               lambda: phase_kv_cuda_vs_cpu(args.seed, report)),
+              ("spec_cuda_vs_cpu",
+               lambda: phase_spec_cuda_vs_cpu(args.seed, report))]
     state = {}
 
     def full_width():
@@ -3572,6 +3865,12 @@ def main(argv=None) -> int:
         if "eng" not in state:
             raise RuntimeError("the full-width phase built no engine")
         phase_http(state["eng"], state["prompts"][1], report)
+
+    def full_width_spec():
+        if "eng" not in state:
+            raise RuntimeError("the full-width phase built no engine")
+        phase_full_width_spec(state["eng"], state["prompts"],
+                              state["streams"], report)
 
     def full_width_kv():
         if "eng" not in state:
@@ -3594,6 +3893,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     phases += [("full_width", full_width), ("http", http),
+               ("full_width_spec", full_width_spec),
                ("full_width_kv", full_width_kv),
                ("train_cuda_vs_cpu",
                 lambda: (free_memory(),

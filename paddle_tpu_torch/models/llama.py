@@ -213,7 +213,7 @@ class LlamaAttention(nn.Module):
 
     def forward_decode(self, x, *, rope, cache, layer_idx, page_table,
                        context_lens, position_ids, ctx_pad=None,
-                       segment_ids=None):
+                       write_mask=None, verify=False, segment_ids=None):
         """Serving forward over the paged KV cache. x: [B, T, H]; T == 1 is
         a decode step (the paged kernel over the page table); T > 1 is a
         page-writing prefill chunk (the flash kernel over the context
@@ -222,16 +222,25 @@ class LlamaAttention(nn.Module):
         segment-aware flash kernel over the frame itself; page_table is
         then [n_segments + 1, pages], one chain per segment plus an
         all-null row for pad/gap tokens, and position_ids are
-        segment-local). ``cache`` is {"k", "v": [L, Hkv, P, page_size, D]},
+        segment-local), unless ``verify``: the T-token speculative VERIFY
+        frame, through the same paged kernel as decode with per-query
+        causal limits (query i, at absolute position context_lens - 1 + i,
+        sees keys < context_lens + i, the draft K/V written just before
+        included). ``cache`` is {"k", "v": [L, Hkv, P, page_size, D]},
         plus {"k_scale", "v_scale": [L, Hkv, P, page_size] fp32} when the
         pools hold int8 or float8_e4m3fn codes: writes then quantize with
         per-slot-per-head absmax scales and reads dequantize (inside the
-        paged kernel for decode, in the model dtype for prefill);
-        position_ids [B, T] are absolute positions; context_lens [B]
-        counts valid cache tokens including this chunk. Returns
-        (out, cache)."""
+        paged kernel for decode and verify, in the model dtype for
+        prefill); position_ids [B, T] are absolute positions; context_lens
+        [B] counts valid cache tokens including this chunk (for verify:
+        the committed context and the frame's rewrite token only, the
+        drafts are provisional). ``write_mask`` [B, T] bool sends the
+        masked entries' K/V writes to the null page 0, which no live
+        context reads (a verify frame's slots past a row's draft window,
+        budget or context cap; several masked entries may write one slot of
+        page 0 at once, harmlessly). Returns (out, cache)."""
         b, t, _ = x.shape
-        packed = segment_ids is not None and t > 1
+        packed = segment_ids is not None and t > 1 and not verify
         q, k, v = self._qkv(x)
         cos, sin = rope
         _check_positions(position_ids, self._rope_limit)
@@ -247,14 +256,21 @@ class LlamaAttention(nn.Module):
             pidx = page_table[segment_ids, position_ids // ps]
         else:
             pidx = torch.gather(page_table, 1, (position_ids // ps).long())
+        if write_mask is not None:
+            pidx = torch.where(write_mask, pidx, torch.zeros_like(pidx))
         written = write_kv_pages(cache, layer_idx, pidx, position_ids % ps,
                                  k, v)
 
-        if t == 1:
+        if t == 1 or verify:
+            # decode, or the [B, T, Hq, D] verify frame whole: query i sees
+            # keys < context_lens + i
             k_sc = cache["k_scale"][layer_idx] if written else None
             v_sc = cache["v_scale"][layer_idx] if written else None
-            out = paged_attention(q[:, 0], ck, cv, page_table, context_lens,
-                                  k_scales=k_sc, v_scales=v_sc)[:, None]
+            out = paged_attention(q if verify else q[:, 0], ck, cv,
+                                  page_table, context_lens, k_scales=k_sc,
+                                  v_scales=v_sc)
+            if not verify:
+                out = out[:, None]
         elif packed:
             # every segment is a fresh prompt whose whole K/V sits in this
             # frame; the round trip through the pool dtype (and, quantized,
@@ -355,12 +371,15 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
     def decode_forward(self, input_ids, cache, page_table, context_lens,
-                       position_ids, ctx_pad=None, segment_ids=None):
+                       position_ids, ctx_pad=None, write_mask=None,
+                       verify=False, segment_ids=None):
         """Serving forward over the paged KV cache: a decode step when
         input_ids is [B, 1], a page-writing prefill chunk when [B, T > 1],
         a packed multi-prompt prefill frame when [B, T > 1] with
-        segment_ids. Returns (hidden, cache); the pools are written in
-        place."""
+        segment_ids, a speculative verify frame with ``verify`` (see
+        ``LlamaAttention.forward_decode``; ``write_mask`` [B, T] sends
+        masked writes to the null page). Returns (hidden, cache); the
+        pools are written in place."""
         x = self.embed_tokens(input_ids)
         rope = (self.rope_cos, self.rope_sin)
         for i, layer in enumerate(self.layers):
@@ -368,6 +387,7 @@ class LlamaModel(nn.Module):
                 x, rope=rope, cache=cache, layer_idx=i,
                 page_table=page_table, context_lens=context_lens,
                 position_ids=position_ids, ctx_pad=ctx_pad,
+                write_mask=write_mask, verify=verify,
                 segment_ids=segment_ids)
         return self.norm(x), cache
 
@@ -451,9 +471,12 @@ class LlamaForCausalLM(nn.Module):
         return self.criterion(self.lm_head(hidden), labels)
 
     def decode_forward(self, input_ids, cache, page_table, context_lens,
-                       position_ids, ctx_pad=None, segment_ids=None):
-        """Serving decode/prefill entry: (logits [B, T, vocab], cache)."""
+                       position_ids, ctx_pad=None, write_mask=None,
+                       verify=False, segment_ids=None):
+        """Serving decode/prefill/verify entry: (logits [B, T, vocab],
+        cache)."""
         hidden, cache = self.llama.decode_forward(
             input_ids, cache, page_table, context_lens, position_ids,
-            ctx_pad=ctx_pad, segment_ids=segment_ids)
+            ctx_pad=ctx_pad, write_mask=write_mask, verify=verify,
+            segment_ids=segment_ids)
         return self.lm_head(hidden), cache

@@ -75,6 +75,17 @@ __device__ __forceinline__ int warp_max_i(int v) {
   return v;
 }
 
+// The least and the largest of the ids one load brought: an int, or the
+// four ints of a 16-byte load (the visit counters' vector path).
+__device__ __forceinline__ int lo_of(int v) { return v; }
+__device__ __forceinline__ int hi_of(int v) { return v; }
+__device__ __forceinline__ int lo_of(int4 v) {
+  return min(min(v.x, v.y), min(v.z, v.w));
+}
+__device__ __forceinline__ int hi_of(int4 v) {
+  return max(max(v.x, v.y), max(v.z, v.w));
+}
+
 // c += a . b on the tensor cores: one m16n8k16 tile, bf16 inputs (a row-
 // major, b column-major fragments), fp32 accumulators.
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],

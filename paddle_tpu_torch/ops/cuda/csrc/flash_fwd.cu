@@ -558,15 +558,6 @@ constexpr int kVisitFastBlock = 64;    // bq == bk of the forward's tiles
 static_assert(kVisitKTile * 8 + kVisitMaxQChunk * 12 <= 48 * 1024,
               "the visit tables fit without the shared-memory opt-in");
 
-__device__ __forceinline__ int lo_of(int v) { return v; }
-__device__ __forceinline__ int hi_of(int v) { return v; }
-__device__ __forceinline__ int lo_of(int4 v) {
-  return min(min(v.x, v.y), min(v.z, v.w));
-}
-__device__ __forceinline__ int hi_of(int4 v) {
-  return max(max(v.x, v.y), max(v.z, v.w));
-}
-
 // tab[i] = (min, max) of the ids of block first + i of `bs` ids, i < n;
 // T = int4 (bs % 4 == 0, the row 16-byte aligned) or int. A block goes to
 // a group of L lanes, L the least power of two (at most 32) whose lanes
@@ -599,8 +590,8 @@ __device__ __forceinline__ void visit_ranges(const int* __restrict__ row,
 #pragma unroll
       for (int u = 0; u < kVisitUnroll; ++u)
         if (i < n && j0 + (u << lg) < per) {
-          lo = min(lo, lo_of(v[u]));
-          hi = max(hi, hi_of(v[u]));
+          lo = min(lo, ptt::lo_of(v[u]));
+          hi = max(hi, ptt::hi_of(v[u]));
         }
     }
     for (int o = 1 << lg >> 1; o > 0; o >>= 1) {

@@ -443,23 +443,89 @@ gmm_dw_tf32_kernel(const __grid_constant__ CUtensorMap tmap_dy,
   }
 }
 
-// One warp a block_rows block: its gid min and max, then the count of the
-// groups g < G the forward kernel's predicate admits.
-__global__ void gmm_visit_kernel(const int* __restrict__ gids,
-                                 int* __restrict__ counts, int G, int bm) {
-  const int blk = blockIdx.x, lane = threadIdx.x;
-  int mn = INT_MAX, mx = INT_MIN;
-  for (int r = lane; r < bm; r += 32) {
-    const int v = gids[(long long)blk * bm + r];
-    mn = min(mn, v);
-    mx = max(mx, v);
-  }
-  mn = ptt::warp_min_i(mn);
-  mx = ptt::warp_max_i(mx);
-  if (lane == 0) {
-    int c = 0;
-    for (int g = 0; g < G; ++g) c += ptt::blocks_can_touch(mn, mx, g, g);
-    counts[blk] = c;
+// The visit counter: replaces `_visit_kernel` (paddle_tpu/ops/pallas/
+// grouped_matmul.py:291, launched at :314), a grid step a block_rows block
+// that tests the groups one after another. What bounds it on the H100: not
+// bytes (4 bytes an id, read once) nor tests (one range test a block and
+// group), both far under a microsecond at the dispatcher's layouts, but
+// the launch and each warp's chain of dependent instructions (an H100
+// launches a 1-element fill in about 0.0010 ms of device time). The design
+// keeps that chain short:
+//  * A block goes to a group of L lanes, L the least power of two (at most
+//    32) that reads it in one load a lane: 16-byte loads (int4) where
+//    bm % 4 == 0 and the ids are 16-byte aligned (the wrapper tests the
+//    pointer), scalar loads otherwise; blocks past 128 ids (32 past 32
+//    scalar ids) take more than one load a lane. So a warp reads 32 / L
+//    blocks in one round of loads and reduces each to (min, max) in
+//    log2(L) xor shuffles that stay inside its lane group, or, when a
+//    block is the whole warp, in one redux.sync each (on an H100,
+//    0.00127-0.00128 against 0.00134 ms with five shuffle steps at bm
+//    128).
+//  * Lane `sub` of a group tests g = sub + L j with ptt::blocks_can_touch,
+//    the grouped forward kernel's own predicate, and one __ballot_sync
+//    counts L groups of every block of the warp at once: each group
+//    __popc's its own L bits. Every lane votes; lanes with g >= G vote
+//    false, so padding rows (gid G) never match. At bm 128 a block is a
+//    warp and a ballot counts 32 groups; at bm 8, 16 blocks share a warp
+//    and a ballot counts 2 groups of each.
+//  * The host plan (grouped_matmul.gmm_visit_plan) sizes the CTA at
+//    kGmmVisitMinThreads or more and the grid at most one wave of the
+//    card's SMs; a warp strides over the blocks past the first pass.
+//  * The dispatcher's blocks with 16-byte loads (bm 128 at the main path's
+//    widths, 32 and 8 for small problems: pick_block_rows) take
+//    instantiations with the lanes, loads and shuffles fixed at compile
+//    time (kBm): at times this close to the launch, the runtime block
+//    arithmetic and the longer code it needs cost as much as the work (on
+//    an H100, 0.00146 against 0.00133 ms at bm 128; 0.00142 for bm 8 on
+//    the general body, where the parent's one-warp CTAs took 0.00132).
+// Each count has one owner lane; no atomics, no shared memory.
+constexpr int kGmmVisitMinThreads = 128;
+constexpr int kGmmVisitMaxThreads = 1024;
+constexpr int kGmmVisitFastBlock = 128;
+
+template <typename T, int kBm>
+__global__ void __launch_bounds__(kGmmVisitMaxThreads)
+gmm_visit_kernel(const int* __restrict__ gids, int* __restrict__ counts,
+                 int nb, int G, int bm) {
+  constexpr int kIds = sizeof(T) / sizeof(int);
+  const int per = (kBm > 0 ? kBm : bm) / kIds;      // loads a block, >= 1
+  const int lg = per >= 32 ? 5 : 32 - __clz(per - 1);   // L = 2^lg lanes
+  const int lanes = 1 << lg;
+  const int lane = threadIdx.x & 31, sub = lane & (lanes - 1);
+  const int grp = lane >> lg, bpw = 32 >> lg;       // blocks a warp
+  // this group's bits of a ballot
+  const unsigned seg = lg == 5 ? 0xffffffffu
+                               : ((1u << lanes) - 1u) << (grp << lg);
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  for (int b0 = w * bpw; b0 < nb; b0 += warps * bpw) {   // warp-uniform
+    const int blk = b0 + grp;
+    const bool live = blk < nb;
+    const T* p = reinterpret_cast<const T*>(gids + (long long)blk * bm);
+    int lo = INT_MAX, hi = INT_MIN;
+    if (live) {
+      for (int j = sub; j < per; j += lanes) {
+        const T v = __ldg(p + j);
+        lo = min(lo, ptt::lo_of(v));
+        hi = max(hi, ptt::hi_of(v));
+      }
+    }
+    if (lg == 5) {          // a warp a block: one redux instruction each
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+    } else {                // xor shuffles that stay in the lane group
+      for (int o = lanes >> 1; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+    }
+    int n = 0;
+    for (int g0 = 0; g0 < G; g0 += lanes) {             // warp-uniform
+      const int g = g0 + sub;
+      const bool touch = live && g < G && ptt::blocks_can_touch(lo, hi, g, g);
+      n += __popc(__ballot_sync(0xffffffffu, touch) & seg);
+    }
+    if (live && sub == 0) counts[blk] = n;
   }
 }
 
@@ -602,13 +668,36 @@ extern "C" int ptt_gmm_dw(const void* x, const float* dy, const int* gids,
 }
 
 // counts [M / bm] int32: groups visited per bm-row block (M % bm == 0).
+// vec: read the ids by 16-byte loads (bm % 4 == 0, gids 16-byte aligned);
+// grid and threads: the host plan (grouped_matmul.gmm_visit_plan).
 extern "C" int ptt_gmm_visit(const int* gids, int* counts, int M, int G,
-                             int bm, int device, void* stream) {
+                             int bm, int vec, int grid, int threads,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bm <= 0 || M % bm != 0) return (int)cudaErrorInvalidValue;
+  if (bm <= 0 || M % bm != 0 || G < 0) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  gmm_visit_kernel<<<M / bm, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      gids, counts, G, bm);
+  if (grid <= 0 || threads < 32 || threads > kGmmVisitMaxThreads ||
+      threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (vec && (bm % 4 != 0 || reinterpret_cast<uintptr_t>(gids) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nb = M / bm;
+  if (vec && bm == kGmmVisitFastBlock)
+    gmm_visit_kernel<int4, kGmmVisitFastBlock>
+        <<<grid, threads, 0, st>>>(gids, counts, nb, G, bm);
+  else if (vec && bm == 32)
+    gmm_visit_kernel<int4, 32><<<grid, threads, 0, st>>>(gids, counts, nb, G,
+                                                         bm);
+  else if (vec && bm == 8)
+    gmm_visit_kernel<int4, 8><<<grid, threads, 0, st>>>(gids, counts, nb, G,
+                                                        bm);
+  else if (vec)
+    gmm_visit_kernel<int4, 0><<<grid, threads, 0, st>>>(gids, counts, nb, G,
+                                                         bm);
+  else
+    gmm_visit_kernel<int, 0><<<grid, threads, 0, st>>>(gids, counts, nb, G,
+                                                       bm);
   return (int)cudaGetLastError();
 }

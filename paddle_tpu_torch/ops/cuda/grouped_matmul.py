@@ -30,7 +30,10 @@ accumulators.
   hi and lo for fp32 x); a tile walks only the 32-row chunks whose gid
   range admits its group, and is stored transposed.
 * ``gmm_visit``: per ``block_rows`` block, the number of groups the
-  predicate admits; it must equal ``expected_visit_counts``.
+  predicate admits; it must equal ``expected_visit_counts``. A block goes
+  to a group of lanes that reads it in one load a lane (16-byte loads when
+  the ids allow) and counts its groups a warp ballot at a time, on the
+  grid ``gmm_visit_plan`` sizes.
 
 What bounds them on the H100: operations (2 * rows * d * h flops a
 product, hundreds per byte moved at the MoE widths; the bf16 forward's
@@ -55,15 +58,19 @@ fp32 forward and dx) as ``gmm_fwd_tf32``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.ops.cuda.flash_attention import _sm_count
 
 __all__ = ["grouped_matmul", "GroupedMatmul", "grouped_matmul_reference",
            "grouped_matmul_dw_reference", "grouped_matmul_visit_counts",
            "grouped_matmul_visit_reference", "expected_visit_counts",
            "pick_block_rows", "gmm_fwd", "gmm_dx", "gmm_dw", "tf32_round",
-           "tf32_split", "tf32_operand", "LAUNCHES", "reset_launches", "launch_counts"]
+           "tf32_split", "tf32_operand", "GmmVisitPlan", "gmm_visit_plan",
+           "LAUNCHES", "reset_launches", "launch_counts"]
 
 _DW_CHUNK = 32          # token rows a gmm_dw stage (csrc kChunk)
 
@@ -352,6 +359,57 @@ def gmm_dw(x, dy, gids, num_groups: int):
     return dw
 
 
+# gmm_visit_kernel's CTA bounds (kGmmVisitMinThreads, kGmmVisitMaxThreads
+# in csrc/grouped_matmul.cu)
+GMM_VISIT_MIN_THREADS, GMM_VISIT_MAX_THREADS = 128, 1024
+
+
+class GmmVisitPlan(NamedTuple):
+    lanes: int            # lanes that read and count one block
+    blocks_per_warp: int  # 32 // lanes
+    grid: int             # CTAs, at most one wave of the card's SMs
+    threads: int          # a CTA's threads, a multiple of 32
+
+
+def gmm_visit_plan(m: int, block_rows: int, vec: bool,
+                   sms: int) -> GmmVisitPlan:
+    """How ``gmm_visit_kernel`` covers ``m // block_rows`` blocks: a block
+    to the least power of two of lanes (at most 32) that reads it in one
+    load a lane (``block_rows / 4`` 16-byte loads when ``vec``, else
+    ``block_rows`` ints), so a warp takes ``32 // lanes`` blocks a pass;
+    CTAs of GMM_VISIT_MIN_THREADS threads or more, grown up to
+    GMM_VISIT_MAX_THREADS so the grid stays within one wave of `sms`
+    SMs; warps stride over the blocks past the first pass."""
+    per = block_rows // 4 if vec else block_rows
+    lanes = min(32, 1 << max(0, (per - 1).bit_length()))
+    bpw = 32 // lanes
+    warps = -(-(m // block_rows) // bpw)
+    per_cta = min(max(-(-warps // sms), GMM_VISIT_MIN_THREADS // 32),
+                  GMM_VISIT_MAX_THREADS // 32)
+    return GmmVisitPlan(lanes, bpw, max(1, min(sms, -(-warps // per_cta))),
+                        32 * per_cta)
+
+
+def _launch_visit(gids, num_groups: int, block_rows: int):
+    """One launch of ``gmm_visit_kernel`` over contiguous int32 gids on
+    the card, on the plan ``gmm_visit_plan`` makes."""
+    m = gids.shape[0]
+    counts = torch.empty((m // block_rows,), dtype=torch.int32,
+                         device=gids.device)
+    if m == 0:                       # nothing to launch: no blocks
+        return counts
+    vec = block_rows % 4 == 0 and gids.data_ptr() % 16 == 0
+    plan = gmm_visit_plan(m, block_rows, vec,
+                          _sm_count(gids.device.index or 0))
+    err = _fn("ptt_gmm_visit", 2, 7)(
+        gids.data_ptr(), counts.data_ptr(), m, num_groups, block_rows,
+        int(vec), plan.grid, plan.threads, gids.device.index or 0,
+        _stream(gids))
+    _check_err(err, "gmm_visit")
+    LAUNCHES["gmm_visit"] += 1
+    return counts
+
+
 def grouped_matmul_visit_counts(gids, num_groups: int, block_rows: int):
     """Per ``block_rows`` block, the number of groups the grouped-matmul
     kernels' predicate admits (int32 [M // block_rows]); ``sum() / (blocks
@@ -363,17 +421,8 @@ def grouped_matmul_visit_counts(gids, num_groups: int, block_rows: int):
                          f"{block_rows}")
     if not gids.is_cuda:
         return grouped_matmul_visit_reference(gids, num_groups, block_rows)
-    gids = gids.to(torch.int32).contiguous()
-    counts = torch.empty((m // block_rows,), dtype=torch.int32,
-                         device=gids.device)
-    if m == 0:                       # nothing to launch: no blocks
-        return counts
-    err = _fn("ptt_gmm_visit", 2, 4)(
-        gids.data_ptr(), counts.data_ptr(), m, num_groups, block_rows,
-        gids.device.index or 0, _stream(gids))
-    _check_err(err, "gmm_visit")
-    LAUNCHES["gmm_visit"] += 1
-    return counts
+    return _launch_visit(gids.to(torch.int32).contiguous(), num_groups,
+                         block_rows)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,13 @@ fp32 tiles; ``kernel_route`` picks the kernel, and the split-K workspace
 is sized for the kernel picked. Neither ever writes dequantized K/V to
 device memory.
 
+A frame of more than ``MAX_FRAME_ROWS`` query rows a kv head (T * group;
+a speculative verify frame at GQA 8:1 passes it at T 9) is cut on the host
+into chunks of ``MAX_FRAME_ROWS // group`` queries, one launch each: chunk
+t0 takes queries t0 .. t0 + T_c - 1 with ``context_lens + t0`` (0 where
+``context_lens <= 0``), so its query j sees keys < len + t0 + j, as in the
+whole frame.
+
 On a CUDA tensor ``paged_attention`` and ``page_visit_counts`` launch their
 kernels or raise; on a CPU tensor they run ``paged_attention_reference`` and
 ``page_visit_reference``. ``LAUNCHES`` counts kernel launches by kernel
@@ -50,10 +57,10 @@ import torch
 __all__ = ["paged_attention", "paged_attention_reference",
            "page_visit_counts", "page_visit_reference", "kernel_route",
            "ROUTE_CUDA_CORE", "ROUTE_MMA", "LAUNCHES", "reset_launches",
-           "launch_counts", "MAX_FRAME_ROWS"]
+           "launch_counts", "MAX_FRAME_ROWS", "frame_chunks"]
 
 _NEG_INF = -1e30
-MAX_FRAME_ROWS = 64     # T * group bound of the kernel's shared memory
+MAX_FRAME_ROWS = 64     # T * group bound of a launch (shared memory)
 ROUTE_CUDA_CORE = 0     # paged_decode_kernel: any q dtype, any page size
 ROUTE_MMA = 1           # paged_decode_kernel_mma: bf16 q, page size % 8 == 0
 
@@ -191,10 +198,39 @@ def _lib():
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
+def frame_chunks(t: int, group: int) -> list[tuple[int, int]]:
+    """(t0, T_c) of each launch of a T-query frame: the whole frame when
+    its ``t * group`` rows fit ``MAX_FRAME_ROWS``, else chunks of
+    ``MAX_FRAME_ROWS // group`` queries."""
+    tc = t if t * group <= MAX_FRAME_ROWS else MAX_FRAME_ROWS // group
+    if tc == 0:
+        raise ValueError(f"group = {group} query heads per kv head exceeds "
+                         f"the kernel's {MAX_FRAME_ROWS} rows")
+    return [(t0, min(tc, t - t0)) for t0 in range(0, t, tc)]
+
+
+def _by_chunks(fn, q, k_pages, v_pages, page_table, context_lens, **kw):
+    """`fn` over a [B, T, Hq, D] frame chunk by chunk (``frame_chunks``):
+    chunk t0 with ``context_lens + t0`` (0 for inactive rows), the outputs
+    concatenated along T."""
+    chunks = frame_chunks(q.shape[1], q.shape[2] // k_pages.shape[0])
+    if len(chunks) == 1:
+        return fn(q, k_pages, v_pages, page_table, context_lens, **kw)
+    lens = context_lens.to(torch.int32)
+    return torch.cat([
+        fn(q[:, t0:t0 + tc], k_pages, v_pages, page_table,
+           torch.where(lens > 0, lens + t0, torch.zeros_like(lens)), **kw)
+        for t0, tc in chunks], dim=1)
+
+
 def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
             k_scales=None, v_scales=None):
     b, hq, hkv, ps, d = _check_shapes(q, k_pages, v_pages, page_table,
                                       context_lens)
+    if q.dim() == 4 and len(frame_chunks(q.shape[1], hq // hkv)) > 1:
+        return _by_chunks(_launch, q, k_pages, v_pages, page_table,
+                          context_lens, scale=scale, k_scales=k_scales,
+                          v_scales=v_scales)
     quantized = _check_scales(k_pages, k_scales, v_scales)
     squeeze = q.dim() == 3
     q4 = (q[:, None] if squeeze else q).contiguous()
@@ -203,7 +239,7 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
         raise TypeError(f"paged kernel takes bf16 or fp32 q, got {q.dtype}")
     if d not in (64, 128):
         raise ValueError(f"paged kernel takes head_dim 64 or 128, got {d}")
-    if t * (hq // hkv) > MAX_FRAME_ROWS:
+    if t * (hq // hkv) > MAX_FRAME_ROWS:   # a group past the kernel's rows
         raise ValueError(f"T * group = {t * (hq // hkv)} query rows per kv "
                          f"head exceeds the kernel's {MAX_FRAME_ROWS}")
     if quantized:
@@ -259,12 +295,14 @@ def _launch(q, k_pages, v_pages, page_table, context_lens, scale,
 def paged_attention(q, k_pages, v_pages, page_table, context_lens,
                     scale: float | None = None, k_scales=None,
                     v_scales=None):
-    """Attention over the paged KV cache (what the model's decode path
-    calls). CUDA tensors launch the kernel ``kernel_route`` picks: bf16 q
-    the tensor-core kernel at page sizes that are multiples of 8, else
-    (fp32 q, or any other page size) the CUDA-core one, each over bf16/fp32
-    pools of q's dtype or, when ``k_scales``/``v_scales`` are given,
-    int8/fp8 codes; CPU tensors take the plain version."""
+    """Attention over the paged KV cache (what the model's decode and
+    verify paths call). CUDA tensors launch the kernel ``kernel_route``
+    picks: bf16 q the tensor-core kernel at page sizes that are multiples
+    of 8, else (fp32 q, or any other page size) the CUDA-core one, each
+    over bf16/fp32 pools of q's dtype or, when ``k_scales``/``v_scales``
+    are given, int8/fp8 codes; a frame past ``MAX_FRAME_ROWS`` rows a kv
+    head launches once a chunk (``frame_chunks``). CPU tensors take the
+    plain version."""
     if q.is_cuda:
         return _launch(q, k_pages, v_pages, page_table, context_lens, scale,
                        k_scales, v_scales)

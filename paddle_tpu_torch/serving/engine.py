@@ -25,7 +25,15 @@ Same scheduling as the JAX engine, run eagerly by PyTorch:
     scales in side pools, dequantized inside the paged kernel;
     ``host_cache_mb`` keeps cold indexed pages in a host store (pinned on
     CUDA) they demote to under pressure and promote back from on a prefix
-    match.
+    match;
+  * speculative decoding (``spec_k`` = K > 0): the n-gram proposer drafts
+    up to K tokens a request from its own committed stream, and each step
+    runs ONE ``[decode_batch, K + 1]`` verify frame through the paged
+    kernel (query i sees keys < len + i; slots past a row's draft window
+    write the null page). Position i samples with the generator state
+    plain decode would hold after i commits; the drafts that equal the
+    frame's own samples are accepted, plus the first sample that differs,
+    so every stream equals plain decode's.
 
 Ordering contract, as in the JAX engine: queued tier copies (demotes, then
 promotes), then copy-on-write copies, then any prefill or decode write.
@@ -33,8 +41,8 @@ promotes), then copy-on-write copies, then any prefill or decode write.
 On CUDA both attention paths run the port's hand-written Hopper kernels
 (``ops/cuda``); the K/V pools are updated in place.
 
-Not ported yet (raise NotImplementedError): speculative decoding
-(``spec_k > 0``), the prefill/decode roles and LoRA adapters.
+Not ported yet (raise NotImplementedError): the prefill/decode roles and
+LoRA adapters.
 """
 from __future__ import annotations
 
@@ -47,14 +55,23 @@ import torch
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
+from paddle_tpu_torch.distributed.resilience import faults
 from paddle_tpu_torch.quantization import raw_bytes
+from paddle_tpu_torch.serving.drafts import NGramProposer
 from paddle_tpu_torch.serving.kv_cache import (PageAllocator, kv_page_bytes,
                                                pages_for_budget)
-from paddle_tpu_torch.serving.sampling import request_generator, sample_tokens
+from paddle_tpu_torch.serving.sampling import (request_generator,
+                                               sample_frame, sample_tokens)
 from paddle_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                 QueueFull, Request)
 
 __all__ = ["ServingConfig", "ServingEngine"]
+
+faults.register(
+    "serving.spec.verify_mismatch",
+    "forces a speculative verify step to reject every draft (every row's "
+    "window zeroed): the engine must degrade to plain one-token decode "
+    "for the step (same stream, lower throughput), never wedge")
 
 
 @dataclass
@@ -72,7 +89,7 @@ class ServingConfig:
     host_cache_mb: int = -1         # <0 -> FLAGS_serving_host_cache_mb
     sample_seed: int = 0
     max_waiting: int = 0            # 0 -> FLAGS_serving_waiting_queue_limit
-    spec_k: int = 0                 # only 0 is ported
+    spec_k: int = 0                 # speculative draft window K (0 off)
     prefix_sharing: bool | None = None  # None -> FLAGS_serving_prefix_sharing
     role: str = "mixed"             # only "mixed" is ported
     prefill_pack: bool | None = None    # None -> FLAGS_serving_prefill_pack
@@ -80,14 +97,9 @@ class ServingConfig:
                                     #      then prefill_chunk
 
     def check_ported(self):
-        unported = []
-        if self.spec_k:
-            unported.append(f"spec_k={self.spec_k} (speculative decoding)")
         if (self.role or "mixed").lower() != "mixed":
-            unported.append(f"role={self.role!r}")
-        if unported:
             raise NotImplementedError(
-                "not ported to paddle_tpu_torch yet: " + ", ".join(unported))
+                f"not ported to paddle_tpu_torch yet: role={self.role!r}")
 
 
 # KV storage modes that keep codes, and the pool dtype of each
@@ -143,7 +155,10 @@ class ServingEngine:
                                or mcfg.max_position_embeddings)
         self.max_waiting = int(cfg.max_waiting
                                or flag("serving_waiting_queue_limit"))
-        self.spec_k = 0
+        self.spec_k = int(cfg.spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"serving_spec_k must be >= 0, "
+                             f"got {self.spec_k}")
         self.role = "mixed"
         rope_limit = int(mcfg.rope_max_position
                          or mcfg.max_position_embeddings)
@@ -214,7 +229,9 @@ class ServingEngine:
                                        host_pages=self.host_pages)
         self.scheduler = ContinuousBatchingScheduler(
             self.allocator, self.decode_batch, self.max_seq_len,
-            max_waiting=self.max_waiting, prefix_sharing=self.prefix_sharing)
+            max_waiting=self.max_waiting, prefix_sharing=self.prefix_sharing,
+            spec_k=self.spec_k)
+        self._proposer = NGramProposer()
         shape = (self.num_layers, self.num_kv_heads, self.num_pages,
                  self.page_size, self.head_dim)
         # the K/V page pools, written in place by every prefill and decode
@@ -265,8 +282,13 @@ class ServingEngine:
         self._prefill_tokens = 0
         self._prefix_admit_tokens = 0
         self._prefix_matched_tokens = 0
+        # committed counts real tokens delivered, steps the decode/verify
+        # dispatches, slot steps the occupied slots summed over them, and
+        # draft_ms the proposer's host time
         self._committed_tokens = 0
         self._decode_steps = 0
+        self._slot_steps = 0
+        self._draft_ms = 0.0
         self._http_lock = threading.Lock()
         self._step_lock = threading.RLock()
         self._http_stop = False
@@ -297,10 +319,28 @@ class ServingEngine:
             self._gens[rid] = request_generator(self.config.sample_seed,
                                                 self._submit_seq)
             self._submit_seq += 1
+            if self.spec_k > 0:
+                self._proposer.add_request(rid, req.prompt)
         return rid
 
     def cancel(self, rid: int) -> bool:
         return self.scheduler.cancel(rid)
+
+    def configure_speculation(self, spec_k: int):
+        """Change the draft window between steps of one engine (A/B runs
+        on the same pools and requests). Turning K on while requests are
+        live reseeds the proposer from each committed stream: plain decode
+        neither seeds nor feeds it, and the tables are a pure function of
+        the stream."""
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        with self._step_lock:
+            turning_on = spec_k > 0 and self.spec_k == 0
+            self.spec_k = int(spec_k)
+            self.scheduler.spec_k = int(spec_k)
+            if turning_on:
+                for rid, req in self.scheduler._by_rid.items():
+                    self._proposer.add_request(rid, req.context)
 
     # ------------------------------------------------------------------
     # device work
@@ -438,6 +478,94 @@ class ServingEngine:
                     or len(req.generated) >= req.max_new_tokens):
                 finisher(req)
         self._committed_tokens += len(active)
+        self._slot_steps += len(active)
+        self._decode_steps += 1
+
+    @torch.inference_mode()
+    def _verify_once(self, active, finisher):
+        """The speculative sibling of `_decode_once`: pack `active` into
+        the fixed ``[decode_batch, K + 1]`` verify frame (the last
+        committed token, then up to K drafts), run ONE frame through the
+        model and commit each row's accepted drafts plus the first sample
+        that differs from its draft (1..K+1 tokens a row). A row's draft
+        window stops at its remaining budget and the context cap; frame
+        slots past it write the null page."""
+        b, pmax, k = self.decode_batch, self.pages_per_seq, self.spec_k
+        t_frame = k + 1
+        cap = self._ctx_cap()
+        ids = np.zeros((b, t_frame), np.int64)
+        drafts = np.zeros((b, k), np.int64)
+        n_spec = np.zeros(b, np.int32)
+        lens = np.zeros(b, np.int32)
+        pt = np.zeros((b, pmax), np.int32)
+        temp = np.zeros(b, np.float32)
+        top_k = np.zeros(b, np.int32)
+        top_p = np.ones(b, np.float32)
+        gens = [None] * b
+        # chaos: a forced full rejection, every window zeroed; the frame
+        # degrades to plain one-token decode for the step
+        chaos_reject = faults.fire_check("serving.spec.verify_mismatch")
+        t_draft = time.perf_counter()
+        for i, req in enumerate(active):
+            ids[i, 0] = (req.generated[-1] if req.generated
+                         else int(req.prompt[-1]))
+            lens[i] = req.total_len
+            pt[i] = self.allocator.page_table_row(req.rid, pmax)
+            gens[i] = self._gens[req.rid]
+            temp[i] = req.temperature
+            top_k[i] = req.top_k
+            top_p[i] = req.top_p
+            # commits are the window + 1 at most, and the frame writes up
+            # to position total_len - 1 + window
+            n = min(k, req.max_new_tokens - len(req.generated) - 1,
+                    cap - req.total_len)
+            if chaos_reject or n <= 0:
+                continue
+            prop = self._proposer.propose(req.rid, n)
+            drafts[i, :n] = prop
+            ids[i, 1:1 + n] = prop
+            n_spec[i] = n
+        self._draft_ms += (time.perf_counter() - t_draft) * 1e3
+        offs = np.arange(t_frame)[None]
+        positions = np.maximum(lens - 1, 0)[:, None] + offs      # [B, T]
+        write_mask = ((offs <= n_spec[:, None]) & (positions < cap)
+                      & (lens > 0)[:, None])
+        # a masked slot's query is dropped and its K/V go to the null
+        # page; its position only has to index the RoPE table and the
+        # page table (every unmasked one is below max_seq_len)
+        positions = np.minimum(positions, self.max_seq_len - 1)
+        logits, _ = self.model.decode_forward(
+            self._tensor(ids), self._cache, self._tensor(pt),
+            self._tensor(lens), self._tensor(positions),
+            write_mask=self._tensor(write_mask), verify=True)
+        tokens, states = sample_frame(logits, gens, self._tensor(temp),
+                                      self._tensor(top_k),
+                                      self._tensor(top_p))
+        toks = tokens.cpu().numpy()
+        # a draft is accepted iff it equals the sample at its position
+        # (the point-mass rejection rule); the commits are the accepted
+        # run and the first sample after it
+        match = (toks[:, :k] == drafts) & (np.arange(k)[None]
+                                           < n_spec[:, None])
+        accepted = np.cumprod(match, axis=1).sum(axis=1)
+        now = time.perf_counter()
+        for i, req in enumerate(active):
+            # the generator stands where plain decode's would after the
+            # row's accepted + 1 commits
+            gens[i].set_state(states[i][int(accepted[i])])
+            for tok in toks[i, :int(accepted[i]) + 1]:
+                tok = int(tok)
+                req.generated.append(tok)
+                req.token_times.append(now)
+                self._committed_tokens += 1
+                self._proposer.observe(req.rid, tok)
+                if req.stream_cb is not None:
+                    req.stream_cb(req, tok)
+                if ((req.eos_id is not None and tok == req.eos_id)
+                        or len(req.generated) >= req.max_new_tokens):
+                    finisher(req)
+                    break
+        self._slot_steps += len(active)
         self._decode_steps += 1
 
     @torch.inference_mode()
@@ -564,8 +692,8 @@ class ServingEngine:
     def step(self) -> bool:
         """One scheduler iteration: admissions (+ their packed/chunked
         prefills and prefix registration), chain growth/eviction, tier and
-        copy-on-write copies, then ONE decode step. Returns False when
-        nothing is running."""
+        copy-on-write copies, then ONE decode step (a verify frame when
+        ``spec_k`` > 0). Returns False when nothing is running."""
         with self._step_lock:
             self._admit()
             self.scheduler.grow()
@@ -583,7 +711,10 @@ class ServingEngine:
                         f"reclaimable incl. cold) and nothing left to "
                         f"evict")
                 return False
-            self._decode_once(running, self.scheduler.finish)
+            if self.spec_k > 0:
+                self._verify_once(running, self.scheduler.finish)
+            else:
+                self._decode_once(running, self.scheduler.finish)
             return True
 
     def run_until_idle(self, max_steps: int = 1_000_000):
@@ -596,10 +727,11 @@ class ServingEngine:
         return steps
 
     def release(self, rid: int):
-        """Drop a finished request's bookkeeping (scheduler entry and
-        generator)."""
+        """Drop a finished request's bookkeeping (scheduler entry,
+        generator and draft tables)."""
         self.scheduler.release(rid)
         self._gens.pop(rid, None)
+        self._proposer.drop(rid)
 
     def generate(self, prompts, max_new_tokens: int = 16, **kw):
         """Synchronous convenience: submit all, run to completion, return
@@ -763,6 +895,8 @@ class ServingEngine:
             "free_pages": self.allocator.free_pages,
             "waiting_limit": self.max_waiting,
             "spec_k": self.spec_k,
+            "accepted_tokens_per_step": self.accepted_tokens_per_step,
+            "draft_ms_total": round(self._draft_ms, 3),
             "prefix_hit_rate": self.prefix_hit_rate,
             "cow_copies": self.allocator.cow_copies,
             "kv_cache_dtype": (self.kv_mode if self.kv_quantized
@@ -789,6 +923,32 @@ class ServingEngine:
             "committed_tokens": self._committed_tokens,
             "decode_steps": self._decode_steps,
         }
+
+    @property
+    def accepted_tokens_per_step(self) -> float:
+        """Committed tokens per occupied slot per dispatch: 1.0 for plain
+        decode, up to K + 1 when every draft is accepted."""
+        return round(self._committed_tokens / self._slot_steps, 4) \
+            if self._slot_steps else 0.0
+
+    def reset_stats(self):
+        """Zero the engine's token, step, draft and prefill counters and
+        the allocator's sharing counters (between A/B arms on one
+        engine)."""
+        self._committed_tokens = 0
+        self._decode_steps = 0
+        self._slot_steps = 0
+        self._draft_ms = 0.0
+        self._prefill_tokens = 0
+        self._prefix_admit_tokens = 0
+        self._prefix_matched_tokens = 0
+        self._pack_frames = 0
+        self._pack_reqs = 0
+        self._pack_fill_tokens = 0
+        self._pack_frame_tokens = 0
+        self.allocator.cow_copies = 0
+        self.allocator.prefix_matches = 0
+        self.allocator.prefix_tokens_matched = 0
 
     @property
     def prefix_hit_rate(self) -> float:

@@ -8,7 +8,11 @@ order); each step draws one uniform number per row on the host from the
 row's generator (greedy rows draw too, so a temperature switch mid-stream
 does not correlate a request with its own history) and samples by inverse
 CDF on the logits' device. Replaying a request with the same seed gives
-the same tokens on CPU and CUDA alike. JAX's threefry bits cannot be
+the same tokens on CPU and CUDA alike. A speculative verify frame samples
+its T positions in order (``sample_frame``): position i draws with the
+generator state plain decode would hold after i commits, and the engine
+sets each generator to the state after its committed tokens' draws, so
+sampled streams with speculation equal the port's plain decode's. JAX's threefry bits cannot be
 reproduced, so sampled streams are not comparable across packages; greedy
 streams are.
 """
@@ -17,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sample_tokens", "request_generator"]
+__all__ = ["sample_tokens", "sample_frame", "request_generator"]
 
 _NEG_INF = -1e30
 
@@ -76,3 +80,19 @@ def sample_tokens(logits, generators, temperature, top_k, top_p):
     sampled = sampled.clamp_max(logits.shape[-1] - 1)
     tokens = torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
     return tokens.to(torch.int32)
+
+
+def sample_frame(logits, generators, temperature, top_k, top_p):
+    """The sampling chain of a verify frame: ``sample_tokens`` over
+    positions 0..T-1 of ``logits`` [B, T, V] in order, each row's generator
+    advancing one draw a position. Returns (tokens [B, T] int32 on the
+    logits' device, states): ``states[b][i]`` is row b's generator state
+    after i + 1 draws (None for an empty slot), what plain decode's
+    generator holds after i + 1 commits."""
+    toks, states = [], [[] for _ in generators]
+    for i in range(logits.shape[1]):
+        toks.append(sample_tokens(logits[:, i], generators, temperature,
+                                  top_k, top_p))
+        for row, g in zip(states, generators):
+            row.append(None if g is None else g.get_state())
+    return torch.stack(toks, dim=1), states

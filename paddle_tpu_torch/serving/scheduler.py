@@ -1,15 +1,16 @@
 """Iteration-level (continuous-batching) scheduler
-(``paddle_tpu.serving.scheduler`` counterpart; observability spans and
-events and the speculative write horizon wait for later slices).
+(``paddle_tpu.serving.scheduler`` counterpart, the speculative write
+horizon included; its observability spans and events are not ported).
 
 Requests join and leave the decode batch BETWEEN decode steps:
 `admissions()` fills free decode slots from the waiting queue whenever the
 allocator can back the whole context plus one step (with prefix sharing,
 adopting the longest indexed prefix first), `grow()` extends page chains
-one decode step ahead and makes the page the step writes private
-(copy-on-write), and page exhaustion triggers copy-free eviction of the
-youngest running request, which re-queues at the FRONT to be re-prefilled
-(prompt + tokens generated so far).
+one decode step ahead (``spec_k`` more for a speculative verify frame) and
+makes the pages the step writes private (copy-on-write), and page
+exhaustion triggers copy-free eviction of the youngest running request,
+which re-queues at the FRONT to be re-prefilled (prompt + tokens generated
+so far).
 """
 from __future__ import annotations
 
@@ -92,7 +93,7 @@ class Request:
 class ContinuousBatchingScheduler:
     def __init__(self, allocator: PageAllocator, max_batch: int,
                  max_seq_len: int, max_waiting: int = 0,
-                 prefix_sharing: bool = False):
+                 prefix_sharing: bool = False, spec_k: int = 0):
         self.allocator = allocator
         self.max_batch = int(max_batch)
         self.max_seq_len = int(max_seq_len)
@@ -101,8 +102,10 @@ class ContinuousBatchingScheduler:
         self.max_waiting = int(max_waiting)
         # admission adopts the longest indexed prefix of the context; a
         # decode write into a shared page is copied first (pending_cow: the
-        # engine applies the device copies before its next decode step)
+        # engine applies the device copies before its next decode step);
+        # spec_k widens grow()'s write horizon to the verify frame's
         self.prefix_sharing = bool(prefix_sharing)
+        self.spec_k = int(spec_k)
         self.pending_cow: list[tuple[int, int]] = []
         self.waiting: list[Request] = []
         self.running: list[Request] = []        # admission order == age
@@ -168,9 +171,11 @@ class ContinuousBatchingScheduler:
 
     def grow(self) -> list[Request]:
         """Before a decode step every running request's chain must cover
-        its context + the token the step writes, and a SHARED page the
-        step writes must be made private first (copy-on-write; the device
-        copies accumulate in `pending_cow`). On exhaustion evict the
+        its context + the tokens the step writes (one for plain decode,
+        ``spec_k`` more for a verify frame, within max_seq_len), and every
+        SHARED page in the step's write range must be made private first
+        (copy-on-write; the device copies accumulate in `pending_cow`). On
+        exhaustion evict the
         YOUNGEST running request and retry (the requester itself can be
         the victim). Returns the evicted requests."""
         evicted = []
@@ -185,10 +190,12 @@ class ContinuousBatchingScheduler:
         """Chain coverage + writability for ONE request's next step; False
         on pool exhaustion (nothing allocated: `ensure` and
         `make_writable` are both all-or-nothing)."""
-        if not self.allocator.ensure(req.rid, req.total_len):
+        horizon = min(req.total_len + self.spec_k, self.max_seq_len)
+        if not self.allocator.ensure(req.rid, horizon):
             return False
-        copies = self.allocator.make_writable(req.rid, req.total_len - 1,
-                                              req.total_len - 1)
+        copies = self.allocator.make_writable(
+            req.rid, req.total_len - 1,
+            min(req.total_len - 1 + self.spec_k, self.max_seq_len - 1))
         if copies is None:
             return False
         self.pending_cow.extend(copies)

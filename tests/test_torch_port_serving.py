@@ -139,9 +139,9 @@ def test_allocator_all_or_nothing_and_scheduler_limits():
 
 def test_unported_options_raise(models):
     _, tm = models
-    for kw in (dict(spec_k=2), dict(role="decode")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServingEngine(tm, ServingConfig(**ENGINE, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServingEngine(tm, ServingConfig(**ENGINE, role="decode"),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tm, ServingConfig(**ENGINE), adapter_store=object(),
                       device="cpu")

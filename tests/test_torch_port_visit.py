@@ -1,6 +1,7 @@
-"""The block-visit and page-visit counters (``csrc/flash_fwd.cu``
-``flash_visit_kernel``, ``csrc/paged_attention.cu`` ``page_visit_kernel``)
-on the CPU, where no kernel runs.
+"""The block-visit, page-visit and grouped visit counters
+(``csrc/flash_fwd.cu`` ``flash_visit_kernel``, ``csrc/paged_attention.cu``
+``page_visit_kernel``, ``csrc/grouped_matmul.cu`` ``gmm_visit_kernel``) on
+the CPU, where no kernel runs.
 
 * The plain versions against the JAX package: the flash counter against
   ``segment_block_visit_counts(..., interpret=True)`` with bq != bk, not
@@ -15,6 +16,12 @@ on the CPU, where no kernel runs.
   once, and the emulated counts equal the plain versions. Shared memory
   within 48 KB (so without the opt-in, and within 227 KB) up to S 131072
   at 64 x 64; the tiled tables at bq = bk = 1.
+* The grouped counter's work, emulated from ``gmm_visit_plan``: which
+  warp and lane group read each block_rows block (16-byte loads where the
+  ids allow), which ballot and lane test each (block, group) pair, on the
+  dispatcher's layouts at 8 and 64 experts and unaligned blocks of 8;
+  every id and pair exactly once, the counts equal
+  ``expected_visit_counts``, the grid within one wave.
 * The wrappers pass the plan to the C entries as their signatures name the
   arguments (a fake library), and a refused launch raises.
 """
@@ -30,10 +37,12 @@ from paddle_tpu.ops.pallas.flash_attention import \
     segment_block_visit_counts as jax_segment_visits
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
 _FWD_CU = open(f"{_build.CSRC_DIR}/flash_fwd.cu").read()
 _PAGED_CU = open(f"{_build.CSRC_DIR}/paged_attention.cu").read()
+_GMM_CU = open(f"{_build.CSRC_DIR}/grouped_matmul.cu").read()
 SMS = 132
 SMEM_NO_OPT_IN, SMEM_MAX = 48 * 1024, 232448
 
@@ -133,6 +142,10 @@ def test_plan_constants_are_the_cu_files():
     assert fa.VISIT_MAX_THREADS == _cu_const(_FWD_CU, "kVisitMaxThreads")
     assert fa.VISIT_LOADS == _cu_const(_FWD_CU, "kVisitLoads")
     assert pa.PAGE_VISIT_WARPS == _cu_const(_PAGED_CU, "kPageVisitWarps")
+    assert gm.GMM_VISIT_MIN_THREADS == _cu_const(_GMM_CU,
+                                                 "kGmmVisitMinThreads")
+    assert gm.GMM_VISIT_MAX_THREADS == _cu_const(_GMM_CU,
+                                                 "kGmmVisitMaxThreads")
     # the compile-time instantiation is the forward's tiles, the counter's
     # default blocks
     assert _cu_const(_FWD_CU, "kVisitFastBlock") == fa.FWD_BLOCK_Q \
@@ -353,6 +366,171 @@ def test_page_plan_counts_every_page_once():
                 got[row] = n
         want = pa.page_visit_reference(torch.from_numpy(lens), ps, pages)
         np.testing.assert_array_equal(got, want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the grouped visit counter
+# ---------------------------------------------------------------------------
+
+def _dispatch_gids(rng, tokens, groups, k, bm):
+    """The dropless dispatcher's bucket gids for the top-k of random gate
+    logits (``ragged_layout``, as chip_smoke's ``_dispatch_layout``)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe.dropless import \
+        ragged_layout
+
+    logits = torch.from_numpy(rng.standard_normal((tokens, groups)))
+    topi = logits.topk(k, dim=-1).indices.reshape(-1)
+    return ragged_layout(topi, groups, bm)[3].numpy().astype(np.int32)
+
+
+def _unaligned_gids(rng, rows, groups, trash):
+    cuts = np.sort(rng.integers(0, rows - trash + 1, groups - 1))
+    cuts[1] = cuts[0]                         # group 1 is empty
+    gids = np.searchsorted(cuts, np.arange(rows - trash), side="right")
+    return np.concatenate([gids, np.full(trash, groups)]).astype(np.int32)
+
+
+def _emulate_gmm_visit(gids, groups, bm, vec, sms=SMS):
+    """gmm_visit_kernel by its plan: warp w of the grid takes blocks w *
+    bpw + grp, pass by pass; a block's lane group reads load j with lane
+    j % L; lane sub of the group tests g = sub + L * step in each ballot
+    step (g0 < G, warp-uniform). Asserts every id is read once by its
+    block's group, every (block, g < G) pair tested once, every block
+    counted by one lane; returns (counts, plan, passes, ballots a warp)."""
+    m = gids.size
+    nb = m // bm
+    plan = gm.gmm_visit_plan(m, bm, vec, sms)
+    lanes, bpw = plan.lanes, plan.blocks_per_warp
+    per = bm // 4 if vec else bm
+    ids = 4 if vec else 1
+    assert lanes * bpw == 32 and (lanes >= per or lanes == 32)
+    assert lanes == 1 or lanes // 2 < per       # the least such power
+    warps = plan.grid * plan.threads // 32
+    counts = np.full(nb, -1, np.int64)
+    reads = np.zeros(m, np.int64)
+    tests = np.zeros((nb, groups), np.int64)
+    passes = 0
+    steps = -(-groups // lanes)
+    for w in range(warps):
+        for b0 in range(w * bpw, nb, warps * bpw):
+            passes = max(passes, (b0 - w * bpw) // (warps * bpw) + 1)
+            for grp in range(bpw):
+                blk = b0 + grp
+                if blk >= nb:
+                    continue
+                lo, hi = np.iinfo(np.int32).max, np.iinfo(np.int32).min
+                for sub in range(lanes):
+                    for j in range(sub, per, lanes):
+                        off = blk * bm + j * ids
+                        assert not vec or off % 4 == 0
+                        reads[off:off + ids] += 1
+                        lo = min(lo, int(gids[off:off + ids].min()))
+                        hi = max(hi, int(gids[off:off + ids].max()))
+                n = 0
+                for g0 in range(0, groups, lanes):
+                    for sub in range(lanes):
+                        g = g0 + sub
+                        if g < groups:
+                            tests[blk, g] += 1
+                            n += lo <= g <= hi      # blocks_can_touch
+                assert counts[blk] == -1
+                counts[blk] = n
+    np.testing.assert_array_equal(reads, 1)
+    np.testing.assert_array_equal(tests, 1)
+    assert (counts >= 0).all()
+    return counts, plan, passes, steps
+
+
+@pytest.mark.parametrize("case", ["dispatch_g8", "dispatch_g64",
+                                  "unaligned_bm8", "unaligned_bm8_ints",
+                                  "bm32", "bm256", "bm12", "tokens_1m"])
+def test_emulated_gmm_visit_counts_every_pair_once(case):
+    rng = np.random.default_rng(14)
+    vec = True
+    if case.startswith("dispatch"):
+        groups = 8 if case == "dispatch_g8" else 64
+        bm = gm.pick_block_rows(4 * 2048 * 2, groups)
+        gids = _dispatch_gids(rng, 4 * 2048, groups, 2, bm)
+    elif case.startswith("unaligned"):
+        groups, bm = 8, 8
+        gids = _unaligned_gids(rng, 1000, groups, 37)
+        vec = case == "unaligned_bm8"
+    elif case == "tokens_1m":         # more warps than one wave holds
+        groups, bm = 8, 8
+        gids = np.sort(rng.integers(0, groups + 1, 1 << 20)).astype(np.int32)
+    else:
+        bm = int(case[2:])
+        groups = 40
+        gids = np.sort(rng.integers(0, groups + 1, bm * 75)).astype(np.int32)
+        vec = bm % 4 == 0
+    counts, plan, passes, ballots = _emulate_gmm_visit(gids, groups, bm, vec)
+    np.testing.assert_array_equal(counts,
+                                  gm.expected_visit_counts(gids, groups, bm))
+    np.testing.assert_array_equal(
+        counts, gm.grouped_matmul_visit_reference(
+            torch.from_numpy(gids), groups, bm).numpy())
+    assert 1 <= plan.grid <= SMS
+    assert plan.threads % 32 == 0
+    assert gm.GMM_VISIT_MIN_THREADS <= plan.threads \
+        <= gm.GMM_VISIT_MAX_THREADS
+    if case.startswith("dispatch"):
+        # the dispatcher's 128-row blocks: the fast instantiation, a warp
+        # a block in one 16-byte load a lane and one pass; G 64 takes two
+        # ballots where the parent's lane 0 walked 64 groups
+        assert bm == _cu_const(_GMM_CU, "kGmmVisitFastBlock")
+        assert (plan.lanes, plan.blocks_per_warp, passes) == (32, 1, 1)
+        assert ballots == -(-groups // 32)
+    if case == "tokens_1m":
+        assert plan.grid == SMS and passes > 1
+
+
+def _check_gmm_argtypes(real_fn, name, nargs, params):
+    """The argtypes `_fn(name, *nargs)` sets follow the C signature."""
+    fake = _FakeLib(name)
+    orig = _build.load
+    _build.load = lambda n: fake
+    try:
+        fn = real_fn(name, *nargs)
+    finally:
+        _build.load = orig
+    _, pointers = _entry_params(_GMM_CU, name)
+    assert len(fn.argtypes) == len(params)
+    for p, is_ptr, t in zip(params, pointers, fn.argtypes):
+        assert t is (ctypes.c_void_p if is_ptr or p == "stream"
+                     else ctypes.c_int), p
+
+
+def test_gmm_visit_wrapper_passes_the_plan(monkeypatch):
+    params, _ = _entry_params(_GMM_CU, "ptt_gmm_visit")
+    seen = {}
+
+    def call(*args):
+        assert len(args) == len(params)
+        seen.update(zip(params, args))
+        return 0
+
+    real_fn = gm._fn
+    monkeypatch.setattr(gm, "_fn", lambda name, *n: (
+        _check_gmm_argtypes(real_fn, name, n, params) or call))
+    monkeypatch.setattr(gm, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *_: _Stream())
+    for offset, bm, vec in ((0, 128, 1), (1, 128, 0), (0, 8, 1),
+                            (0, 6, 0)):
+        gids = torch.zeros(1536 + offset, dtype=torch.int32)[offset:]
+        gm.reset_launches()
+        counts = gm._launch_visit(gids, 8, bm)
+        plan = gm.gmm_visit_plan(1536, bm, bool(vec), SMS)
+        assert counts.shape == (1536 // bm,) and counts.dtype == torch.int32
+        assert (seen["gids"], seen["counts"]) == (gids.data_ptr(),
+                                                  counts.data_ptr())
+        assert (seen["M"], seen["G"], seen["bm"], seen["vec"]) == \
+            (1536, 8, bm, vec)
+        assert (seen["grid"], seen["threads"]) == (plan.grid, plan.threads)
+        assert gm.launch_counts()["gmm_visit"] == 1
+    monkeypatch.setattr(gm, "_fn", lambda name, *_: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="gmm_visit launch failed"):
+        gm._launch_visit(torch.zeros(256, dtype=torch.int32), 8, 128)
+    assert gm.launch_counts()["gmm_visit"] == 1
 
 
 # ---------------------------------------------------------------------------

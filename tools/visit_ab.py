@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""The flash block-visit and page-visit counters on one GPU, one source
-tree against another.
+"""The flash block-visit, page-visit and grouped visit counters on one
+GPU, one source tree against another.
 
     python3 tools/visit_ab.py --trees proof_tree/parent . . proof_tree/parent
 
 For each tree, in the order given (parent, change, change, parent puts
 drift on both sides), a subprocess imports ``paddle_tpu_torch`` from that
-tree, builds its ``flash_fwd.cu`` and ``paged_attention.cu`` with nvcc,
-and runs every case of THIS tree's ``chip_smoke.visit_cases()`` through
-``chip_smoke.run_visit_cases``: each count held exactly against the tree's
-plain version (pages against ceil(len / page_size) too) and timed: the
-kernel's device ms (torch.profiler) beside the launch floor, one 1-element
-fill's device ms in the same process. Prints one JSON line a tree run,
-then device ms by case and tree; writes everything to
-``chiprun_out/visit_ab.json``. Needs one card.
+tree, builds its ``flash_fwd.cu``, ``paged_attention.cu`` and
+``grouped_matmul.cu`` with nvcc, and runs every case of THIS tree's
+``chip_smoke.visit_cases()`` through ``chip_smoke.run_visit_cases`` and
+every layout of its ``chip_smoke.gmm_layouts()`` (seed 0) through
+``chip_smoke.run_gmm_visit_cases``: each count held exactly against the
+tree's plain versions (pages against ceil(len / page_size), groups
+against ``expected_visit_counts`` too) and timed: the kernel's device ms
+(torch.profiler) beside the launch floor, one 1-element fill's device ms
+in the same process. Prints one JSON line a tree run, then device ms by
+case and tree; writes everything to ``chiprun_out/visit_ab.json``. Needs
+one card.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = ("ok", "ms", "call_ms", "plain_ms", "bound_ms", "launch_floor_ms",
-        "visited")
+        "visited", "visited_tiles")
 
 
 def _chip_smoke():
@@ -48,15 +51,20 @@ def worker(tree):
     assert _build.__file__.startswith(os.path.abspath(tree)), _build.__file__
     if not torch.cuda.is_available():
         raise SystemExit("visit_ab: no CUDA device")
-    _build.build_all(["flash_fwd", "paged_attention"])
+    sources = ["flash_fwd", "paged_attention", "grouped_matmul"]
+    _build.build_all(sources)
     ptxas = []
-    for name in ("flash_fwd", "paged_attention"):
+    for name in sources:
         lines = _build.build_log(name).splitlines()
         ptxas += [" | ".join(x.strip() for x in lines[i:i + 3])
                   for i, ln in enumerate(lines)
                   if "Compiling entry" in ln and "visit_kernel" in ln]
+    cases = cs.run_visit_cases()
+    cases.update(("gmm_" + label, r) for label, r in cs.run_gmm_visit_cases(
+        cs.gmm_layouts(torch.Generator(device="cuda").manual_seed(0))
+    ).items())
     return ptxas, {label: {k: r.get(k) for k in KEYS}
-                   for label, r in cs.run_visit_cases().items()}
+                   for label, r in cases.items()}
 
 
 def main(argv=None):
@@ -93,7 +101,10 @@ def main(argv=None):
     with open(os.path.join(REPO, "chiprun_out", "visit_ab.json"),
               "w") as fh:
         json.dump({"gpu": smi, "runs": runs}, fh, indent=1)
-    for label, *_ in _chip_smoke().visit_cases():
+    labels = [label for label, *_ in _chip_smoke().visit_cases()]
+    labels += [label for r in runs[:1] for label in r["cases"]
+               if label.startswith("gmm_")]
+    for label in labels:
         cells = [f"{r['tree']} {c['ms']:.4f} (floor "
                  f"{c['launch_floor_ms']:.4f}){'' if c['ok'] else ' WRONG'}"
                  for r in runs for c in [r["cases"].get(label)] if c]
