@@ -36,7 +36,12 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     gmm_fwd per row (fp32 rule, trash rows exactly zero: h1, y, a depth
     of 96, the unaligned block_rows 8 layout in bf16 and fp32), the VJP's
     dx through ``GroupedMatmul.backward`` (bf16 w, fp32 dy: dx of h1, of
-    y, unaligned), gmm_dw per row (dw1, dw2, dw1 with fp32 x, unaligned;
+    y, unaligned), gmm_fwd at the LoRA serve's shapes (the shrink [8,
+    4096] x [16, 4096, r] over unsorted slot ids with trash rows at r 8,
+    16 and 64, a 256-row one-slot prefill chunk, the expands [8, r] x
+    [16, r, 4096] and [256, 16] x [16, 16, 1024], fp32 [8, 64] x [4, 64,
+    8]: device ms beside the bound, the launch floor and
+    torch._grouped_mm over the rows sorted by slot), gmm_dw per row (dw1, dw2, dw1 with fp32 x, unaligned;
     groups with no rows exactly zero) and gmm_visit exactly. All of them
     and ce_stats run on the wgmma/TMA core (sm90.cuh): bf16 products, or
     fp32 ones as split TF32 (2 passes with a bf16 operand, 3 with two fp32
@@ -102,7 +107,19 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     and fp8 pools; a GQA 8:1 model at spec_k 8, whose 72-row verify
     frames launch the paged kernel twice a layer): streams equal to the
     CUDA plain engine's and the CPU speculative engine's, page tables
-    and each step's committed tokens equal to the CPU's;
+    and each step's committed tokens equal to the CPU's; then multi-
+    tenant LoRA on the fp32 GQA model (an AdapterStore of 4 slots, 3
+    adapters written by the port's export_adapter, a base request and 2
+    for each adapter in one batch at spec_k 0 and 3): streams and page
+    tables equal to the CPU's, each stream equal to its request alone;
+    prompts sharing 32 tokens served base then adapter and the reverse
+    (prefix sharing on) equal to their streams alone, nothing adopted
+    across adapters; a hot swap raced against the decode loop (one
+    version of the weights a step); serving.lora.swap_fail giving one
+    typed AdapterLoadError, the other streams unchanged; a rank-4
+    adapter (pools padded to 8) equal to the CPU; two replicas behind
+    the adapter-affine router with serving.replica.kill armed mid-run,
+    every stream complete and equal to the CPU's;
  4. the LLaMA-2-7B geometry (32 layers, hidden 4096, 32 heads, bf16, random
     weights from --seed) serving 8 greedy requests of mixed prompt length
     (packed, single-chunk and multi-chunk prefill), with every kernel's
@@ -130,7 +147,20 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     measured apart; an int8 tier run at 384 pages and a 2 GiB pinned host
     store demotes a 1000-token prompt's pages and promotes them byte-exact,
     the promoted serve's stream equal to a serve that adopted the same
-    pages cold in device memory;
+    pages cold in device memory; then multi-tenant LoRA on the same
+    model: a fresh engine with an AdapterStore of rank 16 on q, k, v, o
+    and 16 slots, 4 random adapters, phase 4's prompts served base-only
+    and then 2 base and 2 for each of 3 adapters (prefill and decode
+    tokens/s of both, 2 x 4 x 32 = 256 grouped-matmul launches a decode
+    step, the grouped kernels' device ms against the adapter decode
+    step's, swap-in ms, peak memory; each adapter request's first-step
+    logits within 2^-5 of the row max of the request served alone);
+    then two in-process replicas over two engines sharing the weights
+    (8 GiB of pages and an AdapterStore each) behind
+    Router(placement="adapter"): the 8 requests complete, each adapter's
+    on one replica, an unknown adapter is one adapter_load_failed event,
+    replica 1 killed mid-stream loses no request, /metrics over HTTP
+    carries lora_active_adapters and router_* series;
  6. training on CUDA (kernels) against training on the CPU (plain
     versions): a 2-layer fp32 GQA model with the same weights takes 3
     ``TrainStep`` steps of AdamW on the same packed dict batch; per-step
@@ -1714,7 +1744,7 @@ def phase_kernels(seed, report):
           [f"flash_bwd {k}" for k, r in bwd.items() if not r["ok"]] + \
           [f"ce_stats {k}" for k, r in ce.items() if not r["ok"]] + \
           [f"ce_bwd {k}" for k, r in ce_bwd.items() if not r["ok"]] + \
-          phase_gmm(gen, report)
+          phase_gmm(gen, report) + phase_gmm_lora(gen, report)
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
@@ -3686,6 +3716,928 @@ def phase_tuning(seed, report):
         raise AssertionError(f"tuning phase failed: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# multi-tenant LoRA: the grouped matmul at the LoRA serve's shapes, the
+# adapter engine on CUDA against the CPU, the 7B adapter serve, the router
+# ---------------------------------------------------------------------------
+# the store's slots at 7B; id LORA_SLOTS is the trash id (a base row)
+LORA_SLOTS = 16
+LORA_DECODE_IDS = [3, 3, 16, 0, 7, 16, 12, 3]     # unsorted, 2 trash rows
+LORA_RANK = 16             # the 7B serve's adapters: q, k, v, o
+LORA_ALPHA = 32.0
+LORA_STD = 0.02            # A and B ~ N(0, 0.02)
+# new tokens a request in the 7B LoRA phase's gates and the router phase:
+# phase 4's count cut to keep the whole run near its earlier length (the
+# timed serves keep phase 4's NEW_TOKENS, a window long enough to read)
+LORA_NEW_TOKENS = 8
+
+
+def gmm_lora_cases():
+    """(label, rows, d, h, groups, slot ids or one slot, dtype): the LoRA
+    delta's two grouped products at the 7B serve's shapes, the shrink x
+    [rows, 4096] @ A[slot] [4096, r] and the expand h [rows, r] @ B[slot]
+    [r, d_out]: a decode batch of 8 rows over unsorted slots with trash
+    rows, a 256-row prefill chunk of one slot, a 128-row packed prefill
+    frame of one slot (the 7B engine's frame buckets are 64, 128 and 256
+    rows), the 7B width 4096 and the GQA k/v width 1024, ranks 8, 16 and
+    64; and the fp32 pools of the small model."""
+    import torch
+
+    bf, dec = torch.bfloat16, LORA_DECODE_IDS
+    return [("shrink_b8_r16", 8, 4096, 16, LORA_SLOTS, dec, bf),
+            ("shrink_b8_r64", 8, 4096, 64, LORA_SLOTS, dec, bf),
+            ("shrink_prefill256_r16", 256, 4096, 16, LORA_SLOTS, 5, bf),
+            ("shrink_packed128_r16", 128, 4096, 16, LORA_SLOTS, 9, bf),
+            ("expand_b8_r16", 8, 16, 4096, LORA_SLOTS, dec, bf),
+            ("expand_prefill256_r16", 256, 16, 4096, LORA_SLOTS, 5, bf),
+            ("expand_packed128_r16", 128, 16, 4096, LORA_SLOTS, 9, bf),
+            ("expand_prefill256_r16_gqa", 256, 16, 1024, LORA_SLOTS, 5, bf),
+            ("shrink_b8_r8", 8, 4096, 8, LORA_SLOTS, dec, bf),
+            ("expand_b8_r8", 8, 8, 4096, LORA_SLOTS, dec, bf),
+            ("fp32_b8_r8", 8, 64, 8, 4, [0, 2, 4, 1, 1, 4, 3, 0],
+             torch.float32)]
+
+
+def run_gmm_lora_case(gen, rows, d, h, groups, ids, dtype, floor):
+    """gmm_fwd at one LoRA shape against grouped_matmul_reference (the
+    fp32 per-row rule, trash rows exactly zero); its device ms beside the
+    bound (the rows of x, the A slices of the slots present and y, over
+    3.35 TB/s, or the flops of the rows that hold a slot) and the launch
+    floor; torch._grouped_mm over the same rows sorted by slot for scale,
+    the sort's device ms apart."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    gids = (torch.tensor(ids, dtype=torch.int32, device="cuda")
+            if isinstance(ids, list)
+            else torch.full((rows,), ids, dtype=torch.int32, device="cuda"))
+    x = _rand(gen, (rows, d), dtype)
+    w = (torch.randn((groups, d, h), generator=gen, device="cuda")
+         * LORA_STD).to(dtype)
+    out = gm.gmm_fwd(x, w, gids)
+    torch.cuda.synchronize()
+    ref = gm.grouped_matmul_reference(x, w, gids)
+    cmp = _compare(out, ref, "float32")
+    trash = gids >= groups
+    trash_zero = bool((out[trash] == 0).all())
+    call = lambda: gm.gmm_fwd(x, w, gids)  # noqa: E731
+    bf16 = dtype == torch.bfloat16
+    by_kernel = _device_ms_by_kernel(call)
+    ms = _kernel_ms(by_kernel, "gmm_fwd_wgmma" if bf16 else "gmm_fwd_tf32")
+    copy_ms = sum(v for k, v in by_kernel.items() if "gmm_fwd" not in k)
+    call_ms = _cuda_ms(call)
+    plain_ms = _cuda_ms(lambda: gm.grouped_matmul_reference(x, w, gids),
+                        reps=5, warmup=1)
+    real = int((~trash).sum())
+    present = int(torch.unique(gids[~trash]).numel())
+    es = x.element_size()
+    nbytes = rows * d * es + present * d * h * es + rows * h * 4 + rows * 4
+    flops = 2 * real * d * h
+    if bf16:
+        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+    else:
+        bound_ms, bound_by, _, _ = _fp32_product_bound(nbytes, flops, 3)
+    library_ms = sort_ms = None
+    library = "none: no PyTorch call computes an fp32 grouped product"
+    if bf16:
+        order = torch.argsort(gids, stable=True)[:real]
+        xs, gs = x[order], gids[order]
+        lib, library = _grouped_mm_call(xs, w, gs, groups)
+        if lib is not None:
+            library_ms = _device_ms_sum(lib)
+            sort_ms = _device_ms_sum(lambda: (
+                torch.argsort(gids, stable=True), x[order], gids[order]))
+            library += ", rows sorted by slot (the sort's ms apart)"
+    return dict(cmp, ok=cmp["ok"] and trash_zero, trash_zero=trash_zero,
+                ms=ms, copy_ms=copy_ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, launch_floor_ms=floor,
+                library_ms=library_ms, library_sort_ms=sort_ms,
+                library=library, rows=rows, d=d, h=h, slots_present=present,
+                flops=flops, bytes=nbytes)
+
+
+def phase_gmm_lora(gen, report):
+    """The LoRA shapes of gmm_fwd (`gmm_lora_cases`); returns the labels
+    that disagree with the plain version."""
+    import torch
+
+    floor = launch_floor_ms()
+    out = {}
+    for label, rows, d, h, groups, ids, dtype in gmm_lora_cases():
+        out[label] = r = run_gmm_lora_case(gen, rows, d, h, groups, ids,
+                                           dtype, floor)
+        lib = (f"{r['library_ms']:.4f} + sort {r['library_sort_ms']:.4f}"
+               if r["library_ms"] is not None else "none")
+        print(f"gmm_fwd lora {label}: err {r['max_abs_err']:.3g} row rel "
+              f"{r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) trash zero "
+              f"{r['trash_zero']} ms {r['ms']:.4f} (device; copies "
+              f"{r['copy_ms']:.4f}; call {r['call_ms']:.4f}; launch floor "
+              f"{floor:.4f}) bound {r['bound_ms']:.6f} ({r['bound_by']}, "
+              f"{r['bound_share']:.2%}) slots {r['slots_present']} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms {lib} ({r['library']})",
+              flush=True)
+        torch.cuda.empty_cache()
+    report["gmm_lora_cases"] = out
+    return [f"gmm_fwd lora {k}" for k, r in out.items() if not r["ok"]]
+
+
+def _lora_export(model, out_dir, names, rank, seed, b_std):
+    """Random adapters written by the port's export_adapter from `model`
+    (attach, B ~ N(0, b_std), export, detach): {id: path}."""
+    import torch
+
+    from paddle_tpu_torch.lora import LoRAConfig, attach, detach, \
+        export_adapter
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for i, aid in enumerate(names):
+        h = attach(model, LoRAConfig(rank=rank, alpha=2.0 * rank,
+                                     seed=seed + i))
+        g = torch.Generator(device=model.device)
+        g.manual_seed(seed + 100 + i)
+        with torch.no_grad():
+            for _, _, _, b in h.entries:
+                b.normal_(0.0, b_std, generator=g)
+        paths[aid] = os.path.join(out_dir, f"{aid}.pdmodel")
+        export_adapter(paths[aid], h, adapter_id=aid)
+        detach(h)
+    return paths
+
+
+def _lora_engine(model, paths, rank, slots, dev, **kw):
+    from paddle_tpu_torch.lora import AdapterStore
+    from paddle_tpu_torch.serving import ServingEngine
+
+    store = AdapterStore(model, rank=rank, slots=slots)
+    for aid, src in paths.items():
+        store.register(aid, src)
+    return ServingEngine(model, _engine_cfg(**kw), adapter_store=store,
+                         device=dev)
+
+
+def _lora_serve(eng, prompts, adapters, new_tokens):
+    """Submit all, one step, the page tables, then to the end: (streams,
+    page tables after the first step)."""
+    rids = [eng.submit(p, max_new_tokens=new_tokens, adapter=a,
+                       tenant=a or "") for p, a in zip(prompts, adapters)]
+    eng.step()
+    tables = [eng.allocator.page_table_row(r, eng.pages_per_seq).tolist()
+              for r in rids]
+    eng.run_until_idle()
+    streams = [list(eng.scheduler.get(r).generated) for r in rids]
+    for r in rids:
+        eng.release(r)
+    eng.allocator.check_consistency()
+    return streams, tables
+
+
+def _hot_swap_race(eng, blob_of, prompt, steps_min=20):
+    """A thread re-registers adapter "ten-a" back and forth between two
+    versions (A[0, 0] set to 1 or 2 in every target), with no pause,
+    while an InProcessReplica's driver (no pause either) decodes one
+    request through it. Every step's projections must read one version
+    (the store stages a swap and the engine writes it at the start of its
+    next step), both must have been read, and swaps must have landed
+    while the stream ran. Returns (ok, steps, marks seen, swaps during
+    the stream)."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch.lora import seam
+    from paddle_tpu_torch.serving import InProcessReplica
+
+    blobs = []
+    for mark in (1.0, 2.0):
+        weights = {}
+        for name, (a, b) in blob_of["weights"].items():
+            a = np.array(a)
+            a[0, 0] = mark
+            weights[name] = (a, b)
+        blobs.append({"adapter": blob_of["adapter"], "weights": weights})
+    store = eng.adapters
+    store.register("ten-a", blobs[0])
+    seen, marks, swaps = [], [], []
+    real, real_step = seam.serve_delta, eng.step
+
+    def spy(v, a_pool, b_pool, binding):
+        slot = int(binding.slots[0])
+        if slot < binding.num_slots:
+            seen.append(float(a_pool[slot, 0, 0]))
+        return real(v, a_pool, b_pool, binding)
+
+    def step():
+        seen.clear()
+        out = real_step()
+        if seen:
+            marks.append(sorted(set(seen)))
+        return out
+
+    stop = threading.Event()
+
+    def swapper():
+        i = 1
+        while not stop.is_set():
+            store.register("ten-a", blobs[i % 2])
+            swaps.append(time.monotonic())
+            i += 1
+
+    seam.serve_delta, eng.step = spy, step
+    t = threading.Thread(target=swapper)
+    t0 = t1 = time.monotonic()
+    try:
+        with InProcessReplica(eng, replica_id=0) as rep:
+            stream = rep.open_stream({
+                "prompt_ids": np.asarray(prompt).tolist(),
+                "max_new_tokens": max(steps_min, 24), "adapter": "ten-a"})
+            t.start()
+            t0 = time.monotonic()
+            try:
+                ev = None
+                while ev is None or "done" not in ev:
+                    ev = stream.next_event(60.0)
+                    if ev is None:
+                        break
+                t1 = time.monotonic()
+            finally:
+                stop.set()
+                t.join()
+                stream.close()
+    finally:
+        stop.set()
+        seam.serve_delta = real
+        del eng.step
+    landed = sum(t0 <= ts <= t1 for ts in swaps)
+    one = all(len(m) == 1 for m in marks)
+    both = {m[0] for m in marks if m} == {1.0, 2.0}
+    return one and both and landed >= 2, len(marks), marks, landed
+
+
+def phase_lora_cuda_vs_cpu(seed, report):
+    """Multi-tenant LoRA on CUDA (the grouped-matmul kernel, fp32 pools:
+    its split-TF32 route) against the CPU (plain versions), on phase 3's
+    fp32 GQA model: an AdapterStore of 4 slots, 3 adapters registered from
+    files the port's export_adapter wrote, a base request and 2 for each
+    adapter in one continuous batch at spec_k 0 and 3. Gates: streams and
+    page tables equal to the CPU engine's, each stream equal to the
+    request served alone on CUDA; two 40-token prompts sharing 32 served
+    base then adapter (and the reverse) with prefix sharing on, each
+    equal to its stream alone and no adoption across them; a hot swap
+    raced against a decode loop reading one version a step; the
+    serving.lora.swap_fail point giving one typed AdapterLoadError with
+    the other streams unchanged; a rank-4 adapter (pools padded to 8 on
+    CUDA) giving the CPU's streams; two replicas behind the adapter-affine
+    router with serving.replica.kill armed mid-run: every stream complete
+    and equal to the CPU's."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.resilience import faults
+    from paddle_tpu_torch.lora import AdapterLoadError, load_adapter
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving import InProcessReplica, Router, \
+        RouterConfig
+
+    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=512)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = LlamaForCausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    cpu_model.eval()
+    gpu_model.eval()
+    out_dir = os.path.join(REPO, "chiprun_out", "lora_adapters")
+    names = ("ten-a", "ten-b", "ten-c")
+    paths = _lora_export(cpu_model, out_dir, names, 8, seed, 0.02)
+    kw = dict(page_size=16, num_pages=128, decode_batch=8, prefill_chunk=64,
+              pack_frame=128, max_seq_len=256, prefix_sharing=False)
+    rng = np.random.RandomState(seed + 5)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 70, 20, 100, 33, 9)]
+    adapters = [None, "ten-a", "ten-a", "ten-b", "ten-b", "ten-c", "ten-c"]
+    new = 12
+    res, bad = {}, []
+    for k in (0, 3):
+        runs = {}
+        for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            eng = _lora_engine(model, paths, 8, 4, dev, spec_k=k, **kw)
+            port_cuda.reset_launch_counts()
+            runs[dev] = _lora_serve(eng, prompts, adapters, new)
+            runs[dev + "_tf32"] = port_cuda.launch_counts()["gmm_fwd_tf32"]
+            if dev == "cuda" and k == 0:
+                cuda_eng = eng
+        r = dict(streams_equal=runs["cuda"][0] == runs["cpu"][0],
+                 tables_equal=runs["cuda"][1] == runs["cpu"][1],
+                 gmm_launches=runs["cuda_tf32"],
+                 streams=runs["cuda"][0])
+        if k == 0:
+            alone = [_lora_serve(cuda_eng, [p], [a], new)[0][0]
+                     for p, a in zip(prompts, adapters)]
+            r["alone_equal"] = alone == runs["cuda"][0]
+            base_of_a = _lora_serve(cuda_eng, [prompts[1]], [None], new)[0]
+            r["adapter_changes_stream"] = base_of_a[0] != runs["cuda"][0][1]
+        r["ok"] = (r["streams_equal"] and r["tables_equal"]
+                   and r["gmm_launches"] > 0 and r.get("alone_equal", True)
+                   and r.get("adapter_changes_stream", True))
+        res[f"spec_k{k}"] = r
+        print(f"lora cuda vs cpu spec_k {k}: streams equal "
+              f"{r['streams_equal']} page tables equal {r['tables_equal']} "
+              f"alone equal {r.get('alone_equal')} adapter changes a stream "
+              f"{r.get('adapter_changes_stream')} gmm_fwd_tf32 launches "
+              f"{r['gmm_launches']}", flush=True)
+        if not r["ok"]:
+            bad.append(f"spec_k {k}")
+    want = res["spec_k0"]["streams"]
+
+    # the prefix namespace: a base and an adapter request sharing 32 tokens
+    common = rng.randint(1, cfg.vocab_size, 32).astype(np.int32)
+    pair = [np.concatenate([common, rng.randint(1, cfg.vocab_size, 8)
+                            .astype(np.int32)]) for _ in range(2)]
+    ns = {}
+    shared = _lora_engine(gpu_model, paths, 8, 4, "cuda",
+                          **{**kw, "prefix_sharing": True})
+    for order in ((None, "ten-a"), ("ten-a", None)):
+        rids = [shared.submit(pair[0], max_new_tokens=new, adapter=order[0])]
+        shared.step()
+        m0 = shared.allocator.prefix_tokens_matched
+        rids.append(shared.submit(pair[1], max_new_tokens=new,
+                                  adapter=order[1]))
+        shared.run_until_idle()
+        got = [list(shared.scheduler.get(r).generated) for r in rids]
+        matched = shared.allocator.prefix_tokens_matched - m0
+        for r in rids:
+            shared.release(r)
+        alone = [_lora_serve(cuda_eng, [p], [a], new)[0][0]
+                 for p, a in zip(pair, order)]
+        ns[f"{order[0] or 'base'}_then_{order[1] or 'base'}"] = dict(
+            equal_alone=got == alone, matched_tokens=matched)
+    res["namespace"] = ns
+    ns_ok = all(v["equal_alone"] and v["matched_tokens"] == 0
+                for v in ns.values())
+    print(f"lora prefix namespace: {json.dumps(ns)}", flush=True)
+    if not ns_ok:
+        bad.append("namespace")
+
+    # a hot swap racing the decode loop
+    race_ok, race_steps, marks, landed = _hot_swap_race(
+        cuda_eng, load_adapter(paths["ten-a"]), prompts[2])
+    cuda_eng.adapters.register("ten-a", paths["ten-a"])
+    versions = [m[0] if len(m) == 1 else m for m in marks]
+    res["hot_swap_race"] = dict(ok=race_ok, steps=race_steps,
+                                versions_by_step=versions,
+                                swaps_during_stream=landed)
+    print(f"lora hot swap race (through an InProcessReplica, no pauses): "
+          f"one version a step, both seen and swaps landed {race_ok} over "
+          f"{race_steps} steps ({landed} swaps during the stream; versions "
+          f"{versions})", flush=True)
+    if not race_ok:
+        bad.append("hot swap race")
+
+    # serving.lora.swap_fail: one typed error, the other streams unchanged
+    extra = _lora_export(cpu_model, out_dir, ("ten-d",), 8, seed + 50, 0.02)
+    cuda_eng.adapters.register("ten-d", extra["ten-d"])
+    faults.reset()
+    faults.arm("serving.lora.swap_fail", mode="always")
+    errors = 0
+    try:
+        rids = [cuda_eng.submit(p, max_new_tokens=new, adapter=a)
+                for p, a in zip(prompts, adapters)]
+        try:
+            cuda_eng.submit(prompts[0], max_new_tokens=new, adapter="ten-d")
+        except AdapterLoadError:
+            errors += 1
+        cuda_eng.run_until_idle()
+        got = [list(cuda_eng.scheduler.get(r).generated) for r in rids]
+        for r in rids:
+            cuda_eng.release(r)
+    finally:
+        faults.reset()
+    res["swap_fail"] = dict(typed_errors=errors, others_equal=got == want)
+    print(f"lora swap_fail: typed errors {errors}, other streams equal "
+          f"{got == want}", flush=True)
+    if errors != 1 or got != want:
+        bad.append("swap_fail")
+
+    # rank 4: pools padded to rank 8 on CUDA, unpadded on the CPU
+    r4 = _lora_export(cpu_model, out_dir, ("ten-r4",), 4, seed + 60, 0.02)
+    r4_streams = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        eng = _lora_engine(model, r4, 4, 2, dev, **kw)
+        r4_streams[dev] = _lora_serve(eng, prompts[:3], ["ten-r4"] * 3,
+                                      new)[0]
+        if dev == "cuda":
+            pool_rank = eng.adapters.pool_rank
+    res["rank4"] = dict(equal=r4_streams["cuda"] == r4_streams["cpu"],
+                        cuda_pool_rank=pool_rank)
+    print(f"lora rank 4 (cuda pool rank {pool_rank}): streams equal to the "
+          f"cpu's {res['rank4']['equal']}", flush=True)
+    if not res["rank4"]["equal"] or pool_rank != 8:
+        bad.append("rank 4")
+
+    # two replicas behind the router, one killed mid-run
+    reps = [InProcessReplica(_lora_engine(gpu_model, paths, 8, 4, "cuda",
+                                          **kw), replica_id=i)
+            for i in range(2)]
+    router = Router(reps, RouterConfig(
+        placement="adapter", probe_interval_s=0.02, failure_threshold=2,
+        breaker_cooldown_s=5.0, dispatch_attempts=4, gap_timeout_s=30.0,
+        max_inflight=64, shed_queue_depth=10_000, backoff_initial_s=0.01,
+        backoff_max_s=0.05))
+    faults.reset()
+    streamed = [0]
+
+    def arm_mid_run():
+        # armed once 10 tokens have streamed: the next driver to pass the
+        # point dies with requests in flight
+        streamed[0] += 1
+        if streamed[0] == 10:
+            faults.arm("serving.replica.kill")
+
+    try:
+        results = _route_all(router, [
+            {"prompt_ids": p.tolist(), "max_new_tokens": new,
+             "adapter": a, "session": f"s{i}"}
+            for i, (p, a) in enumerate(zip(prompts, adapters))],
+            on_token=arm_mid_run)
+        fired = faults.fired("serving.replica.kill")
+    finally:
+        faults.reset()
+        router.close()
+        for rep in reps:
+            rep.close()
+    kill = dict(fired=fired, dead=sum(r.dead_cause is not None
+                                      for r in reps),
+                done=all(t.get("done") for _, t in results),
+                equal_cpu=[s for s, _ in results] == want,
+                failovers=sum(t.get("failovers", 0) for _, t in results))
+    res["router_kill"] = kill
+    print(f"lora router kill: {json.dumps(kill)}", flush=True)
+    if not (kill["fired"] == 1 and kill["dead"] == 1 and kill["done"]
+            and kill["equal_cpu"]):
+        bad.append("router kill")
+    report["lora_cuda_vs_cpu"] = res
+    if bad:
+        raise AssertionError(f"LoRA CUDA vs CPU failed: {bad}")
+
+
+def _route_all(router, payloads, on_token=None):
+    """Every payload through `router` at once, one client thread each:
+    [(tokens, terminal event)] in payload order. `on_token()` runs after
+    each token any stream emits."""
+    import threading
+
+    results = [None] * len(payloads)
+
+    def client(i):
+        toks, term = [], None
+        for ev in router.stream(payloads[i]):
+            if "token" in ev:
+                toks.append(ev["token"])
+                if on_token is not None:
+                    on_token()
+            else:
+                term = ev
+        results[i] = (toks, term)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a routed request hung")
+    return results
+
+
+def _lora_blobs(model, names, seed):
+    """Random rank-LORA_RANK adapters for `model`'s q/k/v/o as store
+    blobs (A and B ~ N(0, LORA_STD) in bf16, alpha LORA_ALPHA)."""
+    import torch
+
+    from paddle_tpu_torch.lora import find_targets
+    from paddle_tpu_torch.lora.adapter import DEFAULT_TARGETS, target_dims
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    blobs = {}
+    for aid in names:
+        weights = {}
+        for path, w in find_targets(model, DEFAULT_TARGETS):
+            d_in, d_out = target_dims(w)
+            weights[path] = tuple(
+                (torch.randn(shape, generator=gen) * LORA_STD)
+                .to(torch.bfloat16)
+                for shape in ((d_in, LORA_RANK), (LORA_RANK, d_out)))
+        blobs[aid] = {"adapter": {"rank": LORA_RANK, "alpha": LORA_ALPHA},
+                      "weights": weights}
+    return blobs
+
+
+def _lora_timed_serve(eng, prompts, adapters):
+    """Phase 4's timed serve (NEW_TOKENS new tokens a request) with
+    per-request adapters: streams, launches over the serve, decode
+    launches a step, prefill and decode tokens/s."""
+    import torch
+
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    torch.cuda.synchronize()
+    port_cuda.reset_launch_counts()          # the path starts here
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=NEW_TOKENS, adapter=a,
+                       tenant=a or "")
+            for p, a in zip(prompts, adapters)]
+    eng.step()                               # all prefills + step 1
+    torch.cuda.synchronize()
+    t_first = time.perf_counter()
+    at_first = port_cuda.launch_counts()
+    steps0 = eng.stats()["decode_steps"]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = port_cuda.launch_counts()     # ... and ends here
+    steps = eng.stats()["decode_steps"] - steps0
+    streams = [list(eng.scheduler.get(r).generated) for r in rids]
+    for r in rids:
+        eng.release(r)
+    gen_tokens = sum(len(s) for s in streams)
+    return dict(
+        streams=streams, launches=launches, decode_steps=steps,
+        decode_launches_per_step={
+            k: (launches[k] - at_first[k]) / max(steps, 1)
+            for k in launches if launches[k] - at_first[k]},
+        prefill_launches={k: v for k, v in at_first.items() if v},
+        prefill_s=t_first - t0,
+        prefill_tokens_per_s=sum(int(p.size) for p in prompts)
+        / (t_first - t0),
+        decode_tokens_per_s=(gen_tokens - len(prompts))
+        / (t_end - t_first))
+
+
+def _lora_first_logits(eng, prompts, adapters):
+    """The first decode step's logits [rows, vocab] (fp32, CPU) of the
+    requests, in submission order (the hook reads the decode rows'
+    owners), and their streams."""
+    seen = []
+    rids = [eng.submit(p, max_new_tokens=4, adapter=a)
+            for p, a in zip(prompts, adapters)]
+
+    def hook(_mod, _inp, out):
+        if not seen:
+            owners = [r.rid for r in eng.scheduler.running]
+            rows = out[:, 0].float().cpu()
+            seen.append(rows[[owners.index(r) for r in rids]])
+
+    handle = eng.model.lm_head.register_forward_hook(hook)
+    try:
+        eng.run_until_idle()
+    finally:
+        handle.remove()
+    streams = [list(eng.scheduler.get(r).generated) for r in rids]
+    for r in rids:
+        eng.release(r)
+    return seen[0], streams
+
+
+def _plain_delta_product(x, w, gids):
+    """fp32 ``y[i] = x[i] @ w[gids[i]]`` by one cuBLAS product for each
+    slot present (trash rows zero): the grouped matmul's plain version at
+    the cost of the slots a call carries, for the 7B delta check."""
+    import torch
+
+    y = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    for g in torch.unique(gids).tolist():
+        if g < w.shape[0]:
+            rows = (gids == g).nonzero().squeeze(1)
+            y[rows] = x[rows].float() @ w[g].float()
+    return y
+
+
+def _lora_first_logits_by_route(eng, prompts, adapters, route):
+    """`_lora_first_logits` (the logits only) with every adapter delta's
+    grouped product by `route`: "plain", `_plain_delta_product` from the
+    store's pools; or "checked", the kernel, each call held on its own
+    inputs against `_plain_delta_product` (the per-row fp32 rule, trash
+    rows exactly zero), which holds the kernel at every shape the 7B path
+    gives it (decode rows, prefill chunks, packed frames). Returns the
+    logits and, for "checked", the calls' summary."""
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    kernel = gm.gmm_fwd
+    calls = dict(n=0, failed=0, worst_row_rel_err=0.0, rtol=RTOL["float32"],
+                 shapes=set())
+
+    def checked(x, w, gids):
+        out = kernel(x, w, gids)
+        cmp = _compare(out, _plain_delta_product(x, w, gids), "float32")
+        trash_zero = bool((out[gids >= w.shape[0]] == 0).all())
+        calls["n"] += 1
+        calls["failed"] += not (cmp["rows_ok"] and trash_zero)
+        calls["worst_row_rel_err"] = max(calls["worst_row_rel_err"],
+                                         cmp["max_rel_err"])
+        calls["shapes"].add((x.shape[0], x.shape[1], w.shape[-1]))
+        return out
+
+    gm.gmm_fwd = checked if route == "checked" else _plain_delta_product
+    try:
+        logits = _lora_first_logits(eng, prompts, adapters)[0]
+    finally:
+        gm.gmm_fwd = kernel
+    calls["shapes"] = sorted(calls["shapes"])
+    return logits, calls
+
+
+def _lora_decode_profile(eng, prompts, adapters):
+    """A profile of two decode steps of `prompts` (the timed serve's mix):
+    the grouped-matmul kernels' device ms a step beside the step's."""
+    rids = [eng.submit(p, max_new_tokens=6, adapter=a)
+            for p, a in zip(prompts, adapters)]
+    eng.step()                                   # prefills + first decode
+    prof = _device_profile(eng.step, 2)
+    eng.run_until_idle()
+    for r in rids:
+        eng.release(r)
+    gmm = sum(ms for k, ms in prof["port_kernel_ms_per_step"].items()
+              if k.startswith("gmm_fwd"))
+    return dict(gmm_ms_per_step=gmm,
+                device_ms_per_step=prof["device_ms_per_step"],
+                wall_ms_per_step=prof["wall_ms_per_step"],
+                gmm_share_of_device=(gmm / prof["device_ms_per_step"]
+                                     if prof["device_ms_per_step"] else None),
+                port_kernel_ms_per_step=prof["port_kernel_ms_per_step"],
+                top_device_ms=prof["top_device_ms"])
+
+
+def phase_full_width_lora(args, model, prompts, report):
+    """Multi-tenant LoRA at the 7B geometry on phase 4's model: a fresh
+    engine (phase 4's settings) with an AdapterStore of rank 16 on q, k,
+    v, o and 16 slots, 4 random adapters (A, B ~ N(0, 0.02), alpha 32)
+    swapped in once each. Phase 4's 8 prompts (NEW_TOKENS new tokens
+    each) served base-only, then 2 base and 2 for each of 3 adapters,
+    then the two again in the other order (base, adapters, adapters,
+    base: the spread of the rates): prefill and
+    decode tokens/s, launches over the serve and a decode step (the
+    grouped matmul 2 x 4 x 32 = 256 a step), a profile of the adapter
+    decode step (the grouped-matmul kernels' device ms against the
+    step's), swap-in ms, peak memory. Gates: each adapter request's first
+    decode-step logits within BF16_LOGIT_RTOL of the row max of the same
+    request served alone (holds the batch composition); every gmm_fwd
+    call of one pass of the mix (prefills and the first decode step)
+    within the per-row fp32 rule of the plain fp32 product on its own
+    inputs (holds the kernel at the path's shapes). Reported: the first
+    logits against the same mix with every delta by the plain product
+    (32 bf16 layers grow the products' rounding, as they grow the verify
+    frame's; printed beside BF16_LOGIT_RTOL) and the streams' agreement
+    (LORA_NEW_TOKENS tokens alone)."""
+    import torch
+
+    from paddle_tpu_torch.lora import AdapterStore
+    from paddle_tpu_torch.observability.events import journal
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.config
+    names = ("ten-a", "ten-b", "ten-c", "ten-d")
+    blobs = _lora_blobs(model, names, args.seed + 11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store = AdapterStore(model, rank=LORA_RANK, slots=LORA_SLOTS)
+    t0 = time.perf_counter()
+    for aid in names:
+        store.register(aid, blobs[aid])
+    register_s = time.perf_counter() - t0
+    eng = ServingEngine(model, _engine_cfg(
+        page_size=16, decode_batch=8, prefill_chunk=256, max_seq_len=4096,
+        hbm_budget_mb=16384), adapter_store=store, device="cuda")
+    warm = prompts[0]
+    for aid in names:                        # one swap-in each, then warm
+        eng.generate([warm], max_new_tokens=2, adapter=aid)
+    eng.generate([warm], max_new_tokens=2)
+    swaps = [e for e in journal().recent(64)
+             if e["event"] == "adapter_swap"
+             and e.get("store") == store._metrics_id]
+    adapters = [None, None, "ten-a", "ten-a", "ten-b", "ten-b", "ten-c",
+                "ten-c"]
+    base = _lora_timed_serve(eng, prompts, [None] * len(prompts))
+    lora = _lora_timed_serve(eng, prompts, adapters)
+    lora2 = _lora_timed_serve(eng, prompts, adapters)
+    base2 = _lora_timed_serve(eng, prompts, [None] * len(prompts))
+    pairs = ((lora, base), (lora2, base2))
+    rates = {
+        key: dict(
+            base=[b[key] for _, b in pairs], lora=[a[key] for a, _ in pairs],
+            ratio=[a[key] / b[key] for a, b in pairs])
+        for key in ("decode_tokens_per_s", "prefill_tokens_per_s")}
+    prof = _lora_decode_profile(eng, prompts, adapters)
+    prof_base = _lora_decode_profile(eng, prompts, [None] * len(prompts))
+    mixed_logits, _ = _lora_first_logits(eng, prompts, adapters)
+    alone_logits = torch.cat([_lora_first_logits(eng, [p], [a])[0]
+                              for p, a in zip(prompts, adapters)])
+    # kernel against plain delta: re-registering the same weights opens a
+    # fresh prefix namespace, so each run's adapter requests prefill their
+    # whole prompts through their own delta route
+    by_route = {}
+    for route in ("checked", "plain"):
+        for aid in set(filter(None, adapters)):
+            store.register(aid, blobs[aid])
+        by_route[route] = _lora_first_logits_by_route(eng, prompts,
+                                                      adapters, route)
+    (kernel_logits, calls), (plain_logits, _) = (by_route["checked"],
+                                                 by_route["plain"])
+
+    def rel_err(got, ref):
+        err = (got - ref).abs().amax(-1)
+        return (err / ref.abs().amax(-1)).tolist()
+
+    rel = rel_err(mixed_logits, alone_logits)
+    rel_plain = rel_err(kernel_logits, plain_logits)
+    argmax_plain = (kernel_logits.argmax(-1)
+                    == plain_logits.argmax(-1)).tolist()
+    alone_streams = [eng.generate([p], max_new_tokens=LORA_NEW_TOKENS,
+                                  adapter=a)[0]
+                     for p, a in zip(prompts, adapters)]
+    gmm_step = lora["decode_launches_per_step"].get("gmm_fwd", 0)
+    out = dict(
+        layers=cfg.num_hidden_layers, rank=LORA_RANK, slots=LORA_SLOTS,
+        adapters=list(adapters), register_s=register_s,
+        swap_in_ms=[e["ms"] for e in swaps],
+        swap_in_ms_mean=store.swap_ms_mean,
+        base={k: v for k, v in base.items() if k != "streams"},
+        lora={k: v for k, v in lora.items() if k != "streams"},
+        rates_base_lora_lora_base=rates,
+        launches=lora["launches"],
+        gmm_launches_per_decode_step=gmm_step,
+        gmm_launches_want=2 * 4 * cfg.num_hidden_layers,
+        decode_profile_lora=prof, decode_profile_base=prof_base,
+        first_logits_rel_err=rel,
+        gmm_calls_vs_plain=calls,
+        first_logits_rel_err_vs_plain_delta=rel_plain,
+        first_argmax_equal_vs_plain_delta=argmax_plain,
+        logit_rtol=BF16_LOGIT_RTOL,
+        agreement_mixed_vs_alone=_agreement(lora["streams"], alone_streams),
+        agreement_lora_vs_base=_agreement(lora["streams"], base["streams"]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report["full_width_lora"] = out
+    print("full width lora: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("launches",)},
+        default=str), flush=True)
+    problems = []
+    if gmm_step != out["gmm_launches_want"]:
+        problems.append(f"{gmm_step} gmm_fwd launches a decode step, want "
+                        f"{out['gmm_launches_want']}")
+    adapter_rows = [i for i, a in enumerate(adapters) if a]
+    if not all(rel[i] <= BF16_LOGIT_RTOL for i in adapter_rows):
+        problems.append(f"adapter first-step logits off: {rel}")
+    if not calls["n"] or calls["failed"]:
+        problems.append(f"gmm_fwd on the 7B path off its plain version: "
+                        f"{calls['failed']} of {calls['n']} calls")
+    if not all(len(s) == NEW_TOKENS
+               for r in (base, lora, lora2, base2) for s in r["streams"]):
+        problems.append("incomplete streams")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return blobs
+
+
+def phase_full_width_router(args, model, blobs, prompts, report):
+    """Two InProcessReplicas over two engines sharing phase 4's 7B weights
+    (each its own 8 GiB KV pool and AdapterStore of the 4 adapters) behind
+    Router(placement="adapter"). Gates: phase 4's 8 requests (2 base, 2
+    for each of 3 adapters) complete; each adapter's requests land on one
+    replica; an unknown adapter gives one adapter_load_failed event; the
+    same requests again with replica 1 killed mid-stream (its kill(), once
+    one of its requests has 2 tokens) all complete with every token, none
+    lost;
+    GET /metrics over HTTP carries lora_active_adapters and router_*
+    series. The launches are read around the first routed serve."""
+    import http.client
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.lora import AdapterStore
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving import (InProcessReplica, Router,
+                                          RouterConfig, ServingEngine,
+                                          rendezvous_order)
+
+    adapters = [None, None, "ten-a", "ten-a", "ten-b", "ten-b", "ten-c",
+                "ten-c"]
+    reps = []
+    for i in range(2):
+        store = AdapterStore(model, rank=LORA_RANK, slots=LORA_SLOTS)
+        for aid, blob in blobs.items():
+            store.register(aid, blob)
+        eng = ServingEngine(model, _engine_cfg(
+            page_size=16, decode_batch=8, prefill_chunk=256,
+            max_seq_len=4096, hbm_budget_mb=8192), adapter_store=store,
+            device="cuda")
+        eng.generate([prompts[0]], max_new_tokens=2, adapter="ten-a")
+        reps.append(InProcessReplica(eng, replica_id=i))
+    router = Router(reps, RouterConfig(
+        placement="adapter", probe_interval_s=0.05, failure_threshold=2,
+        breaker_cooldown_s=30.0, dispatch_attempts=3, gap_timeout_s=120.0,
+        max_inflight=64, shed_queue_depth=10_000, backoff_initial_s=0.01,
+        backoff_max_s=0.05))
+    payloads = [{"prompt_ids": p.tolist(),
+                 "max_new_tokens": LORA_NEW_TOKENS,
+                 "adapter": a, "tenant": a or "base", "session": f"s{i}"}
+                for i, (p, a) in enumerate(zip(prompts, adapters))]
+    homes = {i: rendezvous_order(router.placement_key(pl), [0, 1])[0]
+             for i, pl in enumerate(payloads)}
+    srv = None
+    try:
+        torch.cuda.synchronize()
+        port_cuda.reset_launch_counts()      # the routed path starts here
+        t0 = time.perf_counter()
+        first = _route_all(router, payloads)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = port_cuda.launch_counts()  # ... and ends here
+        placed = {}
+        for a, (_, term) in zip(adapters, first):
+            if a:
+                placed.setdefault(a, set()).add(term.get("replica"))
+        ghost = router.generate({"prompt_ids": prompts[0].tolist(),
+                                 "adapter": "ghost"})
+        # the same requests again; replica 1 dies once one of its
+        # requests has streamed 2 tokens (or, holding none, at the end)
+        killer_done = threading.Event()
+
+        def killer():
+            eng1 = reps[1].engine
+            while not killer_done.is_set():
+                if any(len(r.generated) >= 2
+                       for r in list(eng1.scheduler.running)):
+                    break
+                time.sleep(0.002)
+            reps[1].kill("killed mid-stream")
+
+        kt = threading.Thread(target=killer)
+        kt.start()
+        second = _route_all(router, payloads)
+        killer_done.set()
+        kt.join()
+        srv = router.serve_http(0)
+        st = threading.Thread(target=srv.serve_forever, daemon=True)
+        st.start()
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_port,
+                                          timeout=60)
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        metrics = resp.read().decode()
+        conn.close()
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        router.close()
+        for rep in reps:
+            rep.close()
+    out = dict(
+        wall_s=wall_s, launches=launches,
+        first_done=all(t.get("done") for _, t in first),
+        first_complete=all(len(s) == LORA_NEW_TOKENS for s, _ in first),
+        replicas=[t.get("replica") for _, t in first],
+        homes=[homes[i] for i in range(len(payloads))],
+        adapter_on_one_replica=all(len(v) == 1 for v in placed.values()),
+        ghost=ghost[1], killed=reps[1].dead_cause is not None,
+        on_replica_1=sum(1 for i in homes if homes[i] == 1),
+        second_done=all(t.get("done") for _, t in second),
+        second_complete=all(len(s) == LORA_NEW_TOKENS
+                            for s, _ in second),
+        failovers=sum(t.get("failovers", 0) for _, t in second),
+        agreement_second_vs_first=_agreement([s for s, _ in second],
+                                             [s for s, _ in first]),
+        metrics_status=resp.status,
+        metrics_has=dict(lora_active_adapters="lora_active_adapters"
+                         in metrics, router="router_completed_total"
+                         in metrics and "router_replica_circuit" in metrics))
+    report["full_width_router"] = out
+    print("full width router: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}, default=str),
+        flush=True)
+    problems = []
+    if not (out["first_done"] and out["first_complete"]):
+        problems.append("the first routed serve lost or cut a request")
+    if not out["adapter_on_one_replica"]:
+        problems.append(f"an adapter's requests spread: {placed}")
+    if (ghost[0] or ghost[1].get("error") != "adapter_load_failed"):
+        problems.append(f"unknown adapter: {ghost}")
+    if not (out["killed"] and out["second_done"] and out["second_complete"]):
+        problems.append("the kill lost or cut a request")
+    if out["on_replica_1"] and not out["failovers"]:
+        problems.append("replica 1 held requests but none failed over")
+    if not (out["metrics_status"] == 200 and all(out["metrics_has"].values())):
+        problems.append(f"/metrics: {out['metrics_has']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -3710,7 +4662,9 @@ def kernels_line(report):
              kv.get("int8", {}).get("launches", {}),
              kv.get("fp8", {}).get("launches", {}),
              report.get("train_full_width", {}).get("launches", {}),
-             report.get("train_moe_full_width", {}).get("launches", {})]
+             report.get("train_moe_full_width", {}).get("launches", {}),
+             report.get("full_width_lora", {}).get("launches", {}),
+             report.get("full_width_router", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -3778,6 +4732,14 @@ def kernels_line(report):
                             design_bound_ms=case["design_bound_ms"])
             if "copy_ms" in case:
                 rows[-1]["copy_ms"] = case["copy_ms"]
+        if name == "gmm_fwd":
+            # the LoRA serve's shapes (the 7B adapter decode's products)
+            rows[-1]["lora_cases"] = {
+                k: {f: c.get(f) for f in (
+                    "ms", "bound_ms", "bound_by", "launch_floor_ms",
+                    "plain_ms", "library_ms", "library_sort_ms",
+                    "max_abs_err")}
+                for k, c in report.get("gmm_lora_cases", {}).items()}
         if name == "ce_bwd":
             rows[-1]["note"] = ("_bwd_tokens: XLA in the JAX package (a "
                                 "lax.scan of matmuls), no pallas_call")
@@ -3854,7 +4816,9 @@ def main(argv=None) -> int:
               ("kv_cuda_vs_cpu",
                lambda: phase_kv_cuda_vs_cpu(args.seed, report)),
               ("spec_cuda_vs_cpu",
-               lambda: phase_spec_cuda_vs_cpu(args.seed, report))]
+               lambda: phase_spec_cuda_vs_cpu(args.seed, report)),
+              ("lora_cuda_vs_cpu",
+               lambda: phase_lora_cuda_vs_cpu(args.seed, report))]
     state = {}
 
     def full_width():
@@ -3878,16 +4842,33 @@ def main(argv=None) -> int:
         # the bf16 engine's pools make room for the quantized ones
         eng = state.pop("eng")
         model, pages = eng.model, eng.num_pages
+        state["model"] = model
         del eng
         gc.collect()
         torch.cuda.empty_cache()
         state["kv_launches"] = phase_full_width_kv(
             args, model, state["prompts"], state["streams"], pages, report)
 
+    def full_width_lora():
+        if "model" not in state:
+            raise RuntimeError("the full-width phase built no model")
+        gc.collect()
+        torch.cuda.empty_cache()
+        state["lora_blobs"] = phase_full_width_lora(
+            args, state["model"], state["prompts"], report)
+
+    def full_width_router():
+        if "lora_blobs" not in state:
+            raise RuntimeError("the full-width LoRA phase made no adapters")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_full_width_router(args, state["model"], state["lora_blobs"],
+                                state["prompts"], report)
+
     def free_memory():
         # the 7B serving engine's weights and KV pool, and each training
         # phase's model, make room for the next phase
-        for key in ("eng", "prompts", "streams"):
+        for key in ("eng", "prompts", "streams", "model", "lora_blobs"):
             state.pop(key, None)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3895,6 +4876,8 @@ def main(argv=None) -> int:
     phases += [("full_width", full_width), ("http", http),
                ("full_width_spec", full_width_spec),
                ("full_width_kv", full_width_kv),
+               ("full_width_lora", full_width_lora),
+               ("full_width_router", full_width_router),
                ("train_cuda_vs_cpu",
                 lambda: (free_memory(),
                          phase_train_cuda_vs_cpu(args.seed, report))),

@@ -129,9 +129,84 @@ define_flag("serving_request_timeout_s", 60.0,
             type=float)
 define_flag("serving_max_body_mb", 8,
             "Content-Length cap of the HTTP front-end", type=int)
+define_flag("fault_injection", "",
+            "unified fault-injection spec: ';'-separated armings of "
+            "registered points, each 'name[:opts]' with opts nth=K | p=X "
+            "| seed=N | mode=once|always (default one-shot), e.g. "
+            "'feeder.collate' or 'ckpt.before_rename:nth=8;"
+            "step.grads:p=0.05,seed=7'. Catalog: "
+            "distributed.resilience.faults.describe()")
+define_flag("router_probe_interval_s", 0.25,
+            "router health-monitor cadence: each replica's health()/"
+            "readiness (queue depth, slot fill, retraces) is probed this "
+            "often, and heartbeat liveness (dead_peers) is re-read on the "
+            "same tick", type=float)
+define_flag("router_failure_threshold", 3,
+            "consecutive dispatch/probe failures that trip a replica's "
+            "circuit breaker OPEN (dispatches stop routing to it)",
+            type=int)
+define_flag("router_breaker_cooldown_s", 1.0,
+            "seconds an OPEN replica circuit waits before HALF-OPEN: one "
+            "trial dispatch is let through; success closes the circuit, "
+            "failure re-opens it for another cooldown", type=float)
+define_flag("router_dispatch_attempts", 3,
+            "total dispatch attempts per request (first try + failover "
+            "re-dispatches); past this the request returns ONE typed "
+            "error event instead of retrying forever", type=int)
+define_flag("router_backoff_initial_s", 0.05,
+            "first failover re-dispatch backoff; doubles per retry up to "
+            "router_backoff_max_s", type=float)
+define_flag("router_backoff_max_s", 1.0,
+            "failover re-dispatch backoff ceiling", type=float)
+define_flag("router_gap_timeout_s", 5.0,
+            "max silence between consecutive stream events from a "
+            "replica before the router declares it wedged FOR THIS "
+            "REQUEST and fails over (also the detection bound for a "
+            "dropped dispatch)", type=float)
+define_flag("router_max_inflight", 64,
+            "router admission cap: requests in flight across all "
+            "replicas; past it new requests are refused with 503 + "
+            "Retry-After at admission (before any replica dispatch)",
+            type=int)
+define_flag("router_shed_queue_depth", 32,
+            "overload shed watermark: when aggregate depth (router "
+            "in-flight + probed replica queue depths) exceeds this, the "
+            "shed policy caps max_new_tokens instead of dropping "
+            "requests", type=int)
+define_flag("router_shed_max_new_tokens", 32,
+            "max_new_tokens cap applied by the shed policy under "
+            "overload (degrade before drop)", type=int)
 define_flag("router_retry_after_s", 1.0,
             "Retry-After seconds advertised on admission-control 503s",
             type=float)
+define_flag("router_placement", "session",
+            "replica placement key: 'session' rendezvous-hashes the "
+            "session id (one user sticks to one replica), "
+            "'prefix' rendezvous-hashes a bounded digest of the prompt's "
+            "first router_prefix_tokens ids (session id as tiebreak when "
+            "no prompt is present), so requests sharing a system prompt "
+            "land where its KV pages already live and the per-replica "
+            "prefix-hit rate becomes a fleet-wide property; 'adapter' "
+            "rendezvous-hashes the request's LoRA adapter id (session "
+            "fallback when none), so one tenant's requests land where "
+            "their adapter is already resident in the slot pool")
+define_flag("router_prefix_tokens", 64,
+            "prompt-prefix digest length (tokens) for "
+            "router_placement=prefix: long enough to separate distinct "
+            "system prompts, short enough that a shared preamble maps all "
+            "its requests to one digest", type=int)
+define_flag("router_tenant_max_inflight", 0,
+            "per-tenant in-flight fairness cap at router admission: one "
+            "tenant (request 'tenant' field, adapter id fallback) may hold "
+            "at most this many concurrent streams — past it the request is "
+            "refused with a typed 'tenant_limit' event + Retry-After, so a "
+            "flooding tenant cannot starve the shared engine; 0 = off",
+            type=int)
+define_flag("serving_adapter_slots", 16,
+            "LoRA AdapterStore device slot-pool size: how many adapters can "
+            "be RESIDENT (servable) at once per engine; registered "
+            "adapters beyond this page host<->device on demand (LRU over "
+            "refcount-0 slots, pinned slots never evicted)", type=int)
 define_flag("use_fused_head_loss", True,
             "LlamaForCausalLM with labels computes the head projection and "
             "CE in one chunked fused op (no [tokens, vocab] logits); False "

@@ -1,8 +1,9 @@
 """HTTP front-end of the serving engine (``paddle_tpu.inference.serve``
-``build_http_server`` counterpart, /generate, /healthz and /stats).
+``build_http_server`` counterpart, /generate, /healthz, /stats and
+/metrics).
 
-Imports nothing of the port's model code: the engine injects its
-generate/admit/health/stats callables. The /run endpoint of the JAX
+Imports nothing of the port's model code: the engine and the router
+inject their generate/admit/health/stats/metrics callables. The /run endpoint of the JAX
 package serves exported StableHLO artifacts and is not ported.
 """
 from __future__ import annotations
@@ -24,16 +25,20 @@ def build_http_server(port: int, generate_fn=None, *,
                       timeout_s: float = DEFAULT_TIMEOUT_S,
                       max_body_bytes: int = DEFAULT_MAX_BODY_MB << 20,
                       host: str = "127.0.0.1",
-                      admit_fn=None, health_fn=None, stats_fn=None):
+                      admit_fn=None, health_fn=None, stats_fn=None,
+                      metrics_fn=None):
     """The serving HTTP front-end, dependency-injected:
 
       * POST /generate -> generate_fn(payload dict, deadline) yielding event
                           dicts, streamed as one JSON line each (ndjson);
       * GET /healthz   -> health_fn() dict as JSON (503 when it carries
                           ``"ok": False`` or health_fn raises);
-      * GET /stats     -> stats_fn() dict as JSON. GETs bypass the bounded
-                          POST queue, so a saturated engine still answers
-                          its probes.
+      * GET /stats     -> stats_fn() dict as JSON;
+      * GET /metrics   -> metrics_fn() string served as Prometheus text
+                          exposition (format 0.0.4), the observability
+                          registry's scrape endpoint. GETs bypass the
+                          bounded POST queue, so a saturated engine still
+                          answers its probes.
 
     ``admit_fn(payload) -> None | dict`` is consulted BEFORE the 200 of a
     /generate: ``{"status": 503, "retry_after": 1.0, "message": ...}``
@@ -95,6 +100,15 @@ def build_http_server(port: int, generate_fn=None, *,
                     self._json_reply(h, 200 if h.get("ok", True) else 503)
                 elif self.path == "/stats" and stats_fn is not None:
                     self._json_reply(dict(stats_fn()))
+                elif self.path == "/metrics" and metrics_fn is not None:
+                    data = str(metrics_fn()).encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
                 else:
                     self.send_error(404)
             except Exception as e:

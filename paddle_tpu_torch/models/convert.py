@@ -11,7 +11,10 @@ embedding tables, LayerNorms, expert tensors and the MoE gate's
 ``gate_weight [d, E]`` keep the JAX layout.
 ``optimizer_state_from_paddle_tpu`` carries a JAX optimizer's
 ``state_dict()`` (numpy m, v, master and the step) the same way, so a
-resumed port step matches the JAX one.
+resumed port step matches the JAX one. ``lora_from_paddle_tpu`` carries a
+JAX LoRA adapter's factors onto the port's attached adapter (they keep the
+JAX layout, A [in, r] and B [r, out]; the serving ``AdapterStore`` reads a
+JAX-written adapter file itself).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from paddle_tpu_torch.core.device import DEFAULT_DEVICE
 from paddle_tpu_torch.models.gpt_moe import GptMoeConfig, GptMoeForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu"]
+__all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
+           "lora_from_paddle_tpu"]
 
 
 def _to_port_layout(name: str, arr: np.ndarray) -> np.ndarray:
@@ -85,3 +89,28 @@ def optimizer_state_from_paddle_tpu(state: dict, names, model,
             entry[k] = arr
         out[f"param_{j}"] = entry
     optimizer.set_state_dict(out)
+
+
+def lora_from_paddle_tpu(handle_or_blob, model):
+    """Load a paddle_tpu LoRA adapter's factors into the port adapter
+    attached to `model` (by ``lora.attach``; `model` may also be that
+    handle). The source is a JAX ``LoRAAdapter`` handle (its entries' A
+    and B read as numpy arrays) or a ``load_adapter()`` blob of either
+    package. Rank, target paths and factor shapes must match. Returns the
+    port handle."""
+    from paddle_tpu_torch.lora.adapter import LoRAAdapter
+
+    if isinstance(handle_or_blob, dict):
+        blob = handle_or_blob
+    else:
+        h = handle_or_blob
+        blob = {"adapter": {"rank": int(h.config.rank)},
+                "weights": {path: (np.asarray(a._value), np.asarray(b._value))
+                            for path, _, a, b in h.entries}}
+    port = (model if isinstance(model, LoRAAdapter)
+            else getattr(model, "_lora_adapter", None))
+    if port is None:
+        raise ValueError("no LoRA adapter is attached to the port model; "
+                         "lora.attach() one first")
+    port.load_weights(blob)
+    return port

@@ -5,7 +5,9 @@ Same module tree and parameter names as the JAX package, so
 ``models.convert.from_paddle_tpu_params`` maps weights one to one. The
 fleet mp layers (Column/Row/VocabParallel) become plain single-device
 ``torch.nn.Linear``/``Embedding``: this slice has no tensor parallelism.
-Linear weights are PyTorch's ``[out, in]``.
+Linear weights are PyTorch's ``[out, in]``. The seven projections of a
+layer are `Projection`s, which add a LoRA adapter's delta when one is
+attached (training) or bound by the serving engine's ``AdapterStore``.
 
 Attention runs the port's hand-written Hopper kernels on CUDA tensors:
 prefill and training through the flash kernels (forward, and the dq/dkv
@@ -24,6 +26,7 @@ from torch import nn
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
+from paddle_tpu_torch.lora import seam as lora_seam
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import RMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
@@ -113,8 +116,24 @@ def apply_rotary(q, k, cos, sin):
     return rot(q), rot(k)
 
 
+class Projection(nn.Linear):
+    """A bias-free ``nn.Linear`` that consults the LoRA seam (the JAX
+    package's ``F.linear`` seam, ``nn/functional/__init__.py:251``): when
+    an adapter is attached to its weight or a serving binding covers it,
+    the rank-r delta is added in the output dtype. With nothing attached
+    or bound the cost is the one ``lora_seam.active()`` branch."""
+
+    def forward(self, x):
+        y = super().forward(x)
+        if lora_seam.active():
+            d = lora_seam.delta(self.weight, x)
+            if d is not None:
+                y = y + d.to(y.dtype)
+        return y
+
+
 def _linear(n_in, n_out, device, dtype):
-    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
+    return Projection(n_in, n_out, bias=False, device=device, dtype=dtype)
 
 
 def write_kv_pages(cache, layer_idx, pidx, slot, k, v):
@@ -437,8 +456,9 @@ class LlamaForCausalLM(nn.Module):
         dtype = dtype or config.torch_dtype
         self.config = config
         self.llama = LlamaModel(config, dev, dtype)
-        self.lm_head = _linear(config.hidden_size, config.vocab_size, dev,
-                               dtype)
+        # not a LoRA target: a plain linear
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                 bias=False, device=dev, dtype=dtype)
         self.criterion = LlamaPretrainingCriterion(config)
         if seed is not None:
             self.init_weights(seed)

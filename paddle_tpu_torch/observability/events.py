@@ -2,7 +2,7 @@
 (``paddle_tpu.observability.events`` counterpart, a copy of that module,
 which needs no JAX).
 
-Every lifecycle transition (in the port today: the tuning plane's
+Every lifecycle transition (in the port: the tuning plane's
 ``autotune``, ``autotune_skip`` and ``cache_reject``) lands here as one
 record:
 
@@ -14,8 +14,8 @@ The journal is a bounded in-memory ring (`recent()` is the operator's
 post-mortem view and what tests assert on) plus optional durable sinks:
 `attach(path)` appends JSONL (flushed per event: the log must survive
 the crash it describes), `attach(writer)` streams through a LogWriter-like
-object. The JAX module also counts each emit in its metrics registry
-(``events_total``); the port has no registry yet.
+object. Every emit also counts in the metrics registry as
+``events_total{component,event}``, as in the JAX module.
 """
 from __future__ import annotations
 
@@ -80,6 +80,12 @@ class EventJournal:
                            json.dumps(rec, default=str))
             except (OSError, ValueError) as e:
                 self._sink_error(w, e)
+        from paddle_tpu_torch.observability import metrics as _m
+
+        _m.registry().counter(
+            "events_total", "structured journal events emitted",
+            labels=("component", "event")).labels(
+            component=component, event=event).inc()
         return rec
 
     def attach(self, sink):

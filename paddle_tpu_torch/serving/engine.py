@@ -35,19 +35,38 @@ Same scheduling as the JAX engine, run eagerly by PyTorch:
     frame's own samples are accepted, plus the first sample that differs,
     so every stream equals plain decode's.
 
+  * multi-tenant LoRA (``adapter_store=``): a request names an adapter
+    (``submit(adapter=, tenant=)``), pinned in the store's device slot pool
+    from submit to release. Each dispatch binds the per-row slot ids (the
+    store's trash id for base rows and empty slots): the decode and verify
+    frames carry one id a batch row, a chunked prefill one for its
+    request, and a packed prefill frame holds one adapter only (a change
+    of adapter flushes the frame). The projections add each row's delta
+    through the grouped-matmul kernel. Pages written under an adapter are
+    indexed in its own prefix namespace (adapter id and weight
+    generation), so no other adapter and no base request adopts them.
+    A hot swap from another thread is staged by the store and written at
+    the start of the next step, so it lands between steps and never
+    waits for one.
+
 Ordering contract, as in the JAX engine: queued tier copies (demotes, then
 promotes), then copy-on-write copies, then any prefill or decode write.
 
 On CUDA both attention paths run the port's hand-written Hopper kernels
-(``ops/cuda``); the K/V pools are updated in place.
+(``ops/cuda``); the K/V pools are updated in place. A scrape-time
+collector mirrors ``stats()`` into the metrics registry (``GET /metrics``),
+and prefill, packed-prefill and decode/verify steps record spans carrying
+the requests' trace ids while tracing is on.
 
-Not ported yet (raise NotImplementedError): the prefill/decode roles and
-LoRA adapters.
+Not ported yet (raise NotImplementedError): the prefill/decode roles.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,6 +75,10 @@ import torch
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.distributed.resilience import faults
+# importing the store registers the serving.lora.swap_fail chaos point
+from paddle_tpu_torch.lora.store import AdapterLoadError
+from paddle_tpu_torch.observability import metrics as obs_metrics
+from paddle_tpu_torch.observability import tracing as obs_tracing
 from paddle_tpu_torch.quantization import raw_bytes
 from paddle_tpu_torch.serving.drafts import NGramProposer
 from paddle_tpu_torch.serving.kv_cache import (PageAllocator, kv_page_bytes,
@@ -105,6 +128,83 @@ class ServingConfig:
 # KV storage modes that keep codes, and the pool dtype of each
 _CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
+_engine_seq = itertools.count()
+# stats() fields mirrored as serving_engine_<name> gauges, and engine
+# totals mirrored as serving_engine_<name>_total counters (the JAX
+# engine's names)
+_ENGINE_GAUGES = (
+    "queue_depth", "oldest_wait_age_s", "in_flight", "slot_fill",
+    "free_pages", "spec_k", "accepted_tokens_per_step", "prefix_hit_rate",
+    "cow_copies", "prefill_batch_fill")
+_ENGINE_COUNTERS = {
+    "committed_tokens": "_committed_tokens",
+    "decode_steps": "_decode_steps",
+    "prefix_matched_tokens": "_prefix_matched_tokens",
+}
+
+
+def _register_engine_metrics(engine: "ServingEngine"):
+    """Scrape-time collector (``paddle_tpu/serving/engine.py:173``): the
+    engine's stats, KV tier occupancy and per-tenant committed tokens
+    mirror into the registry when /metrics is read, so the decode loop pays
+    nothing; the weakref owner unhooks a collected engine."""
+    ref = weakref.ref(engine)
+
+    def collect(reg):
+        eng = ref()
+        if eng is None:
+            return
+        st = eng.stats()
+        for k in _ENGINE_GAUGES:
+            reg.gauge(f"serving_engine_{k}",
+                      f"ServingEngine.stats()['{k}']",
+                      labels=("engine",)).labels(
+                engine=eng._metrics_id).set(float(st.get(k, 0) or 0))
+        for name, attr in _ENGINE_COUNTERS.items():
+            reg.counter(f"serving_engine_{name}_total",
+                        f"monotonic engine total: {name}",
+                        labels=("engine",)).labels(
+                engine=eng._metrics_id)._set_total(
+                float(getattr(eng, attr)))
+        alloc = eng.allocator
+        tiers = reg.gauge("kv_tier_pages",
+                          "KV pages resident per tier (hbm counts held + "
+                          "cold committed pages; host counts demoted "
+                          "pages in the host pool)",
+                          labels=("engine", "tier"))
+        tiers.labels(engine=eng._metrics_id, tier="hbm").set(
+            float(eng.num_pages - 1 - alloc.free_pages))
+        tiers.labels(engine=eng._metrics_id, tier="host").set(
+            float(alloc.host_used))
+        reg.counter("kv_demotions_total",
+                    "KV pages demoted device -> host (tier evictions)",
+                    labels=("engine",)).labels(
+            engine=eng._metrics_id)._set_total(float(alloc.demotions))
+        reg.counter("kv_promotions_total",
+                    "KV pages promoted host -> device (radix-hit restores)",
+                    labels=("engine",)).labels(
+            engine=eng._metrics_id)._set_total(float(alloc.promotions))
+        reg.gauge("kv_cache_dtype",
+                  "KV page-pool storage mode (one-hot by dtype label)",
+                  labels=("engine", "dtype")).labels(
+            engine=eng._metrics_id,
+            dtype=st.get("kv_cache_dtype", "unknown")).set(1.0)
+        reg.gauge("serving_engine_role",
+                  "engine serving role (one-hot by role label)",
+                  labels=("engine", "role")).labels(
+            engine=eng._metrics_id, role=st.get("role", "mixed")).set(1.0)
+        # multi-tenant LoRA billing: committed tokens per tenant (the
+        # AdapterStore registers its own residency and swap collector)
+        tok = reg.counter("lora_tokens_total",
+                          "committed tokens per tenant (tenant field, "
+                          "adapter id fallback)",
+                          labels=("engine", "tenant"))
+        for tenant, n in st.get("tenant_tokens", {}).items():
+            tok.labels(engine=eng._metrics_id,
+                       tenant=tenant)._set_total(float(n))
+
+    obs_metrics.registry().add_collector(collect, owner=engine)
+
 
 def _buckets(lo: int, hi: int) -> list[int]:
     """Power-of-two sizes in [lo, hi] plus hi itself."""
@@ -126,13 +226,11 @@ def _bucket(n: int, buckets: list[int]) -> int:
 class ServingEngine:
     """Continuous-batching generation over a decode-capable model (the
     port's ``LlamaForCausalLM``). ``device`` defaults to "cuda" and must be
-    where the model's weights are."""
+    where the model's weights are. ``adapter_store`` (an ``AdapterStore``
+    built from this model) enables per-request LoRA adapters."""
 
     def __init__(self, model, config: ServingConfig | None = None,
                  adapter_store=None, device=DEFAULT_DEVICE):
-        if adapter_store is not None:
-            raise NotImplementedError(
-                "LoRA adapter serving is not ported to paddle_tpu_torch yet")
         self.config = config or ServingConfig()
         self.config.check_ported()
         self.device = resolve_device(device)
@@ -141,6 +239,10 @@ class ServingEngine:
             raise ValueError(f"model weights are on {wdev}, engine device "
                              f"is {self.device}")
         self.model = model
+        # multi-tenant LoRA: per-row adapter slot ids + the store's pools
+        self.adapters = adapter_store
+        if adapter_store is not None:
+            adapter_store.validate_model(model)
         mcfg = model.config
         self.num_layers = int(mcfg.num_hidden_layers)
         self.num_kv_heads = int(mcfg.num_key_value_heads)
@@ -230,7 +332,7 @@ class ServingEngine:
         self.scheduler = ContinuousBatchingScheduler(
             self.allocator, self.decode_batch, self.max_seq_len,
             max_waiting=self.max_waiting, prefix_sharing=self.prefix_sharing,
-            spec_k=self.spec_k)
+            spec_k=self.spec_k, namespace_fn=self._prefix_namespace)
         self._proposer = NGramProposer()
         shape = (self.num_layers, self.num_kv_heads, self.num_pages,
                  self.page_size, self.head_dim)
@@ -289,6 +391,9 @@ class ServingEngine:
         self._decode_steps = 0
         self._slot_steps = 0
         self._draft_ms = 0.0
+        # per-tenant committed tokens (tenant field, adapter id fallback):
+        # the lora_tokens_total{tenant=} counter's source
+        self._tenant_tokens: dict[str, int] = {}
         self._http_lock = threading.Lock()
         self._step_lock = threading.RLock()
         self._http_stop = False
@@ -296,6 +401,8 @@ class ServingEngine:
         self._http_driver = None
         self._http_thread = None
         self._http_server = None
+        self._metrics_id = str(next(_engine_seq))
+        _register_engine_metrics(self)
 
     def _ctx_cap(self) -> int:
         return self.pages_per_seq * self.page_size
@@ -304,16 +411,66 @@ class ServingEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------------
+    # multi-tenant LoRA
+    # ------------------------------------------------------------------
+    def _prefix_namespace(self, req: Request):
+        """The prefix-index namespace of `req` at its admission: None for
+        the base model (tokens alone, the JAX engine's key), the adapter
+        id and its weight generation otherwise."""
+        if not req.adapter or self.adapters is None:
+            return None
+        return self.adapters.namespace(req.adapter)
+
+    def _adapter_bind(self, reqs, rows: int):
+        """The LoRA binding of one model call over `rows` batch rows, row
+        i serving ``reqs[i]`` (rows past the list, and base requests,
+        carry the trash id: an exact zero delta). A no-op context for an
+        engine without a store, and for a call whose rows are all base
+        (their deltas would all be exact zeros)."""
+        if self.adapters is None or not any(
+                r is not None and r.adapter for r in reqs):
+            return contextlib.nullcontext()
+        ids = np.full(rows, self.adapters.num_slots, np.int32)
+        for i, req in enumerate(reqs):
+            if req is not None and req.adapter:
+                ids[i] = self.adapters.slot_of(req.adapter)
+        return self.adapters.bind(self._tensor(ids))
+
+    def _bill_tenant(self, req: Request):
+        key = req.tenant or req.adapter
+        if key:
+            self._tenant_tokens[key] = self._tenant_tokens.get(key, 0) + 1
+
+    # ------------------------------------------------------------------
     # request intake
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               eos_id: int | None = None, stream_cb=None) -> int:
+               eos_id: int | None = None, stream_cb=None,
+               adapter: str | None = None, tenant: str = "") -> int:
+        """Queue one request; returns its rid. With ``adapter`` the request
+        decodes through that LoRA adapter, pinned in the store's slot pool
+        until `release`; a failed load raises `AdapterLoadError` here and
+        queues nothing."""
+        if adapter and self.adapters is None:
+            raise AdapterLoadError(
+                adapter, "engine was constructed without an AdapterStore")
+        if adapter:
+            # pin BEFORE the scheduler sees the request: the slot must be
+            # resident for every dispatch it rides (unpinned on the
+            # QueueFull race below and in release())
+            self.adapters.acquire(adapter)
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      eos_id=eos_id, stream_cb=stream_cb)
+                      eos_id=eos_id, stream_cb=stream_cb,
+                      adapter=adapter or None, tenant=tenant)
         with self._step_lock:
-            rid = self.scheduler.submit(req)
+            try:
+                rid = self.scheduler.submit(req)
+            except Exception:
+                if adapter:
+                    self.adapters.release(adapter)
+                raise
             # keyed by per-engine submission ORDER: the same request
             # sequence with the same seed reproduces the same streams
             self._gens[rid] = request_generator(self.config.sample_seed,
@@ -345,8 +502,15 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def _run_prefill(self, req: Request):
+        with obs_tracing.span("engine.prefill", component="engine",
+                              trace_id=(req.trace_id or None), rid=req.rid,
+                              tokens=int(req.context.size),
+                              matched=int(req.matched_tokens)):
+            self._run_prefill_inner(req)
+
+    @torch.inference_mode()
+    def _run_prefill_inner(self, req: Request):
         """Chunked prefill of one request's context from its first
         unmatched token: adopted shared pages already hold the matched
         prefix, and each chunk's attention gathers the whole context back
@@ -372,10 +536,11 @@ class ServingEngine:
             # position: they write the one not-yet-valid slot cap-1
             # (rewritten by decode before it is ever readable)
             positions = np.minimum(off + np.arange(cpad), cap - 1)
-            self.model.llama.decode_forward(
-                self._tensor(ids)[None], self._cache, row,
-                self._tensor(np.array([off + t], np.int32)),
-                self._tensor(positions)[None], ctx_pad=ctx_pad)
+            with self._adapter_bind([req], 1):
+                self.model.llama.decode_forward(
+                    self._tensor(ids)[None], self._cache, row,
+                    self._tensor(np.array([off + t], np.int32)),
+                    self._tensor(positions)[None], ctx_pad=ctx_pad)
             off += t
 
     def _plan_frames(self, seq, length_of):
@@ -395,12 +560,13 @@ class ServingEngine:
         return frames
 
     @torch.inference_mode()
-    def packed_prefill_cache(self, cache, items):
+    def packed_prefill_cache(self, cache, items, req=None):
         """Device work of ONE packed multi-prompt prefill frame: `items` is
         a list of (tokens int32 [L], page_row int32) pairs. Pads and
         inter-segment gap rows carry the null segment id (the all-null
         table row), so their K/V writes land in the reserved null page and
-        the segment mask keeps them out of every real segment."""
+        the segment mask keeps them out of every real segment. The frame
+        holds one adapter, `req`'s (None or a base request: none)."""
         align, ps = self.pack_align, self.page_size
         used = sum(-(-int(t.size) // align) * align for t, _ in items)
         fpad = _bucket(used, self._pack_buckets)
@@ -420,10 +586,11 @@ class ServingEngine:
             tables[j, :n] = np.asarray(row)[:n]
             off += -(-t // align) * align
             filled += t
-        _, cache = self.model.llama.decode_forward(
-            self._tensor(ids)[None], cache, self._tensor(tables),
-            self._tensor(np.ones(1, np.int32)), self._tensor(pos)[None],
-            segment_ids=self._tensor(seg)[None])
+        with self._adapter_bind([req], 1):
+            _, cache = self.model.llama.decode_forward(
+                self._tensor(ids)[None], cache, self._tensor(tables),
+                self._tensor(np.ones(1, np.int32)), self._tensor(pos)[None],
+                segment_ids=self._tensor(seg)[None])
         self._pack_frames += 1
         self._pack_reqs += len(items)
         self._pack_fill_tokens += filled
@@ -436,7 +603,12 @@ class ServingEngine:
         items = [(np.asarray(r.context, np.int32),
                   self.allocator.page_table_row(r.rid, self.pages_per_seq))
                  for r in reqs]
-        self._cache = self.packed_prefill_cache(self._cache, items)
+        with obs_tracing.span(
+                "engine.prefill_packed", component="engine",
+                reqs=len(reqs), tokens=sum(int(t.size) for t, _ in items),
+                trace_ids=[r.trace_id for r in reqs if r.trace_id]):
+            self._cache = self.packed_prefill_cache(self._cache, items,
+                                                    req=reqs[0])
 
     @torch.inference_mode()
     def _decode_once(self, active, finisher):
@@ -461,9 +633,10 @@ class ServingEngine:
             top_k[i] = req.top_k
             top_p[i] = req.top_p
         positions = np.maximum(lens - 1, 0).astype(np.int64)
-        logits, _ = self.model.decode_forward(
-            self._tensor(ids)[:, None], self._cache, self._tensor(pt),
-            self._tensor(lens), self._tensor(positions)[:, None])
+        with self._adapter_bind(active, b):
+            logits, _ = self.model.decode_forward(
+                self._tensor(ids)[:, None], self._cache, self._tensor(pt),
+                self._tensor(lens), self._tensor(positions)[:, None])
         tokens = sample_tokens(logits[:, 0], gens, self._tensor(temp),
                                self._tensor(top_k), self._tensor(top_p))
         toks = tokens.cpu().numpy()
@@ -472,6 +645,7 @@ class ServingEngine:
             tok = int(toks[i])
             req.generated.append(tok)
             req.token_times.append(now)
+            self._bill_tenant(req)
             if req.stream_cb is not None:
                 req.stream_cb(req, tok)
             if ((req.eos_id is not None and tok == req.eos_id)
@@ -534,10 +708,11 @@ class ServingEngine:
         # page; its position only has to index the RoPE table and the
         # page table (every unmasked one is below max_seq_len)
         positions = np.minimum(positions, self.max_seq_len - 1)
-        logits, _ = self.model.decode_forward(
-            self._tensor(ids), self._cache, self._tensor(pt),
-            self._tensor(lens), self._tensor(positions),
-            write_mask=self._tensor(write_mask), verify=True)
+        with self._adapter_bind(active, b):
+            logits, _ = self.model.decode_forward(
+                self._tensor(ids), self._cache, self._tensor(pt),
+                self._tensor(lens), self._tensor(positions),
+                write_mask=self._tensor(write_mask), verify=True)
         tokens, states = sample_frame(logits, gens, self._tensor(temp),
                                       self._tensor(top_k),
                                       self._tensor(top_p))
@@ -558,6 +733,7 @@ class ServingEngine:
                 req.generated.append(tok)
                 req.token_times.append(now)
                 self._committed_tokens += 1
+                self._bill_tenant(req)
                 self._proposer.observe(req.rid, tok)
                 if req.stream_cb is not None:
                     req.stream_cb(req, tok)
@@ -617,10 +793,12 @@ class ServingEngine:
 
     def _pack_collides(self, head: Request, batch) -> bool:
         """Would the waiting head prefix-match a collected but unflushed
-        batch member? Its pages register only at the flush, so the caller
-        flushes first to keep the adoption."""
+        batch member of its prefix namespace? Its pages register only at
+        the flush, so the caller flushes first to keep the adoption."""
         if not self.prefix_sharing:
             return False
+        ns = self._prefix_namespace(head)
+        batch = [r for r in batch if r.prefix_namespace == ns]
         ps = self.page_size
         ctx = head.context
         if int(ctx.size) < ps:
@@ -653,7 +831,8 @@ class ServingEngine:
                     self._run_prefill_packed(frame)
             for r in batch:
                 if self.prefix_sharing:
-                    self.allocator.register_prefix(r.rid, r.context)
+                    self.allocator.register_prefix(
+                        r.rid, r.context, namespace=r.prefix_namespace)
                 self.scheduler.activate(r)
             batch.clear()
 
@@ -672,6 +851,10 @@ class ServingEngine:
                 break
             req = admitted[0]
             if self._packable(req):
+                # a packed frame binds one adapter: a change flushes it
+                if batch and ((req.adapter or None)
+                              != (batch[0].adapter or None)):
+                    flush()
                 batch.append(req)
                 continue
             flush()
@@ -681,7 +864,8 @@ class ServingEngine:
             self._run_prefill(req)
             if self.prefix_sharing:
                 # the committed context becomes matchable once written
-                self.allocator.register_prefix(req.rid, req.context)
+                self.allocator.register_prefix(
+                    req.rid, req.context, namespace=req.prefix_namespace)
             self.scheduler.activate(req)
         flush()
 
@@ -693,8 +877,12 @@ class ServingEngine:
         """One scheduler iteration: admissions (+ their packed/chunked
         prefills and prefix registration), chain growth/eviction, tier and
         copy-on-write copies, then ONE decode step (a verify frame when
-        ``spec_k`` > 0). Returns False when nothing is running."""
+        ``spec_k`` > 0). Returns False when nothing is running. With an
+        adapter store the step first writes the store's staged hot swaps:
+        a swap lands between two steps, never between two layers."""
         with self._step_lock:
+            if self.adapters is not None:
+                self.adapters.apply_swaps()
             self._admit()
             self.scheduler.grow()
             self._apply_tier_ops()      # grow's reclaims demote first
@@ -711,10 +899,22 @@ class ServingEngine:
                         f"reclaimable incl. cold) and nothing left to "
                         f"evict")
                 return False
-            if self.spec_k > 0:
-                self._verify_once(running, self.scheduler.finish)
+            once = (self._verify_once if self.spec_k > 0
+                    else self._decode_once)
+            if obs_tracing.tracing_active():
+                # one span a dispatch, carrying every active request's
+                # trace id: the decode-step end of the router -> replica
+                # -> engine chain
+                with obs_tracing.span(
+                        "engine.verify_step" if self.spec_k > 0
+                        else "engine.decode_step", component="engine",
+                        slots=len(running),
+                        trace_ids=[r.trace_id for r in running
+                                   if r.trace_id],
+                        rids=[r.rid for r in running]):
+                    once(running, self.scheduler.finish)
             else:
-                self._decode_once(running, self.scheduler.finish)
+                once(running, self.scheduler.finish)
             return True
 
     def run_until_idle(self, max_steps: int = 1_000_000):
@@ -728,7 +928,13 @@ class ServingEngine:
 
     def release(self, rid: int):
         """Drop a finished request's bookkeeping (scheduler entry,
-        generator and draft tables)."""
+        generator, draft tables, adapter slot pin)."""
+        req = self.scheduler._by_rid.get(rid)
+        if (req is not None and req.finished and req.adapter
+                and self.adapters is not None):
+            # unpin exactly once: scheduler.release drops the entry of a
+            # finished request, so a second release is a no-op
+            self.adapters.release(req.adapter)
         self.scheduler.release(rid)
         self._gens.pop(rid, None)
         self._proposer.drop(rid)
@@ -755,6 +961,7 @@ class ServingEngine:
         import queue as queue_mod
 
         q = queue_mod.Queue()
+        adapter_err = None
         with self._http_lock:
             try:
                 rid = self.submit(
@@ -764,14 +971,27 @@ class ServingEngine:
                     top_k=int(payload.get("top_k", 0)),
                     top_p=float(payload.get("top_p", 1.0)),
                     eos_id=payload.get("eos_id"),
-                    stream_cb=lambda req, tok: q.put(tok))
+                    stream_cb=lambda req, tok: q.put(tok),
+                    adapter=payload.get("adapter"),
+                    tenant=str(payload.get("tenant") or ""))
             except QueueFull:
                 rid = None
+            except AdapterLoadError as e:
+                # a failed adapter load is ONE typed terminal event for
+                # this request; the engine and other streams go on
+                rid = None
+                adapter_err = e
             else:
                 req = self.scheduler.get(rid)
+                req.trace_id = str(payload.get("trace") or "")
         if rid is None:
-            yield {"error": "queue_full",
-                   "retry_after": float(flag("router_retry_after_s"))}
+            if adapter_err is not None:
+                yield {"error": "adapter_load_failed",
+                       "adapter": adapter_err.adapter_id,
+                       "message": str(adapter_err)}
+            else:
+                yield {"error": "queue_full",
+                       "retry_after": float(flag("router_retry_after_s"))}
             return
         n = 0
         try:
@@ -833,8 +1053,10 @@ class ServingEngine:
         return h
 
     def serve_http(self, port: int, block: bool = True):
-        """Serve POST /generate (streaming ndjson token events), GET
-        /healthz and /stats. The scheduler runs on a driver thread; with
+        """Serve POST /generate (streaming ndjson token events; payload
+        keys ``adapter`` and ``tenant`` select a LoRA adapter), GET
+        /healthz, /stats and /metrics (the registry's Prometheus text).
+        The scheduler runs on a driver thread; with
         ``block=False`` the listener runs on a thread too and the server
         is returned (``shutdown_http`` stops both)."""
         from paddle_tpu_torch.inference.serve import build_http_server
@@ -845,12 +1067,13 @@ class ServingEngine:
             timeout_s=float(flag("serving_request_timeout_s")),
             max_body_bytes=int(flag("serving_max_body_mb")) << 20,
             admit_fn=self._http_admit, health_fn=self._http_health,
-            stats_fn=self.stats)
+            stats_fn=self.stats,
+            metrics_fn=lambda: obs_metrics.registry().prometheus_text())
         self._http_stop = False
         self._http_error = None
         self._http_server = srv
         self._http_driver = threading.Thread(
-            target=self._drive_http, name="paddle_tpu.serving.torch_driver",
+            target=self._drive_http, name="paddle_tpu_torch.serving.driver",
             daemon=True)
         self._http_driver.start()
         if block:
@@ -860,7 +1083,7 @@ class ServingEngine:
                 self.shutdown_http()
             return srv
         self._http_thread = threading.Thread(
-            target=srv.serve_forever, name="paddle_tpu.serving.torch_http",
+            target=srv.serve_forever, name="paddle_tpu_torch.serving.http",
             daemon=True)
         self._http_thread.start()
         return srv
@@ -922,6 +1145,10 @@ class ServingEngine:
             "prefill_tokens": self._prefill_tokens,
             "committed_tokens": self._committed_tokens,
             "decode_steps": self._decode_steps,
+            # multi-tenant LoRA: adapter residency + per-tenant billing
+            "lora": (self.adapters.residency()
+                     if self.adapters is not None else {}),
+            "tenant_tokens": dict(self._tenant_tokens),
         }
 
     @property

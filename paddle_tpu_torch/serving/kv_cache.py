@@ -12,9 +12,13 @@ page: never allocated, it backs the dead slots of every page-table row.
 Prefix sharing: a page holding a committed FULL page of tokens can be
 registered in a prefix index keyed by the exact token bytes of the prefix
 it completes (one probe per page_size stride is a radix walk; equal bytes
-are the match, so two prefixes never alias). Admission adopts the longest
-indexed prefix of a new context (refcounted shared pages) and prefill runs
-only the unmatched tail. A write into a shared page copies on write
+are the match, so two prefixes never alias), within a namespace: pages
+written under a LoRA adapter hold K/V that depend on it, so they are keyed
+by (namespace, bytes) and match only lookups of the same namespace (the
+JAX index keys tokens alone and lets a base request adopt an adapter's
+pages). Demoted entries keep their key, namespace included. Admission
+adopts the longest indexed prefix of a new context (refcounted shared
+pages) and prefill runs only the unmatched tail. A write into a shared page copies on write
 (`make_writable` hands the engine (src, dst) pairs to copy on the device).
 Eviction is copy-free: freeing a chain decrefs its pages.
 
@@ -89,12 +93,16 @@ def pages_for_budget(budget_bytes: int, page_bytes: int) -> int:
     return pages
 
 
-def _prefix_key(tokens: np.ndarray, depth: int, page_size: int) -> bytes:
+def _prefix_key(tokens: np.ndarray, depth: int, page_size: int,
+                namespace=None):
     """Index key of the prefix that ends with full page `depth`: the exact
     token bytes (not a digest — equality IS the match, collisions are
-    structurally impossible)."""
-    return np.ascontiguousarray(
+    structurally impossible). Under a `namespace` (an adapter's pages) the
+    key is the pair (namespace, bytes), which never equals a base key nor
+    one of another namespace."""
+    key = np.ascontiguousarray(
         tokens[:(depth + 1) * page_size], np.int32).tobytes()
+    return key if namespace is None else (namespace, key)
 
 
 class PageAllocator:
@@ -339,7 +347,7 @@ class PageAllocator:
         return row
 
     # ---- prefix sharing ---------------------------------------------------
-    def match_prefix(self, tokens) -> tuple[list[int], int]:
+    def match_prefix(self, tokens, namespace=None) -> tuple[list[int], int]:
         """Longest indexed prefix of `tokens`, in whole committed pages:
         returns (pages, matched_token_count). The radix walk is one index
         probe per page_size stride, keyed by the exact token bytes. A depth
@@ -347,13 +355,14 @@ class PageAllocator:
         + pending H2D restore; the matcher then adopts it like any cold
         page), so the caller never sees tiers — unless the
         serving.kv.promote_fail chaos point fires, which loses the host
-        entry and stops the walk (the request re-prefills the tail)."""
+        entry and stops the walk (the request re-prefills the tail). Only
+        pages registered under the same `namespace` match."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         pages: list[int] = []
         ps = self.page_size
         depth = 0
         while (depth + 1) * ps <= tokens.size:
-            key = _prefix_key(tokens, depth, ps)
+            key = _prefix_key(tokens, depth, ps, namespace)
             page = self._prefix_index.get(key)
             if page is None and key in self._host_index:
                 page = self._promote(key, protect=frozenset(pages))
@@ -422,18 +431,19 @@ class PageAllocator:
         self._promote_slots_pending = []
         return demote, promote
 
-    def register_prefix(self, rid, tokens) -> int:
+    def register_prefix(self, rid, tokens, namespace=None) -> int:
         """Index `rid`'s chain pages that hold FULL pages of the committed
-        `tokens` (the request's context at registration). Depths already
-        indexed keep their first registrant (the matcher adopted those very
-        pages, so re-registering is a no-op). Returns newly indexed pages.
+        `tokens` (the request's context at registration) under
+        `namespace`. Depths already indexed keep their first registrant
+        (the matcher adopted those very pages, so re-registering is a
+        no-op). Returns newly indexed pages.
         """
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         chain = self._chains.get(rid, ())
         ps = self.page_size
         new = 0
         for depth in range(min(tokens.size // ps, len(chain))):
-            key = _prefix_key(tokens, depth, ps)
+            key = _prefix_key(tokens, depth, ps, namespace)
             if key in self._prefix_index:
                 continue
             page = chain[depth]

@@ -1,6 +1,7 @@
 """Iteration-level (continuous-batching) scheduler
 (``paddle_tpu.serving.scheduler`` counterpart, the speculative write
-horizon included; its observability spans and events are not ported).
+horizon, the ``scheduler.admit`` span and the ``page_eviction`` event
+included).
 
 Requests join and leave the decode batch BETWEEN decode steps:
 `admissions()` fills free decode slots from the waiting queue whenever the
@@ -11,6 +12,13 @@ makes the pages the step writes private (copy-on-write), and page
 exhaustion triggers copy-free eviction of the youngest running request,
 which re-queues at the FRONT to be re-prefilled (prompt + tokens generated
 so far).
+
+Prefix sharing is namespaced: a request's prefix lookups and the pages it
+registers carry ``Request.prefix_namespace`` (None for the base model;
+the engine gives an adapter request its adapter id and the store's
+weight generation, through ``namespace_fn`` at admission), so K/V
+written under one adapter is never adopted by a request of another, or of
+the base model. The JAX scheduler keys pages by tokens alone.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from enum import Enum
 
 import numpy as np
 
+from paddle_tpu_torch.observability import events as obs_events
+from paddle_tpu_torch.observability import tracing as obs_tracing
 from paddle_tpu_torch.serving.kv_cache import PageAllocator
 
 __all__ = ["Request", "RequestState", "ContinuousBatchingScheduler",
@@ -58,6 +68,11 @@ class Request:
     top_p: float = 1.0                      # >= 1 -> off
     eos_id: int | None = None
     stream_cb: object = None                # callable(request, token) or None
+    # multi-tenant LoRA: the adapter this request decodes through (None =
+    # base model) and the tenant it bills and fair-shares under (adapter
+    # id fallback when empty); they ride the request like sampling knobs
+    adapter: str | None = None
+    tenant: str = ""
     rid: int = field(default_factory=lambda: next(_rid_counter))
     state: RequestState = RequestState.WAITING
     generated: list = field(default_factory=list)
@@ -67,6 +82,12 @@ class Request:
     # tokens of the context covered by prefix-shared pages adopted at the
     # LAST admission: prefill starts here (0 = no match); reset on eviction
     matched_tokens: int = 0
+    # the prefix-index namespace of the LAST admission (None: the base
+    # model's, keyed by tokens alone)
+    prefix_namespace: object = None
+    # correlation id of the request's spans (set by the replica or the
+    # HTTP front-end from the router's payload)
+    trace_id: str = ""
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -93,7 +114,8 @@ class Request:
 class ContinuousBatchingScheduler:
     def __init__(self, allocator: PageAllocator, max_batch: int,
                  max_seq_len: int, max_waiting: int = 0,
-                 prefix_sharing: bool = False, spec_k: int = 0):
+                 prefix_sharing: bool = False, spec_k: int = 0,
+                 namespace_fn=None):
         self.allocator = allocator
         self.max_batch = int(max_batch)
         self.max_seq_len = int(max_seq_len)
@@ -106,6 +128,8 @@ class ContinuousBatchingScheduler:
         # spec_k widens grow()'s write horizon to the verify frame's
         self.prefix_sharing = bool(prefix_sharing)
         self.spec_k = int(spec_k)
+        # request -> its prefix-index namespace, read at each admission
+        self.namespace_fn = namespace_fn
         self.pending_cow: list[tuple[int, int]] = []
         self.waiting: list[Request] = []
         self.running: list[Request] = []        # admission order == age
@@ -154,16 +178,28 @@ class ContinuousBatchingScheduler:
                len(self.running) + len(admitted) < self.max_batch and
                (not limit or len(admitted) < limit)):
             req = self.waiting[0]
+            t0 = (time.perf_counter_ns()
+                  if obs_tracing.tracing_active() else None)
+            ns = self.namespace_fn(req) if self.namespace_fn else None
             adopt, matched = ([], 0)
             if self.prefix_sharing:
-                adopt, matched = self.allocator.match_prefix(req.context)
+                adopt, matched = self.allocator.match_prefix(
+                    req.context, namespace=ns)
             if not self.allocator.ensure(req.rid, req.total_len + 1,
                                          adopt=adopt or None):
                 break                       # exhausted: keep FIFO order
             req.matched_tokens = matched
+            req.prefix_namespace = ns
             self.waiting.pop(0)
             req.state = RequestState.RUNNING
             admitted.append(req)
+            if t0 is not None:
+                obs_tracing.record_span(
+                    "scheduler.admit", t0, time.perf_counter_ns() - t0,
+                    {"component": "scheduler", "rid": req.rid,
+                     "matched_tokens": matched,
+                     "promotions_total": self.allocator.promotions,
+                     **({"trace_id": req.trace_id} if req.trace_id else {})})
         return admitted
 
     def activate(self, req: Request):
@@ -211,6 +247,11 @@ class ContinuousBatchingScheduler:
         victim.evictions += 1
         victim.matched_tokens = 0
         self.waiting.insert(0, victim)
+        obs_events.emit("serving", "page_eviction", severity="warn",
+                        rid=victim.rid, evictions=victim.evictions,
+                        context_tokens=victim.total_len,
+                        **({"trace_id": victim.trace_id}
+                           if victim.trace_id else {}))
 
     def finish(self, req: Request, state: RequestState = RequestState.FINISHED):
         self.allocator.free_request(req.rid)

@@ -138,12 +138,19 @@ def test_allocator_all_or_nothing_and_scheduler_limits():
 
 
 def test_unported_options_raise(models):
+    """The disaggregated roles are not ported; LoRA serving is, and an
+    adapter store built for another model instance is refused."""
+    from paddle_tpu_torch.lora import AdapterStore
+
     _, tm = models
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(tm, ServingConfig(**ENGINE, role="decode"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(tm, ServingConfig(**ENGINE), adapter_store=object(),
+    other = LlamaForCausalLM(llama_tiny_config(num_key_value_heads=2),
+                             device="cpu", seed=1)
+    with pytest.raises(ValueError, match="different model"):
+        ServingEngine(tm, ServingConfig(**ENGINE),
+                      adapter_store=AdapterStore(other, rank=4, slots=2),
                       device="cpu")
 
 

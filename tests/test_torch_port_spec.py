@@ -346,21 +346,25 @@ def test_verify_mismatch_chaos_commits_one_token_a_step(engines, chaos):
 
 
 def test_fault_arming_modes_equal_jax(chaos):
-    """once and always, disarm and fired, hit by hit against the JAX
-    registry."""
+    """once, always, nth and seeded prob, disarm and fired, hit by hit
+    against the JAX registry; an unknown mode raises in both."""
     jax_faults.reset()
     try:
-        for mode in ("once", "always"):
-            jax_faults.arm(CHAOS, mode=mode)
-            faults.arm(CHAOS, mode=mode)
+        for mode, kw in (("once", {}), ("always", {}),
+                         ("nth", {"nth": 3}), ("prob", {"p": 0.5, "seed": 7})):
+            jax_faults.arm(CHAOS, mode=mode, **kw)
+            faults.arm(CHAOS, mode=mode, **kw)
             got = [faults.fire_check(CHAOS) for _ in range(5)]
             assert got == [jax_faults.fire_check(CHAOS) for _ in range(5)]
             jax_faults.disarm(CHAOS)
             faults.disarm(CHAOS)
             assert not faults.fire_check(CHAOS)
+            assert not jax_faults.fire_check(CHAOS)
             assert faults.fired(CHAOS) == jax_faults.fired(CHAOS)
-        with pytest.raises(ValueError, match="mode"):
-            faults.arm(CHAOS, mode="nth")
+            assert faults.hits(CHAOS) == jax_faults.hits(CHAOS)
+        for reg in (faults, jax_faults):
+            with pytest.raises(ValueError, match="mode"):
+                reg.arm(CHAOS, mode="sometimes")
     finally:
         jax_faults.reset()
 
