@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--layers N]
+    python3 chip_smoke.py [--seed N] [--layers N] [--only PHASE,...]
 
 Builds the port's hand-written Hopper kernels from ``paddle_tpu_torch/ops/
 cuda/csrc`` (nvcc, sm_90a) and runs, in order:
@@ -178,6 +178,27 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     that the attention projections got gradients, then profiles one more
     step;
     then GPT-MoE training: a tiny CUDA-vs-CPU check and the full width;
+    then the training recipe (``train_recipe_cuda_vs_cpu``: phase 6's
+    model with AdamW under LinearWarmup -> CosineAnnealingDecay, remat
+    save_dots, fp8 matmuls+head and a DeviceFeeder, 3 steps on CUDA and
+    on the CPU: losses within 1e-3, lr sequences equal, a float16
+    GradScaler run with the scale forced to 2^40 before step 4: scale
+    sequences and skip flags equal, the skipped step moving no parameter,
+    one projection's fp8 codes bit-equal between the devices;
+    ``train_recipe_full_width``: phase 7's geometry, bf16 O2 with fp32
+    masters, remat none, full, save_dots and offload_residuals at fp8
+    none, then save_dots at fp8 matmuls and matmuls+head, 2 warm-up and
+    4 timed steps each from the same weights through a DeviceFeeder:
+    median step ms, tokens/s, MFU, peak memory, the forward and
+    backward's own peak, device ms by kernel and launches per step;
+    gates: finite falling losses, the first loss equal and the first
+    gradient norm within 1e-5 across the remat policies, full's forward
+    and backward peak below none's, the flash kernels every layer (the
+    forward twice under remat), ce_stats/ce_bwd at fp8 none and matmuls
+    but not at matmuls+head (torch._scaled_mm products instead), one fp8
+    projection within the bf16 row rule of the fp32 product of its
+    codes, fp8_amax_max finite and positive, the lr sequence the host
+    scheduler's);
  8. the RMSNorm kernels (forward, backward, dw sum) against their plain
     versions at the main path's widths ([4096, 4096], [8, 4096],
     [8192, 1024], a ragged [4097, 1000] at every row block the autotuner
@@ -2235,29 +2256,42 @@ def _first_step_logits(eng, prompts, spec_k, per_position=False):
     """The position-0 logits [rows, vocab] (fp32, on the CPU) of the first
     decode (spec_k 0) or verify step over `prompts`, read by a hook on the
     LM head (prefill never runs it); the requests are then cancelled.
-    per_position: the step's ``nn.Linear`` calls on the [decode_batch, T >
+    per_position: the step's linear products on the [decode_batch, T >
     1, H] verify frame (not the prefills' [1, T, H] chunks) run one
     position at a time, each a GEMM of decode_batch rows as decode's are,
     so everything else of the frame (RoPE, the masked page writes, the
     paged kernel's T-query frame, the norms) is held to decode bit for
-    bit."""
+    bit. The products are the projections' ``nn.functional.linear`` (the
+    port's AMP and fp8 seam) and the head's ``nn.Linear``."""
     import torch
 
+    from paddle_tpu_torch.nn import functional as port_f
+
     seen = []
-    linear = torch.nn.Linear.forward
+    linear, flinear = torch.nn.Linear.forward, port_f.linear
+
+    def framed(x):
+        return x.dim() == 3 and x.shape[0] == eng.decode_batch \
+            and x.shape[1] > 1
 
     def by_position(self, x):
-        if x.dim() == 3 and x.shape[0] == eng.decode_batch \
-                and x.shape[1] > 1:
+        if framed(x):
             return torch.cat([linear(self, x[:, i:i + 1])
                               for i in range(x.shape[1])], dim=1)
         return linear(self, x)
+
+    def f_by_position(x, weight, bias=None):
+        if framed(x):
+            return torch.cat([flinear(x[:, i:i + 1], weight, bias)
+                              for i in range(x.shape[1])], dim=1)
+        return flinear(x, weight, bias)
 
     handle = eng.model.lm_head.register_forward_hook(
         lambda _m, _i, out: seen.append(out[:len(prompts), 0].float().cpu())
         if not seen else None)
     if per_position:
         torch.nn.Linear.forward = by_position
+        port_f.linear = f_by_position
     eng.configure_speculation(spec_k=spec_k)
     try:
         rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
@@ -2267,6 +2301,7 @@ def _first_step_logits(eng, prompts, spec_k, per_position=False):
             eng.release(r)
     finally:
         torch.nn.Linear.forward = linear
+        port_f.linear = flinear
         handle.remove()
         eng.configure_speculation(spec_k=0)
     return seen[0]
@@ -3205,6 +3240,341 @@ def phase_train_moe_full_width(args, report):
     got = {k: out["launches_per_step"][k] for k in need}
     if got != need:
         raise AssertionError(f"launches per step {got}, want {need}")
+
+
+RECIPE_REMATS = ("none", "full", "save_dots", "offload_residuals")
+RECIPE_RUNS = ([(r, "none") for r in RECIPE_REMATS]
+               + [("save_dots", "matmuls"), ("save_dots", "matmuls+head")])
+RECIPE_WARMUP, RECIPE_STEPS = 2, 4
+# one fp8 projection against the fp32 product of its dequantized codes: the
+# projection's output is bf16 in the model, so the bf16 per-row rule
+FP8_ROW_RTOL = 2.0 ** -7
+
+
+def _recipe_sched(lr_mod, peak, warmup, total):
+    """LinearWarmup(warmup steps) -> CosineAnnealingDecay, as the recipe
+    tests build it."""
+    return lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(peak, T_max=total, eta_min=peak / 10),
+        warmup_steps=warmup, start_lr=peak / 100, end_lr=peak)
+
+
+def _fp8_codes(x, w, hist_x, hist_w):
+    """(x codes, w codes) of one projection as uint8, by the delayed
+    scales of the given histories."""
+    import torch
+
+    from paddle_tpu_torch.amp import fp8
+
+    sx = fp8.delayed_scale(hist_x, fp8.E4M3_MAX)
+    sw = fp8.delayed_scale(hist_w, fp8.E4M3_MAX)
+    return (fp8.quantize(x, sx, fp8.E4M3_MAX, fp8.E4M3).view(torch.uint8),
+            fp8.quantize(w, sw, fp8.E4M3_MAX, fp8.E4M3).view(torch.uint8))
+
+
+def _fwd_bwd_peak_gb(model, batch, remat):
+    """Device memory one forward and backward adds at its peak under the
+    remat policy (the optimizer's update, whose temporaries no policy
+    changes, left out)."""
+    import torch
+
+    from paddle_tpu_torch.parallel.scan_layers import layer_execution
+
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with layer_execution(remat):
+        model(**kw).backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    model.zero_grad(set_to_none=True)
+    return peak
+
+
+def phase_train_recipe_cuda_vs_cpu(seed, report):
+    """The recipe on phase 6's tiny fp32 LLaMA, on CUDA (the kernels, fp8
+    products on torch._scaled_mm) and on the CPU (plain versions): AdamW
+    under LinearWarmup -> CosineAnnealingDecay, remat save_dots, fp8
+    matmuls+head, batches through a DeviceFeeder (pinned host memory and a
+    side stream on CUDA), 3 steps: losses within 1e-3 relative, the lr
+    sequence equal; then a float16 GradScaler run (O1 float16 with sdpa
+    black-listed: the flash kernels take bf16 or fp32) over 6 steps with
+    the scale forced to 2^40 before step 4: the scale sequence and the
+    skip flags equal between the devices, the skipped step leaving the
+    parameters bit-unchanged; the fp8 codes of layer 0's q_proj input and
+    weight bit-equal between the devices."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.io import DeviceFeeder
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=512)
+    batches = [_packed_batch(seed + i, cfg.vocab_size, 256, 2)
+               for i in range(3)]
+    base = LlamaForCausalLM(cfg, device="cpu", seed=seed).state_dict()
+    out = {"recipe": {}, "scaler": {}}
+    captured = {}
+    for dev in ("cpu", "cuda"):
+        model = LlamaForCausalLM(cfg, device=dev)
+        model.load_state_dict(base)
+        opt = AdamW(learning_rate=_recipe_sched(lr_mod, 1e-3, 1, 4),
+                    parameters=model.parameters(), weight_decay=0.01)
+        step = TrainStep(model, _fused_loss, opt, remat="save_dots",
+                         fp8_policy="matmuls+head", collect_metrics=True)
+        q = model.llama.layers[0].self_attn.q_proj
+        hook = q.register_forward_pre_hook(
+            lambda mod, args, dev=dev: (captured.setdefault(
+                dev, args[0].detach().float().cpu()), None)[1])
+        losses, lrs = [], []
+        with DeviceFeeder(iter(batches), device=dev, depth=2) as feeder:
+            for b in feeder:
+                lrs.append(opt.get_lr())
+                losses.append(float(step(b)))
+                opt._lr.step()
+        hook.remove()
+        out["recipe"][dev] = {"losses": losses, "lrs": lrs,
+                              "metrics": step.last_metrics()}
+        if dev == "cpu":
+            st0 = step.fp8_state_dict()["states"][0]
+        # the float16 GradScaler run, from the same weights
+        model.load_state_dict(base)
+        sc = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            incr_every_n_steps=2, decr_ratio=2.0 ** -25)
+        step = TrainStep(model, _fused_loss,
+                         AdamW(learning_rate=1e-3,
+                               parameters=model.parameters()),
+                         grad_scaler=sc, collect_metrics=True)
+        scales, skips, unchanged = [], [], None
+        for i in range(6):
+            if i == 3:
+                sc._scale = 2.0 ** 40
+                before = [p.detach().clone() for p in model.parameters()]
+            with amp.auto_cast(level="O1", dtype="float16",
+                               custom_black_list=["sdpa"]):
+                step(_packed_batch(seed + 10 + i, cfg.vocab_size, 256, 2))
+            scales.append(sc._scale)
+            skips.append(step.last_metrics()["skipped"])
+            if i == 3:
+                unchanged = all(torch.equal(p.detach(), b) for p, b in
+                                zip(model.parameters(), before))
+        out["scaler"][dev] = {"scales": scales, "skipped": skips,
+                              "skipped_step_unchanged": unchanged}
+        del model, opt, step
+    # the codes of one projection's x and w, on each device from the same
+    # fp32 values and histories
+    w = base["llama.layers.0.self_attn.q_proj.weight"]
+    hx, hw = (torch.from_numpy(st0[k]) for k in ("x", "w"))
+    codes = {dev: [c.cpu() for c in _fp8_codes(
+        captured["cpu"].to(dev), w.to(dev), hx.to(dev), hw.to(dev))]
+        for dev in ("cpu", "cuda")}
+    out["fp8_codes_equal"] = {
+        "x": bool(torch.equal(codes["cpu"][0], codes["cuda"][0])),
+        "w": bool(torch.equal(codes["cpu"][1], codes["cuda"][1]))}
+    rc, rg = out["recipe"]["cpu"], out["recipe"]["cuda"]
+    out["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(rg["losses"], rc["losses"]))
+    report["train_recipe_cuda_vs_cpu"] = out
+    print("train recipe cuda vs cpu: " + json.dumps(out), flush=True)
+    sg, scpu = out["scaler"]["cuda"], out["scaler"]["cpu"]
+    if not out["loss_rel_err"] <= 1e-3:
+        raise AssertionError("CUDA and CPU recipe losses differ")
+    if rg["lrs"] != rc["lrs"]:
+        raise AssertionError("the lr sequences differ")
+    if sg["scales"] != scpu["scales"] or sg["skipped"] != scpu["skipped"] \
+            or sg["skipped"][3] != 1.0 or sum(sg["skipped"]) != 1.0:
+        raise AssertionError("GradScaler sequences differ or no skip")
+    if not (sg["skipped_step_unchanged"] and scpu["skipped_step_unchanged"]):
+        raise AssertionError("the skipped step moved the parameters")
+    if not all(out["fp8_codes_equal"].values()):
+        raise AssertionError("fp8 codes differ between the devices")
+
+
+def _fp8_projection_check(model):
+    """One fp8 projection on the card (layer 0's q_proj on a bf16 x at the
+    recipe's width) against an fp32 product of the same dequantized codes
+    (TF32 off), per row; returns (max row error, within FP8_ROW_RTOL: the
+    bf16 rule, the projection's output being bf16 in the model)."""
+    import torch
+
+    from paddle_tpu_torch.amp import fp8
+
+    w = model.llama.layers[0].self_attn.q_proj.weight.detach()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    x = torch.randn((TRAIN_SEQ, w.shape[1]), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    sx, sw = fp8.current_scale(x, fp8.E4M3_MAX), \
+        fp8.current_scale(w, fp8.E4M3_MAX)
+    qx = fp8.quantize(x, sx, fp8.E4M3_MAX, fp8.E4M3)
+    qw = fp8.quantize(w, sw, fp8.E4M3_MAX, fp8.E4M3)
+    got = fp8.mm_codes(qx, sx, qw, sw)
+    ref = (qx.float() / sx) @ (qw.float() / sw).T
+    return _row_rule(got, ref, FP8_ROW_RTOL)
+
+
+def phase_train_recipe_full_width(args, report):
+    """The recipe at phase 7's geometry (7B width, 3 layers, seq 4096),
+    bf16 O2 with fp32 masters (``amp.decorate``), AdamW under
+    LinearWarmup(2) -> CosineAnnealingDecay, batches through a
+    DeviceFeeder from pinned memory: remat none, full, save_dots and
+    offload_residuals at fp8 none, then save_dots at fp8 matmuls and
+    matmuls+head, each run from the same weights, 2 warm-up and 4 timed
+    steps."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import fp8
+    from paddle_tpu_torch.io import DeviceFeeder
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=args.seed)
+    amp.decorate(model, level="O2")                # fp32 -> bf16 in place
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(args.seed)
+    ids = rng.randint(1, cfg.vocab_size, (1, TRAIN_SEQ + 1))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    d = cfg.hidden_size // cfg.num_attention_heads
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    matmul_params = n_params - cfg.vocab_size * cfg.hidden_size
+    flops = (6 * matmul_params * TRAIN_SEQ
+             + cfg.num_hidden_layers * 3.5 * 4 * d
+             * cfg.num_attention_heads * pairs)
+    n_steps = RECIPE_WARMUP + RECIPE_STEPS
+    torch.cuda.synchronize()
+    out = {"layers": cfg.num_hidden_layers, "params": n_params,
+           "seq": TRAIN_SEQ, "setup_s": time.perf_counter() - t0,
+           "flops_per_step": flops, "runs": {}}
+    launches_all = {}
+    for remat, policy in RECIPE_RUNS:
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(base[k])
+        opt = AdamW(learning_rate=_recipe_sched(lr_mod, TRAIN_LR, 2,
+                                                n_steps),
+                    parameters=model.parameters(), weight_decay=0.01)
+        amp.decorate(model, opt, level="O2")       # fp32 master weights
+        host = _recipe_sched(lr_mod, TRAIN_LR, 2, n_steps)
+        step = TrainStep(model, _fused_loss, opt, remat=remat,
+                         fp8_policy=policy, collect_metrics=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, lrs, host_lrs, times, metrics = [], [], [], [], []
+        with DeviceFeeder(iter([batch] * n_steps), device="cuda",
+                          depth=2) as feeder:
+            for i, b in enumerate(feeder):
+                if i == RECIPE_WARMUP:
+                    torch.cuda.synchronize()
+                    port_cuda.reset_launch_counts()   # the path starts here
+                    fp8.reset_launches()
+                lrs.append(opt.get_lr())
+                host_lrs.append(host())
+                t1 = time.perf_counter()
+                loss = step(b)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                losses.append(float(loss))
+                metrics.append(step.last_metrics())
+                opt._lr.step()
+                host.step()
+        launches = port_cuda.launch_counts()          # ... and ends here
+        scaled_mm = fp8.LAUNCHES["scaled_mm"]
+        for k, n in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + n
+        step_s = statistics.median(times[RECIPE_WARMUP:])
+        run = {"remat": remat, "fp8_policy": policy, "losses": losses,
+               "lrs": lrs, "host_lrs": host_lrs,
+               "step_ms": [t * 1e3 for t in times],
+               "median_step_ms": step_s * 1e3,
+               "tokens_per_s": TRAIN_SEQ / step_s,
+               "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_step": {k: n / RECIPE_STEPS
+                                     for k, n in launches.items() if n},
+               "scaled_mm_per_step": scaled_mm / RECIPE_STEPS,
+               "first_grad_norm": metrics[0]["grad_norm"],
+               "fp8_amax_max": metrics[-1].get("fp8_amax_max"),
+               "skipped": [m["skipped"] for m in metrics]}
+        prof = _device_profile(lambda: step(batch), 1, top=12)
+        run["device_ms_by_kernel"] = prof["port_kernel_ms_per_step"]
+        run["profile"] = {k: prof[k] for k in
+                          ("wall_ms_per_step", "device_ms_per_step",
+                           "device_busy_share", "top_device_ms")}
+        if policy == "matmuls":
+            run["fp8_projection_row_err"], run["fp8_projection_ok"] = \
+                _fp8_projection_check(model)
+        if policy == "none":
+            run["fwd_bwd_peak_gb"] = _fwd_bwd_peak_gb(model, batch, remat)
+        label = f"{remat}/{policy}"
+        out["runs"][label] = run
+        print(f"train recipe {label}: " + json.dumps(
+            {k: v for k, v in run.items() if k not in ("profile",)}),
+            flush=True)
+        del step, opt
+    out["launches"] = launches_all
+    report["train_recipe_full_width"] = out
+    runs = out["runs"]
+    ref = runs["none/none"]
+    layers = cfg.num_hidden_layers
+    bad = []
+    for label, run in runs.items():
+        ls = run["losses"]
+        if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+            bad.append(f"{label}: losses {ls}")
+        if run["lrs"] != run["host_lrs"]:
+            bad.append(f"{label}: lr {run['lrs']} vs {run['host_lrs']}")
+        lp = run["launches_per_step"]
+        fwd = 2 * layers if run["remat"] != "none" else layers
+        for k, n in (("flash_fwd", fwd), ("flash_bwd_dq", layers),
+                     ("flash_bwd_dkv", layers)):
+            if lp.get(k, 0) < n:
+                bad.append(f"{label}: {k} {lp.get(k, 0)} a step < {n}")
+        if run["fp8_policy"] == "matmuls+head":
+            if lp.get("ce_stats") or lp.get("ce_bwd") \
+                    or not run["scaled_mm_per_step"]:
+                bad.append(f"{label}: the head did not take _scaled_mm")
+        elif lp.get("ce_stats", 0) < 1 or lp.get("ce_bwd", 0) < 1:
+            bad.append(f"{label}: ce_stats/ce_bwd not launched")
+        if run["fp8_policy"] != "none":
+            amax = run["fp8_amax_max"]
+            if not (amax is not None and math.isfinite(amax) and amax > 0):
+                bad.append(f"{label}: fp8_amax_max {amax}")
+            if not run["scaled_mm_per_step"]:
+                bad.append(f"{label}: no _scaled_mm product")
+        if run["fp8_policy"] == "none":
+            if run["losses"][0] != ref["losses"][0]:
+                bad.append(f"{label}: first loss {run['losses'][0]} vs "
+                           f"{ref['losses'][0]}")
+            rel = abs(run["first_grad_norm"] - ref["first_grad_norm"]) \
+                / ref["first_grad_norm"]
+            if rel > 1e-5:
+                bad.append(f"{label}: first grad norm rel err {rel}")
+    if not runs["full/none"]["fwd_bwd_peak_gb"] < ref["fwd_bwd_peak_gb"]:
+        bad.append("the forward and backward's peak memory under full is "
+                   "not below none's")
+    if not runs["save_dots/matmuls"].get("fp8_projection_ok"):
+        bad.append("the fp8 projection is off the fp32 product of its codes")
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 def rmsnorm_cases():
@@ -4663,6 +5033,7 @@ def kernels_line(report):
              kv.get("fp8", {}).get("launches", {}),
              report.get("train_full_width", {}).get("launches", {}),
              report.get("train_moe_full_width", {}).get("launches", {}),
+             report.get("train_recipe_full_width", {}).get("launches", {}),
              report.get("full_width_lora", {}).get("launches", {}),
              report.get("full_width_router", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
@@ -4758,6 +5129,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tuning-worker", choices=("cold", "warm"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phase names: run only these, and "
+                    "print no result (a quicker check while iterating)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4782,7 +5156,8 @@ def main(argv=None) -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s {json.dumps(built)}", flush=True)
-    report = {"gpu": smi_line, "build_s": build_s, "built": built,
+    report = {"gpu": smi_line, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": build_s, "built": built,
               "ptxas": {n: [ln for ln in _build.build_log(n).splitlines()
                             if "registers" in ln or "spill" in ln
                             or "Compiling entry" in ln or "arning" in ln]
@@ -4888,8 +5263,17 @@ def main(argv=None) -> int:
                          phase_train_moe_cuda_vs_cpu(args.seed, report))),
                ("train_moe_full_width",
                 lambda: phase_train_moe_full_width(args, report)),
+               ("train_recipe_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_train_recipe_cuda_vs_cpu(args.seed, report))),
+               ("train_recipe_full_width",
+                lambda: (free_memory(),
+                         phase_train_recipe_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
+    only = [n for n in args.only.split(",") if n]
+    if only:
+        phases = [(n, fn) for n, fn in phases if n in only]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -4909,6 +5293,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: failed phases {report['failed']}",
               file=sys.stderr)
         return 1
+    if only:
+        print(f"chip_smoke: phases {[n for n, _ in phases]} ok (--only: no "
+              f"result)", flush=True)
+        return 0
     print(json.dumps(kernels_line(report)), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

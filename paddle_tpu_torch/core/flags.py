@@ -242,3 +242,41 @@ define_flag("autotune", "off",
 define_flag("tuning_cache_dir", "",
             "directory of the JSON block-shape tuning cache read by "
             "FLAGS_autotune=load|search; empty disables the cache tier")
+define_flag("scan_layers", False,
+            "run homogeneous decoder stacks as ONE lax.scan over layer-stacked "
+            "params (O(1)-in-depth HLO size and compile time). The port "
+            "accepts it and runs the same layers unrolled: eager PyTorch "
+            "has no traced program for a scan to shrink")
+define_flag("prefetch_to_device_depth", 2,
+            "double-buffered device prefetch depth for DeviceFeeder: "
+            "batches collated into pinned host memory and copied to the "
+            "device on a side stream by a background thread, this many in "
+            "flight (each unit costs one batch of device memory)", type=int)
+define_flag("async_dispatch_window", 2,
+            "max un-fetched steps in flight before the dispatcher blocks "
+            "on the oldest loss (bounds run-ahead device memory)", type=int)
+define_flag("metrics_sync_every", 1,
+            "read the loss to host every k steps (1 = every step, the "
+            "synchronous default; larger k keeps dispatch running ahead "
+            "between reads)", type=int)
+define_flag("remat_policy", "none",
+            "default selective-rematerialization policy, consulted when a "
+            "step is constructed with remat=None (the TrainStep default): "
+            "none|full|save_dots|save_nothing|offload_residuals")
+define_flag("fp8_policy", "none",
+            "low-precision matmul policy for the step runtimes, consulted "
+            "when a step is constructed with fp8_policy=None: none|matmuls|"
+            "matmuls+head. 'matmuls' runs F.linear projections (QKV/O/MLP) "
+            "through float8_e4m3 (grads float8_e5m2); '+head' also "
+            "quantizes the fused-CE head projection (softmax stats stay "
+            "fp32)")
+define_flag("fp8_amax_history_len", 16,
+            "delayed-scaling amax history length per fp8 matmul callsite "
+            "(the scale maps max(history) to the fp8 dtype max)", type=int)
+define_flag("check_nan_inf", False,
+            "check the outputs of the AMP seam's ops for nan/inf after each "
+            "op (amp.debugging's tensor checker)")
+define_flag("scaler_max_consecutive_skips", 100,
+            "GradScaler: halt with FloatingPointError after this many "
+            "CONSECUTIVE non-finite-gradient skips (warn at half); 0 "
+            "disables the guard", type=int)

@@ -1,5 +1,6 @@
 """Models of the port (``paddle_tpu.models`` counterpart)."""
-from paddle_tpu_torch.models.convert import (from_paddle_tpu_params,
+from paddle_tpu_torch.models.convert import (fp8_state_from_paddle_tpu,
+                                             from_paddle_tpu_params,
                                              optimizer_state_from_paddle_tpu)
 from paddle_tpu_torch.models.gpt_moe import (GptMoeConfig, GptMoeForCausalLM,
                                              gpt_moe_tiny_config)
@@ -11,4 +12,4 @@ from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
 __all__ = ["GptMoeConfig", "GptMoeForCausalLM", "gpt_moe_tiny_config",
            "LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion",
            "llama_7b_config", "llama_tiny_config", "from_paddle_tpu_params",
-           "optimizer_state_from_paddle_tpu"]
+           "optimizer_state_from_paddle_tpu", "fp8_state_from_paddle_tpu"]

@@ -10,8 +10,13 @@ linear weights are transposed from paddle's ``[in, out]`` to PyTorch's
 embedding tables, LayerNorms, expert tensors and the MoE gate's
 ``gate_weight [d, E]`` keep the JAX layout.
 ``optimizer_state_from_paddle_tpu`` carries a JAX optimizer's
-``state_dict()`` (numpy m, v, master and the step) the same way, so a
-resumed port step matches the JAX one. ``lora_from_paddle_tpu`` carries a
+``state_dict()`` the same way, so a resumed port step matches the JAX one:
+the per-parameter states of every optimizer (a linear's moments, masters
+and ASGD's gradient window transposed), the step, an LR scheduler's
+state (``LR_Scheduler``), LBFGS's flat history vectors (re-ordered into the
+port's layout) and LookAhead's slow weights. ``fp8_state_from_paddle_tpu``
+carries a ``CompiledTrainStep.fp8_state_dict()`` into ``TrainStep``'s
+layout (a scanned group's ``[L, H]`` histories unstacked layer by layer). ``lora_from_paddle_tpu`` carries a
 JAX LoRA adapter's factors onto the port's attached adapter (they keep the
 JAX layout, A [in, r] and B [r, out]; the serving ``AdapterStore`` reads a
 JAX-written adapter file itself).
@@ -26,13 +31,17 @@ from paddle_tpu_torch.models.gpt_moe import GptMoeConfig, GptMoeForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
-           "lora_from_paddle_tpu"]
+           "fp8_state_from_paddle_tpu", "lora_from_paddle_tpu"]
 
 
 def _to_port_layout(name: str, arr: np.ndarray) -> np.ndarray:
-    if name.endswith("_proj.weight") or name == "lm_head.weight":
+    if _is_linear(name):
         return arr.T                        # paddle [in, out] -> [out, in]
     return arr
+
+
+def _is_linear(name: str) -> bool:
+    return name.endswith("_proj.weight") or name == "lm_head.weight"
 
 
 @torch.no_grad()
@@ -60,35 +69,105 @@ def from_paddle_tpu_params(named: dict, config: LlamaConfig | GptMoeConfig,
     return model
 
 
+def _state_to_port(name: str, key: str, arr: np.ndarray, shape) -> np.ndarray:
+    """One state entry in the port's layout: a linear's per-element state
+    transposed on its last two axes (ASGD's ``ys`` window keeps its
+    leading axis); scalars (NAdam's ``mu_prod``) as they are."""
+    if arr.ndim >= 2 and _is_linear(name):
+        arr = np.swapaxes(arr, -1, -2)
+    if arr.ndim and tuple(arr.shape[arr.ndim - len(shape):]) != tuple(shape):
+        raise ValueError(f"{name}.{key}: shape {tuple(arr.shape)} does not "
+                         f"fit {tuple(shape)}")
+    return arr
+
+
+def _flat_to_port(vec, names, shapes, order):
+    """A flat vector over the JAX optimizer's parameters (JAX layouts, in
+    its order) re-cut into the port's layouts in the port's `order`."""
+    parts, ofs = {}, 0
+    for n, shp in zip(names, shapes):
+        size = int(np.prod(shp))
+        piece = np.asarray(vec[ofs:ofs + size]).reshape(shp)
+        parts[n] = (piece.T if _is_linear(n) else piece).reshape(-1)
+        ofs += size
+    return np.concatenate([parts[n] for n in order]) if order else \
+        np.zeros(0, np.float32)
+
+
 def optimizer_state_from_paddle_tpu(state: dict, names, model,
                                     optimizer) -> None:
     """Load a paddle_tpu optimizer's ``state_dict()`` into the port's
-    `optimizer` over `model`. ``names[i]`` is the parameter name of the JAX
-    optimizer's i-th parameter (``[n for n, _ in
-    jax_model.named_parameters()]`` when it was built from
-    ``jax_model.parameters()``); each state array is put in the port's
-    layout as the weights are (linear moments and masters transposed).
-    Raises on a name the port model lacks or a misshapen entry."""
+    `optimizer` over `model` (a port optimizer, or ``LookAhead`` around
+    one). ``names[i]`` is the parameter name of the JAX optimizer's i-th
+    parameter (``[n for n, _ in jax_model.named_parameters()]`` when it was
+    built from ``jax_model.parameters()``). Raises on a name the port model
+    lacks or a misshapen entry."""
     port_name = {id(p): n for n, p in model.named_parameters()}
     jax_index = {n: i for i, n in enumerate(names)}
-    out = {"step": int(state.get("step", 0))}
-    for j, p in enumerate(optimizer._params):
+    inner = getattr(optimizer, "inner_optimizer", optimizer)
+    params = inner._params
+    order = []
+    for j, p in enumerate(params):
         name = port_name.get(id(p))
         if name is None or name not in jax_index:
             raise KeyError(f"optimizer parameter {j} ({name}) has no "
                            f"paddle_tpu counterpart")
+        order.append(name)
+    out = {"step": int(state.get("step", 0))}
+    if "LR_Scheduler" in state:
+        out["LR_Scheduler"] = dict(state["LR_Scheduler"])
+    for j, (p, name) in enumerate(zip(params, order)):
         saved = state.get(f"param_{jax_index[name]}")
-        if saved is None:
-            continue
-        entry = {}
-        for k, v in saved.items():
-            arr = _to_port_layout(name, np.asarray(v))
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}.{k}: shape {tuple(arr.shape)} "
-                                 f"does not fit {tuple(p.shape)}")
-            entry[k] = arr
-        out[f"param_{j}"] = entry
+        if saved is not None:
+            out[f"param_{j}"] = {
+                k: _state_to_port(name, k, np.asarray(v), p.shape)
+                for k, v in saved.items()}
+    if "lbfgs" in state:
+        port_params = dict(model.named_parameters())
+        jax_shapes = [tuple(reversed(port_params[n].shape)) if _is_linear(n)
+                      else tuple(port_params[n].shape) for n in names]
+        lb = state["lbfgs"]
+
+        def flat(v):
+            return None if v is None else _flat_to_port(v, names, jax_shapes,
+                                                        order)
+
+        out["lbfgs"] = {"s": [flat(v) for v in lb["s"]],
+                        "y": [flat(v) for v in lb["y"]],
+                        "rho": list(lb["rho"]),
+                        "prev_flat": flat(lb["prev_flat"]),
+                        "prev_grad": flat(lb["prev_grad"])}
+    if "slow_params" in state:
+        slow = state["slow_params"]
+        out["slow_params"] = [
+            np.asarray(slow[jax_index[n]]).T if _is_linear(n)
+            else np.asarray(slow[jax_index[n]]) for n in order]
+        out["lookahead_step"] = int(state.get("lookahead_step", 0))
     optimizer.set_state_dict(out)
+
+
+def fp8_state_from_paddle_tpu(snap):
+    """A ``CompiledTrainStep.fp8_state_dict()`` snapshot in ``TrainStep``'s
+    layout: plain callsites as they are, each scanned group ``("scan", L,
+    k)``'s k stacked ``[L, H]`` states unstacked into L x k plain ones,
+    layer by layer (the order the unrolled layers meet them). None passes
+    through."""
+    if snap is None:
+        return None
+    states, pos = [], 0
+    for entry in snap["layout"]:
+        if entry[0] == "plain":
+            states.append({k: np.asarray(v)
+                           for k, v in snap["states"][pos].items()})
+            pos += 1
+            continue
+        n_layers, k = int(entry[1]), int(entry[2])
+        group = snap["states"][pos:pos + k]
+        pos += k
+        for layer in range(n_layers):
+            states.extend({key: np.asarray(st[key])[layer] for key in st}
+                          for st in group)
+    return {"layout": [("plain",)] * len(states), "states": states}
 
 
 def lora_from_paddle_tpu(handle_or_blob, model):

@@ -16,6 +16,17 @@ through the paged kernel. With labels, ``LlamaForCausalLM.forward`` returns
 the loss of ``LlamaPretrainingCriterion``; its fused path runs the
 hand-written CE statistics kernel and never forms the [tokens, vocab]
 logits. CPU tensors take the kernels' plain PyTorch versions.
+
+Training follows the JAX package's cooperation protocol
+(``parallel.scan_layers``): the model is ``layer_remat_capable``, its layer
+loop applies the remat policy of ``current_layer_ctx()`` (else the
+``remat_policy`` flag) one decoder layer per region, so the embedding, the
+final norm and the fused head never sit in one, and each layer tags its
+two residual-stream tensors (``tag_residual``) for ``offload_residuals``.
+``scan_group()`` is the homogeneous stack; ``scan_layers`` runs it
+unrolled. The projections, the embedding, the norms, ``rope`` and the
+head go through the ``nn.functional`` seam (AMP casts, fp8); the LM head
+sits in ``amp.fp8.head_scope``.
 """
 from __future__ import annotations
 
@@ -24,12 +35,17 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from paddle_tpu_torch.amp import apply_seam
+from paddle_tpu_torch.amp import fp8 as amp_fp8
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.lora import seam as lora_seam
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import RMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
+from paddle_tpu_torch.parallel.scan_layers import (current_layer_ctx,
+                                                   tag_residual,
+                                                   unrolled_layer_call)
 from paddle_tpu_torch.quantization import quantize_kv, raw_bytes
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
@@ -56,6 +72,9 @@ class LlamaConfig:
     # the decode path); 0 = max_position_embeddings. A position at or past
     # it is a hard error
     rope_max_position: int = 0
+    # the JAX package's lax.scan over the stack; the port accepts it and
+    # runs the same layers unrolled
+    scan_layers: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -121,11 +140,14 @@ class Projection(nn.Linear):
     package's ``F.linear`` seam, ``nn/functional/__init__.py:251``): when
     an adapter is attached to its weight or a serving binding covers it,
     the rank-r delta is added in the output dtype. With nothing attached
-    or bound the cost is the one ``lora_seam.active()`` branch."""
+    or bound the cost is the one ``lora_seam.active()`` branch. The product
+    is ``F.linear``'s, the AMP and fp8 seam; an fp8 product takes no LoRA
+    delta (JAX's ``F.linear`` returns its fp8 path first)."""
 
     def forward(self, x):
-        y = super().forward(x)
-        if lora_seam.active():
+        y = F.linear(x, self.weight, self.bias)
+        if lora_seam.active() and not amp_fp8.linear_fp8_enabled(
+                x, self.weight):
             d = lora_seam.delta(self.weight, x)
             if d is not None:
                 y = y + d.to(y.dtype)
@@ -211,7 +233,7 @@ class LlamaAttention(nn.Module):
     def forward(self, x, rope, segment_ids=None, position_ids=None):
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
-        cos, sin = rope
+        q, k, cos, sin = apply_seam("rope", (q, k) + tuple(rope))
         limit = self._rope_limit
         _check_positions(position_ids, limit)
         if position_ids is not None:
@@ -348,10 +370,10 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, device, dtype)
 
     def forward(self, x, rope, segment_ids=None, position_ids=None):
-        x = x + self.self_attn(self.input_layernorm(x), rope,
-                               segment_ids=segment_ids,
-                               position_ids=position_ids)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = tag_residual(x + self.self_attn(self.input_layernorm(x), rope,
+                                            segment_ids=segment_ids,
+                                            position_ids=position_ids))
+        return tag_residual(x + self.mlp(self.post_attention_layernorm(x)))
 
     def forward_decode(self, x, **kw):
         attn_out, cache = self.self_attn.forward_decode(
@@ -362,6 +384,9 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    # the policy of current_layer_ctx() applies per decoder layer
+    layer_remat_capable = True
+
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
@@ -381,12 +406,18 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
+    def scan_group(self):
+        """The homogeneous decoder stack."""
+        return list(self.layers)
+
     def forward(self, input_ids, segment_ids=None, position_ids=None):
-        x = self.embed_tokens(input_ids)
+        x = F.embedding(input_ids, self.embed_tokens.weight)
         rope = (self.rope_cos, self.rope_sin)
+        ctx = current_layer_ctx()
+        policy = ctx.policy if ctx is not None else flag("remat_policy")
+        kwargs = {"segment_ids": segment_ids, "position_ids": position_ids}
         for layer in self.layers:
-            x = layer(x, rope, segment_ids=segment_ids,
-                      position_ids=position_ids)
+            x = unrolled_layer_call(layer, x, (rope,), kwargs, policy)
         return self.norm(x)
 
     def decode_forward(self, input_ids, cache, page_table, context_lens,
@@ -426,8 +457,8 @@ class LlamaPretrainingCriterion(nn.Module):
 
     def forward(self, logits, labels):
         if self.parallel:
-            return F.parallel_cross_entropy(
-                logits, labels, ignore_index=self.ignore_index).mean()
+            return F.mean(F.parallel_cross_entropy(
+                logits, labels, ignore_index=self.ignore_index))
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                labels.reshape(-1),
                                ignore_index=self.ignore_index)
@@ -440,7 +471,7 @@ class LlamaPretrainingCriterion(nn.Module):
         loss = F.fused_linear_cross_entropy(
             hidden, lm_head.weight, labels, bias=lm_head.bias,
             ignore_index=self.ignore_index, reduction=reduction)
-        return loss.mean() if self.parallel else loss
+        return F.mean(loss) if self.parallel else loss
 
 
 class LlamaForCausalLM(nn.Module):
@@ -448,6 +479,8 @@ class LlamaForCausalLM(nn.Module):
     (raises when CUDA is absent); ``dtype`` defaults to ``config.dtype``.
     ``seed`` draws the weights from a seeded ``torch.Generator`` (N(0,
     0.02) for the matrices, ones for the norms) on the target device."""
+
+    layer_remat_capable = True
 
     def __init__(self, config: LlamaConfig, device=DEFAULT_DEVICE,
                  dtype=None, seed: int | None = None):
@@ -484,11 +517,17 @@ class LlamaForCausalLM(nn.Module):
         ``use_fused_head_loss`` flag is off."""
         hidden = self.llama(input_ids, segment_ids=segment_ids,
                             position_ids=position_ids)
-        if labels is None:
-            return self.lm_head(hidden)
-        if flag("use_fused_head_loss"):
-            return self.criterion.forward_fused(hidden, self.lm_head, labels)
-        return self.criterion(self.lm_head(hidden), labels)
+        with amp_fp8.head_scope():
+            if labels is None:
+                return F.linear(hidden, self.lm_head.weight)
+            if flag("use_fused_head_loss"):
+                return self.criterion.forward_fused(hidden, self.lm_head,
+                                                    labels)
+            return self.criterion(F.linear(hidden, self.lm_head.weight),
+                                  labels)
+
+    def scan_group(self):
+        return self.llama.scan_group()
 
     def decode_forward(self, input_ids, cache, page_table, context_lens,
                        position_ids, ctx_pad=None, write_mask=None,

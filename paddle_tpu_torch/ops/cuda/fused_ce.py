@@ -381,3 +381,91 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
         ignore_index, eps, z_loss, c = ctx.cfg
         dx, dw = ce_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, c)
         return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None, None
+
+
+def _fp8_chunk_stats(logits, lab, v):
+    """(m, s, t, sl) of one fp32 logits tile (``_chunk_stats``); a label
+    outside [0, V) matches no column."""
+    lab = lab.long()
+    hit = (lab >= 0) & (lab < v)
+    m = logits.amax(-1)
+    s = torch.exp(logits - m[:, None]).sum(-1)
+    t = logits.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    return m, s, torch.where(hit, t, 0.0), logits.sum(-1)
+
+
+class Fp8LinearCrossEntropy(torch.autograd.Function):
+    """The fused head loss under ``fp8_policy='matmuls+head'``: the
+    token-chunked variant with its products through fp8 and current
+    scaling (``fused_ce.py:562-582``: JAX leaves its Pallas kernel for the
+    ``tokens`` scan, ``_project`` :150 and the backward's ``_fp8_mm``
+    :411-416), so ``ce_stats``/``ce_bwd`` do not run. Per token chunk of
+    the resolved ``chunk_tokens`` (the chunk sets each chunk's x amax, so
+    it is JAX's): logits = q(x_c)·q(W)ᵀ in e4m3, the softmax statistics in
+    fp32; the backward recomputes the tile, forms d as ``_chunk_dlogits``
+    does, then dx_c = q(d)·q(W) and dW += q(d)ᵀ·q(x_c) with d in e5m2 and
+    dW summed in fp32. W's codes are made once a call (its amax and so its
+    codes are the same for every chunk). The products run
+    ``amp.fp8.mm_codes``: ``torch._scaled_mm`` on CUDA, the widened codes'
+    fp32 product on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, ignore_index=-100, label_smoothing=0.0,
+                z_loss=0.0, chunk_tokens=0):
+        from paddle_tpu_torch.amp import fp8
+
+        n, v, _ = _check(x, w, labels)
+        c = pick_chunk_tokens(n, v, chunk_tokens, x.device)
+        sw = fp8.current_scale(w, fp8.E4M3_MAX)
+        qw = fp8.quantize(w, sw, fp8.E4M3_MAX, fp8.E4M3)
+        stats = []
+        for i in range(0, n, c):
+            xi = x[i:i + c]
+            sx = fp8.current_scale(xi, fp8.E4M3_MAX)
+            qx = fp8.quantize(xi, sx, fp8.E4M3_MAX, fp8.E4M3)
+            logits = fp8.mm_codes(qx, sx, qw, sw)
+            stats.append(_fp8_chunk_stats(logits, labels[i:i + c], v))
+        m, s, t, sl = (torch.cat(a) for a in zip(*stats))
+        lse = m + torch.log(s)
+        eps = float(label_smoothing)
+        nll = lse - t if eps == 0.0 else lse - (1.0 - eps) * t - eps * sl / v
+        if z_loss:
+            nll = nll + z_loss * lse * lse
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.cfg = (int(ignore_index), eps, float(z_loss), c)
+        return torch.where(labels != ignore_index, nll, 0.0)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from paddle_tpu_torch.amp import fp8
+
+        x, w, labels, lse = ctx.saved_tensors
+        ignore_index, eps, z_loss, c = ctx.cfg
+        n, v, h = _check(x, w, labels)
+        ctv = torch.where(labels != ignore_index, ct.float(), 0.0)
+        coef = ctv * (1.0 + 2.0 * z_loss * lse) if z_loss else ctv
+        sw = fp8.current_scale(w, fp8.E4M3_MAX)
+        qw = fp8.quantize(w, sw, fp8.E4M3_MAX, fp8.E4M3)
+        qw_t = qw.t().contiguous()              # the rows of (Wᵀ)ᵀ for dx
+        dx = torch.empty((n, h), dtype=torch.float32, device=x.device)
+        dw = torch.zeros((v, h), dtype=torch.float32, device=x.device)
+        lab = labels.long()
+        for i in range(0, n, c):
+            xi = x[i:i + c]
+            sx = fp8.current_scale(xi, fp8.E4M3_MAX)
+            qx = fp8.quantize(xi, sx, fp8.E4M3_MAX, fp8.E4M3)
+            logits = fp8.mm_codes(qx, sx, qw, sw)
+            # _chunk_dlogits: p * coef - (1 - eps) * ct * onehot
+            # - (eps / V) * ct
+            d = torch.exp(logits - lse[i:i + c, None]) * coef[i:i + c, None]
+            col = torch.arange(v, device=x.device)
+            d = d - torch.where(col == lab[i:i + c, None],
+                                (1.0 - eps) * ctv[i:i + c, None], 0.0)
+            if eps:
+                d = d - (eps / v) * ctv[i:i + c, None]
+            sd = fp8.current_scale(d, fp8.E5M2_MAX)
+            qd = fp8.quantize(d, sd, fp8.E5M2_MAX, fp8.E5M2)
+            dx[i:i + c] = fp8.mm_codes(qd, sd, qw_t, sw)
+            dw += fp8.mm_codes(qd.t().contiguous(), sd,
+                               qx.t().contiguous(), sx)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None, None

@@ -1,0 +1,224 @@
+"""Per-layer rematerialization policies (``paddle_tpu.parallel.scan_layers``
+counterpart, the policy part): ``REMAT_POLICIES``, ``normalize_remat``,
+``layer_execution``, ``current_layer_ctx``, ``LayerExecContext``,
+``tag_residual`` and ``unrolled_layer_call``.
+
+A model that applies the policy per layer sets ``layer_remat_capable`` and
+reads ``current_layer_ctx()`` in its layer loop, so the embedding, the
+final norm and the fused head never sit in a remat region. Each policy
+wraps one decoder layer:
+
+* ``none``: the layer as it is;
+* ``full`` and ``save_nothing``: ``torch.utils.checkpoint`` (non-reentrant)
+  of the layer: only its input is kept, the interior is recomputed in the
+  backward;
+* ``save_dots``: the same checkpoint with a selective policy keeping the
+  unbatched matmul outputs (``aten.mm``/``addmm``/``_scaled_mm``: the
+  projections; JAX's ``dots_with_no_batch_dims_saveable``) and recomputing
+  the rest;
+* ``offload_residuals``: the layer's input and its residual-stream tensors
+  (``tag_residual``, JAX's ``checkpoint_name(..., "residual")``) kept in
+  pinned host memory (a plain host copy for a CPU tensor), everything else
+  recomputed from them in the backward, with the host copies substituted
+  for the recomputed residuals.
+
+Raw kernel launches are invisible to PyTorch's dispatcher, so a recompute
+reruns them (they write into buffers the recompute allocates again); the
+selective policy keeps only the matmul outputs of the first run. The
+recompute runs under the first run's AMP state and ``amp.fp8`` session
+(autograd runs a CUDA backward on its own thread), with the session's
+callsite cursor rewound, so it meets the same casts and amax histories.
+
+``scan_layers=True`` is accepted and the same layers run unrolled: eager
+PyTorch has no traced program for a scan to shrink. The ZeRO-3 scan
+(stacked, sharded layer columns) waits for ROADMAP A8.
+"""
+from __future__ import annotations
+
+import functools
+import threading
+from contextlib import contextmanager
+
+import torch
+from torch.utils import checkpoint as _ckpt
+
+__all__ = ["REMAT_POLICIES", "normalize_remat",
+           "layer_execution", "current_layer_ctx", "LayerExecContext",
+           "tag_residual", "unrolled_layer_call"]
+
+REMAT_POLICIES = ("none", "full", "save_dots", "save_nothing",
+                  "offload_residuals")
+
+
+def normalize_remat(remat) -> str:
+    """The bool knob onto the policy namespace (True -> 'full',
+    False/None -> 'none'); policy strings pass through validated."""
+    if remat is None or remat is False:
+        return "none"
+    if remat is True:
+        return "full"
+    policy = str(remat)
+    if policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat policy {policy!r}; expected one of "
+            f"{'|'.join(REMAT_POLICIES)} (or a bool)")
+    return policy
+
+
+class LayerExecContext:
+    """What a step asks of a cooperating model's layer stack."""
+
+    __slots__ = ("policy",)
+
+    def __init__(self, policy: str = "none"):
+        self.policy = policy
+
+
+class _TLS(threading.local):
+    def __init__(self):
+        self.ctx = None
+        self.residuals = None       # a layer's tagged tensors being captured
+        self.substitute = None      # their saved copies, for the recompute
+        self.recomputed = None      # the recompute's own values of them
+
+
+_tls = _TLS()
+
+
+def current_layer_ctx() -> LayerExecContext | None:
+    return _tls.ctx
+
+
+@contextmanager
+def layer_execution(policy: str = "none", stacked=None, shard_info=None):
+    if stacked is not None or shard_info is not None:
+        raise NotImplementedError(
+            "stacked and ZeRO-3 sharded scan columns are not ported: the "
+            "port runs the layers unrolled (the ZeRO-3 scan is ROADMAP A8)")
+    prev = _tls.ctx
+    _tls.ctx = LayerExecContext(normalize_remat(policy))
+    try:
+        yield _tls.ctx
+    finally:
+        _tls.ctx = prev
+
+
+def tag_residual(x):
+    """Mark a residual-stream tensor (identity). Inside an
+    ``offload_residuals`` layer the tensor is captured in the forward and,
+    in the recompute, replaced by its saved copy."""
+    if _tls.residuals is not None:
+        _tls.residuals.append(x)
+    elif _tls.substitute:
+        _tls.recomputed.append(x)
+        return _tls.substitute.pop(0)
+    return x
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._scaled_mm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _replaying(fn):
+    """`fn` whose second and later runs (the recompute) run under the
+    thread-local state of the first: the AMP state, and the fp8 session
+    with its callsite cursor rewound to where the first run started.
+    Autograd runs a CUDA backward on its own device thread, where neither
+    is installed."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import fp8
+
+    first = {}
+
+    def run(*a):
+        if not first:
+            sess = fp8.current_session()
+            first.update(amp=amp.state_snapshot(), sess=sess,
+                         cursor=sess.cursor if sess is not None else 0)
+            return fn(*a)
+        sess = first["sess"]
+        with amp.restored_state(first["amp"]), fp8.installed(sess):
+            if sess is None:
+                return fn(*a)
+            with sess.rewind(first["cursor"]):
+                return fn(*a)
+
+    return run
+
+
+def _to_host(t):
+    if not t.is_cuda:
+        return t.detach().clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t.detach(), non_blocking=True)
+    return out
+
+
+class _OffloadedLayer(torch.autograd.Function):
+    """One layer under ``offload_residuals``: the forward runs it without a
+    graph and keeps on the host its input and the tagged residuals other
+    than its output (the next layer keeps that); the backward copies them
+    back, recomputes the layer with the copies substituted for the
+    recomputed residuals, and runs the segments' backward from the output
+    down, each segment from its root to the copy it started from."""
+
+    @staticmethod
+    def forward(ctx, run, x, *params):
+        _tls.residuals = []
+        try:
+            with torch.no_grad():
+                y = run(x)
+            tagged = [t for t in _tls.residuals if t is not y]
+        finally:
+            _tls.residuals = None
+        ctx.run, ctx.params = run, params
+        ctx.host = [_to_host(t) for t in [x] + tagged]
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        dev = gy.device
+        leaves = [h.to(dev, non_blocking=True).requires_grad_(True)
+                  for h in ctx.host]
+        _tls.substitute, _tls.recomputed = list(leaves[1:]), []
+        try:
+            with torch.enable_grad():
+                y = ctx.run(leaves[0])
+            roots = _tls.recomputed + [y]
+        finally:
+            _tls.substitute = _tls.recomputed = None
+        params = [p for p in ctx.params if p.requires_grad]
+        grads = {}
+        g = gy
+        for root, leaf in zip(roots[::-1], leaves[::-1]):
+            outs = torch.autograd.grad(root, [leaf] + params, g,
+                                       allow_unused=True)
+            g = outs[0]
+            for p, gp in zip(params, outs[1:]):
+                if gp is not None:
+                    grads[id(p)] = gp + grads[id(p)] if id(p) in grads \
+                        else gp
+        return (None, g) + tuple(grads.get(id(p)) for p in ctx.params)
+
+
+def unrolled_layer_call(layer, x, args: tuple = (), kwargs: dict | None = None,
+                        policy: str = "none"):
+    """``layer(x, *args, **kwargs)`` under the remat `policy`, one layer
+    per region."""
+    kwargs = kwargs or {}
+    policy = normalize_remat(policy)
+    if policy == "none":
+        return layer(x, *args, **kwargs)
+    run = _replaying(lambda h: layer(h, *args, **kwargs))
+    if policy == "offload_residuals":
+        return _OffloadedLayer.apply(run, x, *layer.parameters())
+    context_fn = (functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots)
+                  if policy == "save_dots" else _ckpt.noop_context_fn)
+    return _ckpt.checkpoint(run, x, use_reentrant=False,
+                            context_fn=context_fn)

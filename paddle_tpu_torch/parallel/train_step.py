@@ -5,21 +5,56 @@ the optimizer update, eagerly, on the model's device.
 Where ``CompiledTrainStep`` traces one XLA program, the port runs PyTorch
 eagerly: the hand-written kernels launch from the model's forward and from
 autograd's backward (flash dq/dkv, the fused head loss), cuBLAS takes the
-projections. CUDA graphs over the step, remat, GradScaler and the meshes
-of ``CompiledTrainStep`` are later work. Unlike ``CompiledTrainStep``,
+projections. The arguments of ``CompiledTrainStep`` it takes mean what
+they mean there (``paddle_tpu/parallel/train_step.py:360-424``):
+
+* ``remat``: a policy of ``scan_layers.REMAT_POLICIES`` (or a bool; None
+  reads ``remat_policy``), applied per decoder layer by a
+  ``layer_remat_capable`` model;
+* ``scan_layers``: accepted (None reads the flag); the layers run
+  unrolled;
+* ``fp8_policy``: ``none|matmuls|matmuls+head`` (None reads the flag),
+  delayed scaling with one amax-history set per ``F.linear`` callsite,
+  created on the first call in call order; ``fp8_state_dict()`` and
+  ``load_fp8_state()`` use the JAX package's layout;
+* ``grad_scaler``: an ``amp.GradScaler``: the loss is scaled before the
+  backward, the gradients unscaled in fp32, and a non-finite gradient
+  skips the update of the parameters AND the moments (the step count
+  still advances, as there) and keeps the old amax histories. The port
+  reads the step's found-inf flag on the host once, where the JAX package
+  settles it lazily, and advances the scaler at once: the scale sequence
+  is JAX's after ``drain()``;
+* ``metrics_every``/``dispatch_window`` (None read
+  ``metrics_sync_every``/``async_dispatch_window``): ``step_async``
+  returns a ``LossFuture`` and blocks on every k-th; at most `window`
+  steps are in flight.
+
+CUDA graphs over the step, the meshes of ``CompiledTrainStep`` and the
+anomaly detector (ROADMAP A8) are later work. Unlike ``CompiledTrainStep``,
 whose compiled update never applies ``optimizer._grad_clip``, the port
 applies it, as ``apply_optimizer_update`` and the eager ``AdamW.step`` do.
-For a model with MoE layers, ``collect_metrics`` also keeps the summed
-load-balance aux loss and dropped-token count (``moe_aux``,
-``moe_dropped``), as ``CompiledTrainStep``'s step telemetry does.
+With ``collect_metrics`` the step keeps its loss, the global norm of the
+gradients (after the unscale, before the clip), ``skipped``, with fp8
+``fp8_amax_max`` (the largest amax-history entry), and for a model with
+MoE layers the summed load-balance aux loss and dropped-token count
+(``moe_aux``, ``moe_dropped``), as ``CompiledTrainStep``'s step telemetry
+does.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.amp import fp8 as _fp8
+from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+from paddle_tpu_torch.io.device_feed import (DispatchWindow, LossFuture,
+                                             step_event)
 from paddle_tpu_torch.nn.clip import global_norm
+from paddle_tpu_torch.parallel.scan_layers import (layer_execution,
+                                                   normalize_remat)
 
 __all__ = ["TrainStep"]
 
@@ -41,14 +76,44 @@ class TrainStep:
     ``last_metrics()`` reads them (a host sync at read time only)."""
 
     def __init__(self, model, loss_fn, optimizer=None,
-                 collect_metrics: bool = False):
+                 collect_metrics: bool = False, remat=None,
+                 scan_layers=None, fp8_policy=None, grad_scaler=None,
+                 metrics_every: int | None = None,
+                 dispatch_window: int | None = None,
+                 anomaly_detector=None):
+        if anomaly_detector:
+            raise NotImplementedError(
+                "the anomaly detector (resilience) is not ported yet: "
+                "ROADMAP A8")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.collect_metrics = collect_metrics
         self.device = next(model.parameters()).device
+        self._layer_capable = bool(getattr(model, "layer_remat_capable",
+                                           False))
+        self.remat_policy = normalize_remat(
+            flag("remat_policy") if remat is None else remat)
+        if self.remat_policy != "none" and not self._layer_capable:
+            raise ValueError(
+                f"remat={self.remat_policy!r} needs a layer_remat_capable "
+                f"model (its layer loop applies the policy); GPT-MoE's "
+                f"remat is later work (ROADMAP A5)")
+        self.scan_layers = self._layer_capable and bool(
+            flag("scan_layers") if scan_layers is None else scan_layers)
+        self.fp8_policy = _fp8.normalize_fp8_policy(
+            flag("fp8_policy") if fp8_policy is None else fp8_policy)
+        self._fp8_hist_len = int(flag("fp8_amax_history_len"))
+        self._fp8_states = None   # discovered by the first call
+        self._scaler = (grad_scaler if grad_scaler is not None
+                        and grad_scaler.is_enable() else None)
+        self.metrics_every = int(flag("metrics_sync_every")
+                                 if metrics_every is None else metrics_every)
+        self._async_count = 0
+        self._window = DispatchWindow(dispatch_window)
         self._steps = 0           # the step count when there is no optimizer
         self._metrics = None
+        self._prev_wall = None
         self._moe_layers = ([m for m in model.modules()
                              if isinstance(m, MoELayer)]
                             if collect_metrics else [])
@@ -69,31 +134,123 @@ class TrainStep:
         self.model.train()
         if self.optimizer is not None:
             self.optimizer.clear_grad()
-        if named:
-            kwargs = {k: self._place(v) for k, v in batch[0].items()}
-            out = self.model(**kwargs)
-            labels = kwargs["labels"]
         else:
-            args = [self._place(v) for v in batch]
-            out = self.model(*args[:-1])
-            labels = args[-1]
-        loss = self.loss_fn(out, labels)
-        moe = self._moe_stats()
-        loss.backward()
+            self.model.zero_grad(set_to_none=True)
+        fp8_on = self.fp8_policy != "none"
+        fp8_ctx = _fp8.fp8_execution(
+            self.fp8_policy, states=self._fp8_states or [],
+            hist_len=self._fp8_hist_len, record=self._fp8_states is None)
+        policy = self.remat_policy if self._layer_capable else "none"
+        with fp8_ctx as sess, layer_execution(policy):
+            if named:
+                kwargs = {k: self._place(v) for k, v in batch[0].items()}
+                out = self.model(**kwargs)
+                labels = kwargs["labels"]
+            else:
+                args = [self._place(v) for v in batch]
+                out = self.model(*args[:-1])
+                labels = args[-1]
+            loss = self.loss_fn(out, labels)
+            moe = self._moe_stats()
+            if self._scaler is not None:
+                # float16 loss scaling before the backward; the step
+                # reports the unscaled loss
+                (loss * self._scaler._scale).backward()
+            else:
+                loss.backward()
+        params = [p for p in self.model.parameters()
+                  if p.requires_grad and p.grad is not None]
+        found_inf = self._unscale(params) if self._scaler else None
+        if fp8_on:
+            # a skipped step keeps the old histories
+            sess.commit(skip=found_inf)
+            self._fp8_states = sess.states
         if self.collect_metrics:
-            grads = [p.grad for p in self.model.parameters()
-                     if p.grad is not None]
-            self._metrics = {"loss": loss.detach(),
-                             "grad_norm": global_norm(grads), **moe}
+            self._metrics = {
+                "loss": loss.detach(),
+                "grad_norm": global_norm([p.grad for p in params]),
+                "skipped": (found_inf.float() if found_inf is not None
+                            else 0.0),
+                **({"fp8_amax_max": sess.amax_max()} if fp8_on else {}),
+                **moe}
+        skipped = found_inf is not None and bool(found_inf)
         if self.optimizer is not None:
-            self.optimizer.step()
+            if skipped:
+                self.optimizer._step_count += 1
+            else:
+                self.optimizer.step()
             step = self.optimizer._step_count
         else:
             self._steps += 1
             step = self._steps
+        if self._scaler is not None:
+            self._scaler._found_inf = skipped
+            self._scaler.update()
         if self.collect_metrics:
             self._metrics["step"] = step
+            wall = time.perf_counter()
+            if self._prev_wall is not None:
+                self._metrics["host_step_ms"] = round(
+                    (wall - self._prev_wall) * 1e3, 3)
+            self._prev_wall = wall
+        self._last_event = step_event(self.device)
+        self._window.admit(self._last_event)
         return loss.detach()
+
+    @torch.no_grad()
+    def _unscale(self, params):
+        """Gradients times 1/scale in fp32, cast back; the device flag of a
+        non-finite one."""
+        inv = float(np.float32(1.0) / np.float32(self._scaler._scale))
+        bad = torch.zeros((), dtype=torch.bool, device=self.device)
+        for p in params:
+            g32 = p.grad.float() * inv
+            bad |= ~torch.isfinite(g32).all()
+            p.grad = g32.to(p.grad.dtype)
+        return bad
+
+    def step_async(self, *batch):
+        """Run one step and return a ``LossFuture``; every
+        `metrics_every`-th call waits for its step before returning (0:
+        never), and at most the dispatch window of steps is in flight.
+        ``drain()`` before timing or checkpointing."""
+        loss = self(*batch)
+        f = LossFuture(loss, self._last_event)
+        self._async_count += 1
+        if self.metrics_every and self._async_count % self.metrics_every == 0:
+            f.block()
+        return f
+
+    def drain(self):
+        """Wait until every step run so far has finished on the device."""
+        self._window.drain()
+
+    def fp8_state_dict(self):
+        """The delayed-scaling amax state, in the JAX package's layout:
+        {"layout": [("plain",), ...], "states": [{x, w, g: numpy}, ...]};
+        None before the first step (or with fp8 off)."""
+        if self._fp8_states is None:
+            return None
+        return {"layout": [("plain",)] * len(self._fp8_states),
+                "states": [{k: st[k].detach().cpu().numpy()
+                            for k in _fp8.STATE_KEYS}
+                           for st in self._fp8_states]}
+
+    def load_fp8_state(self, snap):
+        """Restore an ``fp8_state_dict()`` snapshot (before or after the
+        first step). A layout with scanned groups (the JAX package's
+        ``("scan", L, k)``) is unstacked by
+        ``models.convert.fp8_state_from_paddle_tpu``."""
+        if snap is None:
+            return
+        if any(tuple(e) != ("plain",) for e in snap["layout"]):
+            raise ValueError("the port's fp8 layout is plain callsites; "
+                             "convert a scanned layout with "
+                             "models.convert.fp8_state_from_paddle_tpu")
+        self._fp8_states = [
+            {k: torch.from_numpy(np.array(st[k], np.float32))
+             .to(self.device) for k in _fp8.STATE_KEYS}
+            for st in snap["states"]]
 
     def _moe_stats(self) -> dict:
         """{moe_aux, moe_dropped}: this forward's stats summed over the MoE
@@ -106,8 +263,9 @@ class TrainStep:
         return {"moe_aux": aux, "moe_dropped": dropped}
 
     def last_metrics(self) -> dict | None:
-        """{step, loss, grad_norm[, moe_aux, moe_dropped]} of the last step as Python numbers, or
-        None before the first step or with ``collect_metrics`` off.
+        """{step, loss, grad_norm, skipped[, fp8_amax_max][, moe_aux,
+        moe_dropped][, host_step_ms]} of the last step as Python numbers,
+        or None before the first step or with ``collect_metrics`` off.
         ``step`` is the optimizer's own step count (the one its bias
         correction uses), or the steps this object took without one."""
         if self._metrics is None:

@@ -227,14 +227,23 @@ def test_three_train_steps_match_compiled_train_step():
     assert opt._step_count == 1
     step = TrainStep(tm, lambda out, lab: out, opt, collect_metrics=True)
 
-    jl, jaux = [], []
+    jl, jaux, jsteps = [], [], []
     for _ in range(3):
         jl.append(float(jstep(batch)))
-        jaux.append(jstep.last_metrics()["moe_aux"])
-    tl, taux = [], []
+        # JAX's last_metrics settles without blocking and may still hold
+        # an earlier step: settle this one before reading it
+        jstep.settle_metrics(block=True)
+        jm_ = jstep.last_metrics()
+        jaux.append(jm_["moe_aux"])
+        jsteps.append(jm_["step"])
+    tl, taux, tsteps = [], [], []
     for _ in range(3):
         tl.append(float(step(batch)))
-        taux.append(step.last_metrics()["moe_aux"])
+        tm_ = step.last_metrics()
+        taux.append(tm_["moe_aux"])
+        tsteps.append(tm_["step"])
+    # each read is of the step just taken, on both sides
+    assert jsteps == [2, 3, 4] and tsteps == [2, 3, 4]
     np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
     np.testing.assert_allclose(taux, jaux, rtol=1e-5, atol=0)
     assert tl[-1] < tl[0]
