@@ -199,6 +199,25 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     projection within the bf16 row rule of the fp32 product of its
     codes, fp8_amax_max finite and positive, the lr sequence the host
     scheduler's);
+    then the Paddle eager API (``paddle_api_cuda_vs_cpu``: the tiny GPT of
+    ``models.gpt`` at head_dim 64, its weights copied to a CPU twin through
+    ``state_dict``: logits within 1e-4 of the largest |logit|, 3
+    eager AdamW steps (``loss.backward(); opt.step(); opt.clear_grad()``)
+    with losses within 1e-4 relative, parameters within lr (the key third
+    of each qkv bias, whose gradient is zero but for rounding, within 6
+    lr), every parameter with a gradient after step 1, flash forward and
+    backward launches in the profiler's record of a CUDA step; then the
+    Paddle-level ``F.scaled_dot_product_attention`` on views of a packed
+    QKV projection and ``F.fused_linear_cross_entropy`` on ``Tensor``s,
+    fp32 and bf16, bit-equal to the torch-level calls on the same storage,
+    forward and backward; ``paddle_api_full_width``: GPT-2 small at
+    ``GptConfig``'s defaults, batch 8 x 1024, random weights from --seed,
+    AdamW, 2 warm-up and 8 timed eager steps in fp32 (TF32 off), then the
+    same under ``amp.auto_cast(level="O1")`` (bf16): median step ms (wall,
+    events, and the profiled step's device ms), tokens/s, MFU (over the
+    fp32 peak, 67 TFLOP/s, for the fp32 run; over 989 bf16 for O1), peak
+    memory, the device-busy share and the host gap; gates: finite falling
+    losses, 12 flash forward, 12 dq and 12 dkv launches a step);
  8. the RMSNorm kernels (forward, backward, dw sum) against their plain
     versions at the main path's widths ([4096, 4096], [8, 4096],
     [8192, 1024], a ragged [4097, 1000] at every row block the autotuner
@@ -273,6 +292,9 @@ TRAIN_SEQ = 4096           # (about 108 GB) does not fit in 80 GB
 TRAIN_LR = 1e-4
 MOE_BATCH = 4              # GPT-MoE: 4 x 2048 tokens, 2 warm-up steps
 MOE_STEPS = 8              # and 8 timed ones
+PADDLE_LR = 3e-4           # the Paddle-API GPT-2 small phase's AdamW
+PADDLE_BATCH = 8           # GPT-2 small: 8 x 1024 tokens a step
+PADDLE_STEPS = 8           # timed steps (after 2 warm-up ones)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -3577,6 +3599,327 @@ def phase_train_recipe_full_width(args, report):
         raise AssertionError("; ".join(bad))
 
 
+def _kernel_launches(fn):
+    """{kernel name: launches} of one call of `fn`, from the profiler. Late
+    in a long process the profiler loses the first kernels of a window
+    (the full-width GPT-2 profile misses about 2 of its 12 forwards), so
+    the window opens with 512 one-element fills before `fn`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(512):
+            pad.fill_(1.0)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def _paddle_gpt_steps(model, opt, ids, steps):
+    """`steps` eager steps of the Paddle API: loss.backward(); opt.step();
+    opt.clear_grad(). Returns the losses and, after the first backward,
+    the names of the parameters without a gradient."""
+    losses, no_grad = [], None
+    for _ in range(steps):
+        loss = model(ids, ids)
+        loss.backward()
+        if no_grad is None:
+            no_grad = [n for n, p in model.named_parameters()
+                       if p.grad is None]
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses, no_grad
+
+
+def _paddle_bitwise_cases(seed):
+    """Paddle-level F.scaled_dot_product_attention (on views of a packed
+    QKV projection, as GPT calls it) and F.fused_linear_cross_entropy on
+    Tensors against the torch-level calls on the same storage, fp32 and
+    bf16: outputs and gradients must be bit-equal."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    b, s, h, d, vocab, hidden = 2, 1024, 12, 64, 50304, 768
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        packed = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda",
+                             dtype=dtype)
+        dout = torch.randn(b, s, h, d, generator=gen, device="cuda",
+                           dtype=dtype)
+
+        def attn(t, chunk, reshape):
+            q, k, v = (reshape(x) for x in chunk(t))
+            return q, k, v
+
+        tp = packed.detach().requires_grad_()
+        q, k, v = attn(tp, lambda t: t.chunk(3, dim=-1),
+                       lambda x: x.reshape(b, s, h, d))
+        strides = [list(x.stride()) for x in (q, k, v)]
+        ref = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        ref.backward(dout)
+        pp = paddle.Tensor(packed.detach(), stop_gradient=False)
+        q, k, v = attn(pp, lambda t: t.chunk(3, axis=-1),
+                       lambda x: x.reshape([b, s, h, d]))
+        got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        got.backward(paddle.Tensor(dout))
+        sdpa_ok = (torch.equal(got._value, ref)
+                   and torch.equal(pp.grad._value, tp.grad))
+
+        x = torch.randn(b * s, hidden, generator=gen, device="cuda",
+                        dtype=dtype)
+        w = (torch.randn(vocab, hidden, generator=gen, device="cuda",
+                         dtype=torch.float32) * 0.02).to(dtype)
+        lab = torch.randint(0, vocab, (b * s,), generator=gen, device="cuda")
+        tx, tw = x.detach().requires_grad_(), w.detach().requires_grad_()
+        ref_ce = F.fused_linear_cross_entropy(tx, tw, lab)
+        ref_ce.backward()
+        px = paddle.Tensor(x.detach(), stop_gradient=False)
+        pw = paddle.Tensor(w.detach().t(), stop_gradient=False)  # [H, V]
+        got_ce = F.fused_linear_cross_entropy(px, pw, paddle.Tensor(lab))
+        got_ce.backward()
+        ce_ok = (torch.equal(got_ce._value, ref_ce)
+                 and torch.equal(px.grad._value, tx.grad)
+                 and torch.equal(pw.grad._value.t(), tw.grad))
+        out[name] = {"sdpa_bit_equal": sdpa_ok, "qkv_view_strides": strides,
+                     "fused_ce_bit_equal": ce_ok,
+                     "fused_ce_loss": ref_ce.item()}
+    return out
+
+
+def phase_paddle_api_cuda_vs_cpu(seed, report):
+    """The Paddle eager API's tiny GPT (head_dim 64) on the card against
+    its CPU twin (same weights, copied through state_dict): logits, then 3
+    eager AdamW steps; the flash kernels must run on the card; then the
+    Paddle-level attention and fused CE against the torch-level calls, bit
+    for bit."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GptForCausalLM, gpt_tiny_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    cfg = gpt_tiny_config(hidden_size=256, num_attention_heads=4,
+                          intermediate_size=1024,
+                          max_position_embeddings=256)
+    lr = 1e-3
+    rng = np.random.RandomState(seed)
+    ids_np = rng.randint(0, cfg.vocab_size, (2, 128)).astype(np.int64)
+    models, ids, logits, losses, no_grad = {}, {}, {}, {}, {}
+    for dev in ("cpu", "gpu"):
+        paddle.set_device(dev)
+        paddle.seed(seed)
+        models[dev] = GptForCausalLM(cfg)
+        ids[dev] = paddle.to_tensor(ids_np)
+    paddle.set_device("gpu")
+    models["gpu"].set_state_dict(models["cpu"].state_dict())
+    for dev, model in models.items():
+        with paddle.no_grad():
+            logits[dev] = model(ids[dev]).numpy()
+        opt = paddle.optimizer.AdamW(learning_rate=lr,
+                                     parameters=model.parameters(),
+                                     weight_decay=0.01)
+        port_cuda.reset_launch_counts()       # the CUDA run's path starts
+        losses[dev], no_grad[dev] = _paddle_gpt_steps(model, opt, ids[dev],
+                                                      3)
+    counted = port_cuda.launch_counts()       # ... and ends here
+
+    def fwd_bwd():            # moves no weight: no optimizer step
+        model = models["gpu"]
+        model(ids["gpu"], ids["gpu"]).backward()
+        model.clear_gradients()
+
+    for windows in range(1, 4):   # the profiler can lose a window's events
+        launches = _kernel_launches(fwd_bwd)
+        flash = {k: n for k, n in launches.items() if "flash_" in k}
+        fwd = sum(n for k, n in flash.items() if "flash_fwd" in k)
+        bwd = sum(n for k, n in flash.items() if "flash_bwd" in k)
+        if fwd and bwd:
+            break
+    cpu_p = {n: p.numpy() for n, p in models["cpu"].named_parameters()}
+    # the key third of each qkv bias has a zero gradient (softmax is
+    # invariant to a shift shared by all keys): its computed gradient is
+    # rounding noise whose sign Adam turns into +-lr, so it is held apart
+    h = cfg.hidden_size
+    worst_p, key_bias = 0.0, 0.0
+    for n, p in models["gpu"].named_parameters():
+        diff = np.abs(p.numpy() - cpu_p[n])
+        if n.endswith("qkv.bias"):
+            key_bias = max(key_bias, float(diff[h:2 * h].max()))
+            diff = np.concatenate([diff[:h], diff[2 * h:]])
+        worst_p = max(worst_p, float(diff.max()))
+    logit_err = float(np.abs(logits["gpu"] - logits["cpu"]).max()
+                      / np.abs(logits["cpu"]).max())
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["gpu"], losses["cpu"]))
+    out = {"config": dataclasses.asdict(cfg), "lr": lr,
+           "losses": losses, "loss_rel_err": loss_rel,
+           "logit_rel_err": logit_err, "param_max_abs_err": worst_p,
+           "key_bias_max_abs_err": key_bias,
+           "params_without_grad_after_step1": no_grad,
+           "step_launches": {k: n for k, n in counted.items() if n},
+           "profiled_fwd_bwd_flash_launches": flash,
+           "profiler_windows": windows,
+           "tolerance": {"loss_rel": 1e-4, "logit_rel": 1e-4,
+                         "param": lr, "key_bias": 6 * lr}}
+    out["bitwise"] = _paddle_bitwise_cases(seed)
+    report["paddle_api_cuda_vs_cpu"] = out
+    print("paddle_api_cuda_vs_cpu: " + json.dumps(out), flush=True)
+    bad = []
+    if not (loss_rel <= 1e-4 and logit_err <= 1e-4 and worst_p <= lr
+            and key_bias <= 6 * lr):
+        bad.append("CUDA and CPU differ")
+    if no_grad["gpu"] or no_grad["cpu"]:
+        bad.append("parameters without a gradient after step 1")
+    if not (fwd > 0 and bwd > 0 and all(
+            counted[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"))):
+        bad.append(f"flash kernels not launched: {flash}, {counted}")
+    for name, case in out["bitwise"].items():
+        if not (case["sdpa_bit_equal"] and case["fused_ce_bit_equal"]):
+            bad.append(f"{name}: Paddle-level and torch-level calls differ")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def _paddle_full_width_run(args, label, amp_level):
+    """GPT-2 small from --seed: 2 warm-up and PADDLE_STEPS timed eager
+    AdamW steps on one fixed batch, then one profiled step."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GptConfig, GptForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    cfg = GptConfig()
+    paddle.set_device("gpu")
+    paddle.seed(args.seed)
+    t0 = time.perf_counter()
+    model = GptForCausalLM(cfg)
+    opt = paddle.optimizer.AdamW(learning_rate=PADDLE_LR,
+                                 parameters=model.parameters(),
+                                 weight_decay=0.01)
+    rng = np.random.RandomState(args.seed)
+    seq = cfg.max_position_embeddings
+    ids = paddle.to_tensor(rng.randint(0, cfg.vocab_size,
+                                       (PADDLE_BATCH, seq)).astype(np.int64))
+    def ctx():
+        return (paddle.amp.auto_cast(level=amp_level) if amp_level
+                else contextlib.nullcontext())
+
+    n_params = sum(p.size for p in model.parameters())
+    tokens = PADDLE_BATCH * seq
+    # 6 N T for the matmul weights (the two embedding gathers are none);
+    # causal attention: 4 D a visible (query, key) pair and head forward,
+    # 2.5 times that backward; the loss sees seq - 1 positions a row
+    d = cfg.hidden_size // cfg.num_attention_heads
+    pairs = seq * (seq + 1) // 2
+    matmul_params = n_params - (cfg.vocab_size
+                                + cfg.max_position_embeddings) * \
+        cfg.hidden_size
+    flops = (6 * matmul_params * tokens
+             + cfg.num_hidden_layers * 3.5 * 4 * d * cfg.num_attention_heads
+             * pairs * PADDLE_BATCH)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def one_step():
+        with ctx():
+            loss = model(ids, ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses = [float(one_step()) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port_cuda.reset_launch_counts()          # the Paddle API path starts
+    times, dev_ms = [], []
+    for _ in range(PADDLE_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1 = time.perf_counter()
+        e0.record()
+        loss = one_step()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        dev_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    launches = port_cuda.launch_counts()     # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(times)
+    peak_name = "bfloat16" if amp_level else "float32"
+    out = {"label": label, "amp": amp_level or "fp32 (TF32 off)",
+           "params": n_params, "batch": PADDLE_BATCH, "seq": seq,
+           "setup_s": setup_s, "losses": losses,
+           "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3,
+           "median_event_ms": statistics.median(dev_ms),
+           "tokens_per_s": tokens / step_s, "flops_per_step": flops,
+           "mfu": flops / step_s / PEAK_FLOPS[peak_name],
+           "mfu_peak": f"{peak_name} {PEAK_FLOPS[peak_name] / 1e12:g} "
+                       f"TFLOP/s",
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_per_step": {k: n / PADDLE_STEPS
+                                 for k, n in launches.items() if n}}
+    prof = _device_profile(one_step, 1, top=12)
+    out["profile"] = prof
+    if prof["device_ms_per_step"]:
+        out["host_gap_ms"] = (prof["wall_ms_per_step"]
+                              - prof["device_ms_per_step"])
+    print(f"{label}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "profile"}), flush=True)
+    print(f"{label} profile: " + json.dumps(prof), flush=True)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_paddle_api_full_width(args, report):
+    """GPT-2 small (GptConfig defaults, about 163M parameters with the
+    untied head) on the Paddle eager API, batch 8 x 1024, fp32 (TF32 off)
+    then bf16 under auto_cast O1: each step 12 flash forward, 12 dq and
+    12 dkv launches, losses finite and falling."""
+    runs = {"fp32": _paddle_full_width_run(args, "paddle_gpt2_fp32", None),
+            "bf16_o1": _paddle_full_width_run(args, "paddle_gpt2_bf16_o1",
+                                              "O1")}
+    launches = {}
+    for r in runs.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    report["paddle_api_full_width"] = {"runs": runs, "launches": launches}
+    bad = []
+    layers = 12
+    for name, r in runs.items():
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"{name}: non-finite loss {losses}")
+        elif not (losses[-1] < losses[0]
+                  and max(losses[-3:]) < losses[0]):
+            bad.append(f"{name}: the loss did not fall {losses}")
+        per = r["launches_per_step"]
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if per.get(k) != layers:
+                bad.append(f"{name}: {k} {per.get(k)} a step, not {layers}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def rmsnorm_cases():
     """(label, rows, d, x dtype, w dtype): LLaMA-2-7B's hidden size at
     phase 7's 4096 tokens and at the decode batch, GPT-MoE's 4 x 2048
@@ -5035,7 +5378,8 @@ def kernels_line(report):
              report.get("train_moe_full_width", {}).get("launches", {}),
              report.get("train_recipe_full_width", {}).get("launches", {}),
              report.get("full_width_lora", {}).get("launches", {}),
-             report.get("full_width_router", {}).get("launches", {})]
+             report.get("full_width_router", {}).get("launches", {}),
+             report.get("paddle_api_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -5269,6 +5613,12 @@ def main(argv=None) -> int:
                ("train_recipe_full_width",
                 lambda: (free_memory(),
                          phase_train_recipe_full_width(args, report))),
+               ("paddle_api_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_paddle_api_cuda_vs_cpu(args.seed, report))),
+               ("paddle_api_full_width",
+                lambda: (free_memory(),
+                         phase_paddle_api_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
     only = [n for n in args.only.split(",") if n]

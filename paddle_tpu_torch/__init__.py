@@ -8,9 +8,37 @@ LLaMA (``models.llama`` + ``serving.ServingEngine``) and trains it
 (``models.llama`` with labels + ``optimizer.AdamW`` +
 ``parallel.TrainStep``, fed by ``io.pack_examples``).
 
-Entry points default to ``device="cuda"`` and raise when CUDA is absent;
-pass ``device="cpu"`` to run the plain PyTorch versions of the kernels.
-"""
-from paddle_tpu_torch.core.device import resolve_device
+It is also the Paddle eager API on torch autograd, as ``paddle_tpu`` is on
+JAX: ``import paddle_tpu_torch as paddle`` gives ``Tensor``,
+``to_tensor``, the op library, ``seed``, ``no_grad``, ``grad``, and
+``nn``, ``optimizer``, ``autograd`` and ``amp``; models written on it
+(``models.gpt``) train with ``loss.backward(); opt.step();
+opt.clear_grad()``.
 
-__all__ = ["resolve_device"]
+Entry points default to the card (``device="cuda"``; the Paddle API's
+current device is ``"gpu"``) and raise when CUDA is absent; pass
+``device="cpu"`` (or call ``set_device("cpu")``) to run the plain PyTorch
+versions of the kernels. Importing the package builds and loads no
+kernel: each is built at its first launch.
+"""
+from paddle_tpu_torch.core.device import (CPUPlace, CUDAPlace, device_count,
+                                          get_device, is_compiled_with_cuda,
+                                          resolve_device, set_device,
+                                          synchronize)
+from paddle_tpu_torch.core.dtype import (bfloat16, bool_, complex64,
+                                         complex128, float16, float32,
+                                         float64, get_default_dtype, int8,
+                                         int16, int32, int64,
+                                         set_default_dtype, uint8)
+from paddle_tpu_torch.core.dtype import bool_ as bool  # noqa: A001
+from paddle_tpu_torch.core.flags import set_flags
+from paddle_tpu_torch.core.tensor import Tensor, is_tensor, to_tensor
+from paddle_tpu_torch.autograd.tape import (enable_grad, no_grad,
+                                            set_grad_enabled)
+from paddle_tpu_torch.ops import *  # noqa: F401,F403
+from paddle_tpu_torch.ops import seed
+from paddle_tpu_torch import amp, autograd, io, nn, optimizer, regularizer
+from paddle_tpu_torch.nn.initializer import ParamAttr
+from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+grad = autograd.grad

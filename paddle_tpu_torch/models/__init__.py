@@ -1,7 +1,10 @@
 """Models of the port (``paddle_tpu.models`` counterpart)."""
 from paddle_tpu_torch.models.convert import (fp8_state_from_paddle_tpu,
                                              from_paddle_tpu_params,
-                                             optimizer_state_from_paddle_tpu)
+                                             optimizer_state_from_paddle_tpu,
+                                             state_from_paddle_tpu)
+from paddle_tpu_torch.models.gpt import (GptConfig, GptForCausalLM,
+                                         gpt_tiny_config)
 from paddle_tpu_torch.models.gpt_moe import (GptMoeConfig, GptMoeForCausalLM,
                                              gpt_moe_tiny_config)
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
@@ -9,7 +12,9 @@ from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            llama_7b_config,
                                            llama_tiny_config)
 
-__all__ = ["GptMoeConfig", "GptMoeForCausalLM", "gpt_moe_tiny_config",
+__all__ = ["GptConfig", "GptForCausalLM", "gpt_tiny_config",
+           "GptMoeConfig", "GptMoeForCausalLM", "gpt_moe_tiny_config",
            "LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion",
            "llama_7b_config", "llama_tiny_config", "from_paddle_tpu_params",
-           "optimizer_state_from_paddle_tpu", "fp8_state_from_paddle_tpu"]
+           "optimizer_state_from_paddle_tpu", "fp8_state_from_paddle_tpu",
+           "state_from_paddle_tpu"]

@@ -20,6 +20,12 @@ layout (a scanned group's ``[L, H]`` histories unstacked layer by layer). ``lora
 JAX LoRA adapter's factors onto the port's attached adapter (they keep the
 JAX layout, A [in, r] and B [r, out]; the serving ``AdapterStore`` reads a
 JAX-written adapter file itself).
+
+Models written on the Paddle API (``models/gpt.py``) keep Paddle's layout
+in both packages, so their weights move name for name:
+``state_from_paddle_tpu`` reads a JAX ``Layer`` (or its ``state_dict()``)
+as numpy arrays, which the port ``Layer``'s ``set_state_dict`` loads.
+Optimizer state then starts empty on both sides.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from paddle_tpu_torch.models.gpt_moe import GptMoeConfig, GptMoeForCausalLM
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
-           "fp8_state_from_paddle_tpu", "lora_from_paddle_tpu"]
+           "fp8_state_from_paddle_tpu", "lora_from_paddle_tpu",
+           "state_from_paddle_tpu"]
 
 
 def _to_port_layout(name: str, arr: np.ndarray) -> np.ndarray:
@@ -193,3 +200,14 @@ def lora_from_paddle_tpu(handle_or_blob, model):
                          "lora.attach() one first")
     port.load_weights(blob)
     return port
+
+
+def state_from_paddle_tpu(layer_or_state) -> dict:
+    """{structured name: np.ndarray} of a paddle_tpu ``Layer`` (its
+    ``state_dict()``) or of such a state dict, names and layout as they
+    are (a bfloat16 tensor gives an ``ml_dtypes`` bfloat16 array, which
+    ``to_tensor`` and ``set_state_dict`` read)."""
+    state = (layer_or_state.state_dict()
+             if hasattr(layer_or_state, "state_dict") else layer_or_state)
+    return {name: np.asarray(getattr(v, "_value", v))
+            for name, v in state.items()}

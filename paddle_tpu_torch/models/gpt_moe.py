@@ -23,7 +23,7 @@ from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 from paddle_tpu_torch.models.llama import (LlamaAttention, LlamaConfig,
                                            _rope_tables)
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.layer.norm import LayerNorm
+from paddle_tpu_torch.nn.layer.norm import TorchLayerNorm
 
 __all__ = ["GptMoeConfig", "GptMoeBlock", "GptMoeForCausalLM",
            "gpt_moe_tiny_config"]
@@ -73,9 +73,9 @@ class GptMoeBlock(nn.Module):
                  seed=0):
         super().__init__()
         h = config.hidden_size
-        self.ln1 = LayerNorm(h, device=device, dtype=dtype)
+        self.ln1 = TorchLayerNorm(h, device=device, dtype=dtype)
         self.attn = LlamaAttention(_attn_config(config), device, dtype)
-        self.ln2 = LayerNorm(h, device=device, dtype=dtype)
+        self.ln2 = TorchLayerNorm(h, device=device, dtype=dtype)
         self.moe = MoELayer(h, num_expert=config.num_experts,
                             d_hidden=config.expert_hidden_size,
                             top_k=config.top_k, dispatch=config.moe_dispatch,
@@ -113,7 +113,7 @@ class GptMoeForCausalLM(nn.Module):
         self.blocks = nn.ModuleList(
             [GptMoeBlock(config, dev, dtype, seed=seed + 1 + i)
              for i in range(config.num_hidden_layers)])
-        self.ln_f = LayerNorm(h, device=dev, dtype=dtype)
+        self.ln_f = TorchLayerNorm(h, device=dev, dtype=dtype)
         self.lm_head = nn.Linear(h, config.vocab_size, bias=False,
                                  device=dev, dtype=dtype)
         cos, sin = _rope_tables(h // config.num_attention_heads,

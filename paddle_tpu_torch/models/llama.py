@@ -41,7 +41,7 @@ from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.lora import seam as lora_seam
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.layer.norm import RMSNorm
+from paddle_tpu_torch.nn.layer.norm import TorchRMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
 from paddle_tpu_torch.parallel.scan_layers import (current_layer_ctx,
                                                    tag_residual,
@@ -363,10 +363,11 @@ class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         eps = config.rms_norm_eps
-        self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+        self.input_layernorm = TorchRMSNorm(config.hidden_size, eps, device,
+                                            dtype)
         self.self_attn = LlamaAttention(config, device, dtype)
-        self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
-                                                device, dtype)
+        self.post_attention_layernorm = TorchRMSNorm(config.hidden_size,
+                                                     eps, device, dtype)
         self.mlp = LlamaMLP(config, device, dtype)
 
     def forward(self, x, rope, segment_ids=None, position_ids=None):
@@ -396,8 +397,8 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
-                            dtype)
+        self.norm = TorchRMSNorm(config.hidden_size, config.rms_norm_eps,
+                                 device, dtype)
         # ONE fp32 RoPE table pair for the whole stack, indexed by absolute
         # position on the decode path
         head_dim = config.hidden_size // config.num_attention_heads

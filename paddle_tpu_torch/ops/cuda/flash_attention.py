@@ -145,6 +145,18 @@ def _lib():
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
+def check_view(name, t):
+    """The forward kernel reads a [B, S, H, D] operand through its strides:
+    head_dim contiguous, the other strides multiples of 8 elements, the
+    base 16-byte aligned (a packed QKV projection's chunks meet this).
+    Raises ValueError otherwise."""
+    sb, ss, sh, sd = t.stride()
+    if sd != 1 or any(x % 8 for x in (sb, ss, sh)) or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous head_dim, strides "
+                         f"that are multiples of 8 and a 16-byte aligned "
+                         f"base, got strides {t.stride()}")
+
+
 def _launch(q, k, v, causal, scale, segment_ids):
     b, s, hq, hkv, d = _check(q, k, v, segment_ids)
     for name, t in (("k", k), ("v", v)):
@@ -156,13 +168,8 @@ def _launch(q, k, v, causal, scale, segment_ids):
         raise ValueError(f"flash kernel takes head_dim 64 or 128, got {d}")
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
-        sb, ss, sh, sd = t.stride()
-        if sd != 1 or any(x % 8 for x in (sb, ss, sh)) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous head_dim, strides "
-                             f"that are multiples of 8 and a 16-byte "
-                             f"aligned base, got strides {t.stride()}")
-        strides += [sb, ss, sh]
+        check_view(name, t)
+        strides += list(t.stride()[:3])
     seg_ptr = None
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=q.device,

@@ -19,12 +19,16 @@ old buffers).
 
 ``parameters`` is a list of tensors, of ``(name, tensor)`` pairs
 (``model.named_parameters()``) or of param-group dicts with a ``params``
-list (flattened, as in the JAX package); ``apply_decay_param_fun`` is
-called with the name, ``f"p{i}"`` for an unnamed one. ``learning_rate`` is
-a float or an ``lr.LRScheduler``: ``get_lr()`` reads the scheduler, and
-the caller steps it. ``weight_decay`` is a float or a ``regularizer``
-object: ``L2Decay`` adds ``coeff * p`` to the gradient (AdamW: its
-decoupled decay), ``L1Decay`` adds ``coeff * sign(p)``. AdamW's
+list (flattened, as in the JAX package); a tensor is a torch tensor or a
+Paddle-API ``Parameter``, whose ``_value`` is read at every ``step()``
+and ``clear_grad()`` (never kept from construction), so a layer moved or
+cast after the optimizer was built keeps training.
+``apply_decay_param_fun`` is called with the name, ``f"p{i}"`` for an
+unnamed one. ``learning_rate`` is a float or an ``lr.LRScheduler``:
+``get_lr()`` reads the scheduler, and the caller steps it.
+``weight_decay`` is a float or a ``regularizer`` object: ``L2Decay``
+adds ``coeff * p`` to the gradient (AdamW: its decoupled decay),
+``L1Decay`` adds ``coeff * sign(p)``. AdamW's
 ``lr_ratio`` and Adam's ``lazy_mode`` are accepted and have no effect, as
 in the JAX package (its gradients are dense). State is kept per parameter
 index, and ``state_dict`` carries it as numpy arrays under ``param_{i}``
@@ -63,11 +67,11 @@ class Optimizer:
                  weight_decay=None, grad_clip=None, multi_precision=False):
         if parameters is None:
             raise ValueError("parameters must be provided")
-        self._params, self._names = [], []
+        self._entries, self._names = [], []
         for i, p in enumerate(_flatten_groups(parameters)):
             name, p = p if isinstance(p, tuple) else (f"p{i}", p)
             self._names.append(name)
-            self._params.append(p)
+            self._entries.append(p)
         self._lr = (learning_rate if isinstance(learning_rate, LRScheduler)
                     else float(learning_rate))
         self._wd_l1 = bool(getattr(weight_decay, "_l1", False))
@@ -77,6 +81,14 @@ class Optimizer:
         self._state: dict[int, dict] = {}
         self._step_count = 0
         self._use_master_weights = multi_precision
+
+    @property
+    def _params(self) -> list:
+        """The parameters' torch tensors, resolved at each use: a Paddle
+        ``Parameter`` (``nn.Parameter`` of the Paddle API) gives its
+        ``_value``, which ``Layer.to``/``astype`` may have rebound since
+        construction."""
+        return [getattr(p, "_value", p) for p in self._entries]
 
     def _init_state(self, p) -> dict:
         return {}
