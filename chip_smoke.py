@@ -248,6 +248,27 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     device time is read from is a skip), and every searched entry must
     persist.
 
+Since the disaggregation slice: ``disagg_cuda_vs_cpu`` (after phase 3:
+phase 3's fp32 GQA model served mixed and through prefill workers in alias
+and copy mode, 1 and 2 workers, the two chaos points, a cancel while a job
+is pending, int8 pages in copy mode; streams equal to the CPU's and to the
+CUDA mixed engine's, landed chain rows against both, flash forward
+launches counted on the worker thread, and whether a packed frame's rows
+for one segment are bit-equal alone and within the full frame);
+``full_width_disagg`` (after the speculative serve: phase 4's engine and
+prompts mixed, alias and copy; tokens/s, TTFT, handoffs and their ms, the
+same independence check at 7B, copy against alias bytes for the same
+frames, the worker's flash calls against their plain version, a decode
+profile after the handoffs); ``full_width_router`` also serves through an
+``HTTPReplica`` over a second engine's ``serve_http`` with heartbeats on
+a native ``TCPStore`` (streams equal to a fresh engine's alone, the
+endpoint killed mid-stream, ``dead_peers`` and the breaker naming it);
+``lora_train_cuda_vs_cpu`` and ``lora_train_full_width`` (after phase 7:
+a rank-8 adapter on the tiny model, CUDA against the CPU, the base
+bit-unchanged; rank 16 at the 7B width, 3 layers, 2 + 4 steps, then the
+exported adapter served with every grouped-matmul call held to its plain
+version).
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -1799,17 +1820,25 @@ def _engine_cfg(**kw):
     return ServingConfig(**kw)
 
 
+def _tiny_gqa_config():
+    """Phase 3's model: 2 layers, hidden 512, 4 query heads on 2 kv heads,
+    head_dim 128, vocab 1024."""
+    from paddle_tpu_torch.models import llama_tiny_config
+
+    return llama_tiny_config(vocab_size=1024, hidden_size=512,
+                             intermediate_size=1024, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             max_position_embeddings=512)
+
+
 def phase_cuda_vs_cpu(seed, report):
     import numpy as np
     import torch
 
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
-    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                            intermediate_size=1024, num_hidden_layers=2,
-                            num_attention_heads=4, num_key_value_heads=2,
-                            max_position_embeddings=512)
+    cfg = _tiny_gqa_config()
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = LlamaForCausalLM(cfg, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -1936,13 +1965,10 @@ def phase_kv_cuda_vs_cpu(seed, report):
     the first."""
     import numpy as np
 
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
-    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                            intermediate_size=1024, num_hidden_layers=2,
-                            num_attention_heads=4, num_key_value_heads=2,
-                            max_position_embeddings=512)
+    cfg = _tiny_gqa_config()
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = LlamaForCausalLM(cfg, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -2998,12 +3024,9 @@ def _train_cuda_vs_cpu(models, batch, lr, label, report):
 
 
 def phase_train_cuda_vs_cpu(seed, report):
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
 
-    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                            intermediate_size=1024, num_hidden_layers=2,
-                            num_attention_heads=4, num_key_value_heads=2,
-                            max_position_embeddings=512)
+    cfg = _tiny_gqa_config()
     batch = _packed_batch(seed, cfg.vocab_size, 256, 2)
     models = {"cpu": LlamaForCausalLM(cfg, device="cpu", seed=seed)}
     models["cuda"] = LlamaForCausalLM(cfg, device="cuda")
@@ -3333,15 +3356,12 @@ def phase_train_recipe_cuda_vs_cpu(seed, report):
 
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.io import DeviceFeeder
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer import lr as lr_mod
     from paddle_tpu_torch.parallel import TrainStep
 
-    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                            intermediate_size=1024, num_hidden_layers=2,
-                            num_attention_heads=4, num_key_value_heads=2,
-                            max_position_embeddings=512)
+    cfg = _tiny_gqa_config()
     batches = [_packed_batch(seed + i, cfg.vocab_size, 256, 2)
                for i in range(3)]
     base = LlamaForCausalLM(cfg, device="cpu", seed=seed).state_dict()
@@ -4191,7 +4211,7 @@ def tuning_worker(mode, seed, out_path):
 
     from paddle_tpu_torch.core.flags import flag
     from paddle_tpu_torch.models import (GptMoeConfig, GptMoeForCausalLM,
-                                         LlamaForCausalLM, llama_tiny_config)
+                                         LlamaForCausalLM)
     from paddle_tpu_torch.observability import events
     from paddle_tpu_torch.ops import cuda as port_cuda
     from paddle_tpu_torch.ops.cuda import fused_ce as fc
@@ -4280,10 +4300,7 @@ def tuning_worker(mode, seed, out_path):
                       "digest": _digest(logits[:, -1])}
         del moe_model, logits
         torch.cuda.empty_cache()
-        cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                                intermediate_size=1024, num_hidden_layers=2,
-                                num_attention_heads=4, num_key_value_heads=2,
-                                max_position_embeddings=512)
+        cfg = _tiny_gqa_config()
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.parallel import TrainStep
 
@@ -4709,15 +4726,12 @@ def phase_lora_cuda_vs_cpu(seed, report):
 
     from paddle_tpu_torch.distributed.resilience import faults
     from paddle_tpu_torch.lora import AdapterLoadError, load_adapter
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops import cuda as port_cuda
     from paddle_tpu_torch.serving import InProcessReplica, Router, \
         RouterConfig
 
-    cfg = llama_tiny_config(vocab_size=1024, hidden_size=512,
-                            intermediate_size=1024, num_hidden_layers=2,
-                            num_attention_heads=4, num_key_value_heads=2,
-                            max_position_embeddings=512)
+    cfg = _tiny_gqa_config()
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = LlamaForCausalLM(cfg, device="cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -5227,7 +5241,9 @@ def phase_full_width_router(args, model, blobs, prompts, report):
     one of its requests has 2 tokens) all complete with every token, none
     lost;
     GET /metrics over HTTP carries lora_active_adapters and router_*
-    series. The launches are read around the first routed serve."""
+    series. The launches are read around the first routed serve.
+    Before that, the same two engines serve behind an HTTPReplica
+    (`_http_replica_router`)."""
     import http.client
     import threading
 
@@ -5241,7 +5257,7 @@ def phase_full_width_router(args, model, blobs, prompts, report):
 
     adapters = [None, None, "ten-a", "ten-a", "ten-b", "ten-b", "ten-c",
                 "ten-c"]
-    reps = []
+    engines = []
     for i in range(2):
         store = AdapterStore(model, rank=LORA_RANK, slots=LORA_SLOTS)
         for aid, blob in blobs.items():
@@ -5251,7 +5267,10 @@ def phase_full_width_router(args, model, blobs, prompts, report):
             max_seq_len=4096, hbm_budget_mb=8192), adapter_store=store,
             device="cuda")
         eng.generate([prompts[0]], max_new_tokens=2, adapter="ten-a")
-        reps.append(InProcessReplica(eng, replica_id=i))
+        engines.append(eng)
+    http_part = _http_replica_router(engines, prompts)
+    reps = [InProcessReplica(eng, replica_id=i)
+            for i, eng in enumerate(engines)]
     router = Router(reps, RouterConfig(
         placement="adapter", probe_interval_s=0.05, failure_threshold=2,
         breaker_cooldown_s=30.0, dispatch_attempts=3, gap_timeout_s=120.0,
@@ -5329,7 +5348,8 @@ def phase_full_width_router(args, model, blobs, prompts, report):
         metrics_status=resp.status,
         metrics_has=dict(lora_active_adapters="lora_active_adapters"
                          in metrics, router="router_completed_total"
-                         in metrics and "router_replica_circuit" in metrics))
+                         in metrics and "router_replica_circuit" in metrics),
+        http=http_part)
     report["full_width_router"] = out
     print("full width router: " + json.dumps(
         {k: v for k, v in out.items() if k != "launches"}, default=str),
@@ -5347,6 +5367,1011 @@ def phase_full_width_router(args, model, blobs, prompts, report):
         problems.append("replica 1 held requests but none failed over")
     if not (out["metrics_status"] == 200 and all(out["metrics_has"].values())):
         problems.append(f"/metrics: {out['metrics_has']}")
+    problems += http_part["problems"]
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+HB_INTERVAL_S = 0.1        # heartbeats of the HTTP replica fleet
+DEAD_TIMEOUT_S = 1.0       # the router's verdict on a stale heartbeat
+
+
+def _http_replica_router(engines, prompts):
+    """Replica 0 is an InProcessReplica over engines[0]; replica 1 is an
+    HTTPReplica over engines[1]'s serve_http endpoint (the stand-in for a
+    serving process, which beats its own RankHeartbeat); both beat into a
+    TCPStore the Router reads (store=, heartbeat liveness). Phase 4's 8
+    prompts, base, LORA_NEW_TOKENS new tokens: first routed one at a time
+    (each prompt new to the engine that serves it), each stream equal to a
+    fresh engine of the same settings serving the request alone; then all
+    at once with the HTTP endpoint killed mid-stream (its driver dies, so
+    open streams end with an error event, its heartbeat stops without the
+    clean-exit tombstone, its listener closes): every request complete
+    with exactly LORA_NEW_TOKENS tokens (none lost, none doubled),
+    dead_peers names replica 1, and the breaker opens by that name on the
+    stale heartbeat (the probe threshold is 99, so the probes cannot trip
+    it). Returns the record, its launches and the problems found."""
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.distributed.store import (RankHeartbeat, TCPStore,
+                                                    dead_peers)
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving import InProcessReplica, Router, \
+        RouterConfig, ServingEngine
+    from paddle_tpu_torch.serving.replica import HTTPReplica
+
+    ref = ServingEngine(engines[0].model, _engine_cfg(
+        page_size=16, decode_batch=8, prefill_chunk=256, max_seq_len=4096,
+        hbm_budget_mb=4096), device="cuda")
+    alone = [ref.generate([p], max_new_tokens=LORA_NEW_TOKENS)[0]
+             for p in prompts]
+    del ref
+    store = TCPStore(is_master=True, timeout=60.0)
+    rep0 = InProcessReplica(engines[0], replica_id=0, store=store,
+                            heartbeat_interval_s=HB_INTERVAL_S)
+    srv = engines[1].serve_http(0, block=False)
+    beat1 = RankHeartbeat(store, "serving-fleet", 1,
+                          interval_s=HB_INTERVAL_S)
+    rep1 = HTTPReplica("127.0.0.1", srv.server_address[1], replica_id=1,
+                       timeout_s=60.0, stream_timeout_s=300.0)
+    router = Router([rep0, rep1], RouterConfig(
+        placement="session", probe_interval_s=0.05, failure_threshold=99,
+        breaker_cooldown_s=300.0, dispatch_attempts=3, gap_timeout_s=120.0,
+        max_inflight=64, shed_queue_depth=10_000, backoff_initial_s=0.01,
+        backoff_max_s=0.05), store=store, dead_timeout_s=DEAD_TIMEOUT_S)
+    payloads = [{"prompt_ids": p.tolist(), "max_new_tokens": LORA_NEW_TOKENS,
+                 "session": f"h{i}"} for i, p in enumerate(prompts)]
+    killed = threading.Event()
+    try:
+        torch.cuda.synchronize()
+        port_cuda.reset_launch_counts()      # the routed path starts here
+        one_by_one = [router.generate(pl) for pl in payloads]
+        torch.cuda.synchronize()
+        launches = port_cuda.launch_counts()  # ... and ends here
+        served_by = [t.get("replica") for _, t in one_by_one]
+
+        def killer():
+            eng1 = engines[1]
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                if any(len(r.generated) >= 2
+                       for r in list(eng1.scheduler.running)):
+                    break
+                time.sleep(0.002)
+
+            def died(*_a, **_k):
+                raise RuntimeError("serving process killed")
+
+            eng1.step = died                 # the driver's next step dies
+            beat1.stop(mark_clean=False)     # ... and so does its beat
+            killed.set()
+
+        kt = threading.Thread(target=killer)
+        kt.start()
+        t_kill = time.monotonic()
+        burst = _route_all(router, payloads)
+        kt.join(timeout=180)
+        engines[1].shutdown_http()           # the listener goes too
+        opened, cause = False, None
+        while time.monotonic() - t_kill < 60.0:
+            rec = router.stats()["replicas"]["1"]
+            if rec["circuit"] == "open":
+                opened, cause = True, rec["last_cause"]
+                break
+            time.sleep(0.05)
+        dead = dead_peers(store, "serving-fleet", 2,
+                          timeout_s=DEAD_TIMEOUT_S)
+    finally:
+        router.close()
+        rep0.close()
+        engines[1].__dict__.pop("step", None)
+        engines[1].shutdown_http()
+        if not beat1._stop.is_set():
+            beat1.stop()
+        native = store.native
+        store.close()
+    # the killed endpoint's open requests were cancelled and released by
+    # their streams' teardown
+    left = len(engines[1].scheduler._by_rid)
+    out = dict(
+        native_store=native, launches=launches, served_by=served_by,
+        one_by_one_equal_alone=[s == a for (s, _), a in zip(one_by_one,
+                                                            alone)],
+        killed=killed.is_set(),
+        burst_done=[bool(t and t.get("done")) for _, t in burst],
+        burst_tokens=[len(s) for s, _ in burst],
+        failovers=sum((t or {}).get("failovers", 0) for _, t in burst),
+        burst_served_by=[(t or {}).get("replica") for _, t in burst],
+        agreement_burst_vs_alone=_agreement([s for s, _ in burst], alone),
+        breaker_opened=opened, breaker_cause=cause, dead_peers=dead,
+        killed_engine_requests_left=left)
+    problems = []
+    if not native:
+        problems.append("the store is not the native one")
+    if not all(out["one_by_one_equal_alone"]):
+        problems.append(f"routed streams differ from the engine's own: "
+                        f"{out['one_by_one_equal_alone']}")
+    if 1 not in served_by:
+        problems.append(f"the HTTP replica served nothing: {served_by}")
+    if not (out["killed"] and all(out["burst_done"])
+            and all(n == LORA_NEW_TOKENS for n in out["burst_tokens"])):
+        problems.append(f"the HTTP kill lost or cut a request: "
+                        f"{out['burst_done']} {out['burst_tokens']}")
+    if not out["failovers"]:
+        problems.append("no request failed over from the killed endpoint")
+    if not (opened and cause and "heartbeat stale" in cause):
+        problems.append(f"the breaker did not open on the heartbeat: "
+                        f"{opened} {cause}")
+    if [d["rank"] for d in dead] != [1]:
+        problems.append(f"dead_peers: {dead}")
+    out["problems"] = problems
+    print("full width router over HTTP: " + json.dumps(
+        {k: v for k, v in out.items() if k != "launches"}, default=str),
+        flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode (the KV-page handoff)
+# ---------------------------------------------------------------------------
+WORKER_THREAD = "paddle_tpu_torch.serving.prefill"
+DISAGG_TIMEOUT_S = 30.0    # handoff patience of the fault-free runs
+CHAOS_TIMEOUT_S = 0.5      # ... of the drop and cancel runs
+
+
+def _chain_rows(cache, chain, n):
+    """{pool: CPU tensor [L, Hkv, n(, D)]}: a chain's first n slots of
+    every pool (fp8 codes as their bytes)."""
+    from paddle_tpu_torch.quantization import raw_bytes
+
+    out = {}
+    for name, a in cache.items():
+        t = raw_bytes(a)[:, :, list(chain)]
+        out[name] = t.reshape(t.shape[0], t.shape[1], -1,
+                              *t.shape[4:])[:, :, :n].cpu()
+    return out
+
+
+def _first_diff(a, b):
+    """None when two chain-row dicts are bit-equal, else the first
+    differing byte: its pool, byte offset, element index and both
+    elements' values."""
+    import numpy as np
+    import torch
+
+    for name in a:
+        x, y = a[name].contiguous(), b[name].contiguous()
+        xb = x.view(-1).view(torch.uint8)
+        yb = y.view(-1).view(torch.uint8)
+        ne = (xb != yb).nonzero()
+        if ne.numel():
+            byte = int(ne[0])
+            elem = byte // x.element_size()
+            idx = tuple(int(i) for i in np.unravel_index(elem, x.shape))
+            return {"pool": name, "byte": byte, "element": idx,
+                    "dtype": str(x.dtype).replace("torch.", ""),
+                    "values": [float(x[idx].float()), float(y[idx].float())],
+                    "bytes_differing": int(ne.numel())}
+    return None
+
+
+def _instrument(eng):
+    """Install, once, two probes on an engine: each request's chain rows at
+    its activation (what its prefill left, before a decode step rewrites
+    its last slot; local, packed, handed off or reclaimed alike), and the
+    launch counts of the packed frames a prefill worker's thread ran (the
+    worker holds the step lock through a frame, so the counters' change
+    over the call is the worker's alone). Returns the probes' dict."""
+    import threading
+
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    probe = getattr(eng, "_smoke_probe", None)
+    if probe is not None:
+        return probe
+    probe = {"landed": {}, "worker_launches": {}, "worker_frames": [],
+             "record_upto": None}
+    activate = eng.scheduler.activate
+    packed = eng.packed_prefill_cache
+
+    def record(req):
+        n = int(req.context.size)
+        if probe["record_upto"] is None or n <= probe["record_upto"]:
+            probe["landed"][req.rid] = _chain_rows(
+                eng._cache, eng.allocator.chain(req.rid), n)
+        return activate(req)
+
+    def counted(cache, items, req=None):
+        if not threading.current_thread().name.startswith(WORKER_THREAD):
+            return packed(cache, items, req=req)
+        before = port_cuda.launch_counts()
+        out = packed(cache, items, req=req)
+        for k, n in port_cuda.launch_counts().items():
+            d = n - before.get(k, 0)
+            if d:
+                probe["worker_launches"][k] = \
+                    probe["worker_launches"].get(k, 0) + d
+        probe["worker_frames"].append([int(t.size) for t, _ in items])
+        return out
+
+    eng.scheduler.activate = record
+    eng.packed_prefill_cache = counted
+    eng._smoke_probe = probe
+    return probe
+
+
+def _residue(eng):
+    """The exactly-once postcondition: nothing half-admitted anywhere."""
+    eng.allocator.check_consistency()
+    return {"requests": len(eng.scheduler._by_rid),
+            "pending": len(eng._pending_handoff),
+            "cancelled_pending": len(eng._cancelled_pending),
+            "used_pages": eng.allocator.used_pages}
+
+
+def _disagg_serve(eng, prompts, new_tokens, mode=None, workers=1,
+                  chaos=None, timeout_s=DISAGG_TIMEOUT_S, record_upto=None):
+    """Serve `prompts` on `eng`: mixed (mode None) or as the decode side of
+    `workers` prefill workers (build_disagg) with `chaos` armed once. All
+    are submitted, stepped until each has its first token, then run to the
+    end. Returns the streams, each prompt's landed chain rows, the
+    launches (whole run, and the workers' share), the handoff counters and
+    each handoff's ms, TTFTs and tokens/s, worker deaths and the residue.
+    Only prompts of up to `record_upto` tokens (None: all) have their
+    landed rows read back."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.resilience import faults
+    from paddle_tpu_torch.observability.events import journal
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving.disagg import build_disagg
+
+    probe = _instrument(eng)
+    probe["landed"].clear()
+    probe["worker_launches"].clear()
+    probe["worker_frames"].clear()
+    probe["record_upto"] = record_upto
+    cuda = eng.device.type == "cuda"
+    eng.reset_stats()
+    ws, channel = [], None
+    if mode is not None:
+        channel, ws = build_disagg(eng, workers, mode=mode,
+                                   timeout_s=timeout_s)
+    faults.reset()
+    if chaos:
+        faults.arm(chaos)
+    journal().clear()
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        port_cuda.reset_launch_counts()          # the path starts here
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        reqs = [eng.scheduler.get(r) for r in rids]
+        while eng.busy and not all(r.generated for r in reqs):
+            eng.step()
+        if cuda:
+            torch.cuda.synchronize()
+        t_first = time.perf_counter()
+        at_first = sum(len(r.generated) for r in reqs)
+        eng.run_until_idle()
+        if cuda:
+            torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = port_cuda.launch_counts()     # ... and ends here
+        streams = [list(r.generated) for r in reqs]
+        ttft = [(r.token_times[0] - r.arrival_t) * 1e3 for r in reqs]
+        for r in rids:
+            eng.release(r)
+        fired = faults.fired(chaos) if chaos else 0
+    finally:
+        faults.reset()
+        for w in ws:
+            w.close()
+        eng._handoff_channel = None
+    st = eng.stats()
+    handoff_ms = [e["ms"] for e in journal().recent(component="serving",
+                                                     event="handoff")]
+    gen = sum(len(s) for s in streams)
+    return {
+        "mode": mode or "mixed", "workers": workers if mode else 0,
+        "chaos": chaos, "fired": fired, "streams": streams,
+        "landed": [probe["landed"].get(r) for r in rids],
+        "launches": launches,
+        "worker_launches": dict(probe["worker_launches"]),
+        "worker_frames": list(probe["worker_frames"]),
+        "handoffs": st["handoffs"], "reclaims": st["handoff_reclaims"],
+        "handoff_pages": st["handoff_pages"],
+        "handoff_ms_p50": (float(np.percentile(handoff_ms, 50))
+                           if handoff_ms else None),
+        "handoff_ms_max": max(handoff_ms) if handoff_ms else None,
+        "channel": channel.stats() if channel is not None else None,
+        "worker_deaths": [w.dead_cause for w in ws if w.dead_cause],
+        "prefill_s": t_first - t0,
+        "prefill_tokens_per_s": (sum(int(np.asarray(p).size)
+                                     for p in prompts) / (t_first - t0)),
+        "decode_tokens_per_s": ((gen - at_first) / (t_end - t_first)
+                                if t_end > t_first else None),
+        "ttft_ms_mean": statistics.mean(ttft), "ttft_ms_max": max(ttft),
+        "residue": _residue(eng)}
+
+
+def _landed_vs(runs, ref, rule=None):
+    """Per prompt, against `ref`'s landed rows: None (bit-equal) or the
+    first differing byte; with `rule` ("float32") also each pool's worst
+    difference and whether every pool holds the rule: float pools (K/V,
+    int8 scales) each row by the fp32 row rule, int8 codes within one
+    step."""
+    import torch
+
+    out = []
+    for got, want in zip(runs, ref):
+        diff = _first_diff(got, want)
+        rec = {"first_diff": diff}
+        if rule is not None and diff is not None:
+            ok, worst = True, {}
+            for name, g in got.items():
+                w = want[name]
+                if g.dtype == torch.float32:
+                    cmp = _compare(g, w, rule)
+                    worst[name] = cmp["max_rel_err"]
+                    ok &= cmp["rows_ok"]
+                else:
+                    d = (g.int() - w.int()).abs()
+                    worst[name] = int(d.max())
+                    ok &= worst[name] <= 1
+            rec["worst"] = worst
+            rec["rule_ok"] = bool(ok)
+        out.append(rec)
+    return out
+
+
+def _frame_independence(eng, prompts):
+    """Is a packed frame's output for one segment independent of the
+    segments beside it? Each prompt that fits the pack frame is prefilled
+    into scratch pools (zeros, fresh page ids) alone in a frame and within
+    the full frames `_plan_frames` makes of all of them (as a worker that
+    took them together would), and the chain rows are compared bit for
+    bit. Returns, per prompt, its frame's segment lengths and the first
+    differing byte (None: bit-equal)."""
+    import numpy as np
+    import torch
+
+    ps = eng.page_size
+    fit = [np.asarray(p, np.int32) for p in prompts
+           if int(np.asarray(p).size) <= eng.pack_frame]
+    need = 1 + sum(-(-int(p.size) // ps) for p in fit)
+
+    def scratch():
+        return {name: torch.zeros(a.shape[:2] + (need,) + a.shape[3:],
+                                  dtype=a.dtype, device=a.device)
+                for name, a in eng._cache.items()}
+
+    rows, nxt = [], 1
+    for p in fit:
+        n = -(-int(p.size) // ps)
+        row = np.zeros(eng.pages_per_seq, np.int32)
+        row[:n] = np.arange(nxt, nxt + n)
+        rows.append(row)
+        nxt += n
+    items = list(zip(fit, rows))
+    together, alone = scratch(), scratch()
+    frames = eng._plan_frames(items, lambda it: it[0].size)
+    with eng._step_lock:
+        for frame in frames:
+            together = eng.packed_prefill_cache(together, frame)
+        for item in items:
+            alone = eng.packed_prefill_cache(alone, [item])
+    out = []
+    for (p, row) in items:
+        frame = next(f for f in frames if any(r is row for _, r in f))
+        chain = row[:-(-int(p.size) // ps)]
+        out.append({"len": int(p.size),
+                    "frame": [int(t.size) for t, _ in frame],
+                    "first_diff": _first_diff(
+                        _chain_rows(together, chain, int(p.size)),
+                        _chain_rows(alone, chain, int(p.size)))})
+    return out, items
+
+
+def _copy_vs_alias_same_frames(eng, items):
+    """Copy-mode chain bytes against alias-mode ones for the same frames:
+    the alias path's packed frames written into scratch pools, against a
+    copy worker's `_prefill_copy` of the same jobs (its side pool, then
+    the pages copied to host tensors). Returns the first differing byte
+    per job (None: bit-equal)."""
+    import torch
+
+    from paddle_tpu_torch.quantization import raw_bytes
+    from paddle_tpu_torch.serving.disagg import (HandoffChannel, PrefillJob,
+                                                 PrefillWorker)
+
+    ps = eng.page_size
+    need = 1 + sum(-(-int(t.size) // ps) for t, _ in items)
+    alias = {name: torch.zeros(a.shape[:2] + (need,) + a.shape[3:],
+                               dtype=a.dtype, device=a.device)
+             for name, a in eng._cache.items()}
+    with eng._step_lock:
+        for frame in eng._plan_frames(items, lambda it: it[0].size):
+            alias = eng.packed_prefill_cache(alias, frame)
+    jobs = [PrefillJob(rid=-1 - i, tokens=t, page_row=r, posted_t=0.0)
+            for i, (t, r) in enumerate(items)]
+    worker = PrefillWorker(eng, HandoffChannel(), mode="copy")
+    try:
+        payloads, ms = worker._prefill_copy(jobs)
+    finally:
+        worker.close()
+        del worker
+    out = []
+    for (t, row), pages in zip(items, payloads):
+        n = int(t.size)
+        got = {name: torch.stack([pg[name] for pg in pages], 2)
+               for name in pages[0]}
+        got = {name: raw_bytes(g.reshape(g.shape[0], g.shape[1], -1,
+                                         *g.shape[4:])[:, :, :n])
+               for name, g in got.items()}
+        out.append(_first_diff(got, _chain_rows(alias, row[:len(pages)], n)))
+    return out, ms
+
+
+def phase_disagg_cuda_vs_cpu(seed, report):
+    """Disaggregated prefill/decode on CUDA (kernels) against the CPU
+    (plain versions), on phase 3's fp32 GQA model (page 16, decode batch
+    4, chunk and pack frame 128): 8 prompts of 5-150 tokens (the 150 one
+    past the frame, prefilled on the decode side), 16 new tokens, served
+    mixed, then through 1 and 2 prefill workers in alias and copy mode,
+    with serving.prefill.kill and serving.handoff.drop armed, a cancel
+    while a job is pending, and over int8 pages in copy mode (codes and
+    scales handed off). Gates: every stream equal to the CPU engine's
+    mixed and disaggregated runs and to the CUDA mixed engine's; each
+    chain's landed rows within the fp32 rule of the CPU disaggregated
+    run's (over int8 pages the worst code step and scale difference
+    against the CPU are reported, not gated: a code flipped by a
+    rounding-sized difference moves the next layers' scales by up to a
+    quantization step; against the CUDA mixed engine, codes within a step
+    and scales by the fp32 rule); the chaos runs reclaim; the cancel
+    defers its release; every run residue-free; flash forward launched
+    on the worker thread in every CUDA disaggregated run. Measured and
+    printed, gating the bytes: whether a packed frame's output for one
+    segment is independent of its neighbours (scratch pools, alone
+    against in the full frame) and equal to the chunked path's (the
+    mixed engine's solo prompts, and every reclaim); where both hold,
+    every landed chain is bit-equal to the CUDA mixed engine's, else the
+    first differing byte is reported and the rows held to the fp32
+    rule (the chaos runs' reclaims prefill on the chunked path, so their
+    rows are held to that rule in any case)."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.resilience import faults
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.disagg import build_disagg
+
+    cfg = _tiny_gqa_config()
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = LlamaForCausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    kw = dict(page_size=16, num_pages=128, decode_batch=4, prefill_chunk=128,
+              pack_frame=128, max_seq_len=256)
+    rng = np.random.RandomState(seed + 3)
+    lens = (5, 40, 70, 150, 20, 100, 33, 64)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    new = 16
+    engines = {}
+
+    def engine(dev, kv="model"):
+        key = (dev, kv)
+        if key not in engines:
+            engines[key] = ServingEngine(
+                cpu_model if dev == "cpu" else gpu_model,
+                _engine_cfg(kv_cache_dtype=kv, **kw), device=dev)
+        return engines[key]
+
+    runs = {
+        "cpu_mixed": _disagg_serve(engine("cpu"), prompts, new),
+        "cpu_alias": _disagg_serve(engine("cpu"), prompts, new, "alias"),
+        "cuda_mixed": _disagg_serve(engine("cuda"), prompts, new)}
+    for mode in ("alias", "copy"):
+        for n in (1, 2):
+            runs[f"cuda_{mode}_{n}"] = _disagg_serve(
+                engine("cuda"), prompts, new, mode, workers=n)
+    runs["cuda_kill"] = _disagg_serve(engine("cuda"), prompts, new, "alias",
+                                      chaos="serving.prefill.kill")
+    runs["cuda_drop"] = _disagg_serve(engine("cuda"), prompts, new, "alias",
+                                      chaos="serving.handoff.drop",
+                                      timeout_s=CHAOS_TIMEOUT_S)
+    runs["cpu_int8_mixed"] = _disagg_serve(engine("cpu", "int8"), prompts,
+                                           new)
+    runs["cpu_int8_copy"] = _disagg_serve(engine("cpu", "int8"), prompts,
+                                          new, "copy")
+    runs["cuda_int8_mixed"] = _disagg_serve(engine("cuda", "int8"), prompts,
+                                            new)
+    runs["cuda_int8_copy"] = _disagg_serve(engine("cuda", "int8"), prompts,
+                                           new, "copy")
+
+    # a cancel while the job is pending: the drop keeps it pending, the
+    # release defers until the reclaim resolves it
+    eng = engine("cuda")
+    channel, ws = build_disagg(eng, 1, timeout_s=CHAOS_TIMEOUT_S)
+    faults.reset()
+    faults.arm("serving.handoff.drop", mode="always")
+    try:
+        rid = eng.submit(prompts[1], max_new_tokens=new)
+        eng.step()
+        was_pending = rid in eng._pending_handoff
+        used = eng.allocator.used_pages
+        eng.cancel(rid)
+        eng.release(rid)
+        deferred = (rid in eng._cancelled_pending
+                    and eng.allocator.used_pages == used)
+        eng.run_until_idle()
+    finally:
+        faults.reset()
+        for w in ws:
+            w.close()
+        eng._handoff_channel = None
+    cancel = {"was_pending": was_pending, "release_deferred": deferred,
+              "residue": _residue(eng)}
+
+    indep, _ = _frame_independence(engine("cuda"), prompts)
+    fp32_mixed = runs["cuda_mixed"]["landed"]
+    chunked_vs_packed = _landed_vs(runs["cuda_alias_1"]["landed"],
+                                   fp32_mixed)
+    exact = (all(r["first_diff"] is None for r in indep)
+             and all(r["first_diff"] is None for r in chunked_vs_packed))
+    ref = runs["cpu_mixed"]["streams"]
+    problems, checks = [], {}
+    for name, run in runs.items():
+        int8 = "int8" in name
+        want = runs["cpu_int8_mixed"]["streams"] if int8 else ref
+        c = {"streams_equal": run["streams"] == want,
+             "residue_free": not any(run["residue"].values())}
+        if name.startswith("cuda") and run["mode"] != "mixed":
+            mixed = runs["cuda_int8_mixed" if int8 else "cuda_mixed"]
+            cpu_dis = runs["cpu_int8_copy" if int8 else "cpu_alias"]
+            c["equal_cuda_mixed"] = run["streams"] == mixed["streams"]
+            c["worker_flash_fwd"] = run["worker_launches"].get("flash_fwd",
+                                                               0)
+            c["vs_cpu"] = _landed_vs(run["landed"], cpu_dis["landed"],
+                                     "float32")
+            c["vs_cuda_mixed"] = _landed_vs(run["landed"], mixed["landed"],
+                                            "float32")
+            if not int8 and not all(r.get("rule_ok", True)
+                                    for r in c["vs_cpu"]):
+                # int8 rows against the CPU are reported, not gated: one
+                # code a rounding-sized difference flips moves the next
+                # layers' scales by up to a quantization step
+                problems.append(f"{name}: landed rows off the CPU's")
+            if exact and not int8 and run["chaos"] is None and not all(
+                    r["first_diff"] is None for r in c["vs_cuda_mixed"]):
+                problems.append(f"{name}: landed rows not bit-equal to "
+                                f"the CUDA mixed engine's")
+            if not all(r.get("rule_ok", True) for r in c["vs_cuda_mixed"]):
+                problems.append(f"{name}: landed rows off the CUDA mixed "
+                                f"engine's")
+            if not c["equal_cuda_mixed"]:
+                problems.append(f"{name}: streams differ from the CUDA "
+                                f"mixed engine's")
+            if c["worker_flash_fwd"] <= 0 and run["chaos"] is None:
+                problems.append(f"{name}: no flash forward launch on the "
+                                f"worker thread")
+            if run["chaos"] is None and (run["handoffs"] == 0
+                                         or run["reclaims"]):
+                problems.append(f"{name}: {run['handoffs']} handoffs, "
+                                f"{run['reclaims']} reclaims")
+        if run["chaos"] is not None and not (run["fired"] == 1
+                                             and run["reclaims"] >= 1):
+            problems.append(f"{name}: chaos fired {run['fired']}, "
+                            f"{run['reclaims']} reclaims")
+        if not c["streams_equal"]:
+            problems.append(f"{name}: streams differ from the CPU's")
+        if not c["residue_free"]:
+            problems.append(f"{name}: residue {run['residue']}")
+        checks[name] = c
+    if not (cancel["was_pending"] and cancel["release_deferred"]
+            and not any(cancel["residue"].values())):
+        problems.append(f"cancel during a pending handoff: {cancel}")
+    launches = {}
+    for name, run in runs.items():
+        if name.startswith("cuda"):
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    out = {"prompt_lens": list(lens), "new_tokens": new,
+           "independence": indep,
+           "chunked_vs_packed_first_diff": [r["first_diff"]
+                                            for r in chunked_vs_packed],
+           "exact_bytes_gate": exact, "checks": checks, "cancel": cancel,
+           "launches": launches,
+           "runs": {k: {f: v for f, v in r.items()
+                        if f not in ("landed", "streams")}
+                    for k, r in runs.items()}}
+    report["disagg_cuda_vs_cpu"] = out
+    print("disagg cuda vs cpu: " + json.dumps(
+        {"independence": indep, "chunked_vs_packed":
+         out["chunked_vs_packed_first_diff"], "exact_bytes_gate": exact,
+         "cancel": cancel,
+         "runs": {k: dict(streams_equal=c["streams_equal"],
+                          worker_flash_fwd=c.get("worker_flash_fwd"),
+                          handoffs=runs[k]["handoffs"],
+                          reclaims=runs[k]["reclaims"],
+                          frames=runs[k]["worker_frames"])
+                  for k, c in checks.items()}}, default=str), flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def _checked_worker_flash(check):
+    """Hold every flash forward call made on a prefill worker's thread to
+    its plain version on the same inputs (the bf16 row rule): wraps the
+    functional seam's forward, returns the restore function."""
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    kernel = F.flash_attention_fwd
+
+    def checked(q, k, v, causal=False, scale=None, segment_ids=None):
+        out = kernel(q, k, v, causal=causal, scale=scale,
+                     segment_ids=segment_ids)
+        if threading.current_thread().name.startswith(WORKER_THREAD):
+            ref, _ = fa.flash_attention_reference(
+                q.float(), k.float(), v.float(), causal=causal,
+                scale=scale, segment_ids=segment_ids)
+            cmp = _compare(out[0], ref,
+                           "float32" if q.dtype == torch.float32
+                           else "bfloat16")
+            check["n"] += 1
+            check["failed"] += not cmp["rows_ok"]
+            check["worst_row_rel_err"] = max(check["worst_row_rel_err"],
+                                             cmp["max_rel_err"])
+        return out
+
+    F.flash_attention_fwd = checked
+
+    def restore():
+        F.flash_attention_fwd = kernel
+
+    return restore
+
+
+def phase_full_width_disagg(eng, prompts, report):
+    """Phase 4's engine (LLaMA-2-7B geometry, bf16, page 16, decode batch
+    8, chunk and pack frame 256, 16 GiB of pages) serves phase 4's 8
+    prompts (NEW_TOKENS new tokens) mixed, then as the decode side of one
+    alias worker and of one copy worker (the four prompts of up to 256
+    tokens go to the worker, the four longer ones prefill on the decode
+    side). Per run: prefill and decode tokens/s, TTFT, handoffs, reclaims,
+    pages handed off, handoff ms (p50, max; the worker synchronizes the
+    device before it reads the clock, so they include the device work),
+    launches (whole run, and flash forward on the worker thread). Then one
+    alias run with every worker flash call held to its plain version (the
+    bf16 row rule), a profile of two decode steps after the handoffs
+    (device ms against wall ms, the paged kernel by name), the packed-frame
+    independence check on scratch pools (each prompt alone against within
+    the full frame; the first differing byte) and copy-mode chain bytes
+    against alias-mode ones for the same frames. Gates: every run
+    completes every request with no reclaim and no residue; copy equals
+    alias bit for bit for the same frames; flash forward and paged decode
+    launched in every run, flash forward on the worker thread; if the
+    frames are independent and the worker's rows equal the mixed engine's
+    bit for bit, every stream equals the mixed run's, else each worker
+    flash call holds the row rule and every request's first token equals
+    the mixed run's (ROADMAP C-fact 4)."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving.disagg import build_disagg
+
+    upto = eng.pack_frame                    # the worker's prompts
+    runs = {"mixed": _disagg_serve(eng, prompts, NEW_TOKENS,
+                                   record_upto=upto),
+            "alias": _disagg_serve(eng, prompts, NEW_TOKENS, "alias",
+                                   record_upto=upto),
+            "copy": _disagg_serve(eng, prompts, NEW_TOKENS, "copy",
+                                  record_upto=0)}
+    check = dict(n=0, failed=0, worst_row_rel_err=0.0,
+                 rtol=RTOL["bfloat16"])
+    restore = _checked_worker_flash(check)
+    try:
+        runs["alias_checked"] = _disagg_serve(eng, prompts, NEW_TOKENS,
+                                              "alias", record_upto=0)
+    finally:
+        restore()
+    # two decode steps after the handoffs landed, profiled
+    channel, ws = build_disagg(eng, 1, timeout_s=DISAGG_TIMEOUT_S)
+    try:
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        while eng._pending_handoff or eng.scheduler.waiting:
+            eng.step()
+        profile = _device_profile(eng.step, 2)
+        eng.run_until_idle()
+        for r in rids:
+            eng.release(r)
+    finally:
+        for w in ws:
+            w.close()
+        eng._handoff_channel = None
+    indep, items = _frame_independence(eng, prompts)
+    copy_vs_alias, copy_ms = _copy_vs_alias_same_frames(eng, items)
+    mixed = runs["mixed"]
+    worker_rows = _landed_vs(
+        [x for x in runs["alias"]["landed"] if x is not None],
+        [x for x in mixed["landed"] if x is not None])
+    exact = (all(r["first_diff"] is None for r in indep)
+             and all(r["first_diff"] is None for r in worker_rows))
+    out = {"prompt_lens": [int(np.asarray(p).size) for p in prompts],
+           "new_tokens": NEW_TOKENS, "independence": indep,
+           "worker_rows_vs_mixed": [r["first_diff"] for r in worker_rows],
+           "copy_vs_alias_same_frames": copy_vs_alias,
+           "copy_prefill_ms_per_job": copy_ms,
+           "streams_gate": "exact" if exact else "row_rule_first_token",
+           "worker_flash_check": check,
+           "decode_profile_after_handoff": profile,
+           "runs": {k: {f: v for f, v in r.items()
+                        if f not in ("landed", "streams")}
+                    for k, r in runs.items()}}
+    problems = []
+    for name, run in runs.items():
+        complete = all(len(s) == NEW_TOKENS for s in run["streams"])
+        run_out = out["runs"][name]
+        run_out["complete"] = complete
+        run_out["agreement_vs_mixed"] = _agreement(run["streams"],
+                                                   mixed["streams"])
+        run_out["first_tokens_equal"] = [s[0] == m[0] for s, m in zip(
+            run["streams"], mixed["streams"])]
+        if not complete or any(run["residue"].values()):
+            problems.append(f"{name}: incomplete or residue "
+                            f"{run['residue']}")
+        for k in ("flash_fwd", "paged_decode"):
+            if run["launches"].get(k, 0) <= 0:
+                problems.append(f"{name}: {k} never launched")
+        if name == "mixed":
+            continue
+        if run["handoffs"] != 4 or run["reclaims"]:
+            problems.append(f"{name}: {run['handoffs']} handoffs, "
+                            f"{run['reclaims']} reclaims")
+        if run["worker_launches"].get("flash_fwd", 0) <= 0:
+            problems.append(f"{name}: no flash forward on the worker")
+        if exact and run["streams"] != mixed["streams"]:
+            problems.append(f"{name}: streams differ from the mixed run's "
+                            f"with bit-equal prefill bytes")
+        if not exact and not all(run_out["first_tokens_equal"]):
+            problems.append(f"{name}: first tokens differ from the mixed "
+                            f"run's")
+    if not exact and (check["n"] == 0 or check["failed"]):
+        problems.append(f"worker flash calls off their plain version: "
+                        f"{check}")
+    if any(d is not None for d in copy_vs_alias):
+        problems.append(f"copy-mode bytes differ from alias-mode bytes for "
+                        f"the same frames: {copy_vs_alias}")
+    _check_paged_kernels("bf16", profile)
+    launches = {}
+    for run in runs.values():
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    report["full_width_disagg"] = out
+    print("full width disagg: " + json.dumps(
+        {k: v for k, v in out.items()
+         if k not in ("decode_profile_after_handoff",)}, default=str),
+        flush=True)
+    print("full width disagg decode after handoff: " + json.dumps(
+        {k: profile[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                 "device_busy_share", "paged_ms_per_step",
+                                 "paged_kernels")}), flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# LoRA training on the card
+# ---------------------------------------------------------------------------
+LORA_TRAIN_STEPS = 4       # timed, after 2 warm-up steps
+
+
+def _lora_train(model, rank, lr, multi_precision=False):
+    """Attach a rank-`rank` adapter on q, k, v, o (the base frozen) and
+    build a TrainStep of AdamW over model.parameters(): (handle, step)."""
+    from paddle_tpu_torch.lora import LoRAConfig, attach
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    handle = attach(model, LoRAConfig(rank=rank, alpha=2.0 * rank, seed=7))
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=multi_precision)
+    step = TrainStep(model, _fused_loss, opt)
+    return handle, step
+
+
+def phase_lora_train_cuda_vs_cpu(seed, report):
+    """LoRA training on CUDA (kernels) against the CPU (plain versions):
+    phase 6's model and packed batch with a rank-8 adapter on q, k, v, o
+    (A from the same numpy seed on both devices, B zero), 3 TrainStep
+    steps of AdamW(1e-3) over model.parameters(). Gates, phase 6's fp32
+    rule on the factors: per-step losses within 1e-4 relative, the
+    factors' last gradients within 1e-3 of each tensor's max |grad|, the
+    factors within lr; every base parameter bit-unchanged on both devices
+    (no gradient); every A and B moved off its initial value."""
+    import torch
+
+    from paddle_tpu_torch.lora import detach
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    cfg = _tiny_gqa_config()
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 2)
+    models = {"cpu": LlamaForCausalLM(cfg, device="cpu", seed=seed)}
+    models["cuda"] = LlamaForCausalLM(cfg, device="cuda")
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    lr = 1e-3
+    base, handles, losses, init = {}, {}, {}, {}
+    for dev, model in models.items():
+        base[dev] = {n: p.detach().clone()
+                     for n, p in model.named_parameters()}
+        handle, step = _lora_train(model, 8, lr)
+        handles[dev] = handle
+        init[dev] = [(a.detach().clone(), b.detach().clone())
+                     for _, _, a, b in handle.entries]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            port_cuda.reset_launch_counts()
+        losses[dev] = [float(step(batch)) for _ in range(3)]
+        if dev == "cuda":
+            launches = port_cuda.launch_counts()
+    worst_p = worst_g = 0.0
+    for (_, _, ta, tb), (_, _, ca, cb) in zip(handles["cuda"].entries,
+                                              handles["cpu"].entries):
+        for t, c in ((ta, ca), (tb, cb)):
+            worst_p = max(worst_p, (t.detach().cpu() - c.detach())
+                          .abs().max().item())
+            g, gc = t.grad.cpu(), c.grad
+            worst_g = max(worst_g, ((g - gc).abs().max()
+                                    / gc.abs().max().clamp_min(1e-7)).item())
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    base_unchanged, moved = {}, {}
+    for dev, model in models.items():
+        base_unchanged[dev] = all(
+            torch.equal(p.detach(), base[dev][n])
+            for n, p in model.named_parameters()
+            if not n.startswith("_lora_host"))
+        base_unchanged[dev] &= all(
+            p.grad is None for n, p in model.named_parameters()
+            if not n.startswith("_lora_host"))
+        moved[dev] = all(
+            not torch.equal(a.detach(), a0) and not torch.equal(b.detach(), b0)
+            for (_, _, a, b), (a0, b0) in zip(handles[dev].entries,
+                                              init[dev]))
+    for handle in handles.values():
+        detach(handle)
+    out = {"losses": losses, "loss_rel_err": loss_rel,
+           "factor_grad_rel_err": worst_g, "factor_max_abs_err": worst_p,
+           "base_bit_unchanged": base_unchanged, "factors_moved": moved,
+           "trainable": sum(a.numel() + b.numel() for _, _, a, b
+                            in handles["cuda"].entries),
+           "launches": launches,
+           "tolerance": {"loss_rel": 1e-4, "grad_rel": 1e-3, "param": lr}}
+    report["lora_train_cuda_vs_cpu"] = out
+    print("lora train cuda vs cpu: " + json.dumps(out), flush=True)
+    if not (loss_rel <= 1e-4 and worst_g <= 1e-3 and worst_p <= lr):
+        raise AssertionError("CUDA and CPU LoRA training steps differ")
+    if not (all(base_unchanged.values()) and all(moved.values())):
+        raise AssertionError(f"base changed or factors not trained: "
+                             f"{base_unchanged} {moved}")
+    if launches.get("flash_fwd", 0) < 3 * cfg.num_hidden_layers:
+        raise AssertionError(f"flash forward not on the LoRA training "
+                             f"path: {launches}")
+
+
+def phase_lora_train_full_width(args, report):
+    """LoRA training at phase 7's geometry (7B width, 3 layers, bf16, seq
+    4096, the fused head loss), the base frozen, rank 16 on q, k, v, o,
+    AdamW(1e-4, multi_precision), 2 warm-up and LORA_TRAIN_STEPS timed
+    steps: step ms, tokens/s, peak memory, trainable parameters and
+    launches a step (flash forward, dq, dkv, ce_stats, the CE backward).
+    Then the trained adapter is exported (the port's export_adapter),
+    the base detached, and one request served through a LoRA engine on the
+    same base: every gmm_fwd call of its prefill and first decode step
+    held to the per-row fp32 rule of a plain fp32 product on its own
+    inputs (full_width_lora's check). Gates: finite losses; the kernels
+    every step (3 of each flash kernel, 1 ce_stats, 1 ce_bwd); the base's
+    first projection and head bit-unchanged; the gmm_fwd calls; the
+    served stream complete."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.lora import AdapterStore, detach, export_adapter
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=args.seed)
+    rng = np.random.RandomState(args.seed)
+    ids = torch.from_numpy(
+        rng.randint(1, cfg.vocab_size, (1, TRAIN_SEQ + 1))).cuda()
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    q0 = model.llama.layers[0].self_attn.q_proj.weight.detach().clone()
+    head0 = model.lm_head.weight.detach().clone()
+    handle, step = _lora_train(model, LORA_RANK, TRAIN_LR,
+                               multi_precision=True)
+    trainable = sum(p.numel() for p in model.parameters()
+                    if p.requires_grad)
+    losses = [float(step(batch)) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port_cuda.reset_launch_counts()          # the LoRA training path
+    times = []
+    for _ in range(LORA_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    launches = port_cuda.launch_counts()     # ... ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(times)
+    path = os.path.join(REPO, "chiprun_out", "lora_adapters",
+                        "trained.pdmodel")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    export_adapter(path, handle, adapter_id="trained")
+    detach(handle)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_unchanged = (torch.equal(model.llama.layers[0].self_attn.q_proj
+                                  .weight.detach(), q0)
+                      and torch.equal(model.lm_head.weight.detach(), head0))
+    model.eval()
+    store = AdapterStore(model, rank=LORA_RANK, slots=4)
+    store.register("trained", path)
+    eng = ServingEngine(model, _engine_cfg(
+        page_size=16, decode_batch=8, prefill_chunk=256, max_seq_len=4096,
+        hbm_budget_mb=2048), adapter_store=store, device="cuda")
+    prompt = rng.randint(1, cfg.vocab_size, 200).astype(np.int32)
+    _, calls = _lora_first_logits_by_route(eng, [prompt], ["trained"],
+                                           "checked")
+    stream = eng.generate([prompt], max_new_tokens=8, adapter="trained")[0]
+    base_stream = eng.generate([prompt], max_new_tokens=8)[0]
+    out = {"layers": cfg.num_hidden_layers, "seq": TRAIN_SEQ,
+           "rank": LORA_RANK, "trainable_params": trainable,
+           "losses": losses, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": TRAIN_SEQ / step_s, "peak_mem_gb": peak,
+           "launches": launches,
+           "launches_per_step": {k: n / LORA_TRAIN_STEPS
+                                 for k, n in launches.items()},
+           "base_bit_unchanged": base_unchanged,
+           "serve_gmm_calls_vs_plain": calls, "stream": stream,
+           "base_stream": base_stream,
+           "agreement_vs_base": _agreement([stream], [base_stream])}
+    report["lora_train_full_width"] = out
+    print("lora train full width: " + json.dumps(out, default=str),
+          flush=True)
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"non-finite loss: {losses}")
+    layers = cfg.num_hidden_layers
+    need = {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "ce_stats": 1, "ce_bwd": 1}
+    short = {k: n for k, n in out["launches_per_step"].items()
+             if k in need and n < need[k]}
+    short.update({k: 0 for k in need if k not in launches})
+    if short:
+        problems.append(f"kernels not launched a step: {short}")
+    if not base_unchanged:
+        problems.append("the frozen base changed")
+    if not calls["n"] or calls["failed"]:
+        problems.append(f"gmm_fwd off its plain version: {calls['failed']} "
+                        f"of {calls['n']} calls")
+    if len(stream) != 8:
+        problems.append(f"the adapter stream is incomplete: {stream}")
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -5354,8 +6379,11 @@ def phase_full_width_router(args, model, blobs, prompts, report):
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
-    and the timed LLaMA and GPT-MoE training steps), each read around its
-    run. gmm_fwd is the bf16 forward kernel (its row the h1 case),
+    and the timed LLaMA and GPT-MoE training steps; since the
+    disaggregation slice also the disaggregated serves (tiny and 7B: the
+    decode thread's and the prefill workers' launches together), the
+    routed serve over the HTTP replica and the LoRA training steps), each
+    read around its run. gmm_fwd is the bf16 forward kernel (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
     three kernels its C entry launches. ce_bwd (the fused-CE backward,
@@ -5379,7 +6407,13 @@ def kernels_line(report):
              report.get("train_recipe_full_width", {}).get("launches", {}),
              report.get("full_width_lora", {}).get("launches", {}),
              report.get("full_width_router", {}).get("launches", {}),
-             report.get("paddle_api_full_width", {}).get("launches", {})]
+             report.get("paddle_api_full_width", {}).get("launches", {}),
+             report.get("disagg_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("full_width_disagg", {}).get("launches", {}),
+             report.get("full_width_router", {}).get("http", {})
+             .get("launches", {}),
+             report.get("lora_train_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("lora_train_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -5537,7 +6571,9 @@ def main(argv=None) -> int:
               ("spec_cuda_vs_cpu",
                lambda: phase_spec_cuda_vs_cpu(args.seed, report)),
               ("lora_cuda_vs_cpu",
-               lambda: phase_lora_cuda_vs_cpu(args.seed, report))]
+               lambda: phase_lora_cuda_vs_cpu(args.seed, report)),
+              ("disagg_cuda_vs_cpu",
+               lambda: phase_disagg_cuda_vs_cpu(args.seed, report))]
     state = {}
 
     def full_width():
@@ -5554,6 +6590,11 @@ def main(argv=None) -> int:
             raise RuntimeError("the full-width phase built no engine")
         phase_full_width_spec(state["eng"], state["prompts"],
                               state["streams"], report)
+
+    def full_width_disagg():
+        if "eng" not in state:
+            raise RuntimeError("the full-width phase built no engine")
+        phase_full_width_disagg(state["eng"], state["prompts"], report)
 
     def full_width_kv():
         if "eng" not in state:
@@ -5594,6 +6635,7 @@ def main(argv=None) -> int:
 
     phases += [("full_width", full_width), ("http", http),
                ("full_width_spec", full_width_spec),
+               ("full_width_disagg", full_width_disagg),
                ("full_width_kv", full_width_kv),
                ("full_width_lora", full_width_lora),
                ("full_width_router", full_width_router),
@@ -5602,6 +6644,12 @@ def main(argv=None) -> int:
                          phase_train_cuda_vs_cpu(args.seed, report))),
                ("train_full_width",
                 lambda: phase_train_full_width(args, report)),
+               ("lora_train_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_lora_train_cuda_vs_cpu(args.seed, report))),
+               ("lora_train_full_width",
+                lambda: (free_memory(),
+                         phase_lora_train_full_width(args, report))),
                ("train_moe_cuda_vs_cpu",
                 lambda: (free_memory(),
                          phase_train_moe_cuda_vs_cpu(args.seed, report))),

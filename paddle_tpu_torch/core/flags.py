@@ -103,6 +103,28 @@ define_flag("serving_prefill_pack", 1,
 define_flag("serving_pack_frame", 0,
             "packed-prefill frame length in tokens (rounded down to 32); "
             "0 = serving_prefill_chunk", type=int)
+define_flag("serving_role", "mixed",
+            "serving engine role in a disaggregated fleet: 'mixed' (one "
+            "engine prefills AND decodes — the single-host default), "
+            "'prefill' (a packed-prefill worker replica the router never "
+            "routes /generate traffic to), or 'decode' (a decode worker "
+            "that, when a handoff channel is attached, delegates fresh "
+            "prompt prefills to prefill workers and ingests their KV-page "
+            "handoffs)")
+define_flag("serving_handoff_timeout_s", 5.0,
+            "decode-worker patience for a posted prefill job: past this "
+            "(or on prefill-worker death) the decode engine RECLAIMS the "
+            "request and re-prefills locally — the exactly-once fallback "
+            "that makes a lost handoff cost latency, never a stream",
+            type=float)
+define_flag("store_barrier_retries", 2,
+            "TCPStore barrier: bounded retry-with-backoff attempts after "
+            "a timed-out wait before escalating the TimeoutError to the "
+            "caller (the watchdog save-and-exit path)", type=int)
+define_flag("store_heartbeat_interval_s", 5.0,
+            "RankHeartbeat beat interval: each rank refreshes its "
+            "__hb__/<job>/<rank> liveness key this often so dead_peers() "
+            "can NAME a dead rank within ~2 intervals", type=float)
 define_flag("serving_prefix_sharing", 1,
             "copy-on-write shared-prefix KV page reuse: admission matches "
             "the longest committed full-page prefix of the new context in "

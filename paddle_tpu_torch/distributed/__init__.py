@@ -1,2 +1,4 @@
 """Distributed utilities of the port (``paddle_tpu.distributed``
-counterpart); only the fault-injection registry is ported so far."""
+counterpart); ported so far: the fault-injection registry
+(``resilience.faults``) and the TCPStore with rank heartbeats
+(``store``)."""

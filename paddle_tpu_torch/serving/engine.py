@@ -1,5 +1,5 @@
 """The serving engine: paged KV cache + continuous-batching decode
-(``paddle_tpu.serving.engine`` counterpart, ``mixed`` role).
+(``paddle_tpu.serving.engine`` counterpart).
 
 Same scheduling as the JAX engine, run eagerly by PyTorch:
 
@@ -49,6 +49,16 @@ Same scheduling as the JAX engine, run eagerly by PyTorch:
     the start of the next step, so it lands between steps and never
     waits for one.
 
+  * disaggregated roles (``serving_role``: mixed, prefill or decode): a
+    decode engine with a ``disagg.HandoffChannel`` attached POSTS fresh
+    full-prompt admissions to prefill workers, which fill the pages the
+    decode side already allocated (alias mode: one shared pool) or a side
+    pool whose pages it copies in (copy mode); the request activates on the
+    typed KV-page handoff. A dead worker or a dropped or overdue handoff is
+    RECLAIMED by a local re-prefill into the same pages: page writes are
+    idempotent overwrites, so recovery is exactly-once. A cancel while a
+    job is pending defers the release until the handoff resolves.
+
 Ordering contract, as in the JAX engine: queued tier copies (demotes, then
 promotes), then copy-on-write copies, then any prefill or decode write.
 
@@ -57,8 +67,6 @@ On CUDA both attention paths run the port's hand-written Hopper kernels
 collector mirrors ``stats()`` into the metrics registry (``GET /metrics``),
 and prefill, packed-prefill and decode/verify steps record spans carrying
 the requests' trace ids while tracing is on.
-
-Not ported yet (raise NotImplementedError): the prefill/decode roles.
 """
 from __future__ import annotations
 
@@ -77,6 +85,7 @@ from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.distributed.resilience import faults
 # importing the store registers the serving.lora.swap_fail chaos point
 from paddle_tpu_torch.lora.store import AdapterLoadError
+from paddle_tpu_torch.observability import events as obs_events
 from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.observability import tracing as obs_tracing
 from paddle_tpu_torch.quantization import raw_bytes
@@ -114,15 +123,10 @@ class ServingConfig:
     max_waiting: int = 0            # 0 -> FLAGS_serving_waiting_queue_limit
     spec_k: int = 0                 # speculative draft window K (0 off)
     prefix_sharing: bool | None = None  # None -> FLAGS_serving_prefix_sharing
-    role: str = "mixed"             # only "mixed" is ported
+    role: str = ""                  # "" -> FLAGS_serving_role
     prefill_pack: bool | None = None    # None -> FLAGS_serving_prefill_pack
     pack_frame: int = 0             # 0 -> FLAGS_serving_pack_frame,
                                     #      then prefill_chunk
-
-    def check_ported(self):
-        if (self.role or "mixed").lower() != "mixed":
-            raise NotImplementedError(
-                f"not ported to paddle_tpu_torch yet: role={self.role!r}")
 
 
 # KV storage modes that keep codes, and the pool dtype of each
@@ -135,11 +139,12 @@ _engine_seq = itertools.count()
 _ENGINE_GAUGES = (
     "queue_depth", "oldest_wait_age_s", "in_flight", "slot_fill",
     "free_pages", "spec_k", "accepted_tokens_per_step", "prefix_hit_rate",
-    "cow_copies", "prefill_batch_fill")
+    "cow_copies", "prefill_batch_fill", "handoff_ms", "pending_handoffs")
 _ENGINE_COUNTERS = {
     "committed_tokens": "_committed_tokens",
     "decode_steps": "_decode_steps",
     "prefix_matched_tokens": "_prefix_matched_tokens",
+    "handoff_pages": "_handoff_pages",
 }
 
 
@@ -232,7 +237,6 @@ class ServingEngine:
     def __init__(self, model, config: ServingConfig | None = None,
                  adapter_store=None, device=DEFAULT_DEVICE):
         self.config = config or ServingConfig()
-        self.config.check_ported()
         self.device = resolve_device(device)
         wdev = next(model.parameters()).device
         if wdev != self.device:
@@ -261,7 +265,11 @@ class ServingEngine:
         if self.spec_k < 0:
             raise ValueError(f"serving_spec_k must be >= 0, "
                              f"got {self.spec_k}")
-        self.role = "mixed"
+        role = (cfg.role or str(flag("serving_role"))).lower()
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"serving_role must be one of "
+                             f"mixed/prefill/decode, got {role!r}")
+        self.role = role
         rope_limit = int(mcfg.rope_max_position
                          or mcfg.max_position_embeddings)
         if self.max_seq_len > rope_limit:
@@ -394,6 +402,17 @@ class ServingEngine:
         # per-tenant committed tokens (tenant field, adapter id fallback):
         # the lora_tokens_total{tenant=} counter's source
         self._tenant_tokens: dict[str, int] = {}
+        # the KV-page handoff (decode role): admissions parked on prefill
+        # workers, keyed by rid; cancels deferred until their job resolves
+        self._handoff_channel = None
+        self._handoff_timeout_s = 5.0
+        self._pending_handoff: dict[int, object] = {}
+        self._cancelled_pending: set[int] = set()
+        self._handoffs = 0
+        self._handoff_reclaims = 0
+        self._handoff_pages = 0
+        self._handoff_ms_total = 0.0
+        self._handoff_ms_last = 0.0
         self._http_lock = threading.Lock()
         self._step_lock = threading.RLock()
         self._http_stop = False
@@ -481,6 +500,15 @@ class ServingEngine:
         return rid
 
     def cancel(self, rid: int) -> bool:
+        job = self._pending_handoff.get(rid)
+        if job is not None:
+            # the rid's pages are an in-flight prefill worker's target:
+            # freeing them now could hand them to another request under the
+            # write. Mark and defer; handoff resolution finishes the cancel
+            # on the decode thread once the writes are settled.
+            job.cancelled = True
+            self._cancelled_pending.add(rid)
+            return True
         return self.scheduler.cancel(rid)
 
     def configure_speculation(self, spec_k: int):
@@ -609,6 +637,28 @@ class ServingEngine:
                 trace_ids=[r.trace_id for r in reqs if r.trace_id]):
             self._cache = self.packed_prefill_cache(self._cache, items,
                                                     req=reqs[0])
+
+    def prefill_jobs(self, jobs) -> float:
+        """Alias-mode prefill-worker entry: run the jobs' packed frames
+        straight into this engine's pools under the step lock. The decode
+        side allocated the chains at admission, so the writes land in pages
+        the target requests already own, and a later decode-side
+        re-prefill of the same job is an idempotent overwrite: what makes
+        reclaim exactly-once. Returns the milliseconds of the frames' work
+        under the lock (the wait for it excluded), device work included: on
+        CUDA the call synchronizes the device before it reads the clock
+        (the frames run on the thread's current stream, the device's
+        default one, which the decode loop uses too)."""
+        items = [(j.tokens, j.page_row) for j in jobs if not j.cancelled]
+        if not items:
+            return 0.0
+        with self._step_lock:
+            t0 = time.perf_counter()
+            for frame in self._plan_frames(items, lambda it: it[0].size):
+                self._cache = self.packed_prefill_cache(self._cache, frame)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return (time.perf_counter() - t0) * 1e3
 
     @torch.inference_mode()
     def _decode_once(self, active, finisher):
@@ -784,11 +834,33 @@ class ServingEngine:
         self._tier_ms["demote"] += (t1 - t0) * 1e3
         self._tier_ms["promote"] += (time.perf_counter() - t1) * 1e3
 
+    @torch.inference_mode()
+    def _extract_page(self, cache, page: int) -> dict:
+        """One page of every pool of `cache` (codes and their scales
+        together) copied to host tensors ([L, Hkv, ps(, D)] a pool): the
+        bytes a cross-host handoff streams. The copy blocks, so the bytes
+        are on the host when it returns."""
+        return {name: raw_bytes(a[:, :, page]).to("cpu", copy=True)
+                .view(a.dtype) for name, a in cache.items()}
+
+    @torch.inference_mode()
+    def _restore_page(self, data: dict, dst: int):
+        """Write one extracted page (`_extract_page`'s dict) into page
+        `dst` of every pool of this engine."""
+        for name, a in self._cache.items():
+            raw_bytes(a[:, :, dst]).copy_(raw_bytes(data[name]))
+
     # ------------------------------------------------------------------
     # the serving loop
     # ------------------------------------------------------------------
     def _packable(self, req: Request) -> bool:
         return (self.prefill_pack and req.matched_tokens == 0
+                and int(req.context.size) <= self.pack_frame)
+
+    def _postable(self, req: Request) -> bool:
+        # adapter requests prefill locally (the worker's frame binds no
+        # adapter), as do adopted-prefix tails and over-frame prompts
+        return (req.matched_tokens == 0 and not req.adapter
                 and int(req.context.size) <= self.pack_frame)
 
     def _pack_collides(self, head: Request, batch) -> bool:
@@ -816,7 +888,12 @@ class ServingEngine:
         collected member) flushes the batch first and runs the chunked
         path. A request's pages are registered before the next prefix
         match runs, and queued tier copies land before any prefill
-        writes."""
+        writes.
+
+        A decode-role engine with live prefill workers POSTS postable
+        admissions instead: the page chain is allocated here, the writes
+        happen on a worker, and the request activates on its KV-page
+        handoff (or on the reclaim's local re-prefill)."""
         batch: list[Request] = []
 
         def flush():
@@ -836,8 +913,13 @@ class ServingEngine:
                 self.scheduler.activate(r)
             batch.clear()
 
+        post_ok = (self._handoff_channel is not None
+                   and self._handoff_channel.workers_alive())
         while True:
-            if len(self.scheduler.running) + len(batch) >= self.decode_batch:
+            # collected members and parked handoffs hold decode slots the
+            # scheduler cannot see yet
+            if (len(self.scheduler.running) + len(batch)
+                    + len(self._pending_handoff) >= self.decode_batch):
                 break
             head = (self.scheduler.waiting[0]
                     if self.scheduler.waiting else None)
@@ -850,6 +932,10 @@ class ServingEngine:
             if not admitted:
                 break
             req = admitted[0]
+            if post_ok and self._postable(req):
+                flush()
+                self._post_prefill(req)
+                continue
             if self._packable(req):
                 # a packed frame binds one adapter: a change flushes it
                 if batch and ((req.adapter or None)
@@ -871,51 +957,172 @@ class ServingEngine:
 
     @property
     def busy(self) -> bool:
-        return not self.scheduler.idle
+        """Work pending anywhere: the scheduler's queues or admissions
+        parked on prefill workers (a pending handoff is neither waiting
+        nor running, so drivers must keep stepping for it)."""
+        return (not self.scheduler.idle) or bool(self._pending_handoff)
 
     def step(self) -> bool:
-        """One scheduler iteration: admissions (+ their packed/chunked
-        prefills and prefix registration), chain growth/eviction, tier and
-        copy-on-write copies, then ONE decode step (a verify frame when
-        ``spec_k`` > 0). Returns False when nothing is running. With an
-        adapter store the step first writes the store's staged hot swaps:
-        a swap lands between two steps, never between two layers."""
+        """One scheduler iteration: handoff ingest (decode role),
+        admissions (+ their packed/chunked prefills and prefix
+        registration), chain growth/eviction, tier and copy-on-write
+        copies, then ONE decode step (a verify frame when ``spec_k`` > 0).
+        Returns False when nothing is running. With an adapter store the
+        step first writes the store's staged hot swaps: a swap lands
+        between two steps, never between two layers. When every admitted
+        request is parked on the prefill workers, the step waits a beat for
+        a handoff outside the step lock, so the workers can take it."""
         with self._step_lock:
-            if self.adapters is not None:
-                self.adapters.apply_swaps()
-            self._admit()
-            self.scheduler.grow()
-            self._apply_tier_ops()      # grow's reclaims demote first
-            self._apply_cow()
-            running = list(self.scheduler.running)
-            if not running:
-                if self.scheduler.waiting:
-                    blocked = self.scheduler.waiting[0]
-                    raise RuntimeError(
-                        f"serving deadlock: request {blocked.rid} "
-                        f"({blocked.total_len + 1} tokens) cannot be "
-                        f"admitted with {self.allocator.free_pages} free "
-                        f"pages ({self.allocator.reclaimable_pages} "
-                        f"reclaimable incl. cold) and nothing left to "
-                        f"evict")
-                return False
-            once = (self._verify_once if self.spec_k > 0
-                    else self._decode_once)
-            if obs_tracing.tracing_active():
-                # one span a dispatch, carrying every active request's
-                # trace id: the decode-step end of the router -> replica
-                # -> engine chain
-                with obs_tracing.span(
-                        "engine.verify_step" if self.spec_k > 0
-                        else "engine.decode_step", component="engine",
-                        slots=len(running),
-                        trace_ids=[r.trace_id for r in running
-                                   if r.trace_id],
-                        rids=[r.rid for r in running]):
-                    once(running, self.scheduler.finish)
-            else:
+            stepped = self._step_locked()
+        if stepped is not None:
+            return stepped
+        for h in self._handoff_channel.take_done(0.002):
+            with self._step_lock:
+                self._ingest_handoff(h)
+        return True
+
+    def _step_locked(self):
+        if self.adapters is not None:
+            self.adapters.apply_swaps()
+        if self._handoff_channel is not None:
+            self._drain_handoffs()
+        self._admit()
+        self.scheduler.grow()
+        self._apply_tier_ops()      # grow's reclaims demote first
+        self._apply_cow()
+        running = list(self.scheduler.running)
+        if not running:
+            if self._pending_handoff:
+                return None         # parked on the prefill workers
+            if self.scheduler.waiting:
+                blocked = self.scheduler.waiting[0]
+                raise RuntimeError(
+                    f"serving deadlock: request {blocked.rid} "
+                    f"({blocked.total_len + 1} tokens) cannot be "
+                    f"admitted with {self.allocator.free_pages} free "
+                    f"pages ({self.allocator.reclaimable_pages} "
+                    f"reclaimable incl. cold) and nothing left to "
+                    f"evict")
+            return False
+        once = (self._verify_once if self.spec_k > 0
+                else self._decode_once)
+        if obs_tracing.tracing_active():
+            # one span a dispatch, carrying every active request's trace
+            # id: the decode-step end of the router -> replica -> engine
+            # chain
+            with obs_tracing.span(
+                    "engine.verify_step" if self.spec_k > 0
+                    else "engine.decode_step", component="engine",
+                    slots=len(running),
+                    trace_ids=[r.trace_id for r in running if r.trace_id],
+                    rids=[r.rid for r in running]):
                 once(running, self.scheduler.finish)
-            return True
+        else:
+            once(running, self.scheduler.finish)
+        return True
+
+    # ------------------------------------------------------------------
+    # disaggregation: the decode side of the KV-page handoff
+    # ------------------------------------------------------------------
+    def attach_prefill(self, channel, timeout_s: float | None = None):
+        """Wire a `disagg.HandoffChannel` into this engine (the decode
+        side): postable fresh admissions are POSTED as prefill jobs and
+        activate only on their typed KV-page handoff. An overdue, dropped
+        or worker-death-orphaned job is RECLAIMED by a local re-prefill
+        into the pages the request already owns, so a worker that died
+        mid-write cannot corrupt the stream."""
+        self._handoff_channel = channel
+        self._handoff_timeout_s = float(
+            flag("serving_handoff_timeout_s") if timeout_s is None
+            else timeout_s)
+
+    def _post_prefill(self, req: Request):
+        from paddle_tpu_torch.serving.disagg import PrefillJob
+
+        # tier copies queued by this admission land before a worker
+        # writes into the freshly ensured chain
+        self._apply_tier_ops()
+        job = PrefillJob(
+            rid=req.rid,
+            tokens=np.asarray(req.context, np.int32),
+            page_row=np.asarray(self.allocator.page_table_row(
+                req.rid, self.pages_per_seq), np.int32),
+            posted_t=time.monotonic(),
+            trace_id=req.trace_id or "")
+        self._pending_handoff[req.rid] = job
+        self._handoff_channel.post(job)
+
+    def _drain_handoffs(self):
+        ch = self._handoff_channel
+        for h in ch.take_done():
+            self._ingest_handoff(h)
+        if not self._pending_handoff:
+            return
+        now = time.monotonic()
+        alive = ch.workers_alive()
+        stale = [job for job in list(self._pending_handoff.values())
+                 if job.failed or not alive
+                 or now - job.posted_t > self._handoff_timeout_s]
+        for job in stale:
+            self._reclaim(job)
+
+    def _ingest_handoff(self, h):
+        job = self._pending_handoff.pop(h.rid, None)
+        if job is None:
+            return            # already reclaimed locally: exactly-once
+        req = self.scheduler._by_rid.get(h.rid)
+        if req is None or h.rid in self._cancelled_pending:
+            self._finish_cancelled(h.rid)
+            return
+        if h.pages is not None:
+            # copy mode: splice the worker's extracted pages into this
+            # pool's chain, page by page
+            for data, dst in zip(h.pages, self.allocator.chain(h.rid)):
+                self._restore_page(data, dst)
+        self._handoffs += 1
+        self._handoff_pages += int(h.n_pages)
+        self._handoff_ms_total += float(h.ms)
+        self._handoff_ms_last = float(h.ms)
+        self._prefix_admit_tokens += int(req.context.size)
+        obs_events.emit(
+            "serving", "handoff", rid=int(h.rid), pages=int(h.n_pages),
+            ms=round(float(h.ms), 3), worker=h.worker,
+            mode="copy" if h.pages is not None else "alias")
+        if self.prefix_sharing:
+            self.allocator.register_prefix(req.rid, req.context,
+                                           namespace=req.prefix_namespace)
+        self.scheduler.activate(req)
+
+    def _reclaim(self, job):
+        self._pending_handoff.pop(job.rid, None)
+        job.cancelled = True      # a live worker skips it if still queued
+        req = self.scheduler._by_rid.get(job.rid)
+        if req is None or job.rid in self._cancelled_pending:
+            self._finish_cancelled(job.rid)
+            return
+        self._handoff_reclaims += 1
+        obs_events.emit("serving", "handoff_reclaim", severity="warn",
+                        rid=int(job.rid),
+                        cause="worker_failed" if job.failed else "timeout")
+        self._apply_tier_ops()
+        self._run_prefill(req)
+        if self.prefix_sharing:
+            self.allocator.register_prefix(req.rid, req.context,
+                                           namespace=req.prefix_namespace)
+        self.scheduler.activate(req)
+
+    def _finish_cancelled(self, rid: int):
+        """The deferred cancel and release of a request whose pages were a
+        prefill worker's target when its client went away: it runs on the
+        decode thread with the writes settled, so the pages are safe to
+        free."""
+        self._cancelled_pending.discard(rid)
+        if self.scheduler._by_rid.get(rid) is None:
+            return
+        self.scheduler.cancel(rid)
+        self.scheduler.release(rid)
+        self._gens.pop(rid, None)
+        self._proposer.drop(rid)
 
     def run_until_idle(self, max_steps: int = 1_000_000):
         steps = 0
@@ -929,6 +1136,10 @@ class ServingEngine:
     def release(self, rid: int):
         """Drop a finished request's bookkeeping (scheduler entry,
         generator, draft tables, adapter slot pin)."""
+        if rid in self._pending_handoff or rid in self._cancelled_pending:
+            # deferred with cancel(): handoff resolution cleans up once
+            # the worker's writes are settled
+            return
         req = self.scheduler._by_rid.get(rid)
         if (req is not None and req.finished and req.adapter
                 and self.adapters is not None):
@@ -1143,6 +1354,12 @@ class ServingEngine:
             "prefill_packed_frames": self._pack_frames,
             "prefill_packed_requests": self._pack_reqs,
             "prefill_tokens": self._prefill_tokens,
+            "pending_handoffs": len(self._pending_handoff),
+            "handoffs": self._handoffs,
+            "handoff_reclaims": self._handoff_reclaims,
+            "handoff_pages": self._handoff_pages,
+            "handoff_ms": round(self._handoff_ms_last, 3),
+            "handoff_ms_total": round(self._handoff_ms_total, 3),
             "committed_tokens": self._committed_tokens,
             "decode_steps": self._decode_steps,
             # multi-tenant LoRA: adapter residency + per-tenant billing
@@ -1173,6 +1390,11 @@ class ServingEngine:
         self._pack_reqs = 0
         self._pack_fill_tokens = 0
         self._pack_frame_tokens = 0
+        self._handoffs = 0
+        self._handoff_reclaims = 0
+        self._handoff_pages = 0
+        self._handoff_ms_total = 0.0
+        self._handoff_ms_last = 0.0
         self.allocator.cow_copies = 0
         self.allocator.prefix_matches = 0
         self.allocator.prefix_tokens_matched = 0

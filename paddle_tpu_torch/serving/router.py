@@ -50,9 +50,10 @@ terminal event — ``{"done": true, "tokens", "replica", "failovers"[,
 queue_full | no_healthy_replica | timeout | failover_exhausted |
 adapter_load_failed``.
 
-Not ported yet: heartbeat liveness (``store=``, the JAX router's
-``dead_peers`` reading), which needs ``distributed/store.py`` (ROADMAP
-A8); passing a store raises NotImplementedError.
+Liveness (``store=``): with a TCPStore, each health pass first reads the
+replicas' heartbeats (``distributed.store.dead_peers``, rank ==
+replica_id, job ``job_id``); a replica whose heartbeat went stale trips
+its breaker by name before any probe runs.
 """
 from __future__ import annotations
 
@@ -247,14 +248,11 @@ class _Drained(Exception):
 
 class Router:
     def __init__(self, transports, config: RouterConfig | None = None,
-                 store=None, start_monitor: bool = True):
+                 store=None, job_id: str = "serving-fleet",
+                 dead_timeout_s: float | None = None,
+                 start_monitor: bool = True):
         # a malformed chaos spec fails here, not at the first site hit
         faults.check_flag_spec()
-        if store is not None:
-            raise NotImplementedError(
-                "router heartbeat liveness (store=) is not ported to "
-                "paddle_tpu_torch yet: it needs distributed/store.py "
-                "(ROADMAP A8)")
         self.cfg = (config or RouterConfig()).resolved()
         self._slots: dict[int, _Slot] = {}
         for t in transports:
@@ -264,6 +262,10 @@ class Router:
             self._slots[rid] = _Slot(transport=t, rid=rid)
         if not self._slots:
             raise ValueError("router needs at least one replica transport")
+        self._store = store
+        self._job_id = job_id
+        self._dead_timeout_s = dead_timeout_s
+        self._hb_watch: dict = {}
         self._lock = threading.RLock()
         self._inflight: dict[int, _Dispatch] = {}
         self._seq = 0
@@ -303,10 +305,25 @@ class Router:
             self._stop.wait(self.cfg.probe_interval_s)
 
     def monitor_tick(self):
-        """One health pass: a readiness probe per replica. OPEN
+        """One health pass: heartbeat liveness first (a corpse trips its
+        breaker at once), then a readiness probe per replica. OPEN
         circuits cool down for `breaker_cooldown_s`, then get ONE trial
         probe (HALF_OPEN): success closes, failure re-opens."""
         now = time.monotonic()
+        if self._store is not None:
+            from paddle_tpu_torch.distributed.store import dead_peers
+
+            world = max(self._slots) + 1
+            for d in dead_peers(self._store, self._job_id, world,
+                                timeout_s=self._dead_timeout_s,
+                                watch=self._hb_watch):
+                # age None = never beat: a transport with no heartbeat
+                # wired is not declared dead
+                if d["age_s"] is None:
+                    continue
+                slot = self._slots.get(d["rank"])
+                if slot is not None and slot.circuit != "open":
+                    self._trip(slot, f"heartbeat stale ({d['age_s']}s)")
         for slot in list(self._slots.values()):
             went_half_open = False
             with self._lock:

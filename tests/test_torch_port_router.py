@@ -18,7 +18,8 @@ replica, after the JAX package's ``test_router.py``.
   with no breaker strike, one trace id across router, replica and engine
   spans, and the Chrome export merging a device trace file;
 * the HTTP front door (/generate, /healthz, /stats, /metrics);
-* ``store=`` (heartbeats) is not ported and raises.
+* ``store=``: a replica's heartbeat read by the router, tombstoned on a
+  clean close (the liveness cases are in ``test_torch_port_store.py``).
 
 Every test resets the port's fault registry and tracing itself and checks
 that no ``paddle_tpu_torch.serving`` thread outlives it.
@@ -483,11 +484,31 @@ def test_point_recovers_to_fault_free_streams(point):
 
 
 def test_store_heartbeats_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        InProcessReplica(FakeEngine(), replica_id=0, store=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        Router([ScriptedReplica(0)], _cfg(), store=object(),
-               start_monitor=False)
+    """Ported since the store was: ``store=`` no longer raises. A replica
+    beats its heartbeat into the store, the router reads it (a live beat
+    trips nothing), and a clean close tombstones it."""
+    import struct
+
+    from paddle_tpu_torch.distributed.store import TCPStore
+
+    store = TCPStore(is_master=True)
+    try:
+        rep = InProcessReplica(FakeEngine(), replica_id=0, store=store,
+                               heartbeat_interval_s=0.02)
+        r = Router([rep], _cfg(failure_threshold=99), store=store,
+                   dead_timeout_s=1.0, start_monitor=False)
+        try:
+            r.monitor_tick()
+            time.sleep(0.05)
+            r.monitor_tick()
+            assert r.stats()["replicas"]["0"]["circuit"] == "closed"
+        finally:
+            r.close()
+            rep.close()
+        raw = store.get("__hb__/serving-fleet/0")
+        assert struct.unpack("<d", raw)[0] == float("inf")
+    finally:
+        store.close()
 
 
 # ---------------------------------------------------------------------------

@@ -138,13 +138,18 @@ def test_allocator_all_or_nothing_and_scheduler_limits():
 
 
 def test_unported_options_raise(models):
-    """The disaggregated roles are not ported; LoRA serving is, and an
-    adapter store built for another model instance is refused."""
+    """The disaggregated roles are ported: prefill and decode build an
+    engine and an unknown role raises ValueError, as in JAX; an adapter
+    store built for another model instance is refused."""
     from paddle_tpu_torch.lora import AdapterStore
 
     _, tm = models
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(tm, ServingConfig(**ENGINE, role="decode"),
+    for role in ("prefill", "decode"):
+        eng = ServingEngine(tm, ServingConfig(**ENGINE, role=role),
+                            device="cpu")
+        assert eng.stats()["role"] == role
+    with pytest.raises(ValueError, match="serving_role"):
+        ServingEngine(tm, ServingConfig(**ENGINE, role="bogus"),
                       device="cpu")
     other = LlamaForCausalLM(llama_tiny_config(num_key_value_heads=2),
                              device="cpu", seed=1)
