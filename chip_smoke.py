@@ -269,6 +269,21 @@ bit-unchanged; rank 16 at the 7B width, 3 layers, 2 + 4 steps, then the
 exported adapter served with every grouped-matmul call held to its plain
 version).
 
+Since the fleet slice (hybrid parallelism, a process a rank on
+``torch.distributed``): ``fleet_cuda_vs_cpu`` (4 gloo ranks on the card
+against the same ranks on the CPU, phase 6's tiny model at dp 2 x mp 2
+and mp 2 x sharding 2 with ZeRO-1 and ZeRO-2, 3 steps: losses and the
+parameters gathered over mp by phase 6's rule, the CPU ranks against a
+single-process step, every vocab-parallel ce_stats call against its plain
+version; a world of one on nccl against the single-process step on the
+card; two ranks on the card asking for nccl must raise) and
+``fleet_full_width`` (phase 7's model at mp 2 x sharding 2, ZeRO-1, 4
+gloo ranks time-sharing the card, 2 + 4 steps: per rank step ms, peak
+memory, flash and CE launches, collective calls, bytes and host ms a step; the
+first loss against the single-rank model's, every CE call against its
+plain version). A rank that fails or outlives its group's timeout fails
+the phase.
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -6376,6 +6391,589 @@ def phase_lora_train_full_width(args, report):
         raise AssertionError("; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# fleet: hybrid parallelism, a process a rank (ROADMAP A8, first part)
+# ---------------------------------------------------------------------------
+
+FLEET_LR = 1e-3              # the tiny CUDA-vs-CPU layouts (phase 6's lr)
+FLEET_SMALL_TIMEOUT_S = 300  # each spawned group (ranks reach the card,
+FLEET_FULL_TIMEOUT_S = 480   # gloo carries CUDA tensors through the host)
+FLEET_LAYOUTS = {
+    "dp2_mp2": ({"dp": 2, "mp": 2}, None, 1),
+    "mp2_sharding2_zero1": ({"mp": 2, "sharding": 2}, "sharding", 1),
+    "mp2_sharding2_zero2": ({"mp": 2, "sharding": 2}, "sharding", 2)}
+FLEET_WARMUP, FLEET_STEPS = 2, 4   # the full-width run: 2 + 4 steps
+# the full-width run against the single-rank model: its first two losses
+# and its gradient norms of steps 0 and 1, relative. Sound runs read at
+# most 3.0e-5 (losses) and 3.7e-5 (norms); a planted fault (mp rank 1
+# dropping layer 0's o_proj all-reduce; sharding rank 1 dropping its
+# update) reads 1.7e-4 and 2.5e-4 at the least (tools/fleet_gate_probe.py)
+FLEET_LOSS_RTOL = 7e-5
+FLEET_GNORM_RTOL = 1e-4
+CE_BWD_FP64_FLOOR = 8.0            # see _CeCalls
+
+
+class _CeCalls:
+    """Holds every ``ce_stats``/``ce_bwd`` kernel call of this process to
+    its plain version on the same inputs: ce_stats' m, lse and t within
+    CE_TOL and sl within CE_SL_TOL * V (the kernels phase's rule); the
+    backward's dx and dW (bf16 inputs: the kernels) each row within
+    CE_BWD_RTOL of its max |ref| (TF32 off). Every backward call is also
+    run in fp64 on the same inputs (the witness), and both versions'
+    distances from it are recorded in the row rule's measure; a call
+    that misses the rule against the plain version passes if the kernel
+    is within it of the fp64 result, or, where the fp32 plain version
+    itself is past it (a batch the model has memorised: p within
+    rounding of 1, d-logits all rounding), within CE_BWD_FP64_FLOOR
+    times the plain version's distance (the worst ratio read there was
+    3.6, ``tools/fleet_gate_probe.py``). While ``defer`` is set the
+    inputs and outputs are kept and checked by ``check_deferred()``, so
+    timed steps carry no reference work. The references launch no
+    kernel, so they add no launch."""
+
+    def __init__(self):
+        from paddle_tpu_torch.ops.cuda import fused_ce as fc
+
+        self.fc = fc
+        self.real = (fc.ce_stats, fc.ce_bwd)
+        self.defer = False
+        self.pending = []
+        self.out = {name: {"calls": 0, "worst": 0.0, "ok": True, "errs": []}
+                    for name in ("ce_stats", "ce_bwd")}
+        self.out["ce_bwd"]["fp64"] = []
+        fc.ce_stats, fc.ce_bwd = self._stats, self._bwd
+
+    def restore(self):
+        self.fc.ce_stats, self.fc.ce_bwd = self.real
+
+    def _queue(self, job):
+        if self.defer:
+            self.pending.append(job)
+        else:
+            self._check(job)
+
+    def _stats(self, x, w, labels):
+        got = self.real[0](x, w, labels)
+        if x.is_cuda:
+            self._queue(("ce_stats", (x.detach().clone(), w.detach().clone(),
+                                      labels.clone()), {}, got))
+        return got
+
+    def _bwd(self, x, w, labels, lse, ct, ignore_index=-100,
+             label_smoothing=0.0, z_loss=0.0, chunk_tokens=0, v_total=0):
+        import torch
+
+        args = (x, w, labels, lse, ct, ignore_index, label_smoothing, z_loss,
+                chunk_tokens)
+        got = self.real[1](*args, v_total=v_total)
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            # the caller sums dx over mp in place after this returns
+            kept = (got[0].clone(), got[1]) if self.defer else got
+            self._queue(("ce_bwd", tuple(
+                a.detach().clone() if isinstance(a, torch.Tensor) else a
+                for a in args), {"v_total": v_total}, kept))
+        return got
+
+    def _check(self, job):
+        import torch
+
+        name, args, kw, got = job
+        fc, rec = self.fc, self.out[name]
+        if name == "ce_stats":
+            x, w, labels = args
+            ref = fc.ce_stats_reference(x, w, labels)
+            lse_g = got[0] + torch.log(got[1])
+            lse_r = ref[0] + torch.log(ref[1])
+            err = max((got[0] - ref[0]).abs().max().item(),
+                      (lse_g - lse_r).abs().max().item(),
+                      (got[2] - ref[2]).abs().max().item())
+            err_sl = (got[3] - ref[3]).abs().max().item()
+            ok = err <= CE_TOL and err_sl <= CE_SL_TOL * w.shape[0]
+        else:
+            ref = fc.ce_bwd_reference(*args, v_total=kw["v_total"])
+            x, w, labels, lse, ct = args[:5]
+            ref64 = fc.ce_bwd_reference(x.double(), w.double(), labels,
+                                        lse.double(), ct.double(), *args[5:],
+                                        v_total=kw["v_total"])
+            err, ok, wit = 0.0, True, {}
+            for part, g, r, r64 in (("dx", got[0], ref[0], ref64[0]),
+                                    ("dw", got[1], ref[1], ref64[1])):
+                e, ok_row = _row_rule(g, r, CE_BWD_RTOL)
+                e_k = _row_rule(g, r64, CE_BWD_RTOL)[0]
+                e_p = _row_rule(r, r64, CE_BWD_RTOL)[0]
+                wit[part] = {"vs_plain": e, "kernel_vs_fp64": e_k,
+                             "plain_vs_fp64": e_p}
+                err = max(err, e)
+                ok = ok and (ok_row or e_k <= CE_BWD_RTOL or (
+                    e_p > CE_BWD_RTOL and e_k <= CE_BWD_FP64_FLOOR * e_p))
+            rec["fp64"].append(wit)
+            del ref64
+        rec["calls"] += 1
+        rec["errs"].append(err)
+        rec["worst"] = max(rec["worst"], err)
+        rec["ok"] = rec["ok"] and ok
+
+    def check_deferred(self):
+        pending, self.pending = self.pending, []
+        for job in pending:
+            self._check(job)
+
+
+def _fleet_named(cfg, seed):
+    """A seeded port LLaMA's parameters in the JAX package's layout (what
+    ``models.convert`` shards)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import _to_port_layout
+
+    m = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    return {n: _to_port_layout(n, p.detach().numpy().copy())
+            for n, p in m.named_parameters()}
+
+
+def _rank_out(out_dir, name, obj):
+    import pickle
+
+    with open(os.path.join(out_dir, name), "wb") as fh:
+        pickle.dump(obj, fh)
+
+
+def _rank_in(out_dir, name):
+    import pickle
+
+    with open(os.path.join(out_dir, name), "rb") as fh:
+        return pickle.load(fh)
+
+
+def _fleet_small_rank(out_dir):
+    """One gloo rank of ``fleet_cuda_vs_cpu``: each layout on cuda:0 then
+    on the CPU, 3 steps from the same shards."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import from_paddle_tpu_params
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    env = dist.init_parallel_env(backend="gloo")
+    named, batch = _rank_in(out_dir, "inputs.pkl")
+    cfg = _tiny_gqa_config()
+    ce = _CeCalls()
+    out = {"rank": env.rank,
+           "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend(), "layouts": {}}
+    launches = {}
+    for label, (axes, zero_axis, stage) in FLEET_LAYOUTS.items():
+        out["layouts"][label] = {}
+        for dev in ("cuda", "cpu"):
+            fleet.reset()
+            mesh = build_mesh(axes)
+            model = from_paddle_tpu_params(named, cfg, device=dev)
+            opt = AdamW(learning_rate=FLEET_LR,
+                        parameters=model.parameters(), weight_decay=0.01)
+            step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
+                             mesh=mesh, zero_axis=zero_axis,
+                             zero_stage=stage)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                port_cuda.reset_launch_counts()
+            losses = [float(step(batch)) for _ in range(3)]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                for k, n in port_cuda.launch_counts().items():
+                    launches[k] = launches.get(k, 0) + n
+            out["layouts"][label][dev] = {
+                "coord": mesh.coord(), "losses": losses,
+                "grad_norm": step.last_metrics()["grad_norm"],
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}}
+            del step, opt, model
+    ce.restore()
+    out["launches"] = launches
+    out["ce_calls"] = ce.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def _fleet_nccl_rank(out_dir):
+    """A world of one on nccl: c10d collectives on the card, then 3
+    TrainStep(mesh=) steps."""
+    import torch
+    import torch.distributed as tdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import from_paddle_tpu_params
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    dist.init_parallel_env(backend="nccl")
+    t = torch.arange(4.0, device="cuda")
+    tdist.all_reduce(t)
+    tdist.broadcast(t, 0)
+    tdist.barrier()
+    named, batch = _rank_in(out_dir, "inputs.pkl")
+    model = from_paddle_tpu_params(named, _tiny_gqa_config(), device="cuda")
+    opt = AdamW(learning_rate=FLEET_LR, parameters=model.parameters(),
+                weight_decay=0.01)
+    step = TrainStep(model, _fused_loss, opt, mesh=build_mesh({"dp": 1}))
+    losses = [float(step(batch)) for _ in range(3)]
+    _rank_out(out_dir, "nccl.pkl", {
+        "backend": collective.get_backend(), "all_reduce": t.tolist(),
+        "losses": losses, "params": {n: p.detach().cpu()
+                                     for n, p in model.named_parameters()}})
+    dist.destroy_process_group()
+
+
+def _fleet_nccl_shared_rank(out_dir):
+    """One of two ranks on one card asking for nccl, then for the default:
+    each call must raise before joining any group."""
+    from paddle_tpu_torch import distributed as dist
+
+    msgs = []
+    for backend in ("nccl", None):
+        try:
+            dist.init_parallel_env(backend=backend)
+            msgs.append("joined")
+        except ValueError as e:
+            msgs.append(str(e))
+    _rank_out(out_dir, "shared" + os.environ["PADDLE_TRAINER_ID"], msgs)
+
+
+def phase_fleet_cuda_vs_cpu(seed, report):
+    """4 gloo ranks on cuda:0 against the same 4 ranks on the CPU: phase
+    6's tiny fp32 LLaMA (mp 2 splits its 4 heads, 2 kv heads, 1024
+    intermediate and 1024 vocab), 3 AdamW steps at dp 2 x mp 2 and mp 2 x
+    sharding 2 (ZeRO-1, ZeRO-2) on one packed 4 x 256 batch: per-step
+    losses within 1e-4 relative and the parameters gathered over mp within
+    lr (phase 6's rule); the CPU ranks' losses within 1e-5 relative and
+    parameters within lr of a single-process CPU TrainStep; every
+    vocab-parallel ce_stats call
+    held to its plain version. Then a world of one on nccl against the
+    single-process TrainStep on the card (the fp32 rule: losses 1e-6
+    relative, parameters 1e-6), and two ranks on the card asking for nccl
+    (and for the default backend): both must raise."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import (from_paddle_tpu_params,
+                                         gather_paddle_tpu_params)
+    from paddle_tpu_torch.models.convert import _to_port_layout
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = _tiny_gqa_config()
+    named = _fleet_named(cfg, seed)
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 4)
+    tmp = tempfile.mkdtemp(prefix="fleet_small_")
+    _rank_out(tmp, "inputs.pkl", (named, batch))
+    single = {}
+    for dev in ("cpu", "cuda"):
+        model = from_paddle_tpu_params(named, cfg, device=dev)
+        opt = AdamW(learning_rate=FLEET_LR, parameters=model.parameters(),
+                    weight_decay=0.01)
+        step = TrainStep(model, _fused_loss, opt)
+        single[dev] = ([float(step(batch)) for _ in range(3)],
+                       {n: p.detach().cpu()
+                        for n, p in model.named_parameters()})
+    t0 = time.perf_counter()
+    spawn(_fleet_small_rank, (tmp,), nprocs=4, timeout=FLEET_SMALL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    bad = []
+    out = {"gloo_s": gloo_s, "layouts": {}, "launches": {},
+           "ce_calls": [r["ce_calls"] for r in ranks],
+           "devices": [r["device"] for r in ranks],
+           "tolerance": {"loss_rel": 1e-4, "param": FLEET_LR,
+                         "cpu_vs_single_loss_rel": 1e-5,
+                         "cpu_vs_single_param": FLEET_LR}}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        if r["backend"] != "gloo" or r["device"] != "cuda:0":
+            bad.append(f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"]:
+                bad.append(f"rank {r['rank']} {name} off its plain version "
+                           f"({rec['worst']:.3g})")
+        if r["ce_calls"]["ce_stats"]["calls"] == 0:
+            bad.append(f"rank {r['rank']}: no ce_stats call checked")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_stats"):
+        if not out["launches"].get(k):
+            bad.append(f"{k} not launched by the ranks")
+    for label, (axes, _, _) in FLEET_LAYOUTS.items():
+        mp = axes.get("mp", 1)
+        full = {dev: gather_paddle_tpu_params(
+            [ranks[i]["layouts"][label][dev]["params"] for i in range(mp)])
+            for dev in ("cuda", "cpu")}
+        losses = {dev: ranks[0]["layouts"][label][dev]["losses"]
+                  for dev in ("cuda", "cpu")}
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses["cuda"], losses["cpu"]))
+        p_err = max(float(abs(full["cuda"][n] - full["cpu"][n]).max())
+                    for n in full["cpu"])
+        s_err = max(float((torch.from_numpy(_to_port_layout(
+            n, full["cpu"][n]).copy()) - single["cpu"][1][n]).abs().max())
+            for n in full["cpu"])
+        s_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(losses["cpu"], single["cpu"][0]))
+        out["layouts"][label] = {
+            "losses": losses, "loss_rel_err": loss_rel,
+            "param_max_abs_err": p_err, "cpu_vs_single_param_err": s_err,
+            "cpu_vs_single_loss_rel": s_loss,
+            "grad_norm": {d: ranks[0]["layouts"][label][d]["grad_norm"]
+                          for d in ("cuda", "cpu")}}
+        if not (loss_rel <= 1e-4 and p_err <= FLEET_LR
+                and s_err <= FLEET_LR and s_loss <= 1e-5):
+            bad.append(f"{label}: loss {loss_rel:.3g}, params {p_err:.3g}, "
+                       f"CPU vs single {s_err:.3g} / {s_loss:.3g}")
+    # a world of one on nccl against the single-process step on the card
+    spawn(_fleet_nccl_rank, (tmp,), nprocs=1, timeout=FLEET_SMALL_TIMEOUT_S)
+    nccl = _rank_in(tmp, "nccl.pkl")
+    n_loss = max(abs(a - b) / abs(b)
+                 for a, b in zip(nccl["losses"], single["cuda"][0]))
+    n_err = max(float((p - single["cuda"][1][n]).abs().max())
+                for n, p in nccl["params"].items())
+    out["nccl_world_one"] = {
+        "backend": nccl["backend"], "all_reduce": nccl["all_reduce"],
+        "losses": nccl["losses"], "single": single["cuda"][0],
+        "loss_rel_err": n_loss, "param_max_abs_err": n_err,
+        "bit_equal": n_err == 0.0 and nccl["losses"] == single["cuda"][0]}
+    if not (nccl["backend"] == "nccl" and n_loss <= 1e-6 and n_err <= 1e-6
+            and nccl["all_reduce"] == [0.0, 1.0, 2.0, 3.0]):
+        bad.append(f"nccl world of one: {nccl['backend']}, loss "
+                   f"{n_loss:.3g}, params {n_err:.3g}")
+    # two ranks on one card: nccl (and the default) must raise
+    spawn(_fleet_nccl_shared_rank, (tmp,), nprocs=2,
+          timeout=FLEET_SMALL_TIMEOUT_S)
+    shared = [_rank_in(tmp, f"shared{r}") for r in range(2)]
+    out["nccl_shared_card"] = shared
+    if not all(len(m) == 2 and all("backend='gloo'" in x for x in m)
+               for m in shared):
+        bad.append(f"nccl on a shared card did not raise: {shared}")
+    report["fleet_cuda_vs_cpu"] = out
+    print("fleet_cuda_vs_cpu: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"fleet_cuda_vs_cpu: {bad}")
+
+
+def _fleet_full_rank(out_dir, seed):
+    """One gloo rank of ``fleet_full_width``: the 7B width at mp 2 x
+    sharding 2 (ZeRO-1) from phase 7's weights, sharded; 2 warm-up steps
+    with every CE call checked at once, 4 timed steps whose CE calls are
+    checked after the timing."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.models.convert import mp_split_axis
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    env = dist.init_parallel_env(backend="gloo")
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+        state = {n: p.detach() for n, p in full.named_parameters()}
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"mp_degree": 2, "sharding_degree": 2}
+        strategy.sharding_configs = {"stage": 1}
+        hcg = fleet.init(strategy=strategy)
+        model = LlamaForCausalLM(cfg, device="cuda")
+        mp = hcg.get_model_parallel_group()
+        for n, p in model.named_parameters():
+            src, ax = state[n], mp_split_axis(n)
+            if ax is not None:
+                k = src.shape[ax] // mp.nranks
+                src = src.narrow(ax, mp.rank * k, k)
+            p.copy_(src)
+        del full, state
+    torch.cuda.empty_cache()
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
+                     mesh=hcg.mesh, zero_axis="sharding", zero_stage=1)
+    batches = _rank_in(out_dir, "batches.pkl")
+    ce = _CeCalls()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, warm_grad_norms = [], []
+    for b in batches[:FLEET_WARMUP]:
+        losses.append(float(step(b)))
+        warm_grad_norms.append(step.last_metrics()["grad_norm"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce.defer = True
+    collective.reset_stats()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    times = []
+    for b in batches[FLEET_WARMUP:]:
+        t1 = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    launches = port_cuda.launch_counts()     # ... and ends here
+    comm = collective.stats()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ce.defer = False
+    ce.check_deferred()
+    ce.restore()
+    _rank_out(out_dir, f"rank{env.rank}.pkl", {
+        "rank": env.rank, "coord": hcg.mesh.coord(),
+        "device": str(dist.parallel.current_device()),
+        "backend": collective.get_backend(), "setup_s": setup_s,
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "median_step_ms": statistics.median(times) * 1e3,
+        "peak_mem_gb": peak, "launches": launches,
+        "launches_per_step": {k: n / FLEET_STEPS
+                              for k, n in launches.items() if n},
+        "collective_calls_per_step": {k: n / FLEET_STEPS for k, n in
+                                      comm["calls"].items()},
+        "collective_bytes_per_step": {k: n / FLEET_STEPS for k, n in
+                                      comm["bytes"].items()},
+        "collective_host_ms_per_step": {k: v * 1e3 / FLEET_STEPS for k, v in
+                                        comm["seconds"].items()},
+        "warm_grad_norms": warm_grad_norms,
+        "grad_norm": step.last_metrics()["grad_norm"],
+        "ce_calls": ce.out})
+    dist.destroy_process_group()
+
+
+def _fleet_full_batches(cfg, seed):
+    """fleet_full_width's batches: step t's two rows (a sharding rank
+    each), step 0's first row phase 7's batch; every 97th label ignored
+    and every 101st set 100 below mp rank 1's vocab shard (where a plain
+    shift would land on ignore_index)."""
+    import numpy as np
+
+    batches = []
+    for t in range(FLEET_WARMUP + FLEET_STEPS):
+        ids = np.concatenate([np.random.RandomState(s).randint(
+            1, cfg.vocab_size, (1, TRAIN_SEQ + 1))
+            for s in (seed + 2 * t, seed + 2 * t + 1)])
+        labels = ids[:, 1:].copy()
+        labels[:, ::97] = -100
+        labels[:, 5::101] = cfg.vocab_size // 2 - 100
+        batches.append({"input_ids": ids[:, :-1], "labels": labels})
+    return batches
+
+
+def phase_fleet_full_width(args, report):
+    """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
+    seq 4096, AdamW, the fused head loss) at mp 2 x sharding 2 (ZeRO-1):
+    4 gloo ranks on the one card, 1 x 4096 tokens a rank, a fresh batch a
+    step (``_fleet_full_batches``), 2 + 4 steps. Per rank: step ms, peak
+    memory, the flash and CE launches and the collectives' calls, bytes
+    and host ms a step. These times are 4 ranks time-sharing one card
+    through gloo, no multi-GPU figure. Gates, against the single-rank
+    model on the same weights and rows (phase 7's model, seeded alike),
+    on every rank: the first loss and the second (after one AdamW step)
+    within FLEET_LOSS_RTOL, the global gradient norms of steps 0 and 1
+    within FLEET_GNORM_RTOL; every CE call of
+    every rank within its plain version's rule (``_CeCalls``), the
+    kernels launched every step, finite losses."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    batches = _fleet_full_batches(cfg, args.seed)
+    # the single-rank model on the same weights and rows: 2 steps
+    ref = LlamaForCausalLM(cfg, device="cuda", seed=args.seed)
+    ref_step = TrainStep(ref, _fused_loss, AdamW(
+        learning_rate=TRAIN_LR, parameters=ref.parameters(),
+        weight_decay=0.01, multi_precision=True), collect_metrics=True)
+    ref_losses, ref_gnorms = [], []
+    for b in batches[:2]:
+        ref_losses.append(float(ref_step(b)))
+        ref_gnorms.append(ref_step.last_metrics()["grad_norm"])
+    ref_loss = ref_losses[0]
+    del ref, ref_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="fleet_full_")
+    _rank_out(tmp, "batches.pkl", batches)
+    t0 = time.perf_counter()
+    spawn(_fleet_full_rank, (tmp, args.seed), nprocs=4,
+          timeout=FLEET_FULL_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    launches = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    first = ranks[0]["losses"][0]
+
+    def worst(read, want):
+        return max(abs(read(r) - want) / abs(want) for r in ranks)
+
+    out = {"layers": cfg.num_hidden_layers, "seq": TRAIN_SEQ,
+           "layout": "mp 2 x sharding 2, ZeRO-1, 4 gloo ranks on one card",
+           "wall_s": wall_s, "ref_first_loss": ref_loss,
+           "ref_losses": ref_losses, "ref_grad_norms": ref_gnorms,
+           "first_loss_rel_err": worst(lambda r: r["losses"][0], ref_loss),
+           "second_loss_rel_err": worst(lambda r: r["losses"][1],
+                                        ref_losses[1]),
+           "grad_norm_rel_errs": [
+               worst(lambda r: r["warm_grad_norms"][i], ref_gnorms[i])
+               for i in range(2)],
+           "launches": launches,
+           "ranks": [{k: v for k, v in r.items() if k != "launches"}
+                     for r in ranks]}
+    report["fleet_full_width"] = out
+    for r in out["ranks"]:
+        print(f"fleet full width rank {r['rank']} {r['coord']} "
+              f"({report.get('gpu')}; 4 ranks time-sharing one card "
+              f"through gloo): " + json.dumps(r), flush=True)
+    print("fleet full width: " + json.dumps(
+        {k: v for k, v in out.items() if k != "ranks"}), flush=True)
+    bad = []
+    if not out["first_loss_rel_err"] <= FLEET_LOSS_RTOL:
+        bad.append(f"first loss {first} vs the single rank's {ref_loss}")
+    if not out["second_loss_rel_err"] <= FLEET_LOSS_RTOL:
+        bad.append(f"second loss {ranks[0]['losses'][1]} vs the single "
+                   f"rank's {ref_losses[1]}")
+    if not max(out["grad_norm_rel_errs"]) <= FLEET_GNORM_RTOL:
+        bad.append(f"grad norms {ranks[0]['warm_grad_norms']} vs the "
+                   f"single rank's {ref_gnorms}")
+    layers = cfg.num_hidden_layers
+    need = {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "ce_stats": 1, "ce_bwd": 1}
+    for r in ranks:
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"rank {r['rank']}: non-finite loss {r['losses']}")
+        short = {k: n for k, n in need.items()
+                 if r["launches_per_step"].get(k, 0) < n}
+        if short:
+            bad.append(f"rank {r['rank']}: kernels short a step {short}")
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"] or rec["calls"] != FLEET_WARMUP + FLEET_STEPS:
+                bad.append(f"rank {r['rank']} {name}: {rec}")
+    if bad:
+        raise AssertionError(f"fleet_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -6383,7 +6981,10 @@ def kernels_line(report):
     disaggregation slice also the disaggregated serves (tiny and 7B: the
     decode thread's and the prefill workers' launches together), the
     routed serve over the HTTP replica and the LoRA training steps), each
-    read around its run. gmm_fwd is the bf16 forward kernel (its row the h1 case),
+    read around its run; since the fleet slice also the fleet phases'
+    ranks (the tiny layouts' CUDA steps and the full-width run's timed
+    steps, summed over the 4 ranks). gmm_fwd is the bf16 forward kernel
+    (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
     three kernels its C entry launches. ce_bwd (the fused-CE backward,
@@ -6413,7 +7014,9 @@ def kernels_line(report):
              report.get("full_width_router", {}).get("http", {})
              .get("launches", {}),
              report.get("lora_train_cuda_vs_cpu", {}).get("launches", {}),
-             report.get("lora_train_full_width", {}).get("launches", {})]
+             report.get("lora_train_full_width", {}).get("launches", {}),
+             report.get("fleet_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("fleet_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -6667,6 +7270,12 @@ def main(argv=None) -> int:
                ("paddle_api_full_width",
                 lambda: (free_memory(),
                          phase_paddle_api_full_width(args, report))),
+               ("fleet_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_fleet_cuda_vs_cpu(args.seed, report))),
+               ("fleet_full_width",
+                lambda: (free_memory(),
+                         phase_fleet_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
     only = [n for n in args.only.split(",") if n]

@@ -1,4 +1,25 @@
-"""Distributed utilities of the port (``paddle_tpu.distributed``
-counterpart); ported so far: the fault-injection registry
-(``resilience.faults``) and the TCPStore with rank heartbeats
-(``store``)."""
+"""Distributed training of the port (``paddle_tpu.distributed``
+counterpart): one OS process per rank on ``torch.distributed``.
+
+``init_parallel_env`` joins the process group of the launch contract
+(rendezvous on the port's ``TCPStore``, ``store``); ``collective`` holds
+the collectives over ``Group``s; ``mesh`` the rank grid with a process
+group per axis; ``parallel.DataParallel`` and ``reducer`` the bucketed
+gradient averaging; ``spawn`` starts ranks; ``fleet`` (import it as
+``paddle_tpu_torch.distributed.fleet``) is hybrid parallelism: the
+topology, the tensor-parallel layers, ZeRO-1/2 and the hybrid optimizer.
+Also here: the fault-injection registry (``resilience.faults``) and the
+rank heartbeats (``store``).
+"""
+from paddle_tpu_torch.distributed.collective import (  # noqa: F401
+    P2POp, ReduceOp, all_gather, all_gather_object, all_reduce, all_to_all,
+    all_to_all_single, barrier, batch_isend_irecv, broadcast,
+    broadcast_object_list, destroy_process_group, gather, get_group, irecv,
+    is_available, isend, monitored_barrier, new_group, partial_allgather,
+    partial_recv, partial_send, recv, reduce, reduce_scatter, scatter,
+    scatter_object_list, send, stream, wait)
+from paddle_tpu_torch.distributed.env import (  # noqa: F401
+    ParallelEnv, get_rank, get_world_size)
+from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
+    DataParallel, get_backend, init_parallel_env, is_initialized)
+from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401

@@ -1,0 +1,160 @@
+"""Fleet, the hybrid-parallel facade (``paddle_tpu.distributed.fleet``
+counterpart; reference: python/paddle/distributed/fleet, ``Fleet`` at
+fleet/fleet.py:100, ``init`` :167, ``distributed_optimizer`` :1326,
+fleet/model.py:140).
+
+``init(strategy=...)`` builds the ``HybridCommunicateGroup`` of the
+strategy's degrees over the joined process group (``init_parallel_env``
+first; a world of one needs none); calling it again builds another.
+``distributed_model`` applies the strategy's amp and recompute passes,
+then wraps by parallel mode: ``DataParallel`` over the dp group in data
+(and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode;
+a pipeline (pp > 1) raises (ROADMAP A8). ``distributed_optimizer`` wraps
+with ``HybridParallelOptimizer`` (dp averaging, the hybrid clip, ZeRO-1/2
+at ``sharding_configs["stage"]``, gradient merge).
+"""
+from __future__ import annotations
+
+from paddle_tpu_torch.distributed.fleet.base.distributed_strategy import (  # noqa: F401
+    DistributedStrategy)
+from paddle_tpu_torch.distributed.fleet.rng import get_rng_state_tracker  # noqa: F401
+from paddle_tpu_torch.distributed.fleet.topology import (  # noqa: F401
+    CommunicateTopology, HybridCommunicateGroup, ParallelMode)
+
+__all__ = ["DistributedStrategy", "init", "fleet",
+           "get_hybrid_communicate_group", "distributed_model",
+           "distributed_optimizer", "get_rng_state_tracker", "worker_index",
+           "worker_num", "barrier_worker", "ParallelMode", "utils",
+           "meta_parallel", "PP_NOT_PORTED"]
+
+PP_NOT_PORTED = ("the pipeline (pp > 1) is not ported yet (ROADMAP A8)")
+
+_hcg: list = [None]
+_strategy: list = [None]
+
+
+def init(role_maker=None, is_collective=True, strategy=None,
+         log_level="INFO"):
+    """reference fleet/fleet.py:167."""
+    strategy = strategy or DistributedStrategy()
+    _strategy[0] = strategy
+    hc = strategy.hybrid_configs
+    topo = CommunicateTopology(
+        hybrid_group_names=["pipe", "data", "sharding", "sep", "model"],
+        dims=[hc["pp_degree"], hc["dp_degree"], hc["sharding_degree"],
+              hc["sep_degree"], hc["mp_degree"]])
+    _hcg[0] = HybridCommunicateGroup(topo)
+    return _hcg[0]
+
+
+def get_hybrid_communicate_group() -> HybridCommunicateGroup:
+    if _hcg[0] is None:
+        init()
+    return _hcg[0]
+
+
+def get_strategy() -> DistributedStrategy:
+    return _strategy[0] or DistributedStrategy()
+
+
+def reset():
+    """Forget the hcg and the strategy (the next ``init`` builds anew)."""
+    _hcg[0] = None
+    _strategy[0] = None
+
+
+def _apply_strategy_passes(model, strategy):
+    """The strategy's model passes (reference fleet/meta_optimizers' amp
+    and recompute): ``amp`` with ``use_pure_fp16`` casts the model to the
+    amp dtype (O2, ``amp.decorate``); ``recompute`` sets the model's
+    ``remat_policy`` to "full" on a ``layer_remat_capable`` model, whose
+    layer loop applies it (other models raise); ``TrainStep`` reads it
+    when given no ``remat`` of its own."""
+    if strategy is None:
+        return model
+    if getattr(strategy, "amp", False) and \
+            strategy.amp_configs.get("use_pure_fp16"):
+        from paddle_tpu_torch import amp
+
+        model = amp.decorate(model, level="O2",
+                             dtype=strategy.amp_configs.get("dtype",
+                                                            "bfloat16"))
+    if getattr(strategy, "recompute", False):
+        if not getattr(model, "layer_remat_capable", False):
+            raise NotImplementedError(
+                "strategy.recompute needs a layer_remat_capable model (its "
+                "layer loop applies the policy)")
+        model.remat_policy = "full"
+    return model
+
+
+def distributed_model(model):
+    """reference fleet/model.py:140: wrap by parallel mode after the
+    strategy's passes."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel \
+        import TensorParallel
+    from paddle_tpu_torch.distributed.parallel import DataParallel
+
+    hcg = get_hybrid_communicate_group()
+    strat = get_strategy()
+    model = _apply_strategy_passes(model, strat)
+    mode = hcg.get_parallel_mode()
+    if mode == ParallelMode.PIPELINE_PARALLEL:
+        raise NotImplementedError(PP_NOT_PORTED)
+    if mode == ParallelMode.TENSOR_PARALLEL:
+        return TensorParallel(model, hcg, strat)
+    # data (and sharding) parallel: the reducer averages over dp; the
+    # sharding optimizer reduces over the sharding group itself
+    return DataParallel(
+        model, group=hcg.get_data_parallel_group(),
+        comm_buffer_size=(getattr(strat, "fuse_grad_size_in_MB", 25)
+                          if getattr(strat, "fuse_all_reduce_ops", True)
+                          else 25),
+        last_comm_buffer_size=getattr(strat, "last_comm_group_size_MB", 1),
+        find_unused_parameters=getattr(strat, "find_unused_parameters",
+                                       False))
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """reference fleet/fleet.py:1326."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers.\
+        hybrid_parallel_optimizer import HybridParallelOptimizer
+
+    return HybridParallelOptimizer(optimizer, get_hybrid_communicate_group(),
+                                   strategy or get_strategy())
+
+
+def worker_index():
+    from paddle_tpu_torch.distributed.env import get_rank
+
+    return get_rank()
+
+
+def worker_num():
+    from paddle_tpu_torch.distributed.env import get_world_size
+
+    return get_world_size()
+
+
+def barrier_worker():
+    from paddle_tpu_torch.distributed.collective import barrier
+
+    barrier()
+
+
+class _FleetModule:
+    """``fleet.fleet`` object parity."""
+
+    init = staticmethod(init)
+    distributed_model = staticmethod(distributed_model)
+    distributed_optimizer = staticmethod(distributed_optimizer)
+    worker_index = staticmethod(worker_index)
+    worker_num = staticmethod(worker_num)
+    barrier_worker = staticmethod(barrier_worker)
+    get_hybrid_communicate_group = staticmethod(get_hybrid_communicate_group)
+
+
+fleet = _FleetModule()
+
+from paddle_tpu_torch.distributed.fleet import meta_parallel  # noqa: F401,E402
+from paddle_tpu_torch.distributed.fleet import utils  # noqa: F401,E402

@@ -13,7 +13,7 @@
 
 Token-choice routing (the gates of ``_route``) and expert-choice routing
 (each expert picks its top-C tokens). The expert-parallel all-to-all
-branches of the JAX package raise ``NotImplementedError`` (ROADMAP A9).
+branches of the JAX package raise ``NotImplementedError`` (ROADMAP A8).
 Each body returns ``(out [N, d], l_aux, dropped, counts [E], layout)``:
 the JAX contract plus ``layout = (gids [M] int32, block_rows)``, the
 bucket layout the grouped matmul ran over, which the visit counter reads.
@@ -30,7 +30,7 @@ from paddle_tpu_torch.ops.cuda.grouped_matmul import (grouped_matmul,
 
 __all__ = ["_dropless_moe", "_expert_choice_moe", "ragged_layout"]
 
-EP_NOT_PORTED = "expert parallelism (ep > 1) is not ported yet (ROADMAP A9)"
+EP_NOT_PORTED = "expert parallelism (ep > 1) is not ported yet (ROADMAP A8)"
 
 
 def _round_up(v, m):

@@ -17,8 +17,8 @@ drop, Switch's jitter) draws from a ``torch.Generator`` the layer holds,
 seeded by ``seed`` (``manual_seed``), never from a global RNG; the JAX
 package's threefry streams cannot be reproduced, so cross-package parity
 runs with deterministic gates. Expert parallelism (ep > 1) raises
-``NotImplementedError`` (ROADMAP A9); the observability registry waits for
-ROADMAP A10.
+``NotImplementedError`` (ROADMAP A8); publishing the MoE telemetry into the
+observability registry is ROADMAP A7.
 
 After each forward the layer keeps ``l_aux``, ``tokens_dropped`` and
 ``expert_counts`` as device tensors (and, on the dropless path,

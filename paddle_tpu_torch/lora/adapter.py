@@ -153,6 +153,9 @@ def attach(model, config: LoRAConfig | None = None,
     cfg = config or LoRAConfig()
     if int(cfg.rank) <= 0:
         raise ValueError(f"LoRA rank must be positive, got {cfg.rank}")
+    if getattr(model, "mp_group", None) is not None:
+        raise NotImplementedError("LoRA under tensor parallelism (mp > 1) "
+                                  "is not ported yet (ROADMAP A8)")
     if getattr(model, "_lora_host", None) is not None:
         raise ValueError("model already has a LoRA adapter attached; "
                          "detach() it first")

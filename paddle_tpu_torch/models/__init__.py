@@ -1,7 +1,9 @@
 """Models of the port (``paddle_tpu.models`` counterpart)."""
 from paddle_tpu_torch.models.convert import (fp8_state_from_paddle_tpu,
                                              from_paddle_tpu_params,
+                                             gather_paddle_tpu_params,
                                              optimizer_state_from_paddle_tpu,
+                                             shard_paddle_tpu_params,
                                              state_from_paddle_tpu)
 from paddle_tpu_torch.models.gpt import (GptConfig, GptForCausalLM,
                                          gpt_tiny_config)
@@ -17,4 +19,5 @@ __all__ = ["GptConfig", "GptForCausalLM", "gpt_tiny_config",
            "LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion",
            "llama_7b_config", "llama_tiny_config", "from_paddle_tpu_params",
            "optimizer_state_from_paddle_tpu", "fp8_state_from_paddle_tpu",
-           "state_from_paddle_tpu"]
+           "state_from_paddle_tpu", "shard_paddle_tpu_params",
+           "gather_paddle_tpu_params"]

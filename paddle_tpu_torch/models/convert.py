@@ -21,6 +21,14 @@ JAX LoRA adapter's factors onto the port's attached adapter (they keep the
 JAX layout, A [in, r] and B [r, out]; the serving ``AdapterStore`` reads a
 JAX-written adapter file itself).
 
+Under tensor parallelism (an hcg or rank mesh with mp > 1) a LLaMA holds
+its rank's shards: ``shard_paddle_tpu_params`` cuts the JAX package's
+full parameters into mp rank r's shards (PyTorch layout: q, k, v, gate,
+up, the head and the embedding by rows, o and down by columns, the norms
+whole), ``from_paddle_tpu_params`` loads them into a model built under
+the hcg, and ``gather_paddle_tpu_params`` puts the mp ranks' shards back
+together into the full, JAX-layout state.
+
 Models written on the Paddle API (``models/gpt.py``) keep Paddle's layout
 in both packages, so their weights move name for name:
 ``state_from_paddle_tpu`` reads a JAX ``Layer`` (or its ``state_dict()``)
@@ -38,7 +46,12 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
            "fp8_state_from_paddle_tpu", "lora_from_paddle_tpu",
-           "state_from_paddle_tpu"]
+           "state_from_paddle_tpu", "shard_paddle_tpu_params",
+           "gather_paddle_tpu_params", "mp_split_axis"]
+
+_COLUMN = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+           "gate_proj.weight", "up_proj.weight")
+_ROW = ("o_proj.weight", "down_proj.weight")
 
 
 def _to_port_layout(name: str, arr: np.ndarray) -> np.ndarray:
@@ -51,13 +64,64 @@ def _is_linear(name: str) -> bool:
     return name.endswith("_proj.weight") or name == "lm_head.weight"
 
 
+def mp_split_axis(name: str):
+    """The dim of LLaMA parameter `name` (PyTorch layout) that splits over
+    mp, or None for a replicated one."""
+    if name.endswith(_COLUMN) or name in ("lm_head.weight",
+                                          "llama.embed_tokens.weight"):
+        return 0
+    if name.endswith(_ROW):
+        return 1
+    return None
+
+
+def shard_paddle_tpu_params(named: dict, mp_rank: int, mp_degree: int):
+    """{name: mp rank `mp_rank`'s shard in PyTorch layout} of the JAX
+    package's full LLaMA parameters `named` (numpy, JAX layout): each
+    split dim cut into `mp_degree` contiguous blocks."""
+    out = {}
+    for name, arr in named.items():
+        arr = _to_port_layout(name, np.asarray(arr))
+        ax = mp_split_axis(name) if mp_degree > 1 else None
+        if ax is not None:
+            n = arr.shape[ax]
+            if n % mp_degree:
+                raise ValueError(f"{name}: dim {ax} ({n}) is not a multiple "
+                                 f"of the mp degree {mp_degree}")
+            k = n // mp_degree
+            arr = np.take(arr, range(mp_rank * k, (mp_rank + 1) * k),
+                          axis=ax)
+        out[name] = arr
+    return out
+
+
+def gather_paddle_tpu_params(shards) -> dict:
+    """The full JAX-layout parameters from the mp ranks' shards: `shards`
+    is one {name: array or tensor, PyTorch layout} a mp rank, in rank
+    order (numpy or torch; the result is numpy)."""
+    def as_np(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy() \
+                if v.dtype == torch.bfloat16 else v.detach().cpu().numpy()
+        return np.asarray(v)
+
+    out = {}
+    for name in shards[0]:
+        ax = mp_split_axis(name) if len(shards) > 1 else None
+        full = (as_np(shards[0][name]) if ax is None else
+                np.concatenate([as_np(s[name]) for s in shards], axis=ax))
+        out[name] = full.T if _is_linear(name) else full
+    return out
+
+
 @torch.no_grad()
 def from_paddle_tpu_params(named: dict, config: LlamaConfig | GptMoeConfig,
                            device=DEFAULT_DEVICE, dtype=None):
     """A port ``LlamaForCausalLM`` (or ``GptMoeForCausalLM`` for a
     ``GptMoeConfig``) on `device` loaded from `named` ({paddle_tpu
-    parameter name: np.ndarray}). Raises on a missing, unexpected or
-    misshapen name."""
+    parameter name: np.ndarray}). A LLaMA built under tensor parallelism
+    (mp > 1) loads its rank's shards (``shard_paddle_tpu_params``). Raises
+    on a missing, unexpected or misshapen name."""
     cls = (GptMoeForCausalLM if isinstance(config, GptMoeConfig)
            else LlamaForCausalLM)
     model = cls(config, device=device, dtype=dtype)
@@ -67,8 +131,12 @@ def from_paddle_tpu_params(named: dict, config: LlamaConfig | GptMoeConfig,
     if missing or extra:
         raise KeyError(f"parameter names differ: missing {missing[:5]}, "
                        f"unexpected {extra[:5]}")
+    group = getattr(model, "mp_group", None)
+    port = (shard_paddle_tpu_params(named, group.rank, group.nranks)
+            if group is not None else None)
     for name, p in params.items():
-        arr = _to_port_layout(name, np.asarray(named[name]))
+        arr = (port[name] if port is not None
+               else _to_port_layout(name, np.asarray(named[name])))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
                              f"fit {tuple(p.shape)}")

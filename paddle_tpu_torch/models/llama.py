@@ -2,12 +2,21 @@
 counterpart).
 
 Same module tree and parameter names as the JAX package, so
-``models.convert.from_paddle_tpu_params`` maps weights one to one. The
-fleet mp layers (Column/Row/VocabParallel) become plain single-device
-``torch.nn.Linear``/``Embedding``: this slice has no tensor parallelism.
-Linear weights are PyTorch's ``[out, in]``. The seven projections of a
-layer are `Projection`s, which add a LoRA adapter's delta when one is
-attached (training) or bound by the serving engine's ``AdapterStore``.
+``models.convert.from_paddle_tpu_params`` maps weights one to one.
+Linear weights are PyTorch's ``[out, in]``. Without tensor parallelism
+the seven projections of a layer are `Projection`s (a LoRA adapter's
+delta added when one is attached for training or bound by the serving
+engine's ``AdapterStore``), the embedding and the head plain
+``torch.nn.Embedding``/``Linear``. When the hcg's (or the rank mesh's)
+mp degree is above 1 they are the fleet mp layers instead
+(``distributed.fleet.layers.mpu.mp_layers``), as in the JAX package: q,
+k, v, gate and up ``ColumnParallelLinear``, o and down
+``RowParallelLinear``, the embedding ``VocabParallelEmbedding`` and the
+head a ``ColumnParallelLinear`` whose vocab shard stays local. The
+heads, the kv heads, the intermediate size and the vocabulary split into
+contiguous blocks per rank; the fused head loss is the vocab-parallel
+one, the logits are gathered over mp. LoRA, fp8 and serving under mp > 1
+raise (ROADMAP A8).
 
 Attention runs the port's hand-written Hopper kernels on CUDA tensors:
 prefill and training through the flash kernels (forward, and the dq/dkv
@@ -39,6 +48,9 @@ from paddle_tpu_torch.amp import apply_seam
 from paddle_tpu_torch.amp import fp8 as amp_fp8
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
+from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_layers
+from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import (
+    _c_concat, mp_group)
 from paddle_tpu_torch.lora import seam as lora_seam
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import TorchRMSNorm
@@ -158,6 +170,38 @@ def _linear(n_in, n_out, device, dtype):
     return Projection(n_in, n_out, bias=False, device=device, dtype=dtype)
 
 
+def _mp_degree() -> int:
+    g = mp_group()
+    return 1 if g is None else g.nranks
+
+
+def _column(n_in, n_out, device, dtype):
+    """A projection whose output features split over mp (a `Projection`
+    without tensor parallelism)."""
+    if _mp_degree() == 1:
+        return _linear(n_in, n_out, device, dtype)
+    return mp_layers.ColumnParallelLinear(n_in, n_out, has_bias=False,
+                                          gather_output=False, device=device,
+                                          dtype=dtype)
+
+
+def _row(n_in, n_out, device, dtype):
+    """A projection whose input features split over mp."""
+    if _mp_degree() == 1:
+        return _linear(n_in, n_out, device, dtype)
+    return mp_layers.RowParallelLinear(n_in, n_out, has_bias=False,
+                                       input_is_parallel=True, device=device,
+                                       dtype=dtype)
+
+
+def _per_rank(n: int, what: str) -> int:
+    mp = _mp_degree()
+    if n % mp:
+        raise ValueError(f"{what} {n} is not a multiple of the mp degree "
+                         f"{mp}")
+    return n // mp
+
+
 def write_kv_pages(cache, layer_idx, pidx, slot, k, v):
     """Write K/V ``[B, T, Hkv, D]`` into slots (pidx, slot: ``[B, T]``) of
     layer `layer_idx`'s pools, in place (``index_put_`` into the layer's
@@ -214,14 +258,16 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.config = config
         self.head_dim = config.hidden_size // config.num_attention_heads
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
+        # this rank's heads (all of them without tensor parallelism)
+        self.num_heads = _per_rank(config.num_attention_heads, "heads")
+        self.num_kv_heads = _per_rank(config.num_key_value_heads,
+                                      "kv heads")
         h = config.hidden_size
-        kv = self.num_kv_heads * self.head_dim
-        self.q_proj = _linear(h, h, device, dtype)
-        self.k_proj = _linear(h, kv, device, dtype)
-        self.v_proj = _linear(h, kv, device, dtype)
-        self.o_proj = _linear(h, h, device, dtype)
+        kv = config.num_key_value_heads * self.head_dim
+        self.q_proj = _column(h, h, device, dtype)
+        self.k_proj = _column(h, kv, device, dtype)
+        self.v_proj = _column(h, kv, device, dtype)
+        self.o_proj = _row(h, h, device, dtype)
         self._rope_limit = _rope_limit(config)
 
     def _qkv(self, x):
@@ -351,9 +397,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.gate_proj = _linear(h, m, device, dtype)
-        self.up_proj = _linear(h, m, device, dtype)
-        self.down_proj = _linear(m, h, device, dtype)
+        self.gate_proj = _column(h, m, device, dtype)
+        self.up_proj = _column(h, m, device, dtype)
+        self.down_proj = _row(m, h, device, dtype)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -391,9 +437,14 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, device=device,
-                                         dtype=dtype)
+        if _mp_degree() == 1:
+            self.embed_tokens = nn.Embedding(config.vocab_size,
+                                             config.hidden_size,
+                                             device=device, dtype=dtype)
+        else:
+            self.embed_tokens = mp_layers.VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, device=device,
+                dtype=dtype)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -412,7 +463,10 @@ class LlamaModel(nn.Module):
         return list(self.layers)
 
     def forward(self, input_ids, segment_ids=None, position_ids=None):
-        x = F.embedding(input_ids, self.embed_tokens.weight)
+        if isinstance(self.embed_tokens, nn.Embedding):
+            x = F.embedding(input_ids, self.embed_tokens.weight)
+        else:
+            x = self.embed_tokens(input_ids)
         rope = (self.rope_cos, self.rope_sin)
         ctx = current_layer_ctx()
         policy = ctx.policy if ctx is not None else flag("remat_policy")
@@ -452,11 +506,22 @@ class LlamaPretrainingCriterion(nn.Module):
 
     ignore_index = -100
 
-    def __init__(self, config: LlamaConfig):
+    def __init__(self, config: LlamaConfig, mp_group=None):
         super().__init__()
         self.parallel = config.use_parallel_cross_entropy
+        # logits and head weights are this rank's vocab shard when the
+        # group has more than one rank
+        self.mp_group = mp_group if mp_group is not None and \
+            mp_group.nranks > 1 else None
 
     def forward(self, logits, labels):
+        if self.mp_group is not None:
+            nll = mp_layers.vocab_parallel_nll(logits, labels, self.mp_group,
+                                               self.ignore_index)
+            if self.parallel:
+                return F.mean(nll)
+            valid = (labels != self.ignore_index).sum().clamp_min(1)
+            return nll.sum() / valid.to(nll.dtype)
         if self.parallel:
             return F.mean(F.parallel_cross_entropy(
                 logits, labels, ignore_index=self.ignore_index))
@@ -471,7 +536,8 @@ class LlamaPretrainingCriterion(nn.Module):
         reduction = "none" if self.parallel else "mean"
         loss = F.fused_linear_cross_entropy(
             hidden, lm_head.weight, labels, bias=lm_head.bias,
-            ignore_index=self.ignore_index, reduction=reduction)
+            ignore_index=self.ignore_index, reduction=reduction,
+            mp_group=self.mp_group)
         return F.mean(loss) if self.parallel else loss
 
 
@@ -490,10 +556,17 @@ class LlamaForCausalLM(nn.Module):
         dtype = dtype or config.torch_dtype
         self.config = config
         self.llama = LlamaModel(config, dev, dtype)
-        # not a LoRA target: a plain linear
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                 bias=False, device=dev, dtype=dtype)
-        self.criterion = LlamaPretrainingCriterion(config)
+        # not a LoRA target: a plain linear (the vocab shard under mp)
+        if _mp_degree() == 1:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                     bias=False, device=dev, dtype=dtype)
+            self.mp_group = None
+        else:
+            self.lm_head = mp_layers.ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, device=dev, dtype=dtype)
+            self.mp_group = self.lm_head.group
+        self.criterion = LlamaPretrainingCriterion(config, self.mp_group)
         if seed is not None:
             self.init_weights(seed)
 
@@ -520,7 +593,10 @@ class LlamaForCausalLM(nn.Module):
                             position_ids=position_ids)
         with amp_fp8.head_scope():
             if labels is None:
-                return F.linear(hidden, self.lm_head.weight)
+                logits = F.linear(hidden, self.lm_head.weight)
+                if self.mp_group is not None:
+                    logits = _c_concat(logits, self.mp_group)
+                return logits
             if flag("use_fused_head_loss"):
                 return self.criterion.forward_fused(hidden, self.lm_head,
                                                     labels)
@@ -535,6 +611,9 @@ class LlamaForCausalLM(nn.Module):
                        verify=False, segment_ids=None):
         """Serving decode/prefill/verify entry: (logits [B, T, vocab],
         cache)."""
+        if self.mp_group is not None:
+            raise NotImplementedError(mp_layers.MP_NOT_PORTED.format(
+                what="serving"))
         hidden, cache = self.llama.decode_forward(
             input_ids, cache, page_table, context_lens, position_ids,
             ctx_pad=ctx_pad, write_mask=write_mask, verify=verify,

@@ -46,7 +46,7 @@ from paddle_tpu_torch.ops.cuda.flash_attention import (FlashAttention,
 from paddle_tpu_torch.ops.cuda.fused_ce import (Fp8LinearCrossEntropy,
                                                 FusedLinearCrossEntropy)
 from paddle_tpu_torch.ops.manipulation import pad  # noqa: F401 (re-export)
-from paddle_tpu_torch.ops.random_state import default_generator
+from paddle_tpu_torch.ops.random_state import active_generator
 
 __all__ = [
     # activations
@@ -272,8 +272,8 @@ def maxout(x, groups, axis=1):
 
 def _keep_mask(x, p, shape):
     """Bernoulli(1 - p) of `shape` from the global generator's stream on
-    x's device."""
-    g = default_generator.torch_generator(x.device)
+    x's device (a fleet RNG tracker's, inside its ``rng_state`` scope)."""
+    g = active_generator(x.device)
     return torch.rand(shape, generator=g, device=x.device) < (1.0 - p)
 
 
@@ -517,7 +517,7 @@ def parallel_cross_entropy(input, label, ignore_index=-100,
 
 
 def _fused_linear_ce(x, weight, label, ignore_index, reduction,
-                     label_smoothing, z_loss, chunk_tokens):
+                     label_smoothing, z_loss, chunk_tokens, mp_group=None):
     _check_labels(label)
     x, weight, label = apply_seam("fused_linear_cross_entropy",
                                   (x, weight, label))
@@ -525,17 +525,26 @@ def _fused_linear_ce(x, weight, label, ignore_index, reduction,
         label = label.squeeze(-1)
     flat = x.reshape(-1, x.shape[-1])
     labf = label.reshape(-1)
-    fn = (Fp8LinearCrossEntropy if _fp8.head_fp8_enabled()
-          else FusedLinearCrossEntropy)
-    nll = fn.apply(flat, weight, labf, ignore_index, label_smoothing,
-                   z_loss, chunk_tokens)
+    if mp_group is not None and mp_group.nranks > 1:
+        if _fp8.head_fp8_enabled():
+            raise NotImplementedError("the fp8 head loss under tensor "
+                                      "parallelism (mp > 1) is not ported "
+                                      "yet (ROADMAP A8)")
+        nll = FusedLinearCrossEntropy.apply(
+            flat, weight, labf, ignore_index, label_smoothing, z_loss,
+            chunk_tokens, mp_group)
+    else:
+        fn = (Fp8LinearCrossEntropy if _fp8.head_fp8_enabled()
+              else FusedLinearCrossEntropy)
+        nll = fn.apply(flat, weight, labf, ignore_index, label_smoothing,
+                       z_loss, chunk_tokens)
     return check_outputs("fused_linear_cross_entropy", _reduce_valid(
         nll, labf != ignore_index, reduction, label.shape))
 
 
 def fused_linear_cross_entropy(x, weight, label, bias=None, ignore_index=-100,
                                reduction="mean", label_smoothing=0.0,
-                               z_loss=0.0, chunk_tokens=0):
+                               z_loss=0.0, chunk_tokens=0, mp_group=None):
     """loss = CE(x·weightᵀ, label) without the [tokens, vocab] logits, in
     the forward or the backward (paddle_tpu F.fused_linear_cross_entropy
     :1009). x: [..., hidden]; label: integer [...]; weight: ``[vocab,
@@ -546,15 +555,19 @@ def fused_linear_cross_entropy(x, weight, label, bias=None, ignore_index=-100,
     averages over the non-ignored tokens. ``chunk_tokens`` (0 = resolved
     through the tuning resolver: the ``fused_ce_chunk_tokens`` flag, the
     tuning cache, then ``resolve_chunks``) sets the backward's token chunk.
-    The JAX package's vocab-chunked and mp-sharded variants and ``bias``
-    are not on the single-card path and not ported. Under an fp8 session
+    With an ``mp_group`` of more than one rank, ``weight`` is this rank's
+    vocab shard and the loss is the vocab-parallel one (the JAX package's
+    mp-sharded variant, ``FusedLinearCrossEntropy``'s docstring): every
+    member gets the full per-token loss. The JAX package's vocab-chunked
+    variant and ``bias`` are not ported. Under an fp8 session
     with policy ``matmuls+head`` the loss takes ``Fp8LinearCrossEntropy``
     instead (the token-chunked products through fp8, as the JAX package
     leaves its Pallas kernel for the ``tokens`` variant under fp8)."""
     if bias is not None:
         raise NotImplementedError("a bias on the fused head loss is not "
                                   "ported yet")
-    args = (ignore_index, reduction, label_smoothing, z_loss, chunk_tokens)
+    args = (ignore_index, reduction, label_smoothing, z_loss, chunk_tokens,
+            mp_group)
     if any(isinstance(a, Tensor) for a in (x, weight, label)):
         return apply_op(lambda v, w, lab: _fused_linear_ce(v, w.t(), lab,
                                                            *args),

@@ -377,12 +377,17 @@ ce_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_d,
 // launches a chunk at most. Returns cudaGetLastError() after the launches
 // (0 = launched), or, for a tensor map that cannot be encoded,
 // ptt::sm90_host::kNoEncoder or kEncodeFailed + its CUresult.
-extern "C" int ptt_ce_bwd(const void* x, const void* w, const int* labels,
-                          const float* lse, const float* ct, void* dl,
-                          float* dx_part, float* dx, float* dw, int N, int V,
-                          int H, int cr, int vp, int splits, int per,
-                          int ignore_index, float eps, float z_loss,
-                          int device, void* stream) {
+// v_total is the vocabulary the smoothing term spreads over: V, or, for a
+// vocab shard of a tensor-parallel head, the whole vocabulary (labels
+// then come shifted into the shard, and a label outside [0, V) matches
+// no column).
+extern "C" int ptt_ce_bwd_vt(const void* x, const void* w, const int* labels,
+                             const float* lse, const float* ct, void* dl,
+                             float* dx_part, float* dx, float* dw, int N,
+                             int V, int H, int cr, int vp, int splits,
+                             int per, int ignore_index, float eps,
+                             float z_loss, int v_total, int device,
+                             void* stream) {
   namespace host = ptt::sm90_host;
   using host::launch_persistent;
   cudaError_t err = cudaSetDevice(device);
@@ -414,7 +419,8 @@ extern "C" int ptt_ce_bwd(const void* x, const void* w, const int* labels,
   if (e == 0) e = host::encode_bf16(&td_k, dl, 3, ddim, dstride, dbox_k);
   if (e == 0) e = host::encode_bf16(&td_mn, dl, 3, ddim, dstride, dbox_mn);
   if (e != 0) return e;
-  const float eps_v = (float)((double)eps / V);
+  if (v_total < V) return (int)cudaErrorInvalidValue;
+  const float eps_v = (float)((double)eps / v_total);
   const int ntt = cr / sm90::kBM;
   const int nht = (H + kBN - 1) / kBN;
   const int dl_units = ntt * ((V + kBN - 1) / kBN);
@@ -447,4 +453,16 @@ extern "C" int ptt_ce_bwd(const void* x, const void* w, const int* labels,
     if (r != 0) return r;
   }
   return 0;
+}
+
+// The entry for a whole vocabulary (v_total = V).
+extern "C" int ptt_ce_bwd(const void* x, const void* w, const int* labels,
+                          const float* lse, const float* ct, void* dl,
+                          float* dx_part, float* dx, float* dw, int N, int V,
+                          int H, int cr, int vp, int splits, int per,
+                          int ignore_index, float eps, float z_loss,
+                          int device, void* stream) {
+  return ptt_ce_bwd_vt(x, w, labels, lse, ct, dl, dx_part, dx, dw, N, V, H,
+                       cr, vp, splits, per, ignore_index, eps, z_loss, V,
+                       device, stream);
 }

@@ -54,6 +54,7 @@ import torch
 
 __all__ = ["ce_stats", "ce_stats_reference", "ce_bwd", "ce_bwd_reference",
            "resolve_chunks", "pick_chunk_tokens", "FusedLinearCrossEntropy",
+           "local_labels",
            "LAUNCHES", "ROUTE_CALLS", "reset_launches", "launch_counts"]
 
 _BV = 256                  # vocab columns per bf16 tile and split unit
@@ -215,14 +216,16 @@ def ce_stats(x, w, labels):
 
 def ce_bwd_reference(x, w, labels, lse, ct, ignore_index: int = -100,
                      label_smoothing: float = 0.0, z_loss: float = 0.0,
-                     chunk_tokens: int = 0):
+                     chunk_tokens: int = 0, v_total: int = 0):
     """Plain PyTorch version of the backward (``_bwd_tokens``): (dx [N, H],
     dW [V, H]) of the per-token loss for its cotangent ``ct`` [N] and the
     forward's ``lse`` [N], token chunk by token chunk (``chunk_tokens``, 0
     = ``resolve_chunks``): each chunk's logits recomputed in fp32, the
     d-logits ``p·coef - (1 - eps)·ct·onehot - (eps/V)·ct`` formed in
     place, dx = d·W and dW += dᵀ·x as fp32 ``torch.matmul``. Computes in
-    fp32, or in fp64 for fp64 inputs; the caller casts."""
+    fp32, or in fp64 for fp64 inputs; the caller casts. ``v_total`` (0 =
+    V) is the vocabulary the smoothing spreads over: the whole one when W
+    is a tensor-parallel shard."""
     n, v, _ = _check(x, w, labels)
     c = resolve_chunks(n, v, chunk_tokens)[0]
     ft = torch.promote_types(x.dtype, torch.float32)
@@ -245,7 +248,7 @@ def ce_bwd_reference(x, w, labels, lse, ct, ignore_index: int = -100,
         d.scatter_add_(1, safe[i:i + c, None],
                        (-(1.0 - eps) * ctv[i:i + c] * hit[i:i + c])[:, None])
         if eps:
-            d.sub_((eps / v) * ctv[i:i + c, None])
+            d.sub_((eps / (v_total or v)) * ctv[i:i + c, None])
         torch.matmul(d, wf, out=dx[i:i + c])
         dw.addmm_(d.T, xc)
     return dx, dw
@@ -254,10 +257,10 @@ def ce_bwd_reference(x, w, labels, lse, ct, ignore_index: int = -100,
 def _lib_bwd():
     from paddle_tpu_torch.ops.cuda._build import load
 
-    fn = load("ce_bwd").ptt_ce_bwd
+    fn = load("ce_bwd").ptt_ce_bwd_vt
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 9 + [ci] * 8 + [cf, cf, ci, vp]
+        fn.argtypes = [vp] * 9 + [ci] * 8 + [cf, cf, ci, ci, vp]
         fn.restype = ci
     return fn
 
@@ -278,7 +281,8 @@ def _bwd_plan(n: int, v: int, h: int, chunk: int, sms: int) -> dict:
     return dict(cr=cr, vp=-(-v // 8) * 8, splits=-(-ksteps // per), per=per)
 
 
-def _launch_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, chunk):
+def _launch_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, chunk,
+                v_total=0):
     n, v, h = _check(x, w, labels)
     if x.dtype != torch.bfloat16 or w.dtype != x.dtype \
             or w.device != x.device:
@@ -315,7 +319,7 @@ def _launch_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, chunk):
                      dx.data_ptr(), dw.data_ptr(), n, v, h, plan["cr"],
                      plan["vp"], plan["splits"], plan["per"],
                      int(ignore_index), float(eps), float(z_loss),
-                     dev.index or 0,
+                     int(v_total or v), dev.index or 0,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ce_bwd launch failed: cudaError {err}")
@@ -325,18 +329,19 @@ def _launch_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, chunk):
 
 def ce_bwd(x, w, labels, lse, ct, ignore_index: int = -100,
            label_smoothing: float = 0.0, z_loss: float = 0.0,
-           chunk_tokens: int = 0):
+           chunk_tokens: int = 0, v_total: int = 0):
     """(dx [N, H], dW [V, H]), fp32, of the per-token fused CE loss for its
     cotangent ``ct`` [N] and the forward's ``lse`` [N], in token chunks of
     ``chunk_tokens`` (0 = ``resolve_chunks``). bf16 x and w on CUDA launch
     the ``csrc/ce_bwd.cu`` kernels (at the chunk rounded up to 128
     tokens) or raise; fp32 x and w on CUDA take the fp32 ``torch.matmul``
     route of ``ce_bwd_reference`` (counted in ``ROUTE_CALLS``, no kernel);
-    CPU tensors take ``ce_bwd_reference``."""
+    CPU tensors take ``ce_bwd_reference``. ``v_total`` (0 = V): the
+    vocabulary the smoothing spreads over (see ``ce_bwd_reference``)."""
     n, v, _ = _check(x, w, labels)
     chunk = resolve_chunks(n, v, chunk_tokens)[0]
     args = (x, w, labels, lse, ct, ignore_index, label_smoothing, z_loss,
-            chunk)
+            chunk, v_total)
     if x.is_cuda and x.dtype == torch.bfloat16:
         return _launch_bwd(*args)
     if x.is_cuda:
@@ -348,6 +353,19 @@ def ce_bwd(x, w, labels, lse, ct, ignore_index: int = -100,
     return ce_bwd_reference(*args)
 
 
+def local_labels(labels, offset: int, v_local: int, ignore_index: int):
+    """Labels shifted into a vocab shard ``[offset, offset + v_local)``
+    (``_local_labels``, ``fused_ce.py:311``): in-shard labels to ``[0,
+    v_local)``, every other label, ignored ones included, to -1, which
+    matches no column in ``ce_stats`` or ``ce_bwd``. No local label equals
+    ``v_local``: the backward passes it as the kernels' ignore value (their
+    ignore test reads these labels) after zeroing ignored tokens'
+    cotangents from the global labels."""
+    loc = labels.long() - offset
+    keep = (loc >= 0) & (loc < v_local) & (labels != ignore_index)
+    return torch.where(keep, loc, -1)
+
+
 class FusedLinearCrossEntropy(torch.autograd.Function):
     """Per-token fp32 loss of ``CE(x·Wᵀ, labels)`` without the [N, V]
     logits: x [N, H], W [V, H], labels [N] int; ignored tokens give 0.
@@ -355,32 +373,68 @@ class FusedLinearCrossEntropy(torch.autograd.Function):
     ``z·lse²``; both reach value and gradient, as in ``_fwd_impl`` /
     ``_bwd_tokens``. ``chunk_tokens`` (0 = ``pick_chunk_tokens``) sets the
     backward's token chunk; it resolves here in the forward, on the
-    caller's thread, and the backward reuses it."""
+    caller's thread, and the backward reuses it.
+
+    With an ``mp_group`` of more than one rank, W is this rank's vocab
+    shard (rows ``[r V_loc, (r+1) V_loc)`` of the head; x and labels are
+    the same on every member): the labels shift into the shard
+    (``local_labels``), the kernel computes the shard's statistics, lse
+    is combined over the group (max, then the sum of exp) and t and sl
+    summed, smoothing divides by the whole vocabulary. The backward takes
+    the global lse, zeroes the cotangent of ignored tokens from the
+    global labels, runs the kernels on the shard with an ignore value no
+    local label takes, and sums dx over the group (after the kernels' own
+    dx merge); dW stays local."""
 
     @staticmethod
     def forward(ctx, x, w, labels, ignore_index=-100, label_smoothing=0.0,
-                z_loss=0.0, chunk_tokens=0):
+                z_loss=0.0, chunk_tokens=0, mp_group=None):
         n, v, _ = _check(x, w, labels)
         chunk = pick_chunk_tokens(n, v, chunk_tokens, x.device)
-        m, s, t, sl = ce_stats(x, w, labels)
+        world = 1 if mp_group is None else mp_group.nranks
+        lab_k = labels if world == 1 else local_labels(
+            labels, mp_group.rank * v, v, int(ignore_index))
+        m, s, t, sl = ce_stats(x, w, lab_k)
         lse = m + torch.log(s)
+        if world > 1:
+            from paddle_tpu_torch.distributed import collective
+
+            g = lse.clone()
+            collective.all_reduce(g, collective.ReduceOp.MAX, mp_group)
+            parts = torch.stack([torch.exp(lse - g), t, sl])
+            collective.all_reduce(parts, group=mp_group)
+            lse = g + torch.log(parts[0])
+            t, sl = parts[1], parts[2]
         eps = float(label_smoothing)
         if eps == 0.0:
             nll = lse - t
         else:
-            nll = lse - (1.0 - eps) * t - eps * sl / w.shape[0]
+            nll = lse - (1.0 - eps) * t - eps * sl / (v * world)
         if z_loss:
             nll = nll + z_loss * lse * lse
-        ctx.save_for_backward(x, w, labels, lse)
+        ctx.save_for_backward(x, w, labels, lab_k, lse)
         ctx.cfg = (int(ignore_index), eps, float(z_loss), chunk)
+        ctx.group = mp_group if world > 1 else None
         return torch.where(labels != ignore_index, nll, 0.0)
 
     @staticmethod
     def backward(ctx, ct):
-        x, w, labels, lse = ctx.saved_tensors
+        x, w, labels, lab_k, lse = ctx.saved_tensors
         ignore_index, eps, z_loss, c = ctx.cfg
-        dx, dw = ce_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss, c)
-        return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None, None
+        group = ctx.group
+        if group is None:
+            dx, dw = ce_bwd(x, w, labels, lse, ct, ignore_index, eps, z_loss,
+                            c)
+        else:
+            ct = torch.where(labels != ignore_index, ct.float(), 0.0)
+            v = w.shape[0]
+            dx, dw = ce_bwd(x, w, lab_k, lse, ct, v, eps, z_loss, c,
+                            v_total=v * group.nranks)
+            from paddle_tpu_torch.distributed import collective
+
+            collective.all_reduce(dx, group=group)
+        return (dx.to(x.dtype), dw.to(w.dtype), None, None, None, None, None,
+                None)
 
 
 def _fp8_chunk_stats(logits, lab, v):

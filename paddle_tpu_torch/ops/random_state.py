@@ -15,7 +15,7 @@ import threading
 
 import torch
 
-__all__ = ["seed", "default_generator", "Generator"]
+__all__ = ["seed", "default_generator", "Generator", "active_generator"]
 
 
 class Generator:
@@ -45,6 +45,19 @@ class Generator:
 
 
 default_generator = Generator(0)
+
+# the generator a ``fleet`` RNG-tracker scope (``rng_state``) has made
+# current on this thread, else None
+_active = threading.local()
+
+
+def active_generator(device: torch.device) -> torch.Generator:
+    """The generator random ops draw from on `device`: the one of the
+    innermost RNG-tracker scope of this thread, else the global one."""
+    fn = getattr(_active, "fn", None)
+    if fn is not None:
+        return fn(device)
+    return default_generator.torch_generator(device)
 
 
 def seed(s: int):

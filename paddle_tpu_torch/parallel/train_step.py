@@ -9,8 +9,9 @@ projections. The arguments of ``CompiledTrainStep`` it takes mean what
 they mean there (``paddle_tpu/parallel/train_step.py:360-424``):
 
 * ``remat``: a policy of ``scan_layers.REMAT_POLICIES`` (or a bool; None
-  reads ``remat_policy``), applied per decoder layer by a
-  ``layer_remat_capable`` model;
+  reads the model's ``remat_policy`` attribute, which fleet's recompute
+  pass sets, else the ``remat_policy`` flag), applied per decoder layer
+  by a ``layer_remat_capable`` model;
 * ``scan_layers``: accepted (None reads the flag); the layers run
   unrolled;
 * ``fp8_policy``: ``none|matmuls|matmuls+head`` (None reads the flag),
@@ -29,8 +30,25 @@ they mean there (``paddle_tpu/parallel/train_step.py:360-424``):
   returns a ``LossFuture`` and blocks on every k-th; at most `window`
   steps are in flight.
 
-CUDA graphs over the step, the meshes of ``CompiledTrainStep`` and the
-anomaly detector (ROADMAP A8) are later work. Unlike ``CompiledTrainStep``,
+Hybrid parallelism, one process a rank: ``TrainStep`` takes a model and
+optimizer that ``fleet.distributed_model``/``distributed_optimizer``
+wrapped (local batches, the local loss), or ``mesh=`` (the port's rank
+mesh, ``distributed.mesh.build_mesh``), ``zero_axis=`` and
+``zero_stage=`` as ``CompiledTrainStep`` takes them
+(``paddle_tpu/parallel/train_step.py:425-443``), on the same machinery:
+the hcg of the mesh's axes, ``distributed_model`` and a
+``HybridParallelOptimizer`` with ZeRO-1 or ZeRO-2 over `zero_axis`
+("sharding", or "dp" taken as the sharding axis). With ``mesh=`` a batch
+is the global one, as there: each rank takes its block of rows along
+the data axes (dp-major over dp x sharding) and the step returns the
+mean of the data ranks' losses, the global loss when every rank holds as
+many tokens. ``zero_stage=3`` and a pipeline axis raise (ROADMAP A8), so
+do a ``grad_scaler`` under a fleet optimizer and fp8 or LoRA under
+mp > 1. ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
+(``HybridParallelClipGrad``'s).
+
+CUDA graphs over the step and the anomaly detector (ROADMAP A8) are
+later work. Unlike ``CompiledTrainStep``,
 whose compiled update never applies ``optimizer._grad_clip``, the port
 applies it, as ``apply_optimizer_update`` and the eager ``AdamW.step`` do.
 With ``collect_metrics`` the step keeps its loss, the global norm of the
@@ -80,14 +98,27 @@ class TrainStep:
                  scan_layers=None, fp8_policy=None, grad_scaler=None,
                  metrics_every: int | None = None,
                  dispatch_window: int | None = None,
-                 anomaly_detector=None):
+                 anomaly_detector=None, mesh=None, zero_axis=None,
+                 zero_stage: int = 1):
         if anomaly_detector:
             raise NotImplementedError(
                 "the anomaly detector (resilience) is not ported yet: "
                 "ROADMAP A8")
+        self._data_group = None
+        if mesh is not None or zero_axis is not None:
+            model, optimizer = self._fleet_wrap(model, optimizer, mesh,
+                                                zero_axis, zero_stage)
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self._hybrid = hasattr(optimizer, "last_grad_norm")
+        if self._hybrid and grad_scaler is not None \
+                and grad_scaler.is_enable():
+            raise NotImplementedError("a grad_scaler under a fleet "
+                                      "optimizer is not ported yet (ROADMAP "
+                                      "A8)")
+        if remat is None:
+            remat = getattr(model, "remat_policy", None)
         self.collect_metrics = collect_metrics
         self.device = next(model.parameters()).device
         self._layer_capable = bool(getattr(model, "layer_remat_capable",
@@ -118,7 +149,64 @@ class TrainStep:
                              if isinstance(m, MoELayer)]
                             if collect_metrics else [])
 
+    def _fleet_wrap(self, model, optimizer, mesh, zero_axis, zero_stage):
+        """The hcg of `mesh`'s axes (ZeRO over `zero_axis`), the model
+        through ``distributed_model`` and the optimizer through
+        ``distributed_optimizer`` unless they are wrapped already."""
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            TensorParallel)
+        from paddle_tpu_torch.distributed.mesh import get_mesh
+        from paddle_tpu_torch.distributed.parallel import DataParallel
+
+        mesh = mesh if mesh is not None else get_mesh()
+        if mesh is None:
+            raise ValueError("zero_axis needs a rank mesh (mesh= or "
+                             "distributed.mesh.build_mesh)")
+        if mesh.shape.get("pp", 1) > 1:
+            raise NotImplementedError(fleet.PP_NOT_PORTED)
+        if zero_stage not in (1, 2):
+            raise NotImplementedError(
+                f"zero_stage={zero_stage}: the port has ZeRO-1 and ZeRO-2; "
+                f"ZeRO-3 is later work (ROADMAP A8)")
+        deg = {a: mesh.shape.get(a, 1) for a in ("dp", "sharding", "sep",
+                                                 "mp")}
+        if zero_axis not in (None, "dp", "sharding"):
+            raise ValueError(f"zero_axis {zero_axis!r} names no data axis of "
+                             f"the mesh {mesh.shape}")
+        if zero_axis == "dp" and deg["sharding"] == 1:
+            # ZeRO over the data axis: the same ranks as a sharding axis
+            deg["sharding"], deg["dp"] = deg["dp"], 1
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {
+            "dp_degree": deg["dp"], "mp_degree": deg["mp"],
+            "pp_degree": 1, "sharding_degree": deg["sharding"],
+            "sep_degree": deg["sep"]}
+        strategy.sharding_configs = {"stage": int(zero_stage)}
+        hcg = fleet.init(strategy=strategy)
+        if not isinstance(model, (DataParallel, TensorParallel)):
+            model = fleet.distributed_model(model)
+        if optimizer is not None and not hasattr(optimizer,
+                                                 "last_grad_norm"):
+            optimizer = fleet.distributed_optimizer(optimizer)
+        # dp-major over dp x sharding: the fused group's member order
+        self._data_group = hcg.get_dp_sharding_parallel_group()
+        return model, optimizer
+
+    def _local_rows(self, value):
+        """This data rank's block of rows (dim 0) of a global batch entry."""
+        g = self._data_group
+        if g is None or g.nranks == 1 or not hasattr(value, "shape"):
+            return value
+        n = value.shape[0]
+        if n % g.nranks:
+            raise ValueError(f"a global batch of {n} rows does not split "
+                             f"over {g.nranks} data ranks")
+        k = n // g.nranks
+        return value[g.rank * k:(g.rank + 1) * k]
+
     def _place(self, value):
+        value = self._local_rows(value)
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(value)
         if isinstance(value, torch.Tensor):
@@ -158,6 +246,12 @@ class TrainStep:
                 (loss * self._scaler._scale).backward()
             else:
                 loss.backward()
+        if self._data_group is not None and self._data_group.nranks > 1:
+            from paddle_tpu_torch.distributed import collective
+
+            loss = loss.detach().float().clone()
+            collective.all_reduce(loss, collective.ReduceOp.AVG,
+                                  self._data_group)
         params = [p for p in self.model.parameters()
                   if p.requires_grad and p.grad is not None]
         found_inf = self._unscale(params) if self._scaler else None
@@ -168,7 +262,8 @@ class TrainStep:
         if self.collect_metrics:
             self._metrics = {
                 "loss": loss.detach(),
-                "grad_norm": global_norm([p.grad for p in params]),
+                "grad_norm": (None if self._hybrid else
+                              global_norm([p.grad for p in params])),
                 "skipped": (found_inf.float() if found_inf is not None
                             else 0.0),
                 **({"fp8_amax_max": sess.amax_max()} if fp8_on else {}),
@@ -180,6 +275,8 @@ class TrainStep:
             else:
                 self.optimizer.step()
             step = self.optimizer._step_count
+            if self.collect_metrics and self._hybrid:
+                self._metrics["grad_norm"] = self.optimizer.last_grad_norm
         else:
             self._steps += 1
             step = self._steps

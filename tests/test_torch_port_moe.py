@@ -352,5 +352,5 @@ def test_expert_parallelism_raises_not_ported():
     class Group:
         nranks = 2
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         MoELayer(16, num_expert=4, d_hidden=32, moe_group=Group())

@@ -236,6 +236,10 @@ def test_dead_peers_equal_jax(master):
         left.stop(mark_clean=True)
         assert struct.unpack("<d", master.get("__hb__/job/3"))[0] \
             == float("inf")
+        # rank 1 may have beaten after the priming poll; a watched poll
+        # reads its last stamp now, so its age runs from the stop
+        dead_peers(master, "job", 4, timeout_s=0.15, watch=pw)
+        jax_store.dead_peers(master, "job", 4, timeout_s=0.15, watch=jw)
         time.sleep(0.3)
         want = [(1, False), (2, True)]
         assert _verdict(dead_peers(master, "job", 4, timeout_s=0.15)) == want
