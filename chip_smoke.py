@@ -284,6 +284,20 @@ first loss against the single-rank model's, every CE call against its
 plain version). A rank that fails or outlives its group's timeout fails
 the phase.
 
+Since the pipeline slice (pp, a process a rank on p2p):
+``pipeline_cuda_vs_cpu`` (4 gloo ranks on the card against the same
+ranks on the CPU, phase 6's tiny model at 4 layers: 1F1B at pp 2 x mp 2
+on a packed batch, ZB-H1 at pp 4 through fleet's ``PipelineLayer`` and
+``train_batch``, VPP at pp 2 x V 2 x dp 2; losses and the parameters
+gathered over pp and mp by phase 6's rule, every ce_stats call against
+its plain version, ZB-H1's dW products all on W ticks) and
+``pipeline_full_width`` (phase 7's model at 4 layers, pp 4, one layer a
+stage, 4 microbatches of 1 x 4096 a step: 1F1B then ZB-H1 against the
+single-rank model's first two losses and gradient norms; per rank step
+ms, peak memory beside the schedule's peak activations, launches, p2p
+calls, bytes and host ms a step; every CE call against its plain
+version).
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -6437,6 +6451,7 @@ class _CeCalls:
         self.fc = fc
         self.real = (fc.ce_stats, fc.ce_bwd)
         self.defer = False
+        self.host = False       # deferred copies kept in host memory
         self.pending = []
         self.out = {name: {"calls": 0, "worst": 0.0, "ok": True, "errs": []}
                     for name in ("ce_stats", "ce_bwd")}
@@ -6447,10 +6462,13 @@ class _CeCalls:
         self.fc.ce_stats, self.fc.ce_bwd = self.real
 
     def _queue(self, job):
-        if self.defer:
-            self.pending.append(job)
-        else:
+        if not self.defer:
             self._check(job)
+        elif self.host:
+            dev = job[3][0].device
+            self.pending.append(_moved(job, "cpu") + (dev,))
+        else:
+            self.pending.append(job)
 
     def _stats(self, x, w, labels):
         got = self.real[0](x, w, labels)
@@ -6516,7 +6534,22 @@ class _CeCalls:
     def check_deferred(self):
         pending, self.pending = self.pending, []
         for job in pending:
-            self._check(job)
+            self._check(_moved(job[:4], job[4]) if len(job) == 5 else job)
+
+
+def _moved(job, dev):
+    """A `_CeCalls` job with its tensors (inputs and outputs) on `dev`."""
+    import torch
+
+    def mv(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if isinstance(v, tuple):
+            return tuple(mv(x) for x in v)
+        return v
+
+    name, args, kw, got = job
+    return (name, mv(args), kw, mv(got))
 
 
 def _fleet_named(cfg, seed):
@@ -6974,6 +7007,548 @@ def phase_fleet_full_width(args, report):
         raise AssertionError(f"fleet_full_width: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# the pipeline (pp): PipelinedTrainStep (1F1B, VPP), ZBH1PipelinedStep and
+# fleet's PipelineParallel, a process a rank on gloo
+# ---------------------------------------------------------------------------
+
+PIPE_LR = 1e-3               # the tiny CUDA-vs-CPU cases (phase 6's lr)
+PIPE_SMALL_TIMEOUT_S = 300
+PIPE_FULL_TIMEOUT_S = 480
+PIPE_LAYERS = 4              # the full-width run: one layer a stage at pp 4
+PIPE_MICRO = 4               # microbatches of 1 x TRAIN_SEQ a step
+# 1F1B: 2 warm-up steps (their losses and norms gated), 4 timed and one
+# for the peak memory; ZB-H1 the same with 2 timed
+PIPE_WARMUP, PIPE_STEPS, PIPE_ZB_STEPS = 2, 4, 2
+# the full-width run against the single-rank model (the fleet phase's
+# rules): its first two losses and its gradient norms of steps 0 and 1
+PIPE_LOSS_RTOL = 7e-5
+PIPE_GNORM_RTOL = 1e-4
+PIPE_SMALL = {
+    "1f1b_pp2_mp2_packed": {"pp": 2, "mp": 2},
+    "zbh1_pp4_fleet": {"pp": 4},
+    "vpp_pp2_v2_dp2": {"pp": 2, "dp": 2}}
+
+
+def _pipe_stage(cfg, hcg, n_layers, V, dev, named=None, seed=None):
+    """This rank's stage of the LLaMA pipeline on `dev`: {list index:
+    module}, weights from `named` (the JAX-layout state, cut by
+    ``models.convert``) or drawn per layer from `seed`
+    (``seeded_init_``)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers.\
+        pp_layers import seeded_init_
+    from paddle_tpu_torch.models.convert import (load_pipeline_params,
+                                                 pipeline_stage_params)
+    from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
+                                               LlamaEmbeddingStage,
+                                               LlamaHeadStage)
+    from paddle_tpu_torch.parallel.pipeline import stage_block_indices
+
+    S, s = hcg.get_pipe_parallel_world_size(), hcg.get_stage_id()
+    dt = cfg.torch_dtype
+    mods = {}
+    if s == 0:
+        mods[0] = LlamaEmbeddingStage(cfg, device=dev, dtype=dt)
+    idx = stage_block_indices(n_layers, S, s, V)
+    for i in idx:
+        mods[i + 1] = LlamaDecoderLayer(cfg, device=dev, dtype=dt)
+    if s == S - 1:
+        mods[n_layers + 1] = LlamaHeadStage(cfg, device=dev, dtype=dt)
+    if named is not None:
+        mp = hcg.get_model_parallel_group()
+        load_pipeline_params(mods, pipeline_stage_params(
+            named, n_layers, list(mods), mp.rank, mp.nranks))
+    else:
+        for i, m in mods.items():
+            seeded_init_(m.parameters(), seed, i)
+    return mods, idx
+
+
+def _pipe_share(mods):
+    return {f"{i}.{n}": p.detach().cpu().clone()
+            for i, m in mods.items() for n, p in m.named_parameters()}
+
+
+def _pipe_small_case(label, axes, named, batch, dev):
+    """3 steps of one pipeline_cuda_vs_cpu case on this rank."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer)
+    from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import (load_pipeline_params,
+                                                 pipeline_stage_params)
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.pipeline import (PipelinedTrainStep,
+                                                    pipeline_hcg)
+
+    cfg = dataclasses.replace(_tiny_gqa_config(),
+                              num_hidden_layers=PIPE_LAYERS)
+    fleet.reset()
+    set_mesh(None)
+    if label.startswith("zbh1"):
+        # ZB-H1 through fleet: PipelineLayer + distributed_model
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"pp_degree": axes["pp"]}
+        strategy.pipeline_configs = {"accumulate_steps": 4,
+                                     "schedule_mode": "ZB-H1"}
+        hcg = fleet.init(strategy=strategy)
+        pipe = PipelineLayer(LlamaForCausalLM.pipeline_layers(cfg),
+                             loss_fn=LlamaPretrainingCriterion(cfg),
+                             device=dev)
+        idx = [i for _, items in pipe.parts() for i, _ in items]
+        load_pipeline_params(pipe, pipeline_stage_params(
+            named, PIPE_LAYERS, idx))
+        model = fleet.distributed_model(pipe)
+        opt = fleet.distributed_optimizer(AdamW(
+            learning_rate=PIPE_LR, parameters=pipe.parameters(),
+            weight_decay=0.01))
+        data = [batch["input_ids"], batch["labels"]]
+        losses = [float(model.train_batch(data, opt)) for _ in range(3)]
+        share = {n: p.detach().cpu().clone()
+                 for n, p in pipe.named_parameters()}
+        return {"coord": hcg.mesh.coord(), "losses": losses,
+                "params": share, "mode": model.schedule_mode,
+                "zb_stats": model.last_zb_stats}
+    mesh = build_mesh(axes)
+    hcg, _ = pipeline_hcg(mesh)
+    V = 2 if label.startswith("vpp") else 1
+    mods, idx = _pipe_stage(cfg, hcg, PIPE_LAYERS, V, dev, named=named)
+    mp = hcg.get_model_parallel_group()
+    opt = AdamW(learning_rate=PIPE_LR,
+                parameters=[p for m in mods.values() for p in m.parameters()],
+                weight_decay=0.01)
+    step = PipelinedTrainStep(
+        mods.get(0), [mods[i + 1] for i in idx], mods.get(PIPE_LAYERS + 1),
+        LlamaPretrainingCriterion(cfg, mp), optimizer=opt, mesh=mesh,
+        num_micro=2, remat="none", virtual_pp=V)
+    kw = ({"segment_ids": batch["segment_ids"],
+           "position_ids": batch["position_ids"]} if V == 1 else {})
+    losses = [float(step(batch["input_ids"], batch["labels"], **kw))
+              for _ in range(3)]
+    return {"coord": mesh.coord(), "losses": losses,
+            "params": _pipe_share(mods)}
+
+
+def _pipe_small_rank(out_dir):
+    """One gloo rank of ``pipeline_cuda_vs_cpu``: each case on cuda:0 then
+    on the CPU, 3 steps from the same weights."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    env = dist.init_parallel_env(backend="gloo")
+    named, batch = _rank_in(out_dir, "inputs.pkl")
+    ce = _CeCalls()
+    out = {"rank": env.rank, "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend(), "cases": {}}
+    launches = {}
+    for label, axes in PIPE_SMALL.items():
+        out["cases"][label] = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                port_cuda.reset_launch_counts()
+            res = _pipe_small_case(label, axes, named, batch, dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                got = port_cuda.launch_counts()
+                res["launches"] = got
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+            out["cases"][label][dev] = res
+    ce.restore()
+    out["launches"] = launches
+    out["ce_calls"] = ce.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def phase_pipeline_cuda_vs_cpu(seed, report):
+    """4 gloo ranks on cuda:0 against the same 4 ranks on the CPU, phase
+    6's tiny fp32 LLaMA at 4 layers (PIPE_LAYERS): 1F1B
+    (``PipelinedTrainStep``) at pp 2 x mp 2 on a packed 4 x 256 batch,
+    ZB-H1 at pp 4 with 4 microbatches through fleet (``PipelineLayer``,
+    ``distributed_model``, ``train_batch``), VPP at pp 2 x V 2 x dp 2; 3
+    AdamW steps each. Phase 6's rule: per-step losses within 1e-4
+    relative, the parameters gathered over pp and mp within lr; every
+    ce_stats call held to its plain version; the flash and CE kernels
+    launched by the CUDA ranks; ZB-H1's dW products all on W ticks."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models.convert import gather_pipeline_params
+
+    cfg = dataclasses.replace(_tiny_gqa_config(),
+                              num_hidden_layers=PIPE_LAYERS)
+    named = _fleet_named(cfg, seed)
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 4)
+    tmp = tempfile.mkdtemp(prefix="pipe_small_")
+    _rank_out(tmp, "inputs.pkl", (named, batch))
+    t0 = time.perf_counter()
+    spawn(_pipe_small_rank, (tmp,), nprocs=4, timeout=PIPE_SMALL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    bad = []
+    out = {"gloo_s": gloo_s, "cases": {}, "launches": {},
+           "ce_calls": [r["ce_calls"] for r in ranks],
+           "tolerance": {"loss_rel": 1e-4, "param": PIPE_LR}}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        if r["backend"] != "gloo" or r["device"] != "cuda:0":
+            bad.append(f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"]:
+                bad.append(f"rank {r['rank']} {name} off its plain version "
+                           f"({rec['worst']:.3g})")
+    if not any(r["ce_calls"]["ce_stats"]["calls"] for r in ranks):
+        bad.append("no ce_stats call checked")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_stats"):
+        if not out["launches"].get(k):
+            bad.append(f"{k} not launched by the ranks")
+    for label in PIPE_SMALL:
+        res = {dev: [r["cases"][label][dev] for r in ranks]
+               for dev in ("cuda", "cpu")}
+        full = {}
+        for dev, rs in res.items():
+            S = max(x["coord"]["pp"] for x in rs) + 1
+            stages = [[x["params"] for x in sorted(
+                (x for x in rs if x["coord"]["pp"] == st
+                 and x["coord"].get("dp", 0) == 0),
+                key=lambda x: x["coord"].get("mp", 0))] for st in range(S)]
+            full[dev] = gather_pipeline_params(stages, PIPE_LAYERS)
+        loss_rel = max(abs(a - b) / abs(b) for c, p in zip(res["cuda"],
+                                                           res["cpu"])
+                       for a, b in zip(c["losses"], p["losses"]))
+        p_err = max(float(abs(full["cuda"][n] - full["cpu"][n]).max())
+                    for n in full["cpu"])
+        agree = all(x["losses"] == res["cuda"][0]["losses"]
+                    for x in res["cuda"])
+        out["cases"][label] = {
+            "losses": {d: res[d][0]["losses"] for d in res},
+            "loss_rel_err": loss_rel, "param_max_abs_err": p_err,
+            "ranks_agree": agree,
+            "launches": [x["launches"] for x in res["cuda"]]}
+        if label.startswith("zbh1"):
+            st = [x["zb_stats"] for x in res["cuda"]]
+            out["cases"][label]["zb_stats"] = [
+                {k: v for k, v in s_.items() if k != "w_ticks"} for s_ in st]
+            if not all(x["mode"] == "ZBH1" for x in res["cuda"]) or not all(
+                    s_["queued"] == s_["w_ran"] and s_["b_touched"] == 0
+                    for s_ in st):
+                bad.append(f"{label}: ZB-H1 did not run its W ticks: {st}")
+        if not (loss_rel <= 1e-4 and p_err <= PIPE_LR and agree):
+            bad.append(f"{label}: loss {loss_rel:.3g}, params {p_err:.3g}, "
+                       f"ranks agree {agree}")
+    report["pipeline_cuda_vs_cpu"] = out
+    print("pipeline_cuda_vs_cpu: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"pipeline_cuda_vs_cpu: {bad}")
+
+
+def _pipe_full_batches(cfg, seed, steps):
+    """pipeline_full_width's batches: step t's PIPE_MICRO rows of
+    TRAIN_SEQ tokens (a fresh batch a step; every 97th label ignored)."""
+    import numpy as np
+
+    batches = []
+    for t in range(steps):
+        ids = np.concatenate([np.random.RandomState(seed + 7 * t + m).randint(
+            1, cfg.vocab_size, (1, TRAIN_SEQ + 1))
+            for m in range(PIPE_MICRO)])
+        labels = ids[:, 1:].copy()
+        labels[:, ::97] = -100
+        batches.append({"input_ids": ids[:, :-1], "labels": labels})
+    return batches
+
+
+def _pipe_full_run(kind, cfg, hcg, mesh, seed, batches, ce, warm, timed):
+    """One schedule on this rank at the full width: `warm` steps whose CE
+    calls are checked at once, `timed` steps whose CE calls are checked
+    after the timing (their inputs kept on the card), then one step for
+    the peak memory whose CE calls' inputs are kept in host memory (the
+    checks' copies stay out of the peak). Every step's loss and hybrid
+    gradient norm are read after it."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.pipeline import PipelinedTrainStep
+    from paddle_tpu_torch.parallel.pipeline_schedules import (
+        bubble_fraction, one_f_one_b_schedule, peak_activations,
+        zb_h1_schedule)
+    from paddle_tpu_torch.parallel.zero_bubble import ZBH1PipelinedStep
+
+    t0 = time.perf_counter()
+    mods, idx = _pipe_stage(cfg, hcg, PIPE_LAYERS, 1, "cuda", seed=seed)
+    opt = AdamW(learning_rate=TRAIN_LR,
+                parameters=[p for m in mods.values() for p in m.parameters()],
+                weight_decay=0.01, multi_precision=True)
+    args = (mods.get(0), [mods[i + 1] for i in idx],
+            mods.get(PIPE_LAYERS + 1), LlamaPretrainingCriterion(cfg))
+    if kind == "1f1b":
+        step = PipelinedTrainStep(*args, optimizer=opt, mesh=mesh,
+                                  num_micro=PIPE_MICRO, remat="none")
+        sched = one_f_one_b_schedule(hcg.get_pipe_parallel_world_size(),
+                                     PIPE_MICRO)
+    else:
+        step = ZBH1PipelinedStep(*args, optimizer=opt, mesh=mesh,
+                                 num_micro=PIPE_MICRO)
+        sched = zb_h1_schedule(hcg.get_pipe_parallel_world_size(),
+                               PIPE_MICRO)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    s = hcg.get_stage_id()
+    losses, norms, per_step, times = [], [], [], []
+    for i, b in enumerate(batches[:warm + timed + 1]):
+        if i < warm:
+            port_cuda.reset_launch_counts()
+        elif i == warm:
+            ce.defer = True
+            collective.reset_stats()
+            port_cuda.reset_launch_counts()  # the training path starts here
+        else:
+            if i == warm + timed:
+                launches = port_cuda.launch_counts()  # ... and ends here
+                comm = collective.stats()
+                # the timed steps' checks, then a step whose checks keep
+                # their copies in host memory: its peak is the pipeline's
+                ce.defer = False
+                ce.check_deferred()
+                ce.defer = ce.host = True
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss = step(b["input_ids"], b["labels"])
+        torch.cuda.synchronize()
+        if warm <= i < warm + timed:
+            times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+        norms.append(float(step.optimizer.last_grad_norm))
+        if i < warm:
+            per_step.append(port_cuda.launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ce.defer = ce.host = False
+    ce.check_deferred()
+    n = len(times)
+    out = {"setup_s": setup_s, "losses": losses, "grad_norms": norms,
+           "warm_launches": per_step,
+           "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": statistics.median(times) * 1e3,
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_per_step": {k: v / n for k, v in launches.items()
+                                 if v},
+           "p2p_calls_per_step": {k: comm["calls"].get(k, 0) / n
+                                  for k in ("send", "recv")},
+           "p2p_bytes_per_step": {k: comm["bytes"].get(k, 0) / n
+                                  for k in ("send", "recv")},
+           "p2p_host_ms_per_step": comm["seconds"].get("p2p", 0.0) * 1e3
+           / n,
+           "collective_host_ms_per_step": {
+               k: v * 1e3 / n for k, v in comm["seconds"].items()},
+           "peak_activations": peak_activations(sched, s),
+           "bubble_fraction": bubble_fraction(sched, s),
+           "stage_layers": [i for i in mods if 0 < i <= PIPE_LAYERS]}
+    if kind == "zbh1":
+        out["zb_stats"] = {k: v for k, v in step.last_stats.items()
+                           if k != "w_ticks"}
+    del step, opt, mods
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_full_rank(out_dir, seed):
+    """One gloo rank of ``pipeline_full_width``: its stage at the 7B width
+    (one decoder layer; the embedding on stage 0, the head on stage 3),
+    1F1B, then ZB-H1 from the same initial weights (``_pipe_full_run``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import llama_7b_config
+    from paddle_tpu_torch.parallel.pipeline import pipeline_hcg
+
+    env = dist.init_parallel_env(backend="gloo")
+    cfg = llama_7b_config(num_hidden_layers=PIPE_LAYERS, dtype="bfloat16")
+    fleet.reset()
+    mesh = build_mesh({"pp": 4})
+    hcg, _ = pipeline_hcg(mesh)
+    batches = _rank_in(out_dir, "batches.pkl")
+    ce = _CeCalls()
+    out = {"rank": env.rank, "coord": mesh.coord(),
+           "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend()}
+    out["1f1b"] = _pipe_full_run("1f1b", cfg, hcg, mesh, seed, batches, ce,
+                                 PIPE_WARMUP, PIPE_STEPS)
+    ce_1f1b = {k: dict(v, errs=None, fp64=None) for k, v in ce.out.items()}
+    out["zbh1"] = _pipe_full_run("zbh1", cfg, hcg, mesh, seed, batches, ce,
+                                 PIPE_WARMUP, PIPE_ZB_STEPS)
+    ce.restore()
+    out["ce_calls_after_1f1b"] = ce_1f1b
+    out["ce_calls"] = ce.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def _pipe_reference(cfg, seed, batches):
+    """The single-rank model on the same weights (drawn per layer as the
+    stages draw them) and rows: its first two steps' losses (the mean of
+    the microbatch losses) and gradient norms, the microbatches' gradients
+    accumulated as the pipeline accumulates them."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers.\
+        pp_layers import seeded_init_
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import global_norm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(cfg, device="cuda")
+    seeded_init_([model.llama.embed_tokens.weight], seed, 0)
+    for i, layer in enumerate(model.llama.layers):
+        seeded_init_(layer.parameters(), seed, i + 1)
+    seeded_init_([model.llama.norm.weight, model.lm_head.weight], seed,
+                 PIPE_LAYERS + 1)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    losses, norms = [], []
+    for b in batches[:2]:
+        opt.clear_grad()
+        total = 0.0
+        for m in range(PIPE_MICRO):
+            ids = torch.from_numpy(b["input_ids"][m:m + 1]).cuda()
+            lab = torch.from_numpy(b["labels"][m:m + 1]).cuda()
+            loss = model(ids, labels=lab).float()
+            (loss / PIPE_MICRO).backward()
+            total += float(loss.detach())
+        losses.append(total / PIPE_MICRO)
+        norms.append(float(global_norm([p.grad for p in model.parameters()
+                                        if p.grad is not None])))
+        opt.step()
+    del model, opt
+    return losses, norms
+
+
+def phase_pipeline_full_width(args, report):
+    """The 7B width at PIPE_LAYERS layers, bf16 with fp32 masters, seq
+    4096, AdamW, the fused head loss, at pp 4 (one decoder layer a stage):
+    4 gloo ranks on the one card, PIPE_MICRO microbatches of 1 x 4096 a
+    step, a fresh batch a step. 1F1B (``PipelinedTrainStep``): PIPE_WARMUP
+    steps, PIPE_STEPS timed, one for the peak memory; then ZB-H1
+    (``ZBH1PipelinedStep``) the same with PIPE_ZB_STEPS timed, from the
+    same initial weights. Per rank: step ms, peak memory (its CE checks'
+    copies in host memory) beside the schedule's peak activations, the
+    flash and CE
+    launches and the p2p calls, bytes and host ms a step. These are 4
+    ranks time-sharing one card through gloo: no multi-GPU figure. Gates,
+    on every rank, against the single-rank model on the same weights and
+    rows: each schedule's first two losses within PIPE_LOSS_RTOL and its
+    gradient norms of steps 0 and 1 within PIPE_GNORM_RTOL; every CE call
+    within its plain version's rule; the flash kernels launched for every
+    layer and microbatch of every step and the CE kernels for every
+    microbatch on the last stage; finite losses; ZB-H1's dW products all
+    on W ticks."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import llama_7b_config
+
+    cfg = llama_7b_config(num_hidden_layers=PIPE_LAYERS, dtype="bfloat16")
+    batches = _pipe_full_batches(cfg, args.seed,
+                                 PIPE_WARMUP + PIPE_STEPS + 1)
+    ref_losses, ref_norms = _pipe_reference(cfg, args.seed, batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pipe_full_")
+    _rank_out(tmp, "batches.pkl", batches)
+    t0 = time.perf_counter()
+    spawn(_pipe_full_rank, (tmp, args.seed), nprocs=4,
+          timeout=PIPE_FULL_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    launches = {}
+    for r in ranks:
+        for k, n in r["1f1b"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    bad = []
+    out = {"layers": cfg.num_hidden_layers, "seq": TRAIN_SEQ,
+           "micro": PIPE_MICRO,
+           "layout": "pp 4, one decoder layer a stage, 4 gloo ranks on one "
+                     "card", "wall_s": wall_s, "ref_losses": ref_losses,
+           "ref_grad_norms": ref_norms, "launches": launches, "gaps": {}}
+    for kind in ("1f1b", "zbh1"):
+        def worst(read, want):
+            return max(abs(read(r[kind]) - want) / abs(want) for r in ranks)
+
+        gaps = {"loss": [worst(lambda x, i=i: x["losses"][i], ref_losses[i])
+                         for i in range(2)],
+                "grad_norm": [worst(lambda x, i=i: x["grad_norms"][i],
+                                    ref_norms[i]) for i in range(2)]}
+        out["gaps"][kind] = gaps
+        if not max(gaps["loss"]) <= PIPE_LOSS_RTOL:
+            bad.append(f"{kind}: losses {ranks[0][kind]['losses'][:2]} vs "
+                       f"the single rank's {ref_losses}")
+        if not max(gaps["grad_norm"]) <= PIPE_GNORM_RTOL:
+            bad.append(f"{kind}: grad norms {ranks[0][kind]['grad_norms']} "
+                       f"vs the single rank's {ref_norms}")
+    out["ranks"] = [{k: v for k, v in r.items()} for r in ranks]
+    report["pipeline_full_width"] = out
+    for r in ranks:
+        for kind in ("1f1b", "zbh1"):
+            print(f"pipeline full width rank {r['rank']} {kind} "
+                  f"({report.get('gpu')}; 4 ranks time-sharing one card "
+                  f"through gloo): " + json.dumps(
+                      {k: v for k, v in r[kind].items()
+                       if k != "warm_launches"}), flush=True)
+    print("pipeline full width: " + json.dumps(
+        {k: v for k, v in out.items() if k != "ranks"}), flush=True)
+    for r in ranks:
+        last = r["coord"]["pp"] == 3
+        layers = len(r["1f1b"]["stage_layers"])
+        need = {"flash_fwd": layers * PIPE_MICRO,
+                "flash_bwd_dq": layers * PIPE_MICRO,
+                "flash_bwd_dkv": layers * PIPE_MICRO}
+        if last:
+            need.update(ce_stats=PIPE_MICRO, ce_bwd=PIPE_MICRO)
+        for kind in ("1f1b", "zbh1"):
+            run = r[kind]
+            if not all(math.isfinite(x) for x in run["losses"]):
+                bad.append(f"rank {r['rank']} {kind}: non-finite loss "
+                           f"{run['losses']}")
+            per_step = list(run["warm_launches"]) + [
+                run["launches_per_step"]]
+            for i, got in enumerate(per_step):
+                short = {k: v for k, v in need.items() if got.get(k, 0) < v}
+                if short:
+                    bad.append(f"rank {r['rank']} {kind} step {i}: kernels "
+                               f"short {short}")
+        st = r["zbh1"]["zb_stats"]
+        if not (st["queued"] == st["w_ran"] > 0 and st["b_touched"] == 0):
+            bad.append(f"rank {r['rank']}: ZB-H1 deferral {st}")
+        want_calls = (2 * PIPE_WARMUP + PIPE_STEPS + PIPE_ZB_STEPS
+                      + 2) * PIPE_MICRO if last else 0
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"] or rec["calls"] != want_calls:
+                bad.append(f"rank {r['rank']} {name}: ok {rec['ok']}, "
+                           f"{rec['calls']} calls of {want_calls}")
+    if bad:
+        raise AssertionError(f"pipeline_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -6983,7 +7558,9 @@ def kernels_line(report):
     routed serve over the HTTP replica and the LoRA training steps), each
     read around its run; since the fleet slice also the fleet phases'
     ranks (the tiny layouts' CUDA steps and the full-width run's timed
-    steps, summed over the 4 ranks). gmm_fwd is the bf16 forward kernel
+    steps, summed over the 4 ranks), and since the pipeline slice the
+    pipeline phases' ranks alike (the tiny cases' CUDA steps, the
+    full-width 1F1B run's timed steps). gmm_fwd is the bf16 forward kernel
     (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
@@ -7016,7 +7593,9 @@ def kernels_line(report):
              report.get("lora_train_cuda_vs_cpu", {}).get("launches", {}),
              report.get("lora_train_full_width", {}).get("launches", {}),
              report.get("fleet_cuda_vs_cpu", {}).get("launches", {}),
-             report.get("fleet_full_width", {}).get("launches", {})]
+             report.get("fleet_full_width", {}).get("launches", {}),
+             report.get("pipeline_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("pipeline_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -7276,6 +7855,12 @@ def main(argv=None) -> int:
                ("fleet_full_width",
                 lambda: (free_memory(),
                          phase_fleet_full_width(args, report))),
+               ("pipeline_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_pipeline_cuda_vs_cpu(args.seed, report))),
+               ("pipeline_full_width",
+                lambda: (free_memory(),
+                         phase_pipeline_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
     only = [n for n in args.only.split(",") if n]

@@ -404,6 +404,7 @@ class _P2PWork:
     staged receive, copies the host buffer into the caller's tensor)."""
 
     def __init__(self, work, buf=None, dest=None):
+        # a send keeps its (host) buffer alive until it completes
         self._work, self._buf, self._dest = work, buf, dest
 
     def wait(self):
@@ -424,12 +425,13 @@ def isend(tensor, dst=0, group=None):
     buf = tensor.detach().cpu() if _staged(g, tensor) else \
         tensor.detach().contiguous()
     _count("send", buf.numel() * buf.element_size())
-    return _P2PWork(dist.isend(buf, dst=int(dst), group=g.pg))
+    return _P2PWork(dist.isend(buf, dst=int(dst), group=g.pg), buf)
 
 
 def irecv(tensor, src=0, group=None):
     """Receive into `tensor` from global rank `src`; ``wait()`` the task."""
     g = group if group is not None else _world_group()
+    _count("recv", tensor.numel() * tensor.element_size())
     if _staged(g, tensor) or not tensor.is_contiguous():
         buf = (torch.empty(tensor.shape, dtype=tensor.dtype)
                if _staged(g, tensor) else torch.empty_like(tensor))

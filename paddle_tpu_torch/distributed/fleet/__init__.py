@@ -8,9 +8,11 @@ strategy's degrees over the joined process group (``init_parallel_env``
 first; a world of one needs none); calling it again builds another.
 ``distributed_model`` applies the strategy's amp and recompute passes,
 then wraps by parallel mode: ``DataParallel`` over the dp group in data
-(and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode;
-a pipeline (pp > 1) raises (ROADMAP A8). ``distributed_optimizer`` wraps
-with ``HybridParallelOptimizer`` (dp averaging, the hybrid clip, ZeRO-1/2
+(and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode,
+``PipelineParallel`` around a ``PipelineLayer`` when pp > 1 (1F1B, VPP
+or ZB-H1 by ``pipeline_configs["schedule_mode"]``).
+``distributed_optimizer`` wraps with ``HybridParallelOptimizer`` (dp
+averaging, the hybrid clip with its norm summed over mp and pp, ZeRO-1/2
 at ``sharding_configs["stage"]``, gradient merge).
 """
 from __future__ import annotations
@@ -25,9 +27,7 @@ __all__ = ["DistributedStrategy", "init", "fleet",
            "get_hybrid_communicate_group", "distributed_model",
            "distributed_optimizer", "get_rng_state_tracker", "worker_index",
            "worker_num", "barrier_worker", "ParallelMode", "utils",
-           "meta_parallel", "PP_NOT_PORTED"]
-
-PP_NOT_PORTED = ("the pipeline (pp > 1) is not ported yet (ROADMAP A8)")
+           "meta_parallel"]
 
 _hcg: list = [None]
 _strategy: list = [None]
@@ -91,8 +91,8 @@ def _apply_strategy_passes(model, strategy):
 def distributed_model(model):
     """reference fleet/model.py:140: wrap by parallel mode after the
     strategy's passes."""
-    from paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel \
-        import TensorParallel
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer, PipelineParallel, TensorParallel)
     from paddle_tpu_torch.distributed.parallel import DataParallel
 
     hcg = get_hybrid_communicate_group()
@@ -100,7 +100,10 @@ def distributed_model(model):
     model = _apply_strategy_passes(model, strat)
     mode = hcg.get_parallel_mode()
     if mode == ParallelMode.PIPELINE_PARALLEL:
-        raise NotImplementedError(PP_NOT_PORTED)
+        if not isinstance(model, PipelineLayer):
+            raise TypeError("pp > 1 needs the model as a PipelineLayer "
+                            "(fleet.meta_parallel.PipelineLayer)")
+        return PipelineParallel(model, hcg, strat)
     if mode == ParallelMode.TENSOR_PARALLEL:
         return TensorParallel(model, hcg, strat)
     # data (and sharding) parallel: the reducer averages over dp; the

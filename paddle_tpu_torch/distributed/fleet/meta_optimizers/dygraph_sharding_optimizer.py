@@ -39,13 +39,14 @@ __all__ = ["DygraphShardingOptimizer"]
 
 
 class DygraphShardingOptimizer:
-    def __init__(self, optimizer, hcg, stage: int = 1):
+    def __init__(self, optimizer, hcg, stage: int = 1, sum_pp: bool = True):
         if stage not in (1, 2):
             raise NotImplementedError(
                 f"sharding stage {stage}: the port has ZeRO-1 and ZeRO-2; "
                 f"ZeRO-3 is later work (ROADMAP A8)")
         self._inner_opt = optimizer
         self._hcg = hcg
+        self._sum_pp = sum_pp
         self.stage = stage
         self._group = hcg.get_sharding_parallel_group()
         self._dp_group = hcg.get_data_parallel_group()
@@ -127,7 +128,8 @@ class DygraphShardingOptimizer:
         clip = getattr(self._inner_opt, "_grad_clip", None)
         if not isinstance(clip, HybridParallelClipGrad):
             self.last_grad_norm = hybrid_global_norm(
-                self.slice_grads(), self._hcg, sharded=True)
+                self.slice_grads(), self._hcg, sharded=True,
+                sum_pp=self._sum_pp)
         self._inner_opt.step()
         if isinstance(clip, HybridParallelClipGrad):
             self.last_grad_norm = clip.last_norm

@@ -6,8 +6,13 @@ counterpart; reference: dygraph_optimizer/hybrid_parallel_optimizer.py,
 * ``HybridParallelClipGrad``: the global gradient norm of the hybrid
   model. Squares of mp-sharded parameters' gradients are summed over the
   mp group, replicated ones counted once; under ZeRO the gradients are
-  slices, so both sums run over the sharding group first. Gradients are
-  already averaged over dp, so dp adds nothing.
+  slices, so both sums run over the sharding group first; the total is
+  summed over the pp group, whose stages hold different parameters (a
+  shared-weight copy counts on the first stage holding it only,
+  ``is_firstly_shared``). A caller whose pp ranks replicate one step
+  (``TrainStep`` over a mesh with a pp axis) builds the optimizer with
+  ``sum_pp=False``. Gradients are already averaged over dp, so dp adds
+  nothing.
 * ``HybridParallelOptimizer``: averages the gradients over the dp group
   when the model is not a ``DataParallel`` (whose reducer averaged them
   in backward), hands the step to ``DygraphShardingOptimizer`` when the
@@ -30,14 +35,16 @@ __all__ = ["HybridParallelOptimizer", "HybridParallelClipGrad",
            "hybrid_global_norm"]
 
 
-def hybrid_global_norm(params_grads, hcg, sharded: bool = False):
+def hybrid_global_norm(params_grads, hcg, sharded: bool = False,
+                       sum_pp: bool = True):
     """sqrt of the sum of squares of the hybrid model's gradients (fp32,
-    a device scalar); every rank of the model calls it."""
+    a device scalar); every rank of the model calls it. `sum_pp`: the pp
+    ranks hold different stages, so their squares are summed."""
     dev = next((g.device for _, g in params_grads if g is not None),
                torch.device("cpu"))
     sq = torch.zeros(2, dtype=torch.float32, device=dev)
     for p, g in params_grads:
-        if g is not None:
+        if g is not None and getattr(p, "is_firstly_shared", True):
             sq[0 if is_mp_sharded(p) else 1] += g.float().square().sum()
     if sharded:
         collective.all_reduce(sq, group=hcg.get_sharding_parallel_group())
@@ -46,22 +53,29 @@ def hybrid_global_norm(params_grads, hcg, sharded: bool = False):
         dist_sq = sq[:1].clone()
         collective.all_reduce(dist_sq, group=mp)
         sq[0] = dist_sq[0]
-    return torch.sqrt(sq.sum())
+    total = sq.sum()
+    pp = hcg.get_pipe_parallel_group()
+    if sum_pp and pp.nranks > 1:
+        collective.all_reduce(total, group=pp)
+    return torch.sqrt(total)
 
 
 class HybridParallelClipGrad:
     """reference hybrid_parallel_optimizer.py:41: clip by the hybrid
     global norm."""
 
-    def __init__(self, clip, hcg, sharded: bool = False):
+    def __init__(self, clip, hcg, sharded: bool = False,
+                 sum_pp: bool = True):
         self._clip = clip
         self._hcg = hcg
         self._sharded = sharded
+        self._sum_pp = sum_pp
         self.clip_norm = clip.clip_norm
         self.last_norm = None
 
     def __call__(self, params_grads):
-        gn = hybrid_global_norm(params_grads, self._hcg, self._sharded)
+        gn = hybrid_global_norm(params_grads, self._hcg, self._sharded,
+                                self._sum_pp)
         self.last_norm = gn
         f = _factor(gn, self.clip_norm)
         return [(p, g if g is None else g * f.to(g.dtype))
@@ -69,9 +83,10 @@ class HybridParallelClipGrad:
 
 
 class HybridParallelOptimizer:
-    """reference hybrid_parallel_optimizer.py:255."""
+    """reference hybrid_parallel_optimizer.py:255. `sum_pp=False` where
+    the pp ranks replicate one step rather than hold different stages."""
 
-    def __init__(self, optimizer, hcg, strategy=None):
+    def __init__(self, optimizer, hcg, strategy=None, sum_pp: bool = True):
         from paddle_tpu_torch.distributed.fleet.meta_optimizers.\
             dygraph_sharding_optimizer import DygraphShardingOptimizer
 
@@ -79,6 +94,7 @@ class HybridParallelOptimizer:
         self._base_opt = optimizer
         self._hcg = hcg
         self._strategy = strategy
+        self._sum_pp = sum_pp
         self._sharding = hcg.get_sharding_parallel_world_size() > 1
         self._dp_enable = (hcg.get_data_parallel_world_size() > 1
                            and hcg.get_parallel_mode()
@@ -101,11 +117,12 @@ class HybridParallelOptimizer:
         if isinstance(getattr(optimizer, "_grad_clip", None),
                       ClipGradByGlobalNorm):
             self._clip = HybridParallelClipGrad(optimizer._grad_clip, hcg,
-                                                self._sharding)
+                                                self._sharding, sum_pp)
             optimizer._grad_clip = self._clip
         self._params = list(optimizer._params)
         if self._sharding:
-            self._inner_opt = DygraphShardingOptimizer(optimizer, hcg, stage)
+            self._inner_opt = DygraphShardingOptimizer(optimizer, hcg, stage,
+                                                       sum_pp)
 
     def __getattr__(self, name):
         return getattr(self.__dict__["_inner_opt"], name)
@@ -142,7 +159,8 @@ class HybridParallelOptimizer:
             fused_allreduce_gradients(self._params, self._hcg)
         if self._clip is None:
             self.last_grad_norm = hybrid_global_norm(
-                [(p, p.grad) for p in self._params], self._hcg)
+                [(p, p.grad) for p in self._params], self._hcg,
+                sum_pp=self._sum_pp)
             self._base_opt.step()
         else:
             self._base_opt.step()

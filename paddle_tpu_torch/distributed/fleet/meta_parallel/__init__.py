@@ -1,10 +1,15 @@
 """Fleet's model wrappers (``paddle_tpu.distributed.fleet.meta_parallel``
-counterpart): ``TensorParallel`` and the mp layers. The pipeline
-(``PipelineLayer``, ``PipelineParallel``), segment parallelism and the
-ZeRO-3 wrappers are later work (ROADMAP A8)."""
+counterpart): ``TensorParallel``, the pipeline (``LayerDesc``,
+``SharedLayerDesc``, ``PipelineLayer``, ``PipelineParallel``) and the mp
+layers. Segment parallelism and the ZeRO-3 wrappers are later work
+(ROADMAP A8)."""
 from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding,
 )
 from paddle_tpu_torch.distributed.fleet.layers.mpu.random import get_rng_state_tracker  # noqa: F401
+from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers.pp_layers import (  # noqa: F401
+    LayerDesc, PipelineLayer, SegmentLayers, SharedLayerDesc,
+)
+from paddle_tpu_torch.distributed.fleet.meta_parallel.pipeline_parallel import PipelineParallel  # noqa: F401
 from paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel import TensorParallel  # noqa: F401

@@ -8,8 +8,9 @@ package's. ``HybridCommunicateGroup`` holds this rank's coordinates and
 one process group per axis, plus the fused data x sharding group, taken
 from the port's rank mesh (``distributed.mesh``, built over the same
 order, so rank r holds the coordinates of device r in the JAX mesh).
-Every axis's group is built; the pipeline and sep runtimes are later
-work (ROADMAP A8).
+Every axis's group is built; the pipeline runs on the pp group
+(``meta_parallel.PipelineParallel``, ``parallel.pipeline``), the sep
+runtime is later work (ROADMAP A8).
 """
 from __future__ import annotations
 

@@ -29,6 +29,16 @@ whole), ``from_paddle_tpu_params`` loads them into a model built under
 the hcg, and ``gather_paddle_tpu_params`` puts the mp ranks' shards back
 together into the full, JAX-layout state.
 
+Under pipeline parallelism a rank holds its stage's layers only, named
+by their index in ``LlamaForCausalLM.pipeline_layers`` (0 the embedding,
+1..L the decoder layers, L+1 the final norm with the head):
+``pipeline_stage_params`` takes the JAX model's named parameters and
+returns one stage's share, renamed (``llama_pipeline_name``) and cut to
+mp rank r's shards; ``load_pipeline_params`` copies such a share into a
+``PipelineLayer`` or into stage modules keyed by their index;
+``gather_pipeline_params`` puts every stage's (and mp rank's) share back
+together into the JAX names and layout.
+
 Models written on the Paddle API (``models/gpt.py``) keep Paddle's layout
 in both packages, so their weights move name for name:
 ``state_from_paddle_tpu`` reads a JAX ``Layer`` (or its ``state_dict()``)
@@ -47,7 +57,9 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
            "fp8_state_from_paddle_tpu", "lora_from_paddle_tpu",
            "state_from_paddle_tpu", "shard_paddle_tpu_params",
-           "gather_paddle_tpu_params", "mp_split_axis"]
+           "gather_paddle_tpu_params", "mp_split_axis",
+           "llama_pipeline_name", "pipeline_stage_params",
+           "load_pipeline_params", "gather_pipeline_params"]
 
 _COLUMN = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
            "gate_proj.weight", "up_proj.weight")
@@ -111,6 +123,82 @@ def gather_paddle_tpu_params(shards) -> dict:
         full = (as_np(shards[0][name]) if ax is None else
                 np.concatenate([as_np(s[name]) for s in shards], axis=ax))
         out[name] = full.T if _is_linear(name) else full
+    return out
+
+
+def llama_pipeline_name(name: str, num_layers: int) -> str:
+    """The ``PipelineLayer`` name of LLaMA parameter `name` (the JAX
+    package's ``LlamaForCausalLM`` name): ``llama.embed_tokens.weight`` ->
+    ``0.embed_tokens.weight``, ``llama.layers.i.<rest>`` ->
+    ``<i+1>.<rest>``, ``llama.norm.weight`` and ``lm_head.weight`` ->
+    ``<L+1>.norm.weight`` and ``<L+1>.lm_head.weight``."""
+    if name == "llama.embed_tokens.weight":
+        return "0.embed_tokens.weight"
+    if name.startswith("llama.layers."):
+        i, rest = name[len("llama.layers."):].split(".", 1)
+        return f"{int(i) + 1}.{rest}"
+    if name == "llama.norm.weight":
+        return f"{num_layers + 1}.norm.weight"
+    if name == "lm_head.weight":
+        return f"{num_layers + 1}.lm_head.weight"
+    raise KeyError(f"{name} is no LLaMA parameter")
+
+
+def _jax_name(pname: str, num_layers: int) -> str:
+    """The inverse of ``llama_pipeline_name``."""
+    i, rest = pname.split(".", 1)
+    i = int(i)
+    if i == 0:
+        return f"llama.{rest}"
+    if i == num_layers + 1:
+        return f"llama.{rest}" if rest.startswith("norm.") else rest
+    return f"llama.layers.{i - 1}.{rest}"
+
+
+def pipeline_stage_params(named: dict, num_layers: int, indices,
+                          mp_rank: int = 0, mp_degree: int = 1) -> dict:
+    """{pipeline name: array (PyTorch layout, mp rank `mp_rank`'s shard)}
+    of the layers at `indices` (their positions in
+    ``LlamaForCausalLM.pipeline_layers``) from the JAX model's named
+    parameters `named` (numpy, JAX layout)."""
+    want = {int(i) for i in indices}
+    mine = {n: a for n, a in named.items()
+            if int(llama_pipeline_name(n, num_layers).split(".")[0]) in want}
+    return {llama_pipeline_name(n, num_layers): a for n, a in
+            shard_paddle_tpu_params(mine, mp_rank, mp_degree).items()}
+
+
+@torch.no_grad()
+def load_pipeline_params(target, stage_named: dict) -> None:
+    """Copy a ``pipeline_stage_params`` share into `target`: a
+    ``PipelineLayer`` (its parameters named by layer index), or a dict
+    {layer index: module}. Raises on a missing or misshapen name."""
+    if isinstance(target, dict):
+        params = {f"{i}.{n}": p for i, mod in target.items()
+                  for n, p in mod.named_parameters()}
+    else:
+        params = dict(target.named_parameters())
+    missing = sorted(set(params) - set(stage_named))
+    if missing:
+        raise KeyError(f"no values for {missing[:5]}")
+    for name, p in params.items():
+        arr = np.asarray(stage_named[name])
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
+                             f"fit {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr, copy=True)))
+
+
+def gather_pipeline_params(stages, num_layers: int) -> dict:
+    """The full JAX-named, JAX-layout parameters from every stage's share:
+    `stages` holds, for each pp stage, its mp ranks' {pipeline name:
+    tensor or array} in mp-rank order (one dict a stage without mp)."""
+    out = {}
+    for shards in stages:
+        shards = shards if isinstance(shards, (list, tuple)) else [shards]
+        renamed = [{_jax_name(n, num_layers): v for n, v in sh.items()}
+                   for sh in shards]
+        out.update(gather_paddle_tpu_params(renamed))
     return out
 
 

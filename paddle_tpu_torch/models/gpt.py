@@ -8,7 +8,9 @@ QKV projection: the flash kernels on the card (head_dim 64 or 128), their
 plain versions on the CPU. The default ``GptConfig`` is GPT-2 small at its
 published widths (vocab 50304, hidden 768, 12 layers of 12 heads, MLP
 3072, context 1024; about 163M parameters with the untied head). The JAX
-model's ``pipeline_layers`` (the fleet pipeline route) is not ported.
+model's ``pipeline_layers`` is not ported: the port's ``PipelineLayer``
+takes ``torch.nn.Module`` layers (LLaMA's ``pipeline_layers``), and GPT's
+stages on the Paddle-API ``Layer`` wait for ROADMAP A6.
 """
 from __future__ import annotations
 

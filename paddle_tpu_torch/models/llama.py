@@ -58,10 +58,12 @@ from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
 from paddle_tpu_torch.parallel.scan_layers import (current_layer_ctx,
                                                    tag_residual,
                                                    unrolled_layer_call)
+from paddle_tpu_torch.parallel.segments import current_segment_ctx
 from paddle_tpu_torch.quantization import quantize_kv, raw_bytes
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaDecoderLayer", "LlamaPretrainingCriterion",
+           "LlamaEmbeddingStage", "LlamaHeadStage",
            "llama_tiny_config", "llama_7b_config", "apply_rotary"]
 
 
@@ -115,6 +117,22 @@ def _rope_tables(head_dim: int, max_pos: int, theta: float, device=None):
 
 def _rope_limit(config: LlamaConfig) -> int:
     return int(config.rope_max_position or config.max_position_embeddings)
+
+
+_SHARED_ROPE: dict = {}
+
+
+def _shared_rope_tables(head_dim: int, max_pos: int, theta: float, device):
+    """The process-wide (cos, sin) pair of a geometry on `device`: what a
+    decoder layer uses when no ``LlamaModel`` hands it the model's pair (a
+    pipeline stage holds lone layers). The JAX package keeps the same
+    process-wide cache (``_shared_rope_tables``)."""
+    key = (int(head_dim), int(max_pos), float(theta), str(device))
+    tables = _SHARED_ROPE.get(key)
+    if tables is None:
+        tables = _rope_tables(head_dim, max_pos, theta, device)
+        _SHARED_ROPE[key] = tables
+    return tables
 
 
 def _check_positions(position_ids, limit: int):
@@ -202,6 +220,27 @@ def _per_rank(n: int, what: str) -> int:
     return n // mp
 
 
+def _embedding(config, device, dtype):
+    """The token embedding: ``nn.Embedding``, or ``VocabParallelEmbedding``
+    (this rank's vocab rows) under mp."""
+    if _mp_degree() == 1:
+        return nn.Embedding(config.vocab_size, config.hidden_size,
+                            device=device, dtype=dtype)
+    return mp_layers.VocabParallelEmbedding(
+        config.vocab_size, config.hidden_size, device=device, dtype=dtype)
+
+
+def _lm_head(config, device, dtype):
+    """The LM head: a bias-free ``nn.Linear``, or under mp a
+    ``ColumnParallelLinear`` whose vocab shard stays local."""
+    if _mp_degree() == 1:
+        return nn.Linear(config.hidden_size, config.vocab_size, bias=False,
+                         device=device, dtype=dtype)
+    return mp_layers.ColumnParallelLinear(
+        config.hidden_size, config.vocab_size, has_bias=False,
+        gather_output=False, device=device, dtype=dtype)
+
+
 def write_kv_pages(cache, layer_idx, pidx, slot, k, v):
     """Write K/V ``[B, T, Hkv, D]`` into slots (pidx, slot: ``[B, T]``) of
     layer `layer_idx`'s pools, in place (``index_put_`` into the layer's
@@ -276,8 +315,17 @@ class LlamaAttention(nn.Module):
                 self.k_proj(x).view(b, t, -1, self.head_dim),
                 self.v_proj(x).view(b, t, -1, self.head_dim))
 
-    def forward(self, x, rope, segment_ids=None, position_ids=None):
+    def forward(self, x, rope=None, segment_ids=None, position_ids=None):
         b, s, _ = x.shape
+        if segment_ids is None and position_ids is None:
+            # a pipeline stage publishes its microbatch's packed-batch ids
+            ctx = current_segment_ctx()
+            if ctx is not None:
+                segment_ids, position_ids = (ctx.segment_ids,
+                                             ctx.position_ids)
+        if rope is None:
+            rope = _shared_rope_tables(self.head_dim, self._rope_limit,
+                                       self.config.rope_theta, x.device)
         q, k, v = self._qkv(x)
         q, k, cos, sin = apply_seam("rope", (q, k) + tuple(rope))
         limit = self._rope_limit
@@ -416,7 +464,9 @@ class LlamaDecoderLayer(nn.Module):
                                                      eps, device, dtype)
         self.mlp = LlamaMLP(config, device, dtype)
 
-    def forward(self, x, rope, segment_ids=None, position_ids=None):
+    def forward(self, x, rope=None, segment_ids=None, position_ids=None):
+        """`rope` is the model's (cos, sin) pair; None (a lone layer in a
+        pipeline stage) takes the process-wide pair of this geometry."""
         x = tag_residual(x + self.self_attn(self.input_layernorm(x), rope,
                                             segment_ids=segment_ids,
                                             position_ids=position_ids))
@@ -437,14 +487,7 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
-        if _mp_degree() == 1:
-            self.embed_tokens = nn.Embedding(config.vocab_size,
-                                             config.hidden_size,
-                                             device=device, dtype=dtype)
-        else:
-            self.embed_tokens = mp_layers.VocabParallelEmbedding(
-                config.vocab_size, config.hidden_size, device=device,
-                dtype=dtype)
+        self.embed_tokens = _embedding(config, device, dtype)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype)
              for _ in range(config.num_hidden_layers)])
@@ -557,15 +600,8 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.llama = LlamaModel(config, dev, dtype)
         # not a LoRA target: a plain linear (the vocab shard under mp)
-        if _mp_degree() == 1:
-            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                     bias=False, device=dev, dtype=dtype)
-            self.mp_group = None
-        else:
-            self.lm_head = mp_layers.ColumnParallelLinear(
-                config.hidden_size, config.vocab_size, has_bias=False,
-                gather_output=False, device=dev, dtype=dtype)
-            self.mp_group = self.lm_head.group
+        self.lm_head = _lm_head(config, dev, dtype)
+        self.mp_group = getattr(self.lm_head, "group", None)
         self.criterion = LlamaPretrainingCriterion(config, self.mp_group)
         if seed is not None:
             self.init_weights(seed)
@@ -619,3 +655,67 @@ class LlamaForCausalLM(nn.Module):
             ctx_pad=ctx_pad, write_mask=write_mask, verify=verify,
             segment_ids=segment_ids)
         return self.lm_head(hidden), cache
+
+    # ---- pipeline-parallel factory ----------------------------------------
+    @staticmethod
+    def pipeline_layers(config: LlamaConfig, loss_fn=None):
+        """The ``LayerDesc`` list of a ``PipelineLayer``: the embedding, the
+        decoder layers, the final norm with the head. Each layer is built in
+        `config`'s dtype, on the ``PipelineLayer``'s device, with the mp
+        layers when the mp degree is above 1 (as ``LlamaModel`` builds
+        them). `loss_fn` is accepted and unused, as in the JAX package;
+        the ``PipelineLayer`` takes the loss."""
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            LayerDesc)
+
+        dt = config.torch_dtype
+        descs = [LayerDesc(LlamaEmbeddingStage, config, dtype=dt)]
+        for _ in range(config.num_hidden_layers):
+            descs.append(LayerDesc(LlamaDecoderLayer, config, dtype=dt))
+        descs.append(LayerDesc(LlamaHeadStage, config, dtype=dt))
+        return descs
+
+
+class LlamaEmbeddingStage(nn.Module):
+    """The first pipeline stage's embedding (JAX ``_EmbeddingStage``):
+    ``nn.Embedding``, or ``VocabParallelEmbedding`` under mp."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.embed_tokens = _embedding(config, device, dtype)
+
+    def forward(self, input_ids):
+        if isinstance(self.embed_tokens, nn.Embedding):
+            return F.embedding(input_ids, self.embed_tokens.weight)
+        return self.embed_tokens(input_ids)
+
+
+class LlamaHeadStage(nn.Module):
+    """The last pipeline stage's final norm and LM head (JAX
+    ``_HeadStage``). ``forward_features`` is the fused head protocol
+    (``parallel.fused_head``): ``forward(x) ==
+    lm_head(forward_features(x))``. Under mp the head is a
+    ``ColumnParallelLinear`` whose vocab shard stays local, so ``forward``
+    returns this rank's logits shard (``LlamaPretrainingCriterion`` with
+    the mp group takes them)."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.norm = TorchRMSNorm(config.hidden_size, config.rms_norm_eps,
+                                 device, dtype)
+        self.lm_head = _lm_head(config, device, dtype)
+
+    def forward_features(self, x):
+        return self.norm(x)
+
+    def forward(self, x):
+        h = self.forward_features(x)
+        with amp_fp8.head_scope():
+            if isinstance(self.lm_head, nn.Linear):
+                return F.linear(h, self.lm_head.weight)
+            # the column-parallel layer sums the input gradient over mp
+            return self.lm_head(h)
+
+
+_EmbeddingStage = LlamaEmbeddingStage
+_HeadStage = LlamaHeadStage

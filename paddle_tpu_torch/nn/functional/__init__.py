@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as _tF
@@ -98,11 +99,32 @@ def _seamed(name, fn, *tensors):
 # linear / embedding / norms
 # ---------------------------------------------------------------------------
 
+class _WGradSeam(threading.local):
+    """The weight-gradient deferral of the ZB-H1 pipeline
+    (``parallel.zero_bubble``): while a stage's forward runs under it on
+    this thread, a product with a leaf weight (before any AMP cast) goes
+    through the sink, whose backward gives dX at once and queues (x, dy)
+    for dW on a later W tick."""
+
+    sink = None
+
+
+_WGRAD = _WGradSeam()
+
+
 def _linear(x, weight, bias=None):
     if _fp8.linear_fp8_enabled(x, weight):
         x, weight, bias = apply_seam("fp8_linear", (x, weight, bias))
         return check_outputs("fp8_linear", _fp8.fp8_linear(x, weight, bias))
+    master = weight
     x, weight, bias = apply_seam("linear", (x, weight, bias))
+    sink = _WGRAD.sink
+    # the leaf test is on the weight before the AMP cast: under AMP with
+    # fp32 masters the product takes the cast copy and dW is queued
+    # against the master
+    if sink is not None and master.is_leaf and master.requires_grad \
+            and torch.is_grad_enabled():
+        return check_outputs("linear", sink.linear(x, weight, bias, master))
     return check_outputs("linear", _tF.linear(x, weight, bias))
 
 

@@ -25,9 +25,10 @@ wraps one decoder layer:
 Raw kernel launches are invisible to PyTorch's dispatcher, so a recompute
 reruns them (they write into buffers the recompute allocates again); the
 selective policy keeps only the matmul outputs of the first run. The
-recompute runs under the first run's AMP state and ``amp.fp8`` session
-(autograd runs a CUDA backward on its own thread), with the session's
-callsite cursor rewound, so it meets the same casts and amax histories.
+recompute runs under the first run's AMP state, ``amp.fp8`` session and
+packed-batch context (``parallel.segments``; autograd runs a CUDA
+backward on its own thread), with the session's callsite cursor rewound,
+so it meets the same casts, amax histories and segment ids.
 
 ``scan_layers=True`` is accepted and the same layers run unrolled: eager
 PyTorch has no traced program for a scan to shrink. The ZeRO-3 scan
@@ -126,12 +127,13 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _replaying(fn):
     """`fn` whose second and later runs (the recompute) run under the
-    thread-local state of the first: the AMP state, and the fp8 session
-    with its callsite cursor rewound to where the first run started.
-    Autograd runs a CUDA backward on its own device thread, where neither
-    is installed."""
+    thread-local state of the first: the AMP state, the packed-batch
+    context, and the fp8 session with its callsite cursor rewound to where
+    the first run started. Autograd runs a CUDA backward on its own device
+    thread, where none of them is installed."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.amp import fp8
+    from paddle_tpu_torch.parallel import segments
 
     first = {}
 
@@ -139,10 +141,12 @@ def _replaying(fn):
         if not first:
             sess = fp8.current_session()
             first.update(amp=amp.state_snapshot(), sess=sess,
+                         seg=segments.current_segment_ctx(),
                          cursor=sess.cursor if sess is not None else 0)
             return fn(*a)
         sess = first["sess"]
-        with amp.restored_state(first["amp"]), fp8.installed(sess):
+        with amp.restored_state(first["amp"]), fp8.installed(sess), \
+                segments.restored_segment_ctx(first["seg"]):
             if sess is None:
                 return fn(*a)
             with sess.rewind(first["cursor"]):

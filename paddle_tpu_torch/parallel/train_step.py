@@ -42,9 +42,11 @@ the hcg of the mesh's axes, ``distributed_model`` and a
 is the global one, as there: each rank takes its block of rows along
 the data axes (dp-major over dp x sharding) and the step returns the
 mean of the data ranks' losses, the global loss when every rank holds as
-many tokens. ``zero_stage=3`` and a pipeline axis raise (ROADMAP A8), so
-do a ``grad_scaler`` under a fleet optimizer and fp8 or LoRA under
-mp > 1. ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
+many tokens. A pipeline axis in the mesh replicates the step over its
+ranks, as ``CompiledTrainStep`` does over such a mesh; pipelining is
+``parallel.pipeline.PipelinedTrainStep``'s. ``zero_stage=3`` raises
+(ROADMAP A8), so do a ``grad_scaler`` under a fleet optimizer and fp8 or
+LoRA under mp > 1. ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
 (``HybridParallelClipGrad``'s).
 
 CUDA graphs over the step and the anomaly detector (ROADMAP A8) are
@@ -154,6 +156,8 @@ class TrainStep:
         through ``distributed_model`` and the optimizer through
         ``distributed_optimizer`` unless they are wrapped already."""
         from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.fleet.meta_optimizers.\
+            hybrid_parallel_optimizer import HybridParallelOptimizer
         from paddle_tpu_torch.distributed.fleet.meta_parallel import (
             TensorParallel)
         from paddle_tpu_torch.distributed.mesh import get_mesh
@@ -163,8 +167,7 @@ class TrainStep:
         if mesh is None:
             raise ValueError("zero_axis needs a rank mesh (mesh= or "
                              "distributed.mesh.build_mesh)")
-        if mesh.shape.get("pp", 1) > 1:
-            raise NotImplementedError(fleet.PP_NOT_PORTED)
+        pp = mesh.shape.get("pp", 1)
         if zero_stage not in (1, 2):
             raise NotImplementedError(
                 f"zero_stage={zero_stage}: the port has ZeRO-1 and ZeRO-2; "
@@ -180,15 +183,21 @@ class TrainStep:
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {
             "dp_degree": deg["dp"], "mp_degree": deg["mp"],
-            "pp_degree": 1, "sharding_degree": deg["sharding"],
+            "pp_degree": pp, "sharding_degree": deg["sharding"],
             "sep_degree": deg["sep"]}
         strategy.sharding_configs = {"stage": int(zero_stage)}
         hcg = fleet.init(strategy=strategy)
-        if not isinstance(model, (DataParallel, TensorParallel)):
+        # a pp axis: the pp ranks replicate the whole step, as
+        # CompiledTrainStep's over such a mesh (pipelining is
+        # PipelinedTrainStep's), so the global norm sums nothing over pp
+        if pp > 1 and not isinstance(model, (DataParallel, TensorParallel)):
+            model = TensorParallel(model, hcg, strategy)
+        elif not isinstance(model, (DataParallel, TensorParallel)):
             model = fleet.distributed_model(model)
         if optimizer is not None and not hasattr(optimizer,
                                                  "last_grad_norm"):
-            optimizer = fleet.distributed_optimizer(optimizer)
+            optimizer = HybridParallelOptimizer(optimizer, hcg, strategy,
+                                                sum_pp=False)
         # dp-major over dp x sharding: the fused group's member order
         self._data_group = hcg.get_dp_sharding_parallel_group()
         return model, optimizer

@@ -22,8 +22,9 @@ labels: the JAX step means over the global batch, the port's data ranks
 mean their own rows and average, which agree when every rank holds as
 many tokens. At dp 2 x mp 2 the logits gathered over mp and the fused and
 unfused (vocab-parallel) losses equal the JAX model's forward, fp32 1e-5.
-What is not ported raises naming ROADMAP A8: ZeRO-3, a pp axis, fp8,
-serving and LoRA under mp > 1.
+What is not ported raises naming ROADMAP A8: ZeRO-3, ZeRO inside a
+pipeline stage (``zero_axis=`` under pp), fp8, serving and LoRA under
+mp > 1.
 
 Spawned ranks import torch, numpy and the port only; the JAX reference
 is built in this process.
@@ -132,10 +133,15 @@ def _train_rank(out_dir):
         lora.attach(model, lora.LoRAConfig(rank=4))
     except NotImplementedError as e:
         raised["lora"] = str(e)
+    # under pp (a TrainStep over a pp mesh now replicates the step):
+    # ZeRO inside a pipeline stage
     fleet.reset()
     mesh = build_mesh({"pp": 2, "dp": 2})
+    from paddle_tpu_torch.parallel.pipeline import PipelinedTrainStep
+
     try:
-        TrainStep(model, _fused_loss, opt, mesh=mesh)
+        PipelinedTrainStep(None, [], None, _fused_loss, mesh=mesh,
+                           zero_axis="dp")
     except NotImplementedError as e:
         raised["pp"] = str(e)
     out["raised"] = raised
