@@ -298,6 +298,24 @@ ms, peak memory beside the schedule's peak activations, launches, p2p
 calls, bytes and host ms a step; every CE call against its plain
 version).
 
+Since the ZeRO-3 slice (parameter sharding, a process a rank on gloo):
+``zero3_cuda_vs_cpu`` (4 gloo ranks on the card against the same ranks
+on the CPU, phase 6's tiny model at 4 layers: ``TrainStep(zero_stage=3)``
+at sharding 4 'ahead' and 'start', dp 2 x sharding 2 and mp 2 x sharding
+2, 1F1B and ZB-H1 with a zero axis at pp 2 x sharding 2, and
+``group_sharded_parallel("p_g_os")``'s eager loop at dp 4; losses and
+gathered parameters by phase 6's rule, every CE call against its plain
+version, the shards 1/N of the units, no full buffer left after a step,
+the gathered units' peak at 'ahead' and 'start') and
+``zero3_full_width`` (phase 7's model at sharding 4, ZeRO-3, 4 gloo
+ranks time-sharing the card: 'ahead' 2 + 3 steps and one for the peak
+memory, 'start' one step, then ZeRO-2 at sharding 4 1 + 1 as the
+memory yardstick: per rank step ms, peak memory per mode, resident
+parameter bytes, launches, all-gather and reduce-scatter calls, bytes
+and host ms a step; the first two losses and gradient norms against the
+single-rank model's, every CE call against its plain version). ``--only
+zero3_cuda_vs_cpu,zero3_full_width`` needs no earlier phase.
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -6888,18 +6906,18 @@ def _fleet_full_rank(out_dir, seed):
     dist.destroy_process_group()
 
 
-def _fleet_full_batches(cfg, seed):
-    """fleet_full_width's batches: step t's two rows (a sharding rank
+def _fleet_full_batches(cfg, seed, rows=2, steps=FLEET_WARMUP + FLEET_STEPS):
+    """fleet_full_width's batches: step t's `rows` rows (a data rank
     each), step 0's first row phase 7's batch; every 97th label ignored
     and every 101st set 100 below mp rank 1's vocab shard (where a plain
     shift would land on ignore_index)."""
     import numpy as np
 
     batches = []
-    for t in range(FLEET_WARMUP + FLEET_STEPS):
-        ids = np.concatenate([np.random.RandomState(s).randint(
-            1, cfg.vocab_size, (1, TRAIN_SEQ + 1))
-            for s in (seed + 2 * t, seed + 2 * t + 1)])
+    for t in range(steps):
+        ids = np.concatenate([np.random.RandomState(seed + rows * t + k)
+                              .randint(1, cfg.vocab_size, (1, TRAIN_SEQ + 1))
+                              for k in range(rows)])
         labels = ids[:, 1:].copy()
         labels[:, ::97] = -100
         labels[:, 5::101] = cfg.vocab_size // 2 - 100
@@ -7158,7 +7176,8 @@ def _pipe_small_rank(out_dir):
             res = _pipe_small_case(label, axes, named, batch, dev)
             if dev == "cuda":
                 torch.cuda.synchronize()
-                got = port_cuda.launch_counts()
+                got = {k: n for k, n in port_cuda.launch_counts().items()
+                       if n}
                 res["launches"] = got
                 for k, n in got.items():
                     launches[k] = launches.get(k, 0) + n
@@ -7549,6 +7568,590 @@ def phase_pipeline_full_width(args, report):
         raise AssertionError(f"pipeline_full_width: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-3: parameter sharding (group-sharded stage 3, the gather-ahead layer
+# loop, ZeRO inside a pipeline stage), a process a rank on gloo
+# ---------------------------------------------------------------------------
+
+ZERO3_LAYERS = 4             # the tiny model: the loop's 2-layer bound bites
+ZERO3_OUTER = 3              # units outside the loop: embedding, norm, head
+ZERO3_SMALL_TIMEOUT_S = 300
+ZERO3_FULL_TIMEOUT_S = 600
+ZERO3_SMALL = {              # label: (route, mesh axes, gather mode)
+    "sharding4_ahead": ("train_step", {"sharding": 4}, "ahead"),
+    "sharding4_start": ("train_step", {"sharding": 4}, "start"),
+    "dp2_sharding2": ("train_step", {"dp": 2, "sharding": 2}, "ahead"),
+    "mp2_sharding2": ("train_step", {"sharding": 2, "mp": 2}, "ahead"),
+    "1f1b_pp2_sharding2": ("1f1b", {"pp": 2, "sharding": 2}, "ahead"),
+    "zbh1_pp2_sharding2": ("zbh1", {"pp": 2, "sharding": 2}, None),
+    "group_sharded_p_g_os": ("group_sharded", {"dp": 4}, "ahead")}
+# the full-width run: 2 warm-up steps, the first at 'start' and the second
+# at 'ahead' (both held to the single rank's losses and norms); 'ahead' 3
+# timed, 1 for the peak memory; 'start' one step, timed and giving the
+# peak (kept short: the script's time limit); ZeRO-2 (the yardstick) its
+# first step timed, its second (its optimizer state made) for the peak
+ZERO3_WARM_MODES = ("start", "ahead")
+ZERO3_WARMUP, ZERO3_AHEAD, ZERO3_START, ZERO3_Z2 = 2, 3, 1, 1
+
+
+def _zero3_small_case(label, named, batch, dev):
+    """3 steps of one zero3_cuda_vs_cpu case on this rank: (losses, full
+    parameters, the sharder's readings)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models import from_paddle_tpu_params
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    from paddle_tpu_torch.parallel.pipeline import (PipelinedTrainStep,
+                                                    pipeline_hcg)
+    from paddle_tpu_torch.parallel.zero_bubble import ZBH1PipelinedStep
+
+    route, axes, mode = ZERO3_SMALL[label]
+    cfg = dataclasses.replace(_tiny_gqa_config(),
+                              num_hidden_layers=ZERO3_LAYERS)
+    fleet.reset()
+    set_mesh(None)
+    mesh = build_mesh(axes)
+    if route in ("train_step", "group_sharded"):
+        model = from_paddle_tpu_params(named, cfg, device=dev)
+        opt = AdamW(learning_rate=FLEET_LR, parameters=model.parameters(),
+                    weight_decay=0.01)
+    if route == "train_step":
+        step = TrainStep(model, _fused_loss, opt, mesh=mesh,
+                         zero_axis="sharding", zero_stage=3,
+                         zero3_gather=mode)
+        sh = step._zero3
+
+        def run():
+            return float(step(batch))
+
+        def full():
+            return step.model.state_dict()
+    elif route == "group_sharded":
+        m, o, _ = group_sharded_parallel(model, opt, "p_g_os")
+        sh = m.sharder
+        r = mesh.coord()["dp"]
+        mine = {k: torch.from_numpy(v[r:r + 1]).to(dev)
+                for k, v in batch.items()}
+
+        def run():
+            loss = m(**mine)
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            mean = loss.detach().float().clone()
+            collective.all_reduce(mean, collective.ReduceOp.AVG)
+            return float(mean)
+
+        def full():
+            return m.state_dict()
+    else:
+        hcg, _ = pipeline_hcg(mesh)
+        mods, idx = _pipe_stage(cfg, hcg, ZERO3_LAYERS, 1, dev, named=named)
+        opt = AdamW(learning_rate=FLEET_LR,
+                    parameters=[p for q in mods.values()
+                                for p in q.parameters()],
+                    weight_decay=0.01)
+        cls = PipelinedTrainStep if route == "1f1b" else ZBH1PipelinedStep
+        step = cls(mods.get(0), [mods[i + 1] for i in idx],
+                   mods.get(ZERO3_LAYERS + 1), LlamaPretrainingCriterion(cfg),
+                   optimizer=opt, mesh=mesh, num_micro=2,
+                   zero_axis="sharding")
+        sh = step.sharder
+        kw = {"segment_ids": batch["segment_ids"],
+              "position_ids": batch["position_ids"]}
+
+        def run():
+            return float(step(batch["input_ids"], batch["labels"], **kw))
+
+        def full():
+            share = {f"{i}.{n}": p.detach() for i, q in mods.items()
+                     if i in (0, ZERO3_LAYERS + 1)
+                     for n, p in q.named_parameters()}
+            blocks = sh.full_state()
+            for j, i in enumerate(idx):
+                pre = f"block{j}."
+                share.update({f"{i + 1}.{n[len(pre):]}": v
+                              for n, v in blocks.items()
+                              if n.startswith(pre)})
+            return share
+    losses, peaks = [], []
+    for _ in range(3):
+        sh.reset_peak()
+        losses.append(run())
+        peaks.append(sh.peak_units)
+    gc.collect()
+    return {"coord": mesh.coord(), "losses": losses,
+            "params": {n: v.detach().cpu().clone() for n, v in full().items()},
+            "peaks": peaks, "live": sh.live_units,
+            "alive": sh.alive_buffers(), "resident": sh.resident_bytes(),
+            "full": sh.full_bytes(),
+            "buckets": sum(len(u.buckets) for u in sh.units),
+            "units": len(sh.units), "loop_units": len(sh.loop_units)}
+
+
+def _zero3_small_rank(out_dir):
+    """One gloo rank of ``zero3_cuda_vs_cpu``: each case on cuda:0 then on
+    the CPU, 3 steps from the same weights."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    env = dist.init_parallel_env(backend="gloo")
+    named, batch = _rank_in(out_dir, "inputs.pkl")
+    ce = _CeCalls()
+    out = {"rank": env.rank, "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend(), "cases": {}}
+    launches = {}
+    for label in ZERO3_SMALL:
+        out["cases"][label] = {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                port_cuda.reset_launch_counts()
+            res = _zero3_small_case(label, named, batch, dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                got = {k: n for k, n in port_cuda.launch_counts().items()
+                       if n}
+                res["launches"] = got
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+            out["cases"][label][dev] = res
+    ce.restore()
+    out["launches"] = launches
+    out["ce_calls"] = ce.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def _zero3_holds(res, route, mode, n):
+    """The ZeRO-3 readings of one rank's case: (ok, why)."""
+    pad = res["buckets"] * n * 4
+    why = []
+    if not res["full"] <= res["resident"] * n <= res["full"] + pad:
+        why.append(f"resident {res['resident']} of {res['full']} bytes")
+    if res["live"] or res["alive"]:
+        why.append(f"{res['live']} units, {res['alive']} buffers left")
+    loop = res["loop_units"]
+    if route in ("train_step", "group_sharded"):
+        want = 2 + ZERO3_OUTER if mode == "ahead" else loop + ZERO3_OUTER
+        if max(res["peaks"]) != want:
+            why.append(f"peak units {res['peaks']}, not {want}")
+    elif max(res["peaks"]) > res["units"]:
+        why.append(f"peak units {res['peaks']} past the stage's "
+                   f"{res['units']} blocks")
+    return not why, why
+
+
+def phase_zero3_cuda_vs_cpu(seed, report):
+    """4 gloo ranks on cuda:0 against the same 4 ranks on the CPU, phase
+    6's tiny fp32 LLaMA at 4 layers (ZERO3_LAYERS), ZeRO-3, 3 AdamW steps
+    on one packed 4 x 256 batch each: ``TrainStep(zero_stage=3)`` at
+    sharding 4 ('ahead' and 'start'), dp 2 x sharding 2 and mp 2 x
+    sharding 2; 1F1B and ZB-H1 with ``zero_axis="sharding"`` at pp 2 x
+    sharding 2; ``group_sharded_parallel(level="p_g_os")``'s eager loop at
+    dp 4 (a row a rank). Phase 6's rule: per-step losses within 1e-4
+    relative, the gathered parameters within lr; every ce_stats call held
+    to its plain version (the fp32 model's CE backward takes its fp32
+    route, so ce_bwd does not launch here); the flash and ce_stats
+    kernels launched by the CUDA ranks; on every rank and device the
+    shards 1/N of the units plus the padding, no full buffer left after a
+    step, and the gathered units' peak 2 layers plus the outer units at
+    'ahead', the whole stack at 'start' (at most a stage's blocks under
+    pp)."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import gather_paddle_tpu_params
+    from paddle_tpu_torch.models.convert import gather_pipeline_params
+
+    cfg = dataclasses.replace(_tiny_gqa_config(),
+                              num_hidden_layers=ZERO3_LAYERS)
+    named = _fleet_named(cfg, seed)
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 4)
+    tmp = tempfile.mkdtemp(prefix="zero3_small_")
+    _rank_out(tmp, "inputs.pkl", (named, batch))
+    t0 = time.perf_counter()
+    spawn(_zero3_small_rank, (tmp,), nprocs=4, timeout=ZERO3_SMALL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    bad = []
+    out = {"gloo_s": gloo_s, "cases": {}, "launches": {},
+           "ce_calls": [r["ce_calls"] for r in ranks],
+           "tolerance": {"loss_rel": 1e-4, "param": FLEET_LR}}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        if r["backend"] != "gloo" or r["device"] != "cuda:0":
+            bad.append(f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"]:
+                bad.append(f"rank {r['rank']} {name} off its plain version "
+                           f"({rec['worst']:.3g})")
+        if r["ce_calls"]["ce_stats"]["calls"] == 0:
+            bad.append(f"rank {r['rank']}: no ce_stats call checked")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ce_stats"):
+        if not out["launches"].get(k):
+            bad.append(f"{k} not launched by the ranks")
+    for label, (route, axes, mode) in ZERO3_SMALL.items():
+        res = {dev: [r["cases"][label][dev] for r in ranks]
+               for dev in ("cuda", "cpu")}
+        full = {}
+        for dev, rs in res.items():
+            if route in ("1f1b", "zbh1"):
+                full[dev] = gather_pipeline_params(
+                    [next(x["params"] for x in rs
+                          if x["coord"] == {"pp": st, "sharding": 0})
+                     for st in range(2)], ZERO3_LAYERS)
+            else:
+                # the mp ranks of the first data replica
+                mine = sorted((x for x in rs
+                               if x["coord"].get("sharding", 0) == 0
+                               and x["coord"].get("dp", 0) == 0),
+                              key=lambda x: x["coord"].get("mp", 0))
+                full[dev] = gather_paddle_tpu_params(
+                    [x["params"] for x in mine])
+        loss_rel = max(abs(a - b) / abs(b) for c, p in zip(res["cuda"],
+                                                           res["cpu"])
+                       for a, b in zip(c["losses"], p["losses"]))
+        p_err = max(float(abs(full["cuda"][n] - full["cpu"][n]).max())
+                    for n in full["cpu"])
+        agree = all(x["losses"] == res["cuda"][0]["losses"]
+                    for x in res["cuda"])
+        n = axes.get("sharding", axes.get("dp", 1))
+        holds = [_zero3_holds(x, route, mode, n)
+                 for dev in res for x in res[dev]]
+        out["cases"][label] = {
+            "losses": {d: res[d][0]["losses"] for d in res},
+            "loss_rel_err": loss_rel, "param_max_abs_err": p_err,
+            "ranks_agree": agree,
+            "peak_units": res["cuda"][0]["peaks"],
+            "resident_bytes": res["cuda"][0]["resident"],
+            "unit_bytes": res["cuda"][0]["full"],
+            "launches": [x["launches"] for x in res["cuda"]]}
+        if not (loss_rel <= 1e-4 and p_err <= FLEET_LR and agree):
+            bad.append(f"{label}: loss {loss_rel:.3g}, params {p_err:.3g}, "
+                       f"ranks agree {agree}")
+        bad += [f"{label}: {why}" for ok, why in holds if not ok]
+    report["zero3_cuda_vs_cpu"] = out
+    print("zero3_cuda_vs_cpu: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"zero3_cuda_vs_cpu: {bad}")
+
+
+def _zero3_mode(step, sharder, batches, ce, timed, peak_apart=True):
+    """`timed` timed steps of `step` (their CE calls checked after the
+    timing), then, with `peak_apart`, one for the peak memory (its CE
+    checks' copies in host memory); without it the timed steps keep their
+    copies in host memory themselves and give the peak (their time then
+    includes the copies): step ms, peak memory, the gathered units' peak,
+    launches and the collectives' calls, bytes and host ms a timed
+    step."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce.defer = True
+    ce.host = not peak_apart
+    collective.reset_stats()
+    if sharder is not None:
+        sharder.reset_peak()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    losses, times = [], []
+    for i, b in enumerate(batches[:timed + int(peak_apart)]):
+        if i == timed:
+            launches = port_cuda.launch_counts()     # ... and ends here
+            comm = collective.stats()
+            units = sharder.peak_units if sharder is not None else None
+            ce.defer = False
+            ce.check_deferred()
+            ce.defer = ce.host = True
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize()
+        if i < timed:
+            times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    if not peak_apart:
+        launches = port_cuda.launch_counts()     # ... and ends here
+        comm = collective.stats()
+        units = sharder.peak_units if sharder is not None else None
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ce.defer = ce.host = False
+    ce.check_deferred()
+    gc.collect()
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "median_step_ms": statistics.median(times) * 1e3,
+            "peak_mem_gb": peak, "peak_units": units,
+            "live_units": sharder.live_units if sharder else None,
+            "alive_buffers": sharder.alive_buffers() if sharder else None,
+            "launches": launches,
+            "launches_per_step": {k: v / timed for k, v in launches.items()
+                                  if v},
+            "collective_calls_per_step": {k: v / timed for k, v in
+                                          comm["calls"].items()},
+            "collective_bytes_per_step": {k: v / timed for k, v in
+                                          comm["bytes"].items()},
+            "collective_host_ms_per_step": {k: v * 1e3 / timed for k, v in
+                                            comm["seconds"].items()}}
+
+
+def _zero3_full_rank(out_dir, seed):
+    """One gloo rank of ``zero3_full_width``: phase 7's model at sharding
+    4, ZeRO-3, the warm-up steps at ZERO3_WARM_MODES, then 'ahead' and
+    'start' on the same step (its gather schedule set through
+    ``GroupShardedStage3.zero3_gather``), then ZeRO-2 at sharding 4 from
+    the same initial weights."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    env = dist.init_parallel_env(backend="gloo")
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    batches = _rank_in(out_dir, "batches.pkl")
+    ce = _CeCalls()
+    fleet.reset()
+    mesh = build_mesh({"sharding": 4})
+    out = {"rank": env.rank, "coord": mesh.coord(),
+           "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend()}
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
+                     mesh=mesh, zero_axis="sharding", zero_stage=3,
+                     zero3_gather="ahead")
+    sh = step._zero3
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out.update(setup_s=time.perf_counter() - t0,
+               resident_param_bytes=sh.resident_bytes(),
+               unit_param_bytes=sh.full_bytes(),
+               buckets=sum(len(u.buckets) for u in sh.units),
+               param_storage_bytes=sum(p.untyped_storage().nbytes()
+                                       for p in model.parameters()),
+               allocated_gb_after_setup=torch.cuda.memory_allocated() / 1e9)
+    losses, norms, warm, warm_units = [], [], [], []
+    for mode, b in zip(ZERO3_WARM_MODES, batches[:ZERO3_WARMUP]):
+        step.model.zero3_gather = mode
+        port_cuda.reset_launch_counts()
+        sh.reset_peak()
+        losses.append(float(step(b)))
+        norms.append(step.last_metrics()["grad_norm"])
+        torch.cuda.synchronize()
+        warm.append(port_cuda.launch_counts())
+        warm_units.append(sh.peak_units)
+    out.update(warm_modes=list(ZERO3_WARM_MODES), warm_losses=losses,
+               warm_grad_norms=norms, warm_launches=warm,
+               warm_peak_units=warm_units,
+               allocated_gb_after_warmup=torch.cuda.memory_allocated() / 1e9)
+    k = ZERO3_WARMUP
+    step.model.zero3_gather = "ahead"
+    out["ahead"] = _zero3_mode(step, sh, batches[k:], ce, ZERO3_AHEAD)
+    k += ZERO3_AHEAD + 1
+    step.model.zero3_gather = "start"
+    out["start"] = _zero3_mode(step, sh, batches[k:], ce, ZERO3_START,
+                               peak_apart=False)
+    del step, opt, model, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the memory yardstick: ZeRO-2 over the same 4 ranks
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _fused_loss, opt, mesh=mesh,
+                     zero_axis="sharding", zero_stage=2)
+    out["zero2"] = _zero3_mode(step, None, batches, ce, ZERO3_Z2)
+    ce.restore()
+    out["ce_calls"] = ce.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def _zero3_reference(cfg, seed, batches, rows):
+    """The single-rank model on the same weights (phase 7's) and rows: its
+    first two steps' losses (the mean of the rows' losses) and gradient
+    norms, the rows' gradients accumulated a row at a time."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import global_norm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    losses, norms = [], []
+    for b in batches[:2]:
+        opt.clear_grad()
+        total = 0.0
+        for m in range(rows):
+            ids = torch.from_numpy(b["input_ids"][m:m + 1]).cuda()
+            lab = torch.from_numpy(b["labels"][m:m + 1]).cuda()
+            loss = model(ids, labels=lab).float()
+            (loss / rows).backward()
+            total += float(loss.detach())
+        losses.append(total / rows)
+        norms.append(float(global_norm([p.grad for p in model.parameters()
+                                        if p.grad is not None])))
+        opt.step()
+    del model, opt
+    return losses, norms
+
+
+def phase_zero3_full_width(args, report):
+    """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
+    seq 4096, AdamW, the fused head loss) at sharding 4 with ZeRO-3: 4 gloo
+    ranks on the one card, 1 x 4096 tokens a rank, a fresh batch a step
+    (``_fleet_full_batches`` at 4 rows). ZERO3_WARMUP steps, the first at
+    'start' and the second at 'ahead'; 'ahead' ZERO3_AHEAD timed, one for
+    the peak memory; then 'start' on the same step, ZERO3_START step,
+    timed and giving its peak at once; then
+    ZeRO-2 at sharding 4 from the same initial weights, the memory
+    yardstick, ZERO3_Z2 timed step and one for the peak. Per rank:
+    step ms, peak memory per mode (its CE checks' copies in host memory),
+    the gathered units' peak, the resident parameter bytes, the flash and
+    CE launches, and the all-gathers' and reduce-scatters' calls, bytes and
+    host ms a step. These are 4 ranks time-sharing one card through gloo:
+    no multi-GPU figure. Gates, on every rank: the first two losses (one
+    a mode) within FLEET_LOSS_RTOL and the gradient norms of steps 0 and
+    1 within FLEET_GNORM_RTOL of the single-rank model's on the same
+    weights and rows; the shards at most 1/4 of the parameters plus the
+    padding, the parameters holding no data; the gathered units' peak, in
+    every step read, 2 layers plus the outer units at 'ahead' and every
+    layer plus the outer units at 'start'; every step launching flash forward
+    twice a layer (the forward and the recompute), dq and dkv once a
+    layer, ce_stats and ce_bwd once; every CE call within its plain
+    version's rule; finite losses."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import llama_7b_config
+
+    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    steps = ZERO3_WARMUP + ZERO3_AHEAD + 1 + ZERO3_START
+    batches = _fleet_full_batches(cfg, args.seed, rows=4, steps=steps)
+    ref_losses, ref_norms = _zero3_reference(cfg, args.seed, batches, 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="zero3_full_")
+    _rank_out(tmp, "batches.pkl", batches)
+    t0 = time.perf_counter()
+    spawn(_zero3_full_rank, (tmp, args.seed), nprocs=4,
+          timeout=ZERO3_FULL_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    launches = {}
+    for r in ranks:
+        for mode in ("ahead", "start"):
+            for k_, n in r[mode]["launches"].items():
+                launches[k_] = launches.get(k_, 0) + n
+
+    def worst(read, want):
+        return max(abs(read(r) - want) / abs(want) for r in ranks)
+
+    layers = cfg.num_hidden_layers
+    out = {"layers": layers, "seq": TRAIN_SEQ,
+           "layout": "sharding 4, ZeRO-3, 4 gloo ranks on one card",
+           "wall_s": wall_s, "ref_losses": ref_losses,
+           "ref_grad_norms": ref_norms,
+           "loss_rel_errs": [worst(lambda r, i=i: r["warm_losses"][i],
+                                   ref_losses[i]) for i in range(2)],
+           "grad_norm_rel_errs": [
+               worst(lambda r, i=i: r["warm_grad_norms"][i], ref_norms[i])
+               for i in range(2)],
+           "launches": launches,
+           "ranks": [{k_: v for k_, v in r.items()} for r in ranks]}
+    report["zero3_full_width"] = out
+    for r in ranks:
+        print(f"zero3 full width rank {r['rank']} ({report.get('gpu')}; 4 "
+              f"ranks time-sharing one card through gloo): " + json.dumps(
+                  {k_: v for k_, v in r.items()
+                   if k_ not in ("warm_launches", "ce_calls")}), flush=True)
+    print("zero3 full width: " + json.dumps(
+        {k_: v for k_, v in out.items() if k_ != "ranks"}), flush=True)
+    bad = []
+    if not max(out["loss_rel_errs"]) <= FLEET_LOSS_RTOL:
+        bad.append(f"losses {ranks[0]['warm_losses']} vs the single "
+                   f"rank's {ref_losses}")
+    if not max(out["grad_norm_rel_errs"]) <= FLEET_GNORM_RTOL:
+        bad.append(f"grad norms {ranks[0]['warm_grad_norms']} vs the "
+                   f"single rank's {ref_norms}")
+    need3 = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+             "flash_bwd_dkv": layers, "ce_stats": 1, "ce_bwd": 1}
+    need2 = dict(need3, flash_fwd=layers)
+    calls = ZERO3_WARMUP + ZERO3_AHEAD + 1 + ZERO3_START + ZERO3_Z2 + 1
+    for r in ranks:
+        pad = r["buckets"] * 4 * 2
+        if not (r["unit_param_bytes"] <= 4 * r["resident_param_bytes"]
+                <= r["unit_param_bytes"] + pad
+                and r["param_storage_bytes"] == 0):
+            bad.append(f"rank {r['rank']}: {r['resident_param_bytes']} "
+                       f"resident bytes of {r['unit_param_bytes']}, "
+                       f"{r['param_storage_bytes']} in the parameters")
+        want_units = {"ahead": 2 + ZERO3_OUTER,
+                      "start": layers + ZERO3_OUTER}
+        units = ([(m, n) for m, n in zip(r["warm_modes"],
+                                         r["warm_peak_units"])]
+                 + [(m, r[m]["peak_units"]) for m in ("ahead", "start")])
+        for mode, n in units:
+            if n != want_units[mode]:
+                bad.append(f"rank {r['rank']}: '{mode}' gathered {n} "
+                           f"units at once, not {want_units[mode]}")
+        for mode in ("ahead", "start"):
+            if r[mode]["live_units"] or r[mode]["alive_buffers"]:
+                bad.append(f"rank {r['rank']} {mode}: full buffers left")
+        losses = r["warm_losses"] + [x for mode in ("ahead", "start",
+                                                    "zero2")
+                                     for x in r[mode]["losses"]]
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"rank {r['rank']}: non-finite loss {losses}")
+        for i, got in enumerate(list(r["warm_launches"])
+                                + [r["ahead"]["launches_per_step"],
+                                   r["start"]["launches_per_step"]]):
+            short = {k_: v for k_, v in need3.items() if got.get(k_, 0) < v}
+            if short:
+                bad.append(f"rank {r['rank']} step {i}: kernels short "
+                           f"{short}")
+        short = {k_: v for k_, v in need2.items()
+                 if r["zero2"]["launches_per_step"].get(k_, 0) < v}
+        if short:
+            bad.append(f"rank {r['rank']} ZeRO-2: kernels short {short}")
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"] or rec["calls"] != calls:
+                bad.append(f"rank {r['rank']} {name}: ok {rec['ok']}, "
+                           f"{rec['calls']} calls of {calls}")
+    if bad:
+        raise AssertionError(f"zero3_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -7560,7 +8163,9 @@ def kernels_line(report):
     ranks (the tiny layouts' CUDA steps and the full-width run's timed
     steps, summed over the 4 ranks), and since the pipeline slice the
     pipeline phases' ranks alike (the tiny cases' CUDA steps, the
-    full-width 1F1B run's timed steps). gmm_fwd is the bf16 forward kernel
+    full-width 1F1B run's timed steps), and since the ZeRO-3 slice the
+    ZeRO-3 phases' ranks (the tiny cases' CUDA steps, the full-width
+    run's timed 'ahead' and 'start' steps). gmm_fwd is the bf16 forward kernel
     (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
@@ -7595,7 +8200,9 @@ def kernels_line(report):
              report.get("fleet_cuda_vs_cpu", {}).get("launches", {}),
              report.get("fleet_full_width", {}).get("launches", {}),
              report.get("pipeline_cuda_vs_cpu", {}).get("launches", {}),
-             report.get("pipeline_full_width", {}).get("launches", {})]
+             report.get("pipeline_full_width", {}).get("launches", {}),
+             report.get("zero3_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("zero3_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -7861,6 +8468,12 @@ def main(argv=None) -> int:
                ("pipeline_full_width",
                 lambda: (free_memory(),
                          phase_pipeline_full_width(args, report))),
+               ("zero3_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_zero3_cuda_vs_cpu(args.seed, report))),
+               ("zero3_full_width",
+                lambda: (free_memory(),
+                         phase_zero3_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
     only = [n for n in args.only.split(",") if n]

@@ -269,6 +269,11 @@ define_flag("scan_layers", False,
             "params (O(1)-in-depth HLO size and compile time). The port "
             "accepts it and runs the same layers unrolled: eager PyTorch "
             "has no traced program for a scan to shrink")
+define_flag("zero3_gather", "ahead",
+            "ZeRO-3 gather schedule of the decoder-layer loop: 'ahead' = "
+            "layer k+1's all-gather in flight while layer k computes (at "
+            "most 2 layers of full weights live); 'start' = all-gather "
+            "the whole stack before the loop")
 define_flag("prefetch_to_device_depth", 2,
             "double-buffered device prefetch depth for DeviceFeeder: "
             "batches collated into pinned host memory and copied to the "

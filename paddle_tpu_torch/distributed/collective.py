@@ -21,7 +21,8 @@ until ``reset_stats()``.
 
 Every op has finished when it returns, ``sync_op=False`` included (the
 argument is accepted and ignored, as in the JAX package): it returns the
-tensor or list it wrote. ``isend``/``irecv`` are the asynchronous ops.
+tensor or list it wrote. ``isend``/``irecv`` and ``all_gather_async``
+(ZeRO-3's gather ahead) are the asynchronous ops.
 
 The collectives are not differentiable (as ``torch.distributed``'s are
 not); the tensor-parallel layers put them inside their own autograd
@@ -42,13 +43,13 @@ from paddle_tpu_torch.distributed.env import get_world_size
 
 __all__ = [
     "ReduceOp", "Group", "new_group", "get_group", "all_reduce", "all_gather",
-    "all_gather_object", "all_to_all", "all_to_all_single", "reduce",
-    "reduce_scatter", "broadcast", "broadcast_object_list", "scatter",
-    "gather", "send", "recv", "isend", "irecv", "partial_send",
-    "partial_recv", "partial_allgather", "barrier", "wait", "P2POp",
-    "batch_isend_irecv", "stream", "scatter_object_list", "is_available",
-    "get_backend", "destroy_process_group", "monitored_barrier", "stats",
-    "reset_stats",
+    "all_gather_async", "all_gather_object", "all_to_all",
+    "all_to_all_single", "reduce", "reduce_scatter", "broadcast",
+    "broadcast_object_list", "scatter", "gather", "send", "recv", "isend",
+    "irecv", "partial_send", "partial_recv", "partial_allgather", "barrier",
+    "wait", "P2POp", "batch_isend_irecv", "stream", "scatter_object_list",
+    "is_available", "get_backend", "destroy_process_group",
+    "monitored_barrier", "stats", "reset_stats",
 ]
 
 
@@ -243,6 +244,65 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True):
         tensor_list.extend(outs)
         return tensor_list
     return torch.stack(outs, 0)
+
+
+class _GatherWork:
+    """An ``all_gather_async`` in flight; ``wait()`` completes it (and,
+    staged, copies the host result into the caller's tensor)."""
+
+    def __init__(self, work, keep=None, host=None, dest=None):
+        # `keep` holds the input (its host copy) until the op completes
+        self._work, self._keep, self._host, self._dest = work, keep, host, dest
+
+    def wait(self):
+        if self._work is None:
+            return True
+        with _timed("all_gather_async"):
+            self._work.wait()
+            if self._dest is not None:
+                with torch.no_grad():
+                    self._dest.copy_(self._host, non_blocking=True)
+        self._work = self._keep = self._host = self._dest = None
+        return True
+
+
+def all_gather_async(out_tensor, tensor, group=None):
+    """Start gathering every member's 1-D `tensor` into the 1-D
+    `out_tensor` (``nranks * numel`` elements, member order) and return
+    its task; ``wait()`` it before reading `out_tensor`. The op is in
+    flight between the two (c10d's asynchronous work). On gloo a CUDA
+    input is copied to pinned host memory when the op starts and the
+    result back to the card when it is waited on. ``stats()`` counts it
+    under "all_gather_async": its calls, the bytes of the input, and the
+    host seconds of the start and of the wait."""
+    g = _resolve(group)
+    n = tensor.numel()
+    if tensor.dim() != 1 or out_tensor.numel() != n * g.nranks:
+        raise ValueError(f"all_gather_async: a 1-D input of {n} elements "
+                         f"gathers into {n * g.nranks}, not "
+                         f"{out_tensor.numel()}")
+    if g.nranks == 1:
+        with torch.no_grad():
+            out_tensor.view(-1).copy_(tensor)
+        return _GatherWork(None)
+    _count("all_gather_async", n * tensor.element_size())
+    with _timed("all_gather_async"):
+        src = tensor.detach().contiguous()
+        if _staged(g, tensor):
+            host_in = torch.empty(n, dtype=tensor.dtype, pin_memory=True)
+            host_in.copy_(src)
+            host = torch.empty(n * g.nranks, dtype=tensor.dtype,
+                               pin_memory=True)
+            work = dist.all_gather(list(host.chunk(g.nranks)), host_in,
+                                   group=g.pg, async_op=True)
+            return _GatherWork(work, host_in, host, out_tensor.view(-1))
+        if g.backend == "nccl":
+            work = dist.all_gather_into_tensor(out_tensor.view(-1), src,
+                                               group=g.pg, async_op=True)
+        else:
+            work = dist.all_gather(list(out_tensor.view(-1).chunk(g.nranks)),
+                                   src, group=g.pg, async_op=True)
+        return _GatherWork(work, src)
 
 
 def all_gather_object(object_list: list, obj, group=None):

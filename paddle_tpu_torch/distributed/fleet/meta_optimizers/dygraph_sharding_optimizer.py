@@ -1,5 +1,5 @@
-"""ZeRO-1 and ZeRO-2 (``paddle_tpu.distributed.fleet.meta_optimizers.
-dygraph_sharding_optimizer`` counterpart; reference:
+"""ZeRO-1, ZeRO-2 and ZeRO-3 (``paddle_tpu.distributed.fleet.
+meta_optimizers.dygraph_sharding_optimizer`` counterpart; reference:
 dygraph_optimizer/dygraph_sharding_optimizer.py:44, V2 with flat buffers
 :566).
 
@@ -19,13 +19,24 @@ whole parameter's.
 * ``stage=1``: the full gradients stay in ``p.grad`` until the step;
 * ``stage=2``: each gradient is reduce-scattered as soon as backward
   completes it (``register_post_accumulate_grad_hook``) and ``p.grad`` is
-  dropped, so a rank keeps its gradient slice only.
+  dropped, so a rank keeps its gradient slice only;
+* ``stage=3``: a parameter that ZeRO-3 sharded (``meta_parallel.sharding.
+  group_sharded``) is represented by its slice of its unit's shard. The
+  layer loop (or the held unit's ``finish()``, which the step calls
+  first) has already reduce-scattered its gradient into the shard's
+  gradient; the step averages that over dp, updates the slices, which are
+  views of the shard, and gathers nothing: the parameter stays sharded. A
+  parameter that is not sharded takes the stage-1 route.
 
 Zero padding stays zero: a zero gradient moves neither Adam's moments nor
 a zero parameter. At stage 1 a parameter without a gradient joins as
 zeros, so all ranks run the same collectives; stage 2 reduces in backward
-and needs every rank to use the same parameters. ZeRO-3 is later work
-(ROADMAP A8).
+and needs every rank to use the same parameters.
+
+``state_dict()`` gathers every parameter's state whole over the sharding
+group, in the unsharded optimizer's layout, and ``set_state_dict()``
+keeps this rank's slice of such a state: a sharded run resumes unsharded
+and the other way round.
 """
 from __future__ import annotations
 
@@ -38,12 +49,14 @@ from paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util import (
 __all__ = ["DygraphShardingOptimizer"]
 
 
+def _zero3_mark(p):
+    return getattr(p, "_zero3", None)
+
+
 class DygraphShardingOptimizer:
     def __init__(self, optimizer, hcg, stage: int = 1, sum_pp: bool = True):
-        if stage not in (1, 2):
-            raise NotImplementedError(
-                f"sharding stage {stage}: the port has ZeRO-1 and ZeRO-2; "
-                f"ZeRO-3 is later work (ROADMAP A8)")
+        if stage not in (1, 2, 3):
+            raise ValueError(f"sharding stage {stage}: expected 1, 2 or 3")
         self._inner_opt = optimizer
         self._hcg = hcg
         self._sum_pp = sum_pp
@@ -52,22 +65,52 @@ class DygraphShardingOptimizer:
         self._dp_group = hcg.get_data_parallel_group()
         self._full = list(optimizer._params)
         n, r = self._group.nranks, self._group.rank
-        self._per = [-(-p.numel() // n) for p in self._full]
+        self._z3 = [_zero3_mark(p) is not None for p in self._full]
+        self._per = [0 if z else -(-p.numel() // n)
+                     for p, z in zip(self._full, self._z3)]
+        units = {}
         slices = []
         with torch.no_grad():
-            for p, per in zip(self._full, self._per):
+            for p, per, z in zip(self._full, self._per, self._z3):
+                if z:
+                    u, bi, i = _zero3_mark(p)
+                    if u.sharder.group.ranks != self._group.ranks:
+                        raise ValueError(
+                            f"unit {u.name!r} is sharded over ranks "
+                            f"{u.sharder.group.ranks}, the optimizer over "
+                            f"{self._group.ranks}")
+                    units.setdefault(id(u), u)
+                    slices.append(u.buckets[bi].slices[i])
+                    continue
                 s = self._flat(p.detach(), per)[r * per:(r + 1) * per].clone()
                 s.requires_grad_(p.requires_grad)
                 s.mp_sharded = is_mp_sharded(p)
                 slices.append(s)
+        if any(self._z3) and stage != 3:
+            raise ValueError("the model's parameters are ZeRO-3 sharded; the "
+                             "sharding optimizer needs stage 3")
+        self._units = list(units.values())
+        self._sharders = []
+        for u in self._units:
+            if all(u.sharder is not s for s in self._sharders):
+                self._sharders.append(u.sharder)
         self._slices = slices
         optimizer._entries = slices
         self._index = {id(p): i for i, p in enumerate(self._full)}
         self.last_grad_norm = None
         self._hooks = []
         if stage == 2:
-            self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
-                           for p in self._full if p.requires_grad]
+            self.enable_grad_hooks()
+
+    def enable_grad_hooks(self):
+        """ZeRO-2: reduce-scatter each gradient of a parameter that is not
+        ZeRO-3 sharded as soon as the backward completes it."""
+        if self._hooks or self.stage == 3:
+            return
+        self.stage = 2
+        self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
+                       for p, z in zip(self._full, self._z3)
+                       if p.requires_grad and not z]
 
     def _flat(self, t, per):
         """`t` flattened and zero-padded to nranks x per elements."""
@@ -96,13 +139,26 @@ class DygraphShardingOptimizer:
     @torch.no_grad()
     def reduce_gradients(self):
         """Each slice's gradient: the sharding group's sum (reduce-scattered
-        here at stage 1, in backward at stage 2), summed over the dp group,
-        divided by the data-parallel count."""
+        here at stage 1, in backward at stage 2 and for ZeRO-3 units),
+        summed over the dp group, divided by the data-parallel count."""
         denom = self._group.nranks * self._dp_group.nranks
+        for u in self._units:
+            for b in u.buckets:
+                if not b.shard.requires_grad:
+                    continue
+                if b.shard.grad is None:
+                    b.shard.grad = torch.zeros_like(b.shard.detach())
+                g = b.shard.grad
+                if self._dp_group.nranks > 1:
+                    collective.all_reduce(g, group=self._dp_group)
+                g.div_(denom)
+                for s, (a, e) in zip(b.slices, b.ranges):
+                    if s.requires_grad:
+                        s.grad = g[a:e]
         for i, (p, s) in enumerate(zip(self._full, self._slices)):
-            if not p.requires_grad:
+            if self._z3[i] or not p.requires_grad:
                 continue
-            if self.stage == 1:
+            if not self._hooks:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 s.grad = self._scatter(i, g)
             elif s.grad is None:
@@ -114,16 +170,21 @@ class DygraphShardingOptimizer:
 
     @torch.no_grad()
     def step(self):
-        """Reduce, update the slices, gather the parameters; keeps the
-        hybrid global norm of the reduced gradients (``last_grad_norm``,
-        the clip's when it clips by the global norm)."""
+        """Reduce, update the slices, gather the parameters that are not
+        ZeRO-3 sharded; keeps the hybrid global norm of the reduced
+        gradients (``last_grad_norm``, the clip's when it clips by the
+        global norm)."""
         from paddle_tpu_torch.distributed.fleet.meta_optimizers.\
             hybrid_parallel_optimizer import (HybridParallelClipGrad,
                                               hybrid_global_norm)
 
-        n, r = self._group.nranks, self._group.rank
-        for p, s, per in zip(self._full, self._slices, self._per):
-            s.copy_(self._flat(p.detach(), per)[r * per:(r + 1) * per])
+        for sharder in self._sharders:
+            sharder.finish()
+        r = self._group.rank
+        for p, s, per, z in zip(self._full, self._slices, self._per,
+                                self._z3):
+            if not z:
+                s.copy_(self._flat(p.detach(), per)[r * per:(r + 1) * per])
         self.reduce_gradients()
         clip = getattr(self._inner_opt, "_grad_clip", None)
         if not isinstance(clip, HybridParallelClipGrad):
@@ -133,9 +194,11 @@ class DygraphShardingOptimizer:
         self._inner_opt.step()
         if isinstance(clip, HybridParallelClipGrad):
             self.last_grad_norm = clip.last_norm
-        for p, s in zip(self._full, self._slices):
-            parts = collective.all_gather([], s.detach(), group=self._group)
-            p.copy_(torch.cat(parts)[:p.numel()].view_as(p))
+        for p, s, z in zip(self._full, self._slices, self._z3):
+            if not z:
+                parts = collective.all_gather([], s.detach(),
+                                              group=self._group)
+                p.copy_(torch.cat(parts)[:p.numel()].view_as(p))
 
     def slice_grads(self):
         return [(s, s.grad) for s in self._slices if s.grad is not None]
@@ -143,11 +206,90 @@ class DygraphShardingOptimizer:
     def clear_grad(self, set_to_zero=False):
         for t in self._full + self._slices:
             t.grad = None
+        for u in self._units:
+            for b in u.buckets:
+                b.shard.grad = None
 
     clear_gradients = clear_grad
 
-    def state_dict(self):
-        return self._inner_opt.state_dict()
+    # ---- whole-parameter state ----------------------------------------------
+    def _bucket_state(self, u, bi, key, cache):
+        """The full padded flat of state `key` over bucket `bi` of unit `u`
+        (each rank's slices' states laid into its shard range, gathered)."""
+        ck = (id(u), bi, key)
+        if ck not in cache:
+            b = u.buckets[bi]
+            local = torch.zeros(b.per, dtype=torch.float32,
+                                device=b.device)
+            for j, (a, e) in enumerate(b.ranges):
+                st = self._inner_opt._state.get(
+                    self._index[id(b.params[j])])
+                if st is not None and e > a:
+                    local[a:e] = st[key].reshape(-1).float()
+            full = torch.empty(b.padded, dtype=torch.float32,
+                               device=b.device)
+            collective.all_gather_async(full, local, self._group).wait()
+            cache[ck] = full
+        return cache[ck]
 
-    def set_state_dict(self, s):
-        return self._inner_opt.set_state_dict(s)
+    @torch.no_grad()
+    def _whole(self, i, key, v, cache):
+        p = self._full[i]
+        if v.dim() == 0 or v.numel() != self._slices[i].numel():
+            return v            # a state that is not per element
+        if self._z3[i]:
+            u, bi, j = _zero3_mark(p)
+            b = u.buckets[bi]
+            o, k = b.offsets[j], b.numels[j]
+            return self._bucket_state(u, bi, key, cache)[o:o + k].view(
+                b.shapes[j])
+        parts = collective.all_gather([], v.float(), group=self._group)
+        return torch.cat(parts)[:p.numel()].view(p.shape)
+
+    def state_dict(self):
+        """The wrapped optimizer's ``state_dict`` with each parameter's
+        state whole (every rank of the sharding group calls it)."""
+        sd = self._inner_opt.state_dict()
+        cache = {}
+        for i in range(len(self._full)):
+            st = self._inner_opt._state.get(i)
+            if st:
+                sd[f"param_{i}"] = {
+                    k: self._whole(i, k, v, cache).cpu().numpy()
+                    for k, v in st.items()}
+        return sd
+
+    def set_state_dict(self, state):
+        """Load a whole-parameter ``state_dict`` (this class's or the
+        unsharded optimizer's), keeping this rank's slice of each state."""
+        import numpy as np
+
+        r = self._group.rank
+        out = {k: v for k, v in state.items() if not k.startswith("param_")}
+        for i, p in enumerate(self._full):
+            saved = state.get(f"param_{i}")
+            if saved is None:
+                continue
+            sl = {}
+            for k, v in saved.items():
+                v = np.asarray(v, np.float32)
+                if v.ndim == 0:
+                    sl[k] = v
+                    continue
+                if v.size == self._slices[i].numel():   # the slice is whole
+                    sl[k] = v.reshape(-1)
+                    continue
+                flat = v.reshape(-1)
+                if self._z3[i]:
+                    u, bi, j = _zero3_mark(p)
+                    b = u.buckets[bi]
+                    a, e = b.ranges[j]
+                    lo = r * b.per - b.offsets[j]
+                    sl[k] = flat[lo + a:lo + e]
+                else:
+                    per = self._per[i]
+                    pad = np.zeros(per * self._group.nranks - flat.size,
+                                   np.float32)
+                    sl[k] = np.concatenate([flat, pad])[r * per:(r + 1) * per]
+            out[f"param_{i}"] = sl
+        return self._inner_opt.set_state_dict(out)

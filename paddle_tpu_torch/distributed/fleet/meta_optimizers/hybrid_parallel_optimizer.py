@@ -5,8 +5,9 @@ counterpart; reference: dygraph_optimizer/hybrid_parallel_optimizer.py,
 
 * ``HybridParallelClipGrad``: the global gradient norm of the hybrid
   model. Squares of mp-sharded parameters' gradients are summed over the
-  mp group, replicated ones counted once; under ZeRO the gradients are
-  slices, so both sums run over the sharding group first; the total is
+  mp group, replicated ones counted once; under ZeRO (stages 1-3) the
+  gradients are slices, each with its parameter's ``mp_sharded`` mark,
+  so both sums run over the sharding group first; the total is
   summed over the pp group, whose stages hold different parameters (a
   shared-weight copy counts on the first stage holding it only,
   ``is_firstly_shared``). A caller whose pp ranks replicate one step
@@ -16,7 +17,9 @@ counterpart; reference: dygraph_optimizer/hybrid_parallel_optimizer.py,
 * ``HybridParallelOptimizer``: averages the gradients over the dp group
   when the model is not a ``DataParallel`` (whose reducer averaged them
   in backward), hands the step to ``DygraphShardingOptimizer`` when the
-  sharding degree is above 1 (``sharding_configs["stage"]`` 1 or 2),
+  sharding degree is above 1 (``sharding_configs["stage"]`` 1, 2 or 3;
+  at 3 the ZeRO-3 sharded parameters' gradients arrive reduce-scattered
+  and the step gathers no parameter back),
   merges ``gradient_merge_configs["k_steps"]`` steps' gradients into one
   update, and keeps the step's global norm (``last_grad_norm``, a device
   scalar), clipped or not.
@@ -110,9 +113,9 @@ class HybridParallelOptimizer:
         stage = 1
         if strategy is not None and self._sharding:
             stage = int(strategy.sharding_configs.get("stage", 1))
-        if self._sharding and stage == 2 and self._gm_steps > 1:
-            raise NotImplementedError("gradient merge with ZeRO-2 is not "
-                                      "ported yet (ROADMAP A8)")
+        if self._sharding and stage >= 2 and self._gm_steps > 1:
+            raise NotImplementedError(f"gradient merge with ZeRO-{stage} "
+                                      f"is not ported yet (ROADMAP A8)")
         self._clip = None
         if isinstance(getattr(optimizer, "_grad_clip", None),
                       ClipGradByGlobalNorm):

@@ -33,9 +33,11 @@ loop applies the remat policy of ``current_layer_ctx()`` (else the
 final norm and the fused head never sit in one, and each layer tags its
 two residual-stream tensors (``tag_residual``) for ``offload_residuals``.
 ``scan_group()`` is the homogeneous stack; ``scan_layers`` runs it
-unrolled. The projections, the embedding, the norms, ``rope`` and the
-head go through the ``nn.functional`` seam (AMP casts, fp8); the LM head
-sits in ``amp.fp8.head_scope``.
+unrolled. Under ZeRO-3 (a ``shard_info`` in the layer context) the stack
+runs through ``scan_layers.zero3_layer_loop``. The projections, the
+embedding, the norms, ``rope`` and the head go through the
+``nn.functional`` seam (AMP casts, fp8); the LM head sits in
+``amp.fp8.head_scope``.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ from paddle_tpu_torch.nn.layer.norm import TorchRMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
 from paddle_tpu_torch.parallel.scan_layers import (current_layer_ctx,
                                                    tag_residual,
-                                                   unrolled_layer_call)
+                                                   unrolled_layer_call,
+                                                   zero3_layer_loop)
 from paddle_tpu_torch.parallel.segments import current_segment_ctx
 from paddle_tpu_torch.quantization import quantize_kv, raw_bytes
 
@@ -514,6 +517,10 @@ class LlamaModel(nn.Module):
         ctx = current_layer_ctx()
         policy = ctx.policy if ctx is not None else flag("remat_policy")
         kwargs = {"segment_ids": segment_ids, "position_ids": position_ids}
+        if ctx is not None and ctx.shard_info is not None:
+            x = zero3_layer_loop(list(self.layers), x, (rope,), kwargs,
+                                 ctx.shard_info)
+            return self.norm(x)
         for layer in self.layers:
             x = unrolled_layer_call(layer, x, (rope,), kwargs, policy)
         return self.norm(x)

@@ -45,9 +45,22 @@ rank returns the same loss. Gradients of replicated parameters are
 averaged over dp by ``HybridParallelOptimizer``; its global norm sums the
 squares over pp (each stage holds other parameters).
 
-Not ported (ROADMAP A8): ``zero_axis=`` (ZeRO inside a stage, item 2) and
-fp8 under pp (the JAX package's stateless current scaling,
-``pipeline.py:165-171``) raise.
+ZeRO inside a stage (``zero_axis=``, JAX ``pipeline.py:231-296``): the
+stage's blocks persist as this rank's 1/N of each block over the zero
+axis, a data axis the microbatch rows split over (dp or sharding; "dp"
+is taken as the sharding axis when the mesh has no sharding axis above
+1). Each microbatch's F tick runs the blocks through the ZeRO-3 layer
+loop (``scan_layers.zero3_layer_loop``), block i+1's all-gather in flight
+while block i computes, and its B tick the mirror: the blocks are
+gathered again and recomputed (the "full" grade), and their gradients
+reduce-scattered. The embedding and the head stay replicated, with ZeRO-1
+optimizer state. VPP with a zero axis, a zero axis that is no data axis
+and microbatch rows that do not split over the data axes raise, as in
+JAX; an axis the mesh lacks warns and leaves ZeRO off. ZB-H1's variant is
+``parallel.zero_bubble``'s.
+
+Not ported (ROADMAP A8): fp8 under pp (the JAX package's stateless
+current scaling, ``pipeline.py:165-171``) raises.
 """
 from __future__ import annotations
 
@@ -60,15 +73,13 @@ from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.parallel.pipeline_schedules import (
     fthenb_schedule, one_f_one_b_schedule)
 from paddle_tpu_torch.parallel.scan_layers import (normalize_remat,
-                                                   unrolled_layer_call)
+                                                   unrolled_layer_call,
+                                                   zero3_layer_loop)
 from paddle_tpu_torch.parallel.segments import segment_execution
 
 __all__ = ["PipelinedTrainStep", "PipelineEngine", "StagePart",
-           "stage_block_indices", "pipeline_hcg", "PP_ZERO_NOT_PORTED",
-           "PP_FP8_NOT_PORTED"]
+           "stage_block_indices", "pipeline_hcg", "PP_FP8_NOT_PORTED"]
 
-PP_ZERO_NOT_PORTED = ("zero_axis= under pp (ZeRO inside a pipeline stage) "
-                      "is not ported yet (ROADMAP A8 item 2)")
 PP_FP8_NOT_PORTED = ("fp8 under pp is not ported yet (ROADMAP A8 item 8, "
                      "fp8 under the pipeline)")
 
@@ -292,6 +303,7 @@ class PipelineEngine:
             if spec is not None:
                 self._head, self._fused = last.fns[-1], spec
         self.sink = None          # ZB-H1's weight-gradient deferral
+        self.zero = None          # the ZeRO-3 loop's ScanShardInfo
 
     # ---- batches ------------------------------------------------------------
     def microbatches(self, value):
@@ -330,12 +342,23 @@ class PipelineEngine:
                                  extras["position_ids"][m]
                                  if "position_ids" in extras else None)
                if extras else nullcontext())
+        marks = part.blocks[:len(fns)]
         with ctx:
-            for fn, blk in zip(fns, part.blocks):
+            i = 0
+            while i < len(fns):
+                fn, blk = fns[i], marks[i]
+                if blk and self.zero is not None:
+                    j = i
+                    while j < len(fns) and marks[j]:
+                        j += 1
+                    x = zero3_layer_loop(fns[i:j], x, (), {}, self.zero)
+                    i = j
+                    continue
                 if blk and self.remat_policy != "none":
                     x = unrolled_layer_call(fn, x, (), {}, self.remat_policy)
                 else:
                     x = fn(*x) if isinstance(x, tuple) else fn(x)
+                i += 1
             if not part.last:
                 return x
             from paddle_tpu_torch.parallel.fused_head import fused_head_loss
@@ -517,20 +540,28 @@ class PipelineEngine:
         return loss
 
 
-def pipeline_hcg(mesh):
+def pipeline_hcg(mesh, zero_axis=None):
     """The hcg of a rank mesh with a pp axis (``fleet.init`` over the
-    mesh's degrees, so the mp layers built afterwards see it)."""
+    mesh's degrees, so the mp layers built afterwards see it). With a
+    `zero_axis` the strategy's sharding stage is 3, and "dp" becomes the
+    sharding axis when the mesh has no sharding axis above 1."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.mesh import set_mesh
 
     set_mesh(mesh)
+    dp, sharding = mesh.shape.get("dp", 1), mesh.shape.get("sharding", 1)
+    if zero_axis == "dp" and sharding == 1:
+        dp, sharding = 1, dp
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {
         "pp_degree": mesh.shape.get("pp", 1),
-        "dp_degree": mesh.shape.get("dp", 1),
+        "dp_degree": dp,
         "mp_degree": mesh.shape.get("mp", 1),
-        "sharding_degree": mesh.shape.get("sharding", 1),
+        "sharding_degree": sharding,
         "sep_degree": mesh.shape.get("sep", 1)}
+    if zero_axis is not None:
+        strategy.sharding_configs = dict(strategy.sharding_configs,
+                                         stage=3)
     return fleet.init(strategy=strategy), strategy
 
 
@@ -548,13 +579,11 @@ def sync_replicas(modules, hcg):
         broadcast_dp_parameters(holder, hcg)
 
 
-def check_unported(zero_axis, fp8_policy):
+def check_unported(fp8_policy):
     """Raise for what the pipelines leave to ROADMAP A8."""
     from paddle_tpu_torch.amp import fp8 as _fp8
     from paddle_tpu_torch.core.flags import flag
 
-    if zero_axis is not None:
-        raise NotImplementedError(PP_ZERO_NOT_PORTED)
     policy = _fp8.normalize_fp8_policy(
         flag("fp8_policy") if fp8_policy is None else fp8_policy)
     if policy != "none":
@@ -593,15 +622,23 @@ class PipelinedTrainStep:
         from paddle_tpu_torch.distributed.mesh import get_mesh
         from paddle_tpu_torch.io.device_feed import DispatchWindow
 
-        check_unported(zero_axis, fp8_policy)
+        check_unported(fp8_policy)
         mesh = mesh if mesh is not None else get_mesh()
         if mesh is None or "pp" not in mesh.shape:
             raise ValueError("PipelinedTrainStep requires a mesh with a "
                              "'pp' axis")
-        if mesh.shape.get("sharding", 1) > 1:
-            raise NotImplementedError(PP_ZERO_NOT_PORTED)
+        self.zero_axis = pipeline_zero_axis(mesh, zero_axis, virtual_pp,
+                                            data_axis=not self._replicate)
+        self.remat_policy = normalize_remat(remat)
+        if self.zero_axis is not None and not self._replicate \
+                and self.remat_policy not in ("none", "full"):
+            raise ValueError(
+                f"zero_axis: the ZeRO-3 block loop re-gathers and "
+                f"recomputes each block in backward (its own 'full'-grade "
+                f"schedule); remat policy {self.remat_policy!r} cannot "
+                f"apply to the sharded stack")
         self.mesh = mesh
-        self.hcg, strategy = pipeline_hcg(mesh)
+        self.hcg, strategy = pipeline_hcg(mesh, self.zero_axis)
         self.S = self.hcg.get_pipe_parallel_world_size()
         self.V = int(virtual_pp)
         self.M = int(num_micro)
@@ -611,7 +648,6 @@ class PipelinedTrainStep:
             raise ValueError(f"{len(blocks)} local blocks do not split into "
                              f"virtual_pp={self.V} chunks")
         bpc = len(blocks) // self.V
-        self.remat_policy = normalize_remat(remat)
         self.embed, self.blocks, self.head = embed_layer, blocks, head_layer
         self.loss_fn = loss_fn
         parts = []
@@ -633,6 +669,14 @@ class PipelinedTrainStep:
                                      replicate=self._replicate)
         self._modules = [m for part in parts for m in part.fns]
         sync_replicas(self._modules, self.hcg)
+        self.sharder = None
+        if self.zero_axis is not None:
+            from paddle_tpu_torch.parallel.scan_layers import ScanShardInfo
+
+            self.sharder = shard_stage_blocks(blocks, self.hcg,
+                                              loop=not self._replicate)
+            if not self._replicate:
+                self.engine.zero = ScanShardInfo(self.sharder, "ahead")
         if optimizer is not None and not hasattr(optimizer,
                                                  "last_grad_norm"):
             from paddle_tpu_torch.distributed.fleet.meta_optimizers.\
@@ -699,6 +743,49 @@ class PipelinedTrainStep:
 
     def sync_states_to_optimizer(self):
         """The optimizer holds its states itself."""
+
+
+def pipeline_zero_axis(mesh, zero_axis, virtual_pp=1, data_axis=True):
+    """The zero axis a pipeline shards its blocks over, or None (JAX
+    ``pipeline.py:236-256``): an axis the mesh lacks warns and leaves ZeRO
+    off; under VPP, and (with `data_axis`) for an axis the batch rows do
+    not split over, it raises."""
+    import warnings
+
+    if zero_axis is None:
+        return None
+    if zero_axis not in mesh.shape:
+        warnings.warn(f"zero_axis={zero_axis!r} is not a mesh axis "
+                      f"({tuple(mesh.shape)}); per-stage ZeRO sharding is "
+                      f"OFF")
+        return None
+    if mesh.shape[zero_axis] <= 1:
+        return None
+    if int(virtual_pp) > 1:
+        raise ValueError("zero_axis sharding is not supported with "
+                         "interleaved virtual_pp yet; use virtual_pp=1 "
+                         "(1F1B)")
+    data = tuple(a for a in ("dp", "sharding") if mesh.shape.get(a, 1) > 1)
+    if data_axis and zero_axis not in data:
+        # the reduce-scatter sums the shard ranks' gradients: right only
+        # when the batch splits over the axis
+        raise ValueError(f"zero_axis={zero_axis!r} must be a data axis the "
+                         f"batch shards over ({data or 'none in this mesh'})")
+    return zero_axis
+
+
+def shard_stage_blocks(blocks, hcg, loop=True):
+    """A ``ParamSharder`` over the sharding group whose units are the
+    stage's `blocks` (loop units, or held units for ZB-H1); block i's
+    parameters are named ``"block<i>.<name>"``."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        ParamSharder)
+
+    sharder = ParamSharder(hcg.get_sharding_parallel_group())
+    for i, b in enumerate(blocks):
+        sharder.add_unit(f"block{i}", b, [(f"block{i}.{n}", p) for n, p in
+                                          b.named_parameters()], loop=loop)
+    return sharder
 
 
 def stage_block_indices(n_blocks: int, S: int, stage: int, V: int = 1):

@@ -33,20 +33,25 @@ they mean there (``paddle_tpu/parallel/train_step.py:360-424``):
 Hybrid parallelism, one process a rank: ``TrainStep`` takes a model and
 optimizer that ``fleet.distributed_model``/``distributed_optimizer``
 wrapped (local batches, the local loss), or ``mesh=`` (the port's rank
-mesh, ``distributed.mesh.build_mesh``), ``zero_axis=`` and
-``zero_stage=`` as ``CompiledTrainStep`` takes them
+mesh, ``distributed.mesh.build_mesh``), ``zero_axis=``, ``zero_stage=``
+and ``zero3_gather=`` as ``CompiledTrainStep`` takes them
 (``paddle_tpu/parallel/train_step.py:425-443``), on the same machinery:
 the hcg of the mesh's axes, ``distributed_model`` and a
-``HybridParallelOptimizer`` with ZeRO-1 or ZeRO-2 over `zero_axis`
-("sharding", or "dp" taken as the sharding axis). With ``mesh=`` a batch
+``HybridParallelOptimizer`` with ZeRO-1, 2 or 3 over `zero_axis`
+("sharding", or "dp" taken as the sharding axis; an axis the mesh lacks
+warns and turns ZeRO off, as there). At ``zero_stage=3`` the model is a
+``GroupShardedStage3``: each rank keeps 1/N of every unit's parameters,
+the decoder layers run through the gather-ahead ZeRO-3 loop
+(``zero3_gather`` "ahead" or "start", None reads the flag), and the
+interior remat policies and fp8 raise, as in JAX. With ``mesh=`` a batch
 is the global one, as there: each rank takes its block of rows along
 the data axes (dp-major over dp x sharding) and the step returns the
 mean of the data ranks' losses, the global loss when every rank holds as
 many tokens. A pipeline axis in the mesh replicates the step over its
 ranks, as ``CompiledTrainStep`` does over such a mesh; pipelining is
-``parallel.pipeline.PipelinedTrainStep``'s. ``zero_stage=3`` raises
-(ROADMAP A8), so do a ``grad_scaler`` under a fleet optimizer and fp8 or
-LoRA under mp > 1. ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
+``parallel.pipeline.PipelinedTrainStep``'s. A ``grad_scaler`` under a
+fleet optimizer and fp8 or LoRA under mp > 1 raise (ROADMAP A8).
+``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
 (``HybridParallelClipGrad``'s).
 
 CUDA graphs over the step and the anomaly detector (ROADMAP A8) are
@@ -101,15 +106,23 @@ class TrainStep:
                  metrics_every: int | None = None,
                  dispatch_window: int | None = None,
                  anomaly_detector=None, mesh=None, zero_axis=None,
-                 zero_stage: int = 1):
+                 zero_stage: int = 1, zero3_gather=None):
         if anomaly_detector:
             raise NotImplementedError(
                 "the anomaly detector (resilience) is not ported yet: "
                 "ROADMAP A8")
         self._data_group = None
+        self._zero3 = None
+        if remat is None:
+            remat = getattr(model, "remat_policy", None)
+        self.remat_policy = normalize_remat(
+            flag("remat_policy") if remat is None else remat)
+        self.fp8_policy = _fp8.normalize_fp8_policy(
+            flag("fp8_policy") if fp8_policy is None else fp8_policy)
         if mesh is not None or zero_axis is not None:
             model, optimizer = self._fleet_wrap(model, optimizer, mesh,
-                                                zero_axis, zero_stage)
+                                                zero_axis, zero_stage,
+                                                zero3_gather)
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -119,14 +132,10 @@ class TrainStep:
             raise NotImplementedError("a grad_scaler under a fleet "
                                       "optimizer is not ported yet (ROADMAP "
                                       "A8)")
-        if remat is None:
-            remat = getattr(model, "remat_policy", None)
         self.collect_metrics = collect_metrics
         self.device = next(model.parameters()).device
         self._layer_capable = bool(getattr(model, "layer_remat_capable",
                                            False))
-        self.remat_policy = normalize_remat(
-            flag("remat_policy") if remat is None else remat)
         if self.remat_policy != "none" and not self._layer_capable:
             raise ValueError(
                 f"remat={self.remat_policy!r} needs a layer_remat_capable "
@@ -134,8 +143,6 @@ class TrainStep:
                 f"remat is later work (ROADMAP A5)")
         self.scan_layers = self._layer_capable and bool(
             flag("scan_layers") if scan_layers is None else scan_layers)
-        self.fp8_policy = _fp8.normalize_fp8_policy(
-            flag("fp8_policy") if fp8_policy is None else fp8_policy)
         self._fp8_hist_len = int(flag("fp8_amax_history_len"))
         self._fp8_states = None   # discovered by the first call
         self._scaler = (grad_scaler if grad_scaler is not None
@@ -151,10 +158,37 @@ class TrainStep:
                              if isinstance(m, MoELayer)]
                             if collect_metrics else [])
 
-    def _fleet_wrap(self, model, optimizer, mesh, zero_axis, zero_stage):
+    def _check_zero3(self, mode):
+        """JAX's refusals of ZeRO-3 (``train_step.py:634-654``), before
+        anything is sharded."""
+        from paddle_tpu_torch.parallel.scan_layers import ScanShardInfo
+
+        ScanShardInfo(None, mode)           # an unknown gather mode raises
+        if self.remat_policy not in ("none", "full"):
+            raise ValueError(
+                f"zero_stage=3 sharded-weights scan re-gathers and "
+                f"recomputes each layer in backward (its own 'full'-grade "
+                f"schedule); remat policy {self.remat_policy!r} cannot "
+                f"apply to the sharded stack - use remat='none'/'full', or "
+                f"zero_stage<=2.")
+        if self.fp8_policy != "none":
+            raise ValueError(
+                "fp8_policy cannot compose with the zero_stage=3 "
+                "sharded-weights scan: its layer loop owns the layers' "
+                "residuals and cotangents and cannot thread the "
+                "delayed-scaling amax state. Use zero_stage<=2 "
+                "(optimizer-state sharding) with fp8_policy, or "
+                "fp8_policy='none' with zero_stage=3.")
+
+    def _fleet_wrap(self, model, optimizer, mesh, zero_axis, zero_stage,
+                    zero3_gather):
         """The hcg of `mesh`'s axes (ZeRO over `zero_axis`), the model
         through ``distributed_model`` and the optimizer through
-        ``distributed_optimizer`` unless they are wrapped already."""
+        ``distributed_optimizer`` unless they are wrapped already; at
+        ZeRO-3 the model is a ``GroupShardedStage3`` over the sharding
+        group instead."""
+        import warnings
+
         from paddle_tpu_torch.distributed import fleet
         from paddle_tpu_torch.distributed.fleet.meta_optimizers.\
             hybrid_parallel_optimizer import HybridParallelOptimizer
@@ -168,10 +202,14 @@ class TrainStep:
             raise ValueError("zero_axis needs a rank mesh (mesh= or "
                              "distributed.mesh.build_mesh)")
         pp = mesh.shape.get("pp", 1)
-        if zero_stage not in (1, 2):
-            raise NotImplementedError(
-                f"zero_stage={zero_stage}: the port has ZeRO-1 and ZeRO-2; "
-                f"ZeRO-3 is later work (ROADMAP A8)")
+        if zero_stage not in (1, 2, 3):
+            raise ValueError(f"zero_stage={zero_stage}: expected 1, 2 or 3")
+        if zero_axis is not None and zero_axis not in mesh.shape:
+            # a typo'd axis must not silently train replicated at N x the
+            # provisioned parameter memory
+            warnings.warn(f"zero_axis={zero_axis!r} is not a mesh axis "
+                          f"({tuple(mesh.shape)}); ZeRO sharding is OFF")
+            zero_axis = None
         deg = {a: mesh.shape.get(a, 1) for a in ("dp", "sharding", "sep",
                                                  "mp")}
         if zero_axis not in (None, "dp", "sharding"):
@@ -180,17 +218,38 @@ class TrainStep:
         if zero_axis == "dp" and deg["sharding"] == 1:
             # ZeRO over the data axis: the same ranks as a sharding axis
             deg["sharding"], deg["dp"] = deg["dp"], 1
+        zero3 = (zero_stage == 3 and zero_axis is not None
+                 and deg["sharding"] > 1)
+        if zero3:
+            mode = str(flag("zero3_gather") if zero3_gather is None
+                       else zero3_gather)
+            self._check_zero3(mode)
+            if isinstance(model, DataParallel):
+                raise ValueError("ZeRO-3 reduces the gradients itself; pass "
+                                 "the model unwrapped, not a DataParallel")
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {
             "dp_degree": deg["dp"], "mp_degree": deg["mp"],
             "pp_degree": pp, "sharding_degree": deg["sharding"],
             "sep_degree": deg["sep"]}
-        strategy.sharding_configs = {"stage": int(zero_stage)}
+        strategy.sharding_configs = {"stage": 3 if zero3 else
+                                     min(int(zero_stage), 2)}
         hcg = fleet.init(strategy=strategy)
         # a pp axis: the pp ranks replicate the whole step, as
         # CompiledTrainStep's over such a mesh (pipelining is
         # PipelinedTrainStep's), so the global norm sums nothing over pp
-        if pp > 1 and not isinstance(model, (DataParallel, TensorParallel)):
+        if zero3:
+            from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding \
+                import GroupShardedStage3
+
+            if not isinstance(model, TensorParallel):
+                model = TensorParallel(model, hcg, strategy)
+            model = GroupShardedStage3(
+                model, group=hcg.get_sharding_parallel_group(),
+                pretrain_sync_models=False, zero3_gather=mode)
+            self._zero3 = model.sharder
+        elif pp > 1 and not isinstance(model, (DataParallel,
+                                               TensorParallel)):
             model = TensorParallel(model, hcg, strategy)
         elif not isinstance(model, (DataParallel, TensorParallel)):
             model = fleet.distributed_model(model)
@@ -255,6 +314,10 @@ class TrainStep:
                 (loss * self._scaler._scale).backward()
             else:
                 loss.backward()
+        if self._zero3 is not None:
+            # the held units' gradients reduce-scattered, every full
+            # buffer freed
+            self._zero3.finish()
         if self._data_group is not None and self._data_group.nranks > 1:
             from paddle_tpu_torch.distributed import collective
 

@@ -24,9 +24,18 @@ a rule, not to bit-equality.
 
 JAX's restrictions are kept: remat is rejected (ZB-H1 is zero-recompute
 by design, ``zero_bubble.py:202-214``); an mp or sep axis raises here
-(``PipelineParallel`` falls back to 1F1B with a warning); a dp axis
-replicates the batch (every data rank runs the whole batch: correct math,
-no dp speedup).
+(``PipelineParallel`` falls back to 1F1B with a warning); a dp or
+sharding axis replicates the batch (every data rank runs the whole
+batch: correct math, no dp speedup).
+
+With ``zero_axis=`` (JAX ``zero_bubble.py:259-295``) the stage's blocks
+persist as this rank's 1/N of each block over the axis. They are
+gathered once, at the start of a step, and stay full through every F, B
+and W tick, since the B/W split needs stable weights; after the W ticks
+their gradients are reduce-scattered into the shards and the full
+buffers freed. Every rank of the axis computed the same gradient (the
+batch is replicated), so the optimizer's division by the data ranks
+turns the reduce-scatter's sum back into it.
 """
 from __future__ import annotations
 
@@ -181,11 +190,12 @@ class ZBH1PipelinedStep(PipelinedTrainStep):
                 f"policy {policy!r} is not applicable (use "
                 f"PipelinedTrainStep for selective rematerialization)")
         mesh = mesh if mesh is not None else get_mesh()
-        breaking = [a for a in ("mp", "sep", "sharding")
+        breaking = [a for a in ("mp", "sep")
                     if mesh is not None and mesh.shape.get(a, 1) > 1]
         if breaking:
-            raise ValueError(f"ZB-H1 runs pp (+ replicated dp) meshes only; "
-                             f"axes {breaking} are active (use 1F1B)")
+            raise ValueError(f"ZB-H1 runs pp (+ replicated dp, sharding) "
+                             f"meshes only; axes {breaking} are active (use "
+                             f"1F1B)")
         super().__init__(embed_layer, blocks, head_layer, loss_fn,
                          optimizer=optimizer, mesh=mesh, num_micro=num_micro,
                          remat="none", seed=seed, zero_axis=zero_axis,
@@ -195,14 +205,23 @@ class ZBH1PipelinedStep(PipelinedTrainStep):
         self.last_stats = None
 
     def _forward_backward(self, ids, labels, extras):
+        if self.sharder is not None:
+            self.sharder.begin()      # the stage's blocks, full, once
         loss, self.last_stats = run_zbh1(self.engine, self.sched, ids,
                                          labels, extras)
+        if self.sharder is not None:
+            self.sharder.finish()     # reduce-scattered, freed
         return loss
 
     def run(self, ids, labels, *, segment_ids=None, position_ids=None):
+        """With a zero axis a block's entry is its unit's shard gradients
+        (the group's sum, one a dtype)."""
         loss = self._run(ids, labels, segment_ids, position_ids)
 
         def grads(mod):
+            if self.sharder is not None and mod in self.blocks:
+                return [b.shard.grad
+                        for b in self.sharder.unit_of(mod).buckets]
             return [p.grad for p in mod.parameters()]
 
         return loss, (grads(self.embed) if self.stage == 0 else [],

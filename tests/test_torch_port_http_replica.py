@@ -285,8 +285,13 @@ class TestHTTPReplicaMatrix:
 
                 t = threading.Thread(target=client)
                 t.start()
+                # the router enters a request into _inflight before it binds
+                # a replica; a drain in that window signals nothing, so
+                # wait until the dispatch is bound to replica 0
                 deadline = time.time() + 5.0
-                while not r._inflight and time.time() < deadline:
+                while time.time() < deadline and not any(
+                        c.replica_id == 0
+                        for c in list(r._inflight.values())):
                     time.sleep(0.005)
                 r.drain(0, why="maintenance")
                 t.join(timeout=30.0)

@@ -22,9 +22,10 @@ labels: the JAX step means over the global batch, the port's data ranks
 mean their own rows and average, which agree when every rank holds as
 many tokens. At dp 2 x mp 2 the logits gathered over mp and the fused and
 unfused (vocab-parallel) losses equal the JAX model's forward, fp32 1e-5.
-What is not ported raises naming ROADMAP A8: ZeRO-3, ZeRO inside a
-pipeline stage (``zero_axis=`` under pp), fp8, serving and LoRA under
-mp > 1.
+What is not ported raises naming ROADMAP A8: fp8, serving and LoRA under
+mp > 1. ZeRO-3 and ZeRO inside a pipeline stage are
+``tests/test_torch_port_zero3.py``'s; here fp8 under ZeRO-3 and VPP with
+a zero axis raise, as in the JAX package.
 
 Spawned ranks import torch, numpy and the port only; the JAX reference
 is built in this process.
@@ -95,7 +96,8 @@ def _train_rank(out_dir):
             "metrics": step.last_metrics(),
             "params": {n: p.detach().clone()
                        for n, p in model.named_parameters()}}
-    # what raises (ROADMAP A8): ZeRO-3, a pipeline axis, fp8 under mp
+    # what raises: fp8 under mp (ROADMAP A8), fp8 under ZeRO-3 and VPP
+    # with a zero axis (the JAX package's refusals)
     fleet.reset()
     mesh = build_mesh({"dp": 2, "mp": 2})
     model = from_paddle_tpu_params(named, llama_tiny_config(**_cfg_kw()),
@@ -112,11 +114,11 @@ def _train_rank(out_dir):
         set_flags({"use_fused_head_loss": True})
     opt = AdamW(learning_rate=LR, parameters=model.parameters())
     raised = {}
-    for name, kw in (("zero3", dict(zero_axis="dp", zero_stage=3)),):
-        try:
-            TrainStep(model, _fused_loss, opt, mesh=mesh, **kw)
-        except NotImplementedError as e:
-            raised[name] = str(e)
+    try:
+        TrainStep(model, _fused_loss, opt, mesh=mesh, zero_axis="dp",
+                  zero_stage=3, fp8_policy="matmuls")
+    except ValueError as e:
+        raised["zero3_fp8"] = str(e)
     step = TrainStep(model, _fused_loss, opt, mesh=mesh,
                      fp8_policy="matmuls")
     try:
@@ -133,17 +135,16 @@ def _train_rank(out_dir):
         lora.attach(model, lora.LoRAConfig(rank=4))
     except NotImplementedError as e:
         raised["lora"] = str(e)
-    # under pp (a TrainStep over a pp mesh now replicates the step):
-    # ZeRO inside a pipeline stage
+    # ZeRO inside a pipeline stage under VPP
     fleet.reset()
     mesh = build_mesh({"pp": 2, "dp": 2})
     from paddle_tpu_torch.parallel.pipeline import PipelinedTrainStep
 
     try:
         PipelinedTrainStep(None, [], None, _fused_loss, mesh=mesh,
-                           zero_axis="dp")
-    except NotImplementedError as e:
-        raised["pp"] = str(e)
+                           zero_axis="dp", virtual_pp=2)
+    except ValueError as e:
+        raised["pp_vpp_zero_axis"] = str(e)
     out["raised"] = raised
     with open(os.path.join(out_dir, f"rank{dist.get_rank()}.pkl"),
               "wb") as fh:
@@ -267,11 +268,22 @@ def test_mesh_coordinates_follow_the_jax_device_order(ranks):
             set_mesh(None)
 
 
-@pytest.mark.parametrize("what", ["zero3", "pp", "fp8", "serving", "lora"])
+@pytest.mark.parametrize("what", ["fp8", "serving", "lora"])
 def test_what_is_not_ported_raises_naming_the_roadmap(ranks, what):
     for r in range(4):
         msg = ranks[r]["raised"].get(what)
         assert msg is not None and "ROADMAP A8" in msg, (r, what)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("zero3_fp8", "fp8_policy cannot compose with the zero_stage=3"),
+    ("pp_vpp_zero_axis", "not supported with interleaved virtual_pp")])
+def test_what_zero3_refuses_as_jax_does(ranks, what, match):
+    """fp8 under ZeRO-3 (JAX ``train_step.py:648-654``) and a zero axis
+    under VPP (JAX ``pipeline.py:244-247``) raise ValueError."""
+    for r in range(4):
+        msg = ranks[r]["raised"].get(what)
+        assert msg is not None and match in msg, (r, what, msg)
 
 
 def test_mp1_model_is_todays_model():

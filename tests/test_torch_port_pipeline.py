@@ -274,7 +274,8 @@ def _full_batch():
 
 
 def _unported_raises(named):
-    """zero_axis and fp8 under pp raise naming the ROADMAP."""
+    """fp8 under pp raises naming the ROADMAP; a zero axis under VPP and
+    one that is no data axis raise as in the JAX package."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
     from paddle_tpu_torch.models import llama_tiny_config
@@ -293,15 +294,24 @@ def _unported_raises(named):
             LlamaPretrainingCriterion(cfg))
     raised = {}
     for name, cls, kw in (
-            ("zero_axis", PipelinedTrainStep, {"zero_axis": "dp"}),
             ("fp8", PipelinedTrainStep, {"fp8_policy": "matmuls"}),
-            ("zb_zero_axis", ZBH1PipelinedStep, {"zero_axis": "dp"}),
             ("zb_fp8", ZBH1PipelinedStep, {"fp8_policy": "matmuls+head"})):
         try:
             cls(*args, mesh=mesh, **kw)
             raised[name] = None
         except NotImplementedError as e:
             raised[name] = str(e)
+    # the zero axis's refusals come before any module is used
+    for name, axes, kw in (
+            ("vpp_zero_axis", {"pp": 2, "dp": 2},
+             {"zero_axis": "dp", "virtual_pp": 2}),
+            ("mp_zero_axis", {"pp": 2, "mp": 2}, {"zero_axis": "mp"})):
+        try:
+            PipelinedTrainStep(*args, mesh=build_mesh(axes), **kw)
+            raised[name] = None
+        except ValueError as e:
+            raised[name] = str(e)
+    set_mesh(None)
     return raised
 
 
@@ -1038,14 +1048,23 @@ def test_train_step_over_a_pp_mesh_replicates_the_step(ranks8):
             assert torch.equal(p, twin["train_step_pp"]["params"][n])
 
 
-@pytest.mark.parametrize("what", ["zero_axis", "fp8", "zb_zero_axis",
-                                  "zb_fp8"])
+@pytest.mark.parametrize("what", ["fp8", "zb_fp8"])
 def test_what_is_left_out_under_pp_raises_naming_the_roadmap(ranks4, what):
     for r in ranks4:
         msg = r["raised"][what]
         assert msg is not None and "ROADMAP A8" in msg, (what, msg)
-    assert "item 2" in ranks4[0]["raised"]["zero_axis"]
     assert "item 8" in ranks4[0]["raised"]["fp8"]
+
+
+@pytest.mark.parametrize("what,match", [
+    ("vpp_zero_axis", "not supported with interleaved virtual_pp"),
+    ("mp_zero_axis", "must be a data axis")])
+def test_zero_axis_refusals_under_pp_are_jax_s(ranks4, what, match):
+    """JAX ``pipeline.py:244-256``: a zero axis under VPP, and one the
+    batch does not shard over, raise ValueError."""
+    for r in ranks4:
+        msg = r["raised"][what]
+        assert msg is not None and match in msg, (what, msg)
 
 
 def test_fleet_train_batch_1f1b_matches_jax(ranks2):

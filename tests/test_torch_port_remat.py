@@ -13,8 +13,9 @@ CPU.
 * 2 ``TrainStep`` steps under each policy equal 2 steps of JAX's
   ``CompiledTrainStep(remat=policy)`` on the same weights: losses fp32
   rtol 1e-5, parameters atol 2e-5;
-* the selective policy saves the projections' matmul outputs only;
-  ZeRO-3 stacked columns, the anomaly detector and remat on a model that
+* the selective policy saves the projections' matmul outputs only; an
+  interior policy, an unknown gather mode and fp8 delayed scaling under
+  the ZeRO-3 layer loop, the anomaly detector and remat on a model that
   cannot scope it per layer raise.
 """
 import threading
@@ -172,9 +173,19 @@ def test_unported_paths_raise():
     assert sl.normalize_remat(None) == "none"
     with pytest.raises(ValueError):
         sl.normalize_remat("save_everything")
-    with pytest.raises(NotImplementedError, match="A8"):
-        with sl.layer_execution("none", shard_info=object()):
+    # the ZeRO-3 loop recomputes each layer itself ('full' grade)
+    with pytest.raises(ValueError, match="sharded stack"):
+        with sl.layer_execution("save_dots",
+                                shard_info=sl.ScanShardInfo(None)):
             pass
+    with pytest.raises(ValueError, match="zero3 gather mode"):
+        sl.ScanShardInfo(None, "sometimes")
+    # fp8 delayed scaling under the ZeRO-3 loop (JAX's backstop)
+    from paddle_tpu_torch.amp import fp8
+
+    with fp8.fp8_execution("matmuls", states=[], hist_len=4, record=True):
+        with pytest.raises(ValueError, match="delayed scaling"):
+            sl.zero3_layer_loop([], torch.zeros(1), shard_info=None)
     _, tm = _models()
     with pytest.raises(NotImplementedError, match="A8"):
         TrainStep(tm, lambda o, l: o, anomaly_detector=True)
