@@ -316,6 +316,23 @@ and host ms a step; the first two losses and gradient norms against the
 single-rank model's, every CE call against its plain version). ``--only
 zero3_cuda_vs_cpu,zero3_full_width`` needs no earlier phase.
 
+Since the MoE expert-parallel slice (ep > 1: each rank holds E/ep experts
+and its own rows, tokens on the tiled all-to-all over gloo):
+``moe_ep_cuda_vs_cpu`` (4 gloo ranks on the card against 4 on the CPU: a
+tiny fp32 GPT-MoE with 8 experts and a shared expert, 3 steps at dp 2 x
+ep 2 with ZeRO over dp and at ep 4, losses and the parameters gathered
+over ep by phase 6's rule; an MoE layer at both layouts, dropless,
+expert-choice, shared expert and capacity, outputs and gradients within
+1e-4; the grouped and flash kernels launched) and ``moe_ep_full_width``
+(GPT-MoE at its full width and depth, bf16, ep 4, 1 x 2048 a rank, 2 + 2
+steps: the first two losses and gradient norms against the single-rank
+model's, every grouped-matmul call of one step against its plain
+version, the visit counts over the received layouts, per rank step ms,
+peak memory, the all-to-alls' calls, bytes and host ms a step, launches
+and expert counts; then gmm_fwd's and gmm_dw's event-timed ms a call on a
+received layout beside the ep = 1 layout). ``--only
+moe_ep_cuda_vs_cpu,moe_ep_full_width`` needs no earlier phase.
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -324,6 +341,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -8152,6 +8170,712 @@ def phase_zero3_full_width(args, report):
         raise AssertionError(f"zero3_full_width: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# MoE expert parallelism (ep): GPT-MoE's experts split over the ranks, the
+# tokens on the tiled all-to-all, a process a rank on gloo
+# ---------------------------------------------------------------------------
+
+MOE_EP_LR = 1e-3             # the tiny CUDA-vs-CPU cases (phase 6's lr)
+MOE_EP_SMALL_TIMEOUT_S = 300
+MOE_EP_FULL_TIMEOUT_S = 480
+MOE_EP_SMALL = {             # label: (mesh axes, zero axis)
+    "dp2_ep2_zero_dp": ({"dp": 2, "ep": 2}, "dp"),
+    "ep4": ({"ep": 4}, None)}
+MOE_EP_LAYER_CASES = {
+    "dropless": dict(dispatch="dropless"),
+    "expert_choice": dict(dispatch="dropless", router="expert"),
+    "shared_expert": dict(dispatch="dropless", shared_expert_hidden=96),
+    "capacity": dict(dispatch="capacity", capacity_factor=0.5,
+                     shared_expert_hidden=96)}
+MOE_EP_LAYER_D, MOE_EP_LAYER_H, MOE_EP_LAYER_TOKENS = 64, 128, 48
+MOE_EP_WARMUP, MOE_EP_STEPS = 2, 2   # the full-width run: 2 + 2 steps
+# the full-width run against the single-rank model (its experts' outputs
+# rounded as the ep combine sends them): its first two losses and its
+# gradient norms of steps 0 and 1, relative. Sound runs read 7.0e-6 and
+# 3.2e-5 (losses), 2.7e-6 and 2.6e-3 (norms: AdamW's first update moves
+# each weight by lr times the sign of its gradient, so a rounding-sized
+# gradient flips some signs); planted faults (tools/moe_ep_gate_probe.py)
+# read 1.5e-4 and 4.8e-4 (losses; a rank losing one owner's outputs in one
+# layer) and from 1.8e-2 (step 0) and 1.49 (step 1, with the experts'
+# gradients or the load-balance loss's 4 times too large) on the norms
+MOE_EP_LOSS_RTOL = 1e-4
+MOE_EP_GNORM_RTOL = (1e-4, 1e-2)
+
+
+class _GmmCalls:
+    """While ``on``, holds every ``gmm_fwd``, ``gmm_dx`` (the split-TF32
+    dx, counted as ``gmm_fwd_tf32``) and ``gmm_dw`` call of this process
+    to its plain version on the same inputs: every output row within the
+    fp32 rule, RTOL["float32"] of the row's max |ref| (a row of zeros
+    exactly). The references launch no kernel, so they add no launch."""
+
+    NAMES = ("gmm_fwd", "gmm_dx", "gmm_dw")
+
+    def __init__(self):
+        from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+        self.gm = gm
+        self.real = (gm.gmm_fwd, gm.gmm_dx, gm.gmm_dw)
+        self.on = False
+        self.out = {n: {"calls": 0, "worst": 0.0, "ok": True}
+                    for n in self.NAMES}
+        gm.gmm_fwd, gm.gmm_dx, gm.gmm_dw = self._fwd, self._dx, self._dw
+
+    def restore(self):
+        self.gm.gmm_fwd, self.gm.gmm_dx, self.gm.gmm_dw = self.real
+
+    def _fwd(self, x, w, gids):
+        got = self.real[0](x, w, gids)
+        if self.on and x.is_cuda:
+            self._check("gmm_fwd", got,
+                        self.gm.grouped_matmul_reference(x, w, gids))
+        return got
+
+    def _dx(self, dy, w, gids):
+        got = self.real[1](dy, w, gids)
+        if self.on and dy.is_cuda:
+            self._check("gmm_dx", got, self.gm.grouped_matmul_reference(
+                dy, w.transpose(1, 2), gids))
+        return got
+
+    def _dw(self, x, dy, gids, num_groups):
+        got = self.real[2](x, dy, gids, num_groups)
+        if self.on and x.is_cuda:
+            self._check("gmm_dw", got, self.gm.grouped_matmul_dw_reference(
+                x, dy, gids, num_groups))
+        return got
+
+    def _check(self, name, got, ref):
+        err, ok = _row_rule(got, ref, RTOL["float32"])
+        rec = self.out[name]
+        rec["calls"] += 1
+        rec["worst"] = max(rec["worst"], err)
+        rec["ok"] = rec["ok"] and ok
+
+
+def _moe_ep_tiny_config():
+    """Phase 9's tiny CUDA-vs-CPU GPT-MoE (hidden 256, 4 heads of 64,
+    expert hidden 512, vocab 1024, fp32, dropless) with 8 experts (2 a
+    rank at ep 4, 4 at ep 2) and a shared expert of 128."""
+    from paddle_tpu_torch.models import gpt_moe_tiny_config
+
+    return gpt_moe_tiny_config(vocab_size=1024, hidden_size=256,
+                               num_attention_heads=4, num_experts=8,
+                               expert_hidden_size=512,
+                               max_position_embeddings=256,
+                               moe_dispatch="dropless",
+                               shared_expert_hidden=128)
+
+
+def _moe_ep_no_random_routing(model):
+    for moe in model.moe_layers():
+        moe.gate.random_routing = False
+
+
+def _moe_ep_small_rank(out_dir):
+    """One gloo rank of ``moe_ep_cuda_vs_cpu``: each layout's 3 GPT-MoE
+    steps and each MoE layer case on cuda:0 then on the CPU, from the same
+    weights (this rank keeps its block of the experts)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.models import from_paddle_tpu_params
+    from paddle_tpu_torch.models.convert import shard_expert_params
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    env = dist.init_parallel_env(backend="gloo")
+    named, layer_named, batch, x, ct = _rank_in(out_dir, "inputs.pkl")
+    cfg = _moe_ep_tiny_config()
+    out = {"rank": env.rank,
+           "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend(), "gpt": {}, "layers": {}}
+    launches = {}
+
+    def counted(dev, fn):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            port_cuda.reset_launch_counts()
+        res = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for k, n in port_cuda.launch_counts().items():
+                launches[k] = launches.get(k, 0) + n
+        return res
+
+    for label, (axes, zero_axis) in MOE_EP_SMALL.items():
+        out["gpt"][label], out["layers"][label] = {}, {}
+        for dev in ("cuda", "cpu"):
+            fleet.reset()
+            mesh = build_mesh(axes)
+            model = from_paddle_tpu_params(named, cfg, device=dev)
+            _moe_ep_no_random_routing(model)
+            opt = AdamW(learning_rate=MOE_EP_LR,
+                        parameters=model.parameters(), weight_decay=0.01)
+            step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
+                             mesh=mesh, zero_axis=zero_axis)
+            losses = counted(dev, lambda: [float(step(batch))
+                                           for _ in range(3)])
+            m = step.last_metrics()
+            out["gpt"][label][dev] = {
+                "coord": mesh.coord(), "losses": losses,
+                "grad_norm": m["grad_norm"], "moe_aux": m["moe_aux"],
+                "moe_dropped": m["moe_dropped"],
+                "params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}}
+            del step, opt, model
+            for case, kw in MOE_EP_LAYER_CASES.items():
+                tm = MoELayer(MOE_EP_LAYER_D, num_expert=cfg.num_experts,
+                              d_hidden=MOE_EP_LAYER_H, device=dev, **kw)
+                share = shard_expert_params(layer_named[case], tm.ep_rank,
+                                            tm.ep_degree)
+                with torch.no_grad():
+                    for n, p in tm.named_parameters():
+                        p.copy_(torch.from_numpy(share[n]))
+                tm.gate.random_routing = False
+                r = env.rank
+                xr = torch.from_numpy(x[r:r + 1]).to(dev).requires_grad_()
+
+                def run():
+                    o = tm(xr)
+                    ((o * torch.from_numpy(ct[r:r + 1]).to(dev)).sum()
+                     + tm.l_aux).backward()
+                    return o
+
+                o = counted(dev, run)
+                out["layers"][label].setdefault(case, {})[dev] = {
+                    "out": o.detach().cpu(), "x_grad": xr.grad.cpu(),
+                    "grads": {n: p.grad.cpu()
+                              for n, p in tm.named_parameters()},
+                    "l_aux": float(tm.l_aux.detach()),
+                    "counts": tm.expert_counts.cpu()}
+    out["launches"] = launches
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def _moe_ep_err(a, b):
+    """max |a - b| over max |b| (0 for two zero tensors)."""
+    top = float(b.abs().max())
+    err = float((a.double() - b.double()).abs().max())
+    return err / top if top else err
+
+
+def phase_moe_ep_cuda_vs_cpu(seed, report):
+    """4 gloo ranks on cuda:0 against the same 4 ranks on the CPU: the
+    tiny fp32 GPT-MoE of ``_moe_ep_tiny_config`` (8 experts, dropless, a
+    shared expert), 3 AdamW steps at dp 2 x ep 2 with ZeRO over dp and at
+    ep 4 on one 4 x 64 batch (a row a rank, no ignored labels,
+    deterministic GShard gates): per-step losses within 1e-4 relative and
+    the parameters gathered over ep within lr (phase 6's rule); then an
+    MoE layer (d 64, 8 experts of 128, 48 tokens a rank) at both layouts,
+    dropless token-choice, expert-choice, with a shared expert, and
+    capacity with drops: the output, the input's gradient and every
+    parameter's gradient within 1e-4 of the CPU's max |value|, l_aux and
+    the expert counts equal within 1e-5. The ranks must launch the
+    grouped kernels (gmm_fwd_tf32: the fp32 forward and dx; gmm_dw) and
+    the flash kernels."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.mesh import set_mesh
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.models import (GptMoeForCausalLM,
+                                         gather_expert_params)
+    from paddle_tpu_torch.models.convert import _to_port_layout
+
+    cfg = _moe_ep_tiny_config()
+    set_mesh(None)
+    full = GptMoeForCausalLM(cfg, device="cpu", seed=seed)
+    named = {n: _to_port_layout(n, p.detach().numpy().copy())
+             for n, p in full.named_parameters()}
+    layer_named = {
+        case: {n: p.detach().numpy().copy() for n, p in MoELayer(
+            MOE_EP_LAYER_D, num_expert=cfg.num_experts,
+            d_hidden=MOE_EP_LAYER_H, seed=seed, **kw).named_parameters()}
+        for case, kw in MOE_EP_LAYER_CASES.items()}
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, cfg.vocab_size, (4, 65))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    x = rng.standard_normal((4, MOE_EP_LAYER_TOKENS, MOE_EP_LAYER_D)) \
+        .astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+    tmp = tempfile.mkdtemp(prefix="moe_ep_small_")
+    _rank_out(tmp, "inputs.pkl", (named, layer_named, batch, x, ct))
+    t0 = time.perf_counter()
+    spawn(_moe_ep_small_rank, (tmp,), nprocs=4,
+          timeout=MOE_EP_SMALL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    bad = []
+    out = {"gloo_s": gloo_s, "gpt": {}, "layers": {}, "launches": {},
+           "devices": [r["device"] for r in ranks],
+           "tolerance": {"loss_rel": 1e-4, "param": MOE_EP_LR,
+                         "layer_rel": 1e-4, "stats": 1e-5}}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        if r["backend"] != "gloo" or r["device"] != "cuda:0":
+            bad.append(f"rank {r['rank']}: {r['backend']} on {r['device']}")
+    for k in ("gmm_fwd_tf32", "gmm_dw", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv"):
+        if not out["launches"].get(k):
+            bad.append(f"{k} not launched by the ranks")
+    for label, (axes, _) in MOE_EP_SMALL.items():
+        ep = axes["ep"]
+        # ranks 0..ep-1 hold the ep blocks of the first dp replica
+        params = {dev: gather_expert_params(
+            [ranks[j]["gpt"][label][dev]["params"] for j in range(ep)])
+            for dev in ("cuda", "cpu")}
+        losses = {dev: [ranks[r]["gpt"][label][dev]["losses"]
+                        for r in range(4)] for dev in ("cuda", "cpu")}
+        loss_rel = max(abs(a - b) / abs(b) for r in range(4)
+                       for a, b in zip(losses["cuda"][r], losses["cpu"][r]))
+        p_err = max(float(np.abs(params["cuda"][n] - params["cpu"][n]).max())
+                    for n in params["cpu"])
+        rec = {"losses": {d: losses[d][0] for d in losses},
+               "loss_rel_err": loss_rel, "param_max_abs_err": p_err,
+               **{k: {d: ranks[0]["gpt"][label][d][k]
+                      for d in ("cuda", "cpu")}
+                  for k in ("grad_norm", "moe_aux", "moe_dropped")}}
+        out["gpt"][label] = rec
+        if not (loss_rel <= 1e-4 and p_err <= MOE_EP_LR
+                and all(v == 0 for v in rec["moe_dropped"].values())):
+            bad.append(f"gpt {label}: loss {loss_rel:.3g}, params "
+                       f"{p_err:.3g}, dropped {rec['moe_dropped']}")
+        blocks = {j: [r for r in range(4) if r % ep == j] for j in range(ep)}
+        for case in MOE_EP_LAYER_CASES:
+            res = [ranks[r]["layers"][label][case] for r in range(4)]
+            errs = {}
+            for part in ("out", "x_grad"):
+                errs[part] = max(_moe_ep_err(res[r]["cuda"][part],
+                                             res[r]["cpu"][part])
+                                 for r in range(4))
+            for name in res[0]["cpu"]["grads"]:
+                def grad(dev, n=name):
+                    if n.startswith("experts."):
+                        return torch.cat([sum(res[r][dev]["grads"][n]
+                                              for r in blocks[j])
+                                          for j in range(ep)])
+                    return sum(res[r][dev]["grads"][n] for r in range(4))
+                errs[name] = _moe_ep_err(grad("cuda"), grad("cpu"))
+            stats = max(max(abs(res[r]["cuda"]["l_aux"]
+                                - res[r]["cpu"]["l_aux"]),
+                            float((res[r]["cuda"]["counts"]
+                                   - res[r]["cpu"]["counts"]).abs().max()))
+                        for r in range(4))
+            out["layers"][f"{label}_{case}"] = {"rel_errs": errs,
+                                               "stats_err": stats}
+            if max(errs.values()) > 1e-4 or stats > 1e-5:
+                bad.append(f"layer {label} {case}: {errs}, stats {stats}")
+    report["moe_ep_cuda_vs_cpu"] = out
+    print("moe_ep_cuda_vs_cpu: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"moe_ep_cuda_vs_cpu: {bad}")
+
+
+def _moe_ep_batches(cfg, seed, rows=4, steps=MOE_EP_WARMUP + MOE_EP_STEPS):
+    """moe_ep_full_width's batches (input ids, labels): step t's `rows`
+    rows of max_position_embeddings tokens (a row a rank), fresh every
+    step, no ignored labels."""
+    import numpy as np
+
+    s = cfg.max_position_embeddings
+    batches = []
+    for t in range(steps):
+        ids = np.random.RandomState(seed + t).randint(1, cfg.vocab_size,
+                                                      (rows, s + 1))
+        batches.append((ids[:, :-1], ids[:, 1:]))
+    return batches
+
+
+def _moe_ep_loss(model):
+    """GPT-MoE's training loss (cross entropy plus the weighted sum of the
+    layers' load-balance losses) taken in fp32 from the bf16 logits: the
+    model's own loss is bf16, whose 2^-8 steps would hide what the gates
+    look for."""
+    import torch
+
+    def loss_fn(logits, labels):
+        ce = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]), labels.reshape(-1))
+        aux = sum(m.l_aux.float() for m in model.moe_layers())
+        return ce + model.config.moe_aux_loss_weight * aux
+
+    return loss_fn
+
+
+@contextlib.contextmanager
+def _combine_in_model_dtype(on=True):
+    """While on, the ep = 1 dropless body rounds its experts' outputs to
+    the tokens' dtype before the combine, as the ep body's combine
+    all-to-all carries them (the JAX package's too): the backward then
+    rounds their gradient alike."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        dropless as dl
+
+    real = dl._expert_ffn_grouped
+
+    def rounded(x, *args):
+        return real(x, *args).to(x.dtype).float()
+
+    if on:
+        dl._expert_ffn_grouped = rounded
+    try:
+        yield
+    finally:
+        dl._expert_ffn_grouped = real
+
+
+def _moe_ep_reference(cfg, seed, batches, rows, rounded):
+    """The single-rank GPT-MoE on the same weights (seeded alike) and rows,
+    deterministic gates: its first two steps' losses and gradient norms,
+    a row at a time (each row's loss with its own load-balance loss, as
+    the rank holding it computes it; the rows' bf16 gradients summed in
+    fp32, rounded once and divided by their count, as the ranks' sum is
+    reduced once). `rounded`: the experts' outputs rounded to bf16 before
+    the combine, as the ep combine sends them (``_combine_in_model_dtype``);
+    else the plain model, which keeps them in fp32."""
+    import torch
+
+    from paddle_tpu_torch.models import GptMoeForCausalLM
+    from paddle_tpu_torch.nn.clip import global_norm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GptMoeForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                              seed=seed)
+    _moe_ep_no_random_routing(model)
+    loss_fn = _moe_ep_loss(model)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    params = list(model.parameters())
+    losses, norms = [], []
+    with _combine_in_model_dtype(rounded):
+        for b in batches[:2]:
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            total = 0.0
+            for m in range(rows):
+                opt.clear_grad()
+                ids = torch.from_numpy(b[0][m:m + 1]).cuda()
+                lab = torch.from_numpy(b[1][m:m + 1]).cuda()
+                loss = loss_fn(model(ids), lab)
+                loss.backward()
+                total += float(loss.detach())
+                for a, p in zip(acc, params):
+                    if p.grad is not None:
+                        a += p.grad.float()
+            for a, p in zip(acc, params):
+                p.grad = a.to(p.dtype).div_(rows)
+            del acc
+            losses.append(total / rows)
+            norms.append(float(global_norm([p.grad for p in params])))
+            opt.step()
+    del model, opt, params
+    return losses, norms
+
+
+def _moe_ep_full_rank(out_dir, seed):
+    """One gloo rank of ``moe_ep_full_width``: GPT-MoE at its full width
+    and depth, bf16, ep 4 (2 of the 8 experts a layer a rank); the second
+    warm-up step with every grouped-matmul call held to its plain version,
+    MOE_EP_STEPS timed steps, then the visit counter over each layer's
+    received layout."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import GptMoeConfig, GptMoeForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    env = dist.init_parallel_env(backend="gloo")
+    cfg = GptMoeConfig(moe_dispatch="dropless")
+    t0 = time.perf_counter()
+    mesh = build_mesh({"ep": 4})
+    model = GptMoeForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                              seed=seed)
+    _moe_ep_no_random_routing(model)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _moe_ep_loss(model), opt, collect_metrics=True,
+                     mesh=mesh)
+    batches = _rank_in(out_dir, "batches.pkl")
+    gmm = _GmmCalls()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, warm_grad_norms = [], []
+    for i, b in enumerate(batches[:MOE_EP_WARMUP]):
+        gmm.on = i == MOE_EP_WARMUP - 1
+        losses.append(float(step(*b)))
+        warm_grad_norms.append(step.last_metrics()["grad_norm"])
+    gmm.on = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collective.reset_stats()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    times = []
+    for b in batches[MOE_EP_WARMUP:]:
+        t1 = time.perf_counter()
+        loss = step(*b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    launches = port_cuda.launch_counts()     # ... and ends here
+    comm = collective.stats()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = [moe.last_stats for moe in model.moe_layers()]
+    # the visit counter (off the path) over each layer's received layout,
+    # against the predicate in numpy; its launches are counted apart
+    port_cuda.reset_launch_counts()
+    visits = []
+    for moe in model.moe_layers():
+        gids, bm = moe.last_layout
+        el = moe.experts.num_local
+        vc = gm.grouped_matmul_visit_counts(gids, el, bm)
+        want = gm.expected_visit_counts(gids.cpu().numpy(), el, bm)
+        visits.append({"rows": int(gids.shape[0]), "block_rows": bm,
+                       "blocks": int(vc.numel()),
+                       "visited_tiles": int(vc.sum()),
+                       "multi_group_tiles_128": _multi_group_tiles(gids, el),
+                       "counts_match_predicate": bool(np.array_equal(
+                           vc.cpu().numpy(), want))})
+    visit_launches = port_cuda.launch_counts()["gmm_visit"]
+    gids0, bm0 = model.moe_layers()[0].last_layout
+    gmm.restore()
+    n = len(times)
+    _rank_out(out_dir, f"rank{env.rank}.pkl", {
+        "rank": env.rank, "coord": mesh.coord(),
+        "device": str(dist.parallel.current_device()),
+        "backend": collective.get_backend(), "setup_s": setup_s,
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "median_step_ms": statistics.median(times) * 1e3,
+        "peak_mem_gb": peak,
+        "params": sum(p.numel() for p in model.parameters()),
+        "launches_per_step": {k: v / n for k, v in launches.items() if v},
+        "all_to_all_per_step": {
+            "calls": comm["calls"].get("all_to_all", 0) / n,
+            "bytes": comm["bytes"].get("all_to_all", 0) / n,
+            "host_ms": comm["seconds"].get("all_to_all", 0.0) * 1e3 / n},
+        "collective_host_ms_per_step": {k: v * 1e3 / n for k, v in
+                                        comm["seconds"].items()},
+        "warm_grad_norms": warm_grad_norms,
+        "grad_norm": step.last_metrics()["grad_norm"],
+        "expert_counts": [st["expert_tokens"] for st in stats],
+        "aux": [st["aux_loss"] for st in stats],
+        "visits": visits, "visit_launches": visit_launches,
+        "gmm_calls": gmm.out,
+        "layout": (gids0.cpu().numpy(), bm0)})
+    dist.destroy_process_group()
+
+
+def _moe_ep_gmm_case(gen, gids, bm, groups, contiguous):
+    """gmm_fwd (h1: x [M, 1024] bf16 . w1 [G, 1024, 4096]) and gmm_dw (its
+    dw1, fp32 dy) over one layout: each held to its plain version by the
+    fp32 row rule, the ms a call (CUDA events over back-to-back calls,
+    gmm_dw's three kernels together: late in a long process the profiler
+    drops short kernels' events), the bound over the rows the layout
+    routes, the 128-row tiles that run more than one group pass, and
+    torch._grouped_mm's ms where the groups are contiguous (the received
+    layout's are not: each source's slice starts its ids again)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import grouped_matmul as gm
+
+    d, h = 1024, 4096
+    m = gids.shape[0]
+    real = int((gids < groups).sum())
+    x = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((groups, d, h), generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    dy = torch.randn((m, h), generator=gen, device="cuda") * 1e-3
+    fwd_err, fwd_ok = _row_rule(gm.gmm_fwd(x, w, gids),
+                                gm.grouped_matmul_reference(x, w, gids),
+                                RTOL["float32"])
+    dw_err, dw_ok = _row_rule(gm.gmm_dw(x, dy, gids, groups),
+                              gm.grouped_matmul_dw_reference(x, dy, gids,
+                                                             groups),
+                              RTOL["float32"])
+    fwd_ms = _cuda_ms(lambda: gm.gmm_fwd(x, w, gids))
+    dw_ms = _cuda_ms(lambda: gm.gmm_dw(x, dy, gids, groups))
+    flops = 2 * real * d * h
+    fwd_bound, fwd_by = _bound(x.numel() * 2 + w.numel() * 2 + m * h * 4
+                               + m * 4, flops, "bfloat16")
+    dw_bound, dw_by, _, _ = _fp32_product_bound(
+        x.numel() * 2 + dy.numel() * 4 + m * 4 + groups * d * h * 4,
+        flops, 2)
+    lib_ms, lib_note = None, ("none: the groups are not contiguous "
+                              "(torch._grouped_mm needs sorted rows)")
+    if contiguous:
+        lib, lib_note = _grouped_mm_call(x, w, gids, groups)
+        lib_ms = _cuda_ms(lib) if lib else None
+    return {"rows": m, "routed_rows": real, "block_rows": bm,
+            "groups": groups, "multi_group_tiles_128":
+            _multi_group_tiles(gids, groups),
+            "gmm_fwd": {"ms": fwd_ms, "bound_ms": fwd_bound,
+                        "bound_by": fwd_by, "bound_share": fwd_bound / fwd_ms,
+                        "tflops": flops / fwd_ms / 1e9, "max_rel_err":
+                        fwd_err, "ok": fwd_ok, "library_ms": lib_ms,
+                        "library": lib_note},
+            "gmm_dw": {"ms": dw_ms, "bound_ms": dw_bound, "bound_by": dw_by,
+                       "bound_share": dw_bound / dw_ms,
+                       "tflops": flops / dw_ms / 1e9, "max_rel_err": dw_err,
+                       "ok": dw_ok}}
+
+
+def phase_moe_ep_full_width(args, report):
+    """GPT-MoE at ``GptMoeConfig``'s full width and depth (12 layers,
+    hidden 1024, 16 heads, 8 experts of 4096, top-2 GShard, vocab 50304,
+    dropless, bf16 with fp32 masters, AdamW) at ep 4: 4 gloo ranks on the
+    one card, each with 2 experts a layer and 1 x 2048 tokens of a
+    global 4 x 2048 batch, a fresh batch a step, MOE_EP_WARMUP +
+    MOE_EP_STEPS steps; the gates are deterministic (no random routing),
+    so the ranks route as the single-rank model does, and the loss is
+    taken in fp32 (``_moe_ep_loss``). Per rank: step ms,
+    peak memory, the all-to-alls' calls, bytes and host ms a step (gloo
+    stages them through host memory: 4 ranks time-sharing one card, no
+    multi-GPU figure), the launches of flash forward, dq, dkv, gmm_fwd,
+    the split-TF32 dx and gmm_dw a step, and each layer's expert counts.
+    Then, alone on the card, gmm_fwd's and gmm_dw's ms a call (CUDA
+    events) on rank 0's received layout of layer 0 beside the ep = 1
+    dispatcher's layout of the same 4 x 2048 tokens. Gates, on every
+    rank: the first two losses within MOE_EP_LOSS_RTOL and the gradient
+    norms of steps 0 and 1 within MOE_EP_GNORM_RTOL's two limits of the
+    single-rank model's on the same weights and rows, its experts'
+    outputs rounded to bf16 before the combine as the ep combine sends
+    them (``_moe_ep_reference``, run and freed before the ranks start;
+    the plain model's readings are printed beside, not gated); every
+    gmm_fwd, dx and gmm_dw call of the second warm-up step within the
+    fp32 rule of its plain version; 24 gmm_fwd, 24 gmm_fwd_tf32, 24
+    gmm_dw and 12 of each flash kernel a step; the visit counts over
+    each received layout equal to the predicate's; finite losses."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import GptMoeConfig
+
+    cfg = GptMoeConfig(moe_dispatch="dropless")
+    batches = _moe_ep_batches(cfg, args.seed)
+    plain = _moe_ep_reference(cfg, args.seed, batches, 4, rounded=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_losses, ref_gnorms = _moe_ep_reference(cfg, args.seed, batches, 4,
+                                               rounded=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="moe_ep_full_")
+    _rank_out(tmp, "batches.pkl", batches)
+    t0 = time.perf_counter()
+    spawn(_moe_ep_full_rank, (tmp, args.seed), nprocs=4,
+          timeout=MOE_EP_FULL_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + v * MOE_EP_STEPS
+
+    def worst(read, want):
+        return max(abs(read(r) - want) / abs(want) for r in ranks)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    el = cfg.num_experts // 4
+    gids0, bm0 = ranks[0].pop("layout")
+    for r in ranks[1:]:
+        r.pop("layout")
+    one, bm1, _ = _dispatch_layout(gen, 4 * cfg.max_position_embeddings,
+                                   cfg.num_experts, cfg.top_k)
+    gmm_ms = {"received": _moe_ep_gmm_case(
+        gen, torch.from_numpy(gids0).cuda(), bm0, el, False),
+        "ep1": _moe_ep_gmm_case(gen, one, bm1, cfg.num_experts, True)}
+    out = {"layers": cfg.num_hidden_layers,
+           "seq": cfg.max_position_embeddings,
+           "layout": "ep 4, 4 gloo ranks on one card, 1 x 2048 a rank",
+           "wall_s": wall_s, "ref_losses": ref_losses,
+           "ref_grad_norms": ref_gnorms,
+           "first_loss_rel_err": worst(lambda r: r["losses"][0],
+                                       ref_losses[0]),
+           "second_loss_rel_err": worst(lambda r: r["losses"][1],
+                                        ref_losses[1]),
+           "grad_norm_rel_errs": [
+               worst(lambda r: r["warm_grad_norms"][i], ref_gnorms[i])
+               for i in range(2)],
+           # the plain single-rank model (expert outputs kept in fp32 to
+           # the combine): the rounding the ep combine adds, not gated
+           "plain_ref": {
+               "losses": plain[0], "grad_norms": plain[1],
+               "loss_rel_errs": [worst(lambda r: r["losses"][i],
+                                       plain[0][i]) for i in range(2)],
+               "grad_norm_rel_errs": [
+                   worst(lambda r: r["warm_grad_norms"][i], plain[1][i])
+                   for i in range(2)]},
+           "launches": launches, "gmm_per_call": gmm_ms,
+           "ranks": ranks}
+    report["moe_ep_full_width"] = out
+    for r in ranks:
+        print(f"moe ep full width rank {r['rank']} {r['coord']} "
+              f"({report.get('gpu')}; 4 ranks time-sharing one card "
+              f"through gloo): " + json.dumps(
+                  {k: v for k, v in r.items() if k != "visits"}), flush=True)
+    print("moe ep full width: " + json.dumps(
+        {k: v for k, v in out.items() if k != "ranks"}), flush=True)
+    bad = []
+    if not out["first_loss_rel_err"] <= MOE_EP_LOSS_RTOL:
+        bad.append(f"first loss {ranks[0]['losses'][0]} vs the single "
+                   f"rank's {ref_losses[0]}")
+    if not out["second_loss_rel_err"] <= MOE_EP_LOSS_RTOL:
+        bad.append(f"second loss {ranks[0]['losses'][1]} vs the single "
+                   f"rank's {ref_losses[1]}")
+    if not all(e <= lim for e, lim in zip(out["grad_norm_rel_errs"],
+                                          MOE_EP_GNORM_RTOL)):
+        bad.append(f"grad norms {ranks[0]['warm_grad_norms']} vs the "
+                   f"single rank's {ref_gnorms}")
+    layers = cfg.num_hidden_layers
+    need = {"gmm_fwd": 2 * layers, "gmm_fwd_tf32": 2 * layers,
+            "gmm_dw": 2 * layers, "flash_fwd": layers,
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    for r in ranks:
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"rank {r['rank']}: non-finite loss {r['losses']}")
+        got = {k: r["launches_per_step"].get(k, 0) for k in need}
+        if got != need:
+            bad.append(f"rank {r['rank']}: launches a step {got}, want "
+                       f"{need}")
+        for name, rec in r["gmm_calls"].items():
+            if not rec["ok"] or rec["calls"] != 2 * layers:
+                bad.append(f"rank {r['rank']} {name}: {rec}")
+        if not all(v["counts_match_predicate"] for v in r["visits"]):
+            bad.append(f"rank {r['rank']}: visit counts off the predicate")
+        # a layer a step: the dispatch, its ids and the combine forward,
+        # the combine's and the dispatch's backward
+        if r["all_to_all_per_step"]["calls"] != 5 * layers:
+            bad.append(f"rank {r['rank']}: all-to-alls a step "
+                       f"{r['all_to_all_per_step']}")
+    for case in gmm_ms.values():
+        if not (case["gmm_fwd"]["ok"] and case["gmm_dw"]["ok"]):
+            bad.append(f"gmm per-call case off its plain version: {case}")
+    if bad:
+        raise AssertionError(f"moe_ep_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -8165,7 +8889,9 @@ def kernels_line(report):
     pipeline phases' ranks alike (the tiny cases' CUDA steps, the
     full-width 1F1B run's timed steps), and since the ZeRO-3 slice the
     ZeRO-3 phases' ranks (the tiny cases' CUDA steps, the full-width
-    run's timed 'ahead' and 'start' steps). gmm_fwd is the bf16 forward kernel
+    run's timed 'ahead' and 'start' steps), and since the MoE ep slice the
+    ep phases' ranks (the tiny cases' CUDA steps and layer calls, the
+    full-width run's timed steps). gmm_fwd is the bf16 forward kernel
     (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
@@ -8202,7 +8928,9 @@ def kernels_line(report):
              report.get("pipeline_cuda_vs_cpu", {}).get("launches", {}),
              report.get("pipeline_full_width", {}).get("launches", {}),
              report.get("zero3_cuda_vs_cpu", {}).get("launches", {}),
-             report.get("zero3_full_width", {}).get("launches", {})]
+             report.get("zero3_full_width", {}).get("launches", {}),
+             report.get("moe_ep_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("moe_ep_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -8474,6 +9202,12 @@ def main(argv=None) -> int:
                ("zero3_full_width",
                 lambda: (free_memory(),
                          phase_zero3_full_width(args, report))),
+               ("moe_ep_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_moe_ep_cuda_vs_cpu(args.seed, report))),
+               ("moe_ep_full_width",
+                lambda: (free_memory(),
+                         phase_moe_ep_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
     only = [n for n in args.only.split(",") if n]

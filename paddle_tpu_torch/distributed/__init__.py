@@ -5,8 +5,9 @@ counterpart): one OS process per rank on ``torch.distributed``.
 (rendezvous on the port's ``TCPStore``, ``store``); ``collective`` holds
 the collectives over ``Group``s; ``mesh`` the rank grid with a process
 group per axis; ``parallel.DataParallel`` and ``reducer`` the bucketed
-gradient averaging; ``spawn`` starts ranks; ``fleet`` (import it as
-``paddle_tpu_torch.distributed.fleet``) is hybrid parallelism: the
+gradient averaging; ``spawn`` starts ranks; ``utils`` the MoE dispatch
+all-to-alls (``global_scatter``, ``global_gather``); ``fleet`` (import
+it as ``paddle_tpu_torch.distributed.fleet``) is hybrid parallelism: the
 topology, the tensor-parallel layers, ZeRO-1/2 and the hybrid optimizer.
 Also here: the fault-injection registry (``resilience.faults``) and the
 rank heartbeats (``store``).
@@ -23,3 +24,5 @@ from paddle_tpu_torch.distributed.env import (  # noqa: F401
 from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
     DataParallel, get_backend, init_parallel_env, is_initialized)
 from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401
+from paddle_tpu_torch.distributed.utils import (  # noqa: F401
+    global_gather, global_scatter)

@@ -432,19 +432,21 @@ def all_to_all_single(out_tensor, in_tensor, in_split_sizes=None,
     """Block j of each member's `in_tensor` (dim 0) goes to member j;
     `out_tensor` holds the blocks received, in member order."""
     g = _resolve(group)
-    staged = _staged(g, in_tensor)
-    inp = in_tensor.detach().cpu() if staged else \
-        in_tensor.detach().contiguous()
-    out = out_tensor.detach().cpu() if staged else \
-        torch.empty_like(out_tensor).contiguous()
     if g.nranks == 1:
-        out.copy_(inp)
-    else:
-        _count("all_to_all", inp.numel() * inp.element_size())
+        with torch.no_grad():
+            out_tensor.copy_(in_tensor)
+        return out_tensor
+    staged = _staged(g, in_tensor)
+    _count("all_to_all", in_tensor.numel() * in_tensor.element_size())
+    with _timed("all_to_all"):
+        inp = in_tensor.detach().cpu() if staged else \
+            in_tensor.detach().contiguous()
+        out = torch.empty(out_tensor.shape, dtype=out_tensor.dtype,
+                          device=inp.device)
         dist.all_to_all_single(out, inp, output_split_sizes=out_split_sizes,
                                input_split_sizes=in_split_sizes, group=g.pg)
-    with torch.no_grad():
-        out_tensor.copy_(out)
+        with torch.no_grad():
+            out_tensor.copy_(out)
     return out_tensor
 
 

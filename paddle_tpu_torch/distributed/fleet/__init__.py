@@ -5,10 +5,13 @@ fleet/model.py:140).
 
 ``init(strategy=...)`` builds the ``HybridCommunicateGroup`` of the
 strategy's degrees over the joined process group (``init_parallel_env``
-first; a world of one needs none); calling it again builds another.
+first; a world of one needs none); calling it again builds another. An
+``ep_degree`` above 1 adds the expert axis, innermost (the JAX package's
+fleet ignores ``ep_degree``; its MoE layer reads the mesh's "ep" axis).
 ``distributed_model`` applies the strategy's amp and recompute passes,
 then wraps by parallel mode: ``DataParallel`` over the dp group in data
-(and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode,
+(and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode
+and under expert parallelism,
 ``PipelineParallel`` around a ``PipelineLayer`` when pp > 1 (1F1B, VPP
 or ZB-H1 by ``pipeline_configs["schedule_mode"]``).
 ``distributed_optimizer`` wraps with ``HybridParallelOptimizer`` (dp
@@ -39,10 +42,15 @@ def init(role_maker=None, is_collective=True, strategy=None,
     strategy = strategy or DistributedStrategy()
     _strategy[0] = strategy
     hc = strategy.hybrid_configs
-    topo = CommunicateTopology(
-        hybrid_group_names=["pipe", "data", "sharding", "sep", "model"],
-        dims=[hc["pp_degree"], hc["dp_degree"], hc["sharding_degree"],
-              hc["sep_degree"], hc["mp_degree"]])
+    names = ["pipe", "data", "sharding", "sep", "model"]
+    dims = [hc["pp_degree"], hc["dp_degree"], hc["sharding_degree"],
+            hc["sep_degree"], hc["mp_degree"]]
+    if int(hc.get("ep_degree", 1) or 1) > 1:
+        # expert parallelism: the innermost axis, as "ep" follows the
+        # others in the rank mesh
+        names.append("expert")
+        dims.append(int(hc["ep_degree"]))
+    topo = CommunicateTopology(hybrid_group_names=names, dims=dims)
     _hcg[0] = HybridCommunicateGroup(topo)
     return _hcg[0]
 
@@ -105,6 +113,10 @@ def distributed_model(model):
                             "(fleet.meta_parallel.PipelineLayer)")
         return PipelineParallel(model, hcg, strat)
     if mode == ParallelMode.TENSOR_PARALLEL:
+        return TensorParallel(model, hcg, strat)
+    if hcg.get_expert_parallel_world_size() > 1:
+        # expert parallelism: the hybrid optimizer averages the gradients
+        # at its step, the experts' apart from the rest
         return TensorParallel(model, hcg, strat)
     # data (and sharding) parallel: the reducer averages over dp; the
     # sharding optimizer reduces over the sharding group itself

@@ -10,7 +10,9 @@ padded with zeros to a multiple of N): its optimizer state covers that
 slice only (the wrapped optimizer's parameters become the slices, in the
 same order, so names and decay flags keep their index). A step
 reduce-scatters each gradient over the sharding group (then averages the
-slice over the dp group), divides by the data-parallel count, runs the
+slice over the dp group, and under expert parallelism a replicated
+parameter's slice over the ep group), divides by the data-parallel
+count, runs the
 wrapped optimizer on the slices (the clip through
 ``HybridParallelClipGrad``) and all-gathers the updated slices into the
 parameters. Adam's update is elementwise, so the slices' update is the
@@ -44,7 +46,7 @@ import torch
 
 from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util import (
-    is_mp_sharded)
+    is_ep_sharded, is_mp_sharded)
 
 __all__ = ["DygraphShardingOptimizer"]
 
@@ -63,6 +65,8 @@ class DygraphShardingOptimizer:
         self.stage = stage
         self._group = hcg.get_sharding_parallel_group()
         self._dp_group = hcg.get_data_parallel_group()
+        ep = hcg.get_expert_parallel_group()
+        self._ep_group = ep if ep.nranks > 1 else None
         self._full = list(optimizer._params)
         n, r = self._group.nranks, self._group.rank
         self._z3 = [_zero3_mark(p) is not None for p in self._full]
@@ -85,10 +89,14 @@ class DygraphShardingOptimizer:
                 s = self._flat(p.detach(), per)[r * per:(r + 1) * per].clone()
                 s.requires_grad_(p.requires_grad)
                 s.mp_sharded = is_mp_sharded(p)
+                s.ep_sharded = is_ep_sharded(p)
                 slices.append(s)
         if any(self._z3) and stage != 3:
             raise ValueError("the model's parameters are ZeRO-3 sharded; the "
                              "sharding optimizer needs stage 3")
+        if any(self._z3) and self._ep_group is not None:
+            raise NotImplementedError("ZeRO-3 under expert parallelism is "
+                                      "not ported yet (ROADMAP A8)")
         self._units = list(units.values())
         self._sharders = []
         for u in self._units:
@@ -140,8 +148,15 @@ class DygraphShardingOptimizer:
     def reduce_gradients(self):
         """Each slice's gradient: the sharding group's sum (reduce-scattered
         here at stage 1, in backward at stage 2 and for ZeRO-3 units),
-        summed over the dp group, divided by the data-parallel count."""
-        denom = self._group.nranks * self._dp_group.nranks
+        summed over the dp group, divided by the data-parallel count.
+        Under expert parallelism the ep ranks hold other rows too: a
+        replicated parameter's slice is also summed over the ep group, an
+        expert block's is not (its owner's gradient already sums the ep
+        ranks' contributions), and both are divided by the count of
+        ranks holding different rows."""
+        ep = self._ep_group
+        denom = (self._group.nranks * self._dp_group.nranks
+                 * (ep.nranks if ep is not None else 1))
         for u in self._units:
             for b in u.buckets:
                 if not b.shard.requires_grad:
@@ -166,6 +181,8 @@ class DygraphShardingOptimizer:
                                      device=p.device)
             if self._dp_group.nranks > 1:
                 collective.all_reduce(s.grad, group=self._dp_group)
+            if ep is not None and not is_ep_sharded(p):
+                collective.all_reduce(s.grad, group=ep)
             s.grad.div_(denom)
 
     @torch.no_grad()

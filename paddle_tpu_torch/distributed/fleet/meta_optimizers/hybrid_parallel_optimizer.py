@@ -12,11 +12,14 @@ counterpart; reference: dygraph_optimizer/hybrid_parallel_optimizer.py,
   shared-weight copy counts on the first stage holding it only,
   ``is_firstly_shared``). A caller whose pp ranks replicate one step
   (``TrainStep`` over a mesh with a pp axis) builds the optimizer with
-  ``sum_pp=False``. Gradients are already averaged over dp, so dp adds
+  ``sum_pp=False``. Under expert parallelism the experts' blocks
+  (``ep_sharded``) are summed over the ep group, every other parameter
+  counted once. Gradients are already averaged over dp, so dp adds
   nothing.
 * ``HybridParallelOptimizer``: averages the gradients over the dp group
   when the model is not a ``DataParallel`` (whose reducer averaged them
-  in backward), hands the step to ``DygraphShardingOptimizer`` when the
+  in backward), over dp x ep under expert parallelism (the experts'
+  blocks summed over dp only, ``fused_allreduce_gradients``), hands the step to ``DygraphShardingOptimizer`` when the
   sharding degree is above 1 (``sharding_configs["stage"]`` 1, 2 or 3;
   at 3 the ZeRO-3 sharded parameters' gradients arrive reduce-scattered
   and the step gathers no parameter back),
@@ -31,7 +34,7 @@ import torch
 from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.distributed.fleet.topology import ParallelMode
 from paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util import (
-    fused_allreduce_gradients, is_mp_sharded)
+    fused_allreduce_gradients, is_ep_sharded, is_mp_sharded)
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, _factor
 
 __all__ = ["HybridParallelOptimizer", "HybridParallelClipGrad",
@@ -45,10 +48,12 @@ def hybrid_global_norm(params_grads, hcg, sharded: bool = False,
     ranks hold different stages, so their squares are summed."""
     dev = next((g.device for _, g in params_grads if g is not None),
                torch.device("cpu"))
-    sq = torch.zeros(2, dtype=torch.float32, device=dev)
+    # [mp shards, replicated, expert blocks]
+    sq = torch.zeros(3, dtype=torch.float32, device=dev)
     for p, g in params_grads:
         if g is not None and getattr(p, "is_firstly_shared", True):
-            sq[0 if is_mp_sharded(p) else 1] += g.float().square().sum()
+            slot = 0 if is_mp_sharded(p) else 2 if is_ep_sharded(p) else 1
+            sq[slot] += g.float().square().sum()
     if sharded:
         collective.all_reduce(sq, group=hcg.get_sharding_parallel_group())
     mp = hcg.get_model_parallel_group()
@@ -56,6 +61,11 @@ def hybrid_global_norm(params_grads, hcg, sharded: bool = False,
         dist_sq = sq[:1].clone()
         collective.all_reduce(dist_sq, group=mp)
         sq[0] = dist_sq[0]
+    ep = hcg.get_expert_parallel_group()
+    if ep.nranks > 1:
+        expert_sq = sq[2:].clone()
+        collective.all_reduce(expert_sq, group=ep)
+        sq[2] = expert_sq[0]
     total = sq.sum()
     pp = hcg.get_pipe_parallel_group()
     if sum_pp and pp.nranks > 1:
@@ -99,9 +109,12 @@ class HybridParallelOptimizer:
         self._strategy = strategy
         self._sum_pp = sum_pp
         self._sharding = hcg.get_sharding_parallel_world_size() > 1
-        self._dp_enable = (hcg.get_data_parallel_world_size() > 1
-                           and hcg.get_parallel_mode()
-                           != ParallelMode.DATA_PARALLEL)
+        # under expert parallelism no reducer averaged the gradients in
+        # backward (the model is a TensorParallel): the step does it
+        self._dp_enable = ((hcg.get_data_parallel_world_size() > 1
+                            and hcg.get_parallel_mode()
+                            != ParallelMode.DATA_PARALLEL)
+                           or hcg.get_expert_parallel_world_size() > 1)
         self._gm_steps, self._gm_avg = 1, True
         if strategy is not None and getattr(strategy, "gradient_merge",
                                             False):

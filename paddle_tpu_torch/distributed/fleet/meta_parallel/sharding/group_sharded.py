@@ -436,6 +436,9 @@ class _Groups:
     def get_pipe_parallel_group(self):
         return _solo()
 
+    def get_expert_parallel_group(self):
+        return _solo()
+
 
 class GroupShardedOptimizerStage2:
     """Optimizer-state sharding over `group` (reference

@@ -10,7 +10,10 @@ from the port's rank mesh (``distributed.mesh``, built over the same
 order, so rank r holds the coordinates of device r in the JAX mesh).
 Every axis's group is built; the pipeline runs on the pp group
 (``meta_parallel.PipelineParallel``, ``parallel.pipeline``), the sep
-runtime is later work (ROADMAP A8).
+runtime is later work (ROADMAP A8). An "expert" axis (``ep_degree`` >
+1, innermost; the mesh's "ep") adds the expert-parallel group, whose
+ranks hold different experts and different rows, and the
+dp x sharding x ep group of the ranks holding different rows.
 """
 from __future__ import annotations
 
@@ -96,7 +99,7 @@ class CommunicateTopology:
 
 # reference axis names -> the mesh's
 _AXIS_TO_MESH = {"pipe": "pp", "data": "dp", "sharding": "sharding",
-                 "sep": "sep", "model": "mp"}
+                 "sep": "sep", "model": "mp", "expert": "ep"}
 
 
 class HybridCommunicateGroup:
@@ -115,6 +118,7 @@ class HybridCommunicateGroup:
         self._pp_degree = self._dims.get("pipe", 1)
         self._sharding_degree = self._dims.get("sharding", 1)
         self._sep_degree = self._dims.get("sep", 1)
+        self._ep_degree = self._dims.get("expert", 1)
         want = {_AXIS_TO_MESH[n]: d for n, d in self._dims.items()}
         mesh = get_mesh()
         have = ({a: mesh.shape.get(a, 1) for a in want}
@@ -130,14 +134,17 @@ class HybridCommunicateGroup:
         self._sharding_group = mesh.group("sharding")
         self._sep_group = mesh.group("sep")
         self._dp_sharding_group = mesh.group(("dp", "sharding"))
+        self._ep_group = mesh.group("ep")
+        self._dp_sharding_ep_group = mesh.group(("dp", "sharding", "ep"))
 
     @classmethod
     def from_mesh(cls, mesh):
         """The hcg over a rank mesh's axes (missing axes of size 1)."""
+        names = ["pipe", "data", "sharding", "sep", "model"]
+        if mesh.shape.get("ep", 1) > 1:
+            names.append("expert")
         topo = CommunicateTopology(
-            ["pipe", "data", "sharding", "sep", "model"],
-            [mesh.shape.get(_AXIS_TO_MESH[n], 1)
-             for n in ("pipe", "data", "sharding", "sep", "model")])
+            names, [mesh.shape.get(_AXIS_TO_MESH[n], 1) for n in names])
         from paddle_tpu_torch.distributed.mesh import set_mesh
 
         set_mesh(mesh)
@@ -232,9 +239,25 @@ class HybridCommunicateGroup:
     def get_sep_parallel_group(self):
         return self._sep_group
 
+    # ---- expert parallel ----------------------------------------------------
+    def get_expert_parallel_rank(self):
+        return self._coord.get("expert", 0)
+
+    def get_expert_parallel_world_size(self):
+        return self._ep_degree
+
+    def get_expert_parallel_group(self):
+        return self._ep_group
+
     # ---- fused --------------------------------------------------------------
     def get_dp_sharding_parallel_group(self):
         return self._dp_sharding_group
+
+    def get_dp_sharding_ep_parallel_group(self):
+        """The ranks that hold different rows of a global batch: dp x
+        sharding x ep, dp-major (the dp x sharding group without an
+        expert axis)."""
+        return self._dp_sharding_ep_group
 
     def get_check_parallel_group(self, sharding=False):
         from paddle_tpu_torch.distributed.collective import get_group

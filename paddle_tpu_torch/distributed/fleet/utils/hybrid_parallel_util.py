@@ -14,8 +14,8 @@ from paddle_tpu_torch.distributed import collective
 
 __all__ = ["fused_allreduce_gradients", "broadcast_dp_parameters",
            "broadcast_mp_parameters", "broadcast_sep_parameters",
-           "broadcast_sharding_parameters", "sync_params_buffers",
-           "is_mp_sharded"]
+           "broadcast_sharding_parameters", "broadcast_ep_parameters",
+           "sync_params_buffers", "is_mp_sharded", "is_ep_sharded"]
 
 
 def is_mp_sharded(p) -> bool:
@@ -24,14 +24,40 @@ def is_mp_sharded(p) -> bool:
     return getattr(p, "mp_sharded", False) is True
 
 
+def is_ep_sharded(p) -> bool:
+    """An expert-parallel shard (``ep_sharded``, set by ``ExpertFFN``):
+    this rank's block of the experts, different across the ep group."""
+    return getattr(p, "ep_sharded", False) is True
+
+
 def fused_allreduce_gradients(parameter_list, hcg):
     """Average every gradient over the data-parallel group, bucketed like
     the reducer (25 MB a bucket, one dtype each): a parameter without a
-    gradient joins as zeros, so all ranks run the same collectives."""
+    gradient joins as zeros, so all ranks run the same collectives.
+
+    Under expert parallelism the ranks of the ep group hold different
+    rows, so the average runs over dp x ep: a replicated parameter's
+    gradient is summed over the dp x ep group, an expert's over the dp
+    group only (its owner's gradient already sums every ep rank's
+    contribution, through the all-to-all's backward), and both are
+    divided by dp x ep."""
+    ep = hcg.get_expert_parallel_group()
+    g = hcg.get_data_parallel_group()
+    if ep.nranks == 1:
+        _allreduce_mean(parameter_list, g, g.nranks)
+        return
+    params = [p for p in parameter_list if p.requires_grad]
+    n = g.nranks * ep.nranks
+    _allreduce_mean([p for p in params if not is_ep_sharded(p)],
+                    hcg.get_dp_sharding_ep_parallel_group(), n)
+    _allreduce_mean([p for p in params if is_ep_sharded(p)], g, n)
+
+
+def _allreduce_mean(parameter_list, g, n):
+    """Each gradient summed over group `g` and divided by `n`."""
     from paddle_tpu_torch.distributed.reducer import assign_buckets
 
-    g = hcg.get_data_parallel_group()
-    if g.nranks == 1:
+    if g.nranks == 1 and n == 1:
         return
     params = [p for p in parameter_list if p.requires_grad]
     with torch.no_grad():
@@ -40,7 +66,7 @@ def fused_allreduce_gradients(parameter_list, hcg):
                 (p.grad if p.grad is not None else torch.zeros_like(p))
                 .reshape(-1).to(b.dtype) for p in b.params])
             collective.all_reduce(flat, group=g)
-            flat.div_(g.nranks)
+            flat.div_(n)
             off = 0
             for p, size, shape in zip(b.params, b.sizes, b.shapes):
                 avg = flat[off:off + size].view(shape).to(p.dtype)
@@ -83,6 +109,13 @@ def broadcast_mp_parameters(model, hcg):
 
 def broadcast_sep_parameters(model, hcg):
     sync_params_buffers(model, hcg.get_sep_parallel_group())
+
+
+def broadcast_ep_parameters(model, hcg):
+    """The parameters replicated across the ep group (everything but the
+    experts' blocks)."""
+    sync_params_buffers(model, hcg.get_expert_parallel_group(),
+                        skip_param=is_ep_sharded)
 
 
 def broadcast_sharding_parameters(model, hcg):

@@ -8,9 +8,11 @@ order, pp outermost, mp innermost): rank r sits where device r sits in
 the JAX mesh of the same axes. Each axis names process groups: the ranks
 that differ from this rank only along that axis (``group(axis)``), or
 along several axes at once (``group(("dp", "sharding"))``, the fused
-group for gradient averaging). ``build_mesh`` creates every such group
-on every rank, as c10d requires; an axis of size 1 needs no process
-group.
+group for gradient averaging). An "ep" axis (expert parallelism) is a
+data axis of the MoE layers: it follows ``AXIS_ORDER``, as in the JAX
+mesh, and its fused groups with dp and sharding are the ranks that hold
+different rows. ``build_mesh`` creates every such group on every rank,
+as c10d requires; an axis of size 1 needs no process group.
 """
 from __future__ import annotations
 
@@ -26,7 +28,10 @@ __all__ = ["AXIS_ORDER", "RankMesh", "build_mesh", "get_mesh", "set_mesh",
            "mesh_axis_size"]
 
 AXIS_ORDER = ("pp", "dp", "sharding", "sep", "mp")
-FUSED = (("dp", "sharding"),)
+# fused groups: the data ranks (dp x sharding), and with an expert axis
+# the ranks holding different rows (dp, sharding and ep)
+FUSED = (("dp", "sharding"), ("dp", "ep"), ("sharding", "ep"),
+         ("dp", "sharding", "ep"))
 
 _GLOBAL_MESH: list = [None]
 

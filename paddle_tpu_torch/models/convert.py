@@ -39,6 +39,13 @@ mp rank r's shards; ``load_pipeline_params`` copies such a share into a
 ``gather_pipeline_params`` puts every stage's (and mp rank's) share back
 together into the JAX names and layout.
 
+Under expert parallelism (a rank mesh with an "ep" axis) a GPT-MoE
+rank holds E/ep experts a layer: ``shard_expert_params`` cuts the full
+parameters into ep rank r's share (the expert tensors' block of dim 0,
+the rest whole), ``from_paddle_tpu_params`` does so itself for a model
+built under the mesh, and ``gather_expert_params`` concatenates the ep
+ranks' blocks back.
+
 Models written on the Paddle API (``models/gpt.py``) keep Paddle's layout
 in both packages, so their weights move name for name:
 ``state_from_paddle_tpu`` reads a JAX ``Layer`` (or its ``state_dict()``)
@@ -59,7 +66,8 @@ __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
            "state_from_paddle_tpu", "shard_paddle_tpu_params",
            "gather_paddle_tpu_params", "mp_split_axis",
            "llama_pipeline_name", "pipeline_stage_params",
-           "load_pipeline_params", "gather_pipeline_params"]
+           "load_pipeline_params", "gather_pipeline_params",
+           "is_expert_param", "shard_expert_params", "gather_expert_params"]
 
 _COLUMN = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
            "gate_proj.weight", "up_proj.weight")
@@ -124,6 +132,50 @@ def gather_paddle_tpu_params(shards) -> dict:
                 np.concatenate([as_np(s[name]) for s in shards], axis=ax))
         out[name] = full.T if _is_linear(name) else full
     return out
+
+
+_EXPERT = (".experts.w1", ".experts.w2", ".experts.b1", ".experts.b2")
+
+
+def is_expert_param(name: str) -> bool:
+    """A GPT-MoE (or ``MoELayer``) expert tensor: its dim 0 is the experts,
+    split over ep."""
+    return name.endswith(_EXPERT) or name in tuple(e[1:] for e in _EXPERT)
+
+
+def shard_expert_params(named: dict, ep_rank: int, ep_degree: int) -> dict:
+    """{name: array} of ep rank `ep_rank`'s share of the JAX package's full
+    parameters `named` (numpy, JAX layout, kept): each expert tensor's
+    block [ep_rank * E/ep, (ep_rank + 1) * E/ep) of dim 0, every other
+    parameter whole."""
+    out = {}
+    for name, arr in named.items():
+        arr = np.asarray(arr)
+        if ep_degree > 1 and is_expert_param(name):
+            n = arr.shape[0]
+            if n % ep_degree:
+                raise ValueError(f"{name}: {n} experts do not split over ep "
+                                 f"{ep_degree}")
+            k = n // ep_degree
+            arr = arr[ep_rank * k:(ep_rank + 1) * k]
+        out[name] = arr
+    return out
+
+
+def gather_expert_params(shards) -> dict:
+    """The full parameters from the ep ranks' shares: `shards` is one
+    {name: array or tensor} an ep rank, in ep-rank order (the layout as
+    it is; numpy out): the expert tensors concatenated along dim 0, the
+    others taken from the first share."""
+    def as_np(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+        return np.asarray(v)
+
+    return {name: (np.concatenate([as_np(s[name]) for s in shards])
+                   if is_expert_param(name) else as_np(shards[0][name]))
+            for name in shards[0]}
 
 
 def llama_pipeline_name(name: str, num_layers: int) -> str:
@@ -208,8 +260,10 @@ def from_paddle_tpu_params(named: dict, config: LlamaConfig | GptMoeConfig,
     """A port ``LlamaForCausalLM`` (or ``GptMoeForCausalLM`` for a
     ``GptMoeConfig``) on `device` loaded from `named` ({paddle_tpu
     parameter name: np.ndarray}). A LLaMA built under tensor parallelism
-    (mp > 1) loads its rank's shards (``shard_paddle_tpu_params``). Raises
-    on a missing, unexpected or misshapen name."""
+    (mp > 1) loads its rank's shards (``shard_paddle_tpu_params``), a
+    GPT-MoE built under expert parallelism its block of each full expert
+    tensor (``shard_expert_params``; a share already cut loads as it is).
+    Raises on a missing, unexpected or misshapen name."""
     cls = (GptMoeForCausalLM if isinstance(config, GptMoeConfig)
            else LlamaForCausalLM)
     model = cls(config, device=device, dtype=dtype)
@@ -222,6 +276,14 @@ def from_paddle_tpu_params(named: dict, config: LlamaConfig | GptMoeConfig,
     group = getattr(model, "mp_group", None)
     port = (shard_paddle_tpu_params(named, group.rank, group.nranks)
             if group is not None else None)
+    moe = (model.moe_layers() if isinstance(model, GptMoeForCausalLM)
+           else [])
+    if moe and moe[0].ep_degree > 1:
+        # an ep rank keeps its block of each full expert tensor
+        full = {n: a for n, a in named.items() if is_expert_param(n)
+                and np.asarray(a).shape[0] != params[n].shape[0]}
+        named = {**named, **shard_expert_params(full, moe[0].ep_rank,
+                                                moe[0].ep_degree)}
     for name, p in params.items():
         arr = (port[name] if port is not None
                else _to_port_layout(name, np.asarray(named[name])))

@@ -10,6 +10,12 @@ RoPE tables are one non-persistent buffer pair held by the model. With
 ``moe_dispatch="dropless"`` the experts run through the grouped-matmul
 kernels. ``forward(input_ids, labels)`` returns the logits, or the loss
 ``cross_entropy + moe_aux_loss_weight * sum of the layers' l_aux``.
+
+Built under a rank mesh with an "ep" axis (``distributed.mesh``), each
+rank holds its E/ep experts a layer (the model passes its ep coordinates
+to every ``MoELayer``), drawn from the seed as the single-rank model's
+rows of them, and takes its own rows of a batch: ``TrainStep(mesh=)``
+splits the global batch over dp x ep.
 """
 from __future__ import annotations
 
@@ -19,7 +25,10 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+from paddle_tpu_torch.incubate.distributed.models.moe import (
+    ExpertFFN, MoELayer)
+from paddle_tpu_torch.incubate.distributed.models.moe.moe_layer import \
+    expert_parallel_plan
 from paddle_tpu_torch.models.llama import (LlamaAttention, LlamaConfig,
                                            _rope_tables)
 from paddle_tpu_torch.nn import functional as F
@@ -70,7 +79,7 @@ def _attn_config(config: GptMoeConfig) -> LlamaConfig:
 
 class GptMoeBlock(nn.Module):
     def __init__(self, config: GptMoeConfig, device=None, dtype=None,
-                 seed=0):
+                 seed=0, ep_rank=0, ep_degree=1):
         super().__init__()
         h = config.hidden_size
         self.ln1 = TorchLayerNorm(h, device=device, dtype=dtype)
@@ -81,7 +90,8 @@ class GptMoeBlock(nn.Module):
                             top_k=config.top_k, dispatch=config.moe_dispatch,
                             router=config.moe_router,
                             shared_expert_hidden=config.shared_expert_hidden,
-                            device=device, dtype=dtype, seed=seed)
+                            device=device, dtype=dtype, seed=seed,
+                            ep_rank=ep_rank, ep_degree=ep_degree)
 
     def forward(self, x, rope):
         x = x + self.attn(self.ln1(x), rope)
@@ -110,8 +120,11 @@ class GptMoeForCausalLM(nn.Module):
         self.wte = nn.Embedding(config.vocab_size, h, device=dev, dtype=dtype)
         self.wpe = nn.Embedding(config.max_position_embeddings, h,
                                 device=dev, dtype=dtype)
+        plan = expert_parallel_plan()
+        ep = ({"ep_rank": plan[0].rank, "ep_degree": plan[0].nranks}
+              if plan is not None else {})
         self.blocks = nn.ModuleList(
-            [GptMoeBlock(config, dev, dtype, seed=seed + 1 + i)
+            [GptMoeBlock(config, dev, dtype, seed=seed + 1 + i, **ep)
              for i in range(config.num_hidden_layers)])
         self.ln_f = TorchLayerNorm(h, device=dev, dtype=dtype)
         self.lm_head = nn.Linear(h, config.vocab_size, bias=False,
@@ -134,11 +147,21 @@ class GptMoeForCausalLM(nn.Module):
     def init_weights(self, seed: int, std: float = 0.02):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
+        # an expert block draws the full [E, ...] tensor and keeps its rows,
+        # so every ep layout holds the single-rank model's experts
+        blocks = {id(p): ex for ex in self.modules()
+                  if isinstance(ex, ExpertFFN) and ex.ep_degree > 1
+                  for p in ex.parameters()}
         for name, p in self.named_parameters():
             if name.endswith(("ln1.weight", "ln2.weight", "ln_f.weight")):
                 p.fill_(1.0)
             elif p.dim() == 1 or name.endswith((".b1", ".b2")):
                 p.zero_()
+            elif id(p) in blocks:
+                ex, n = blocks[id(p)], p.shape[0]
+                full = p.new_empty((n * ex.ep_degree, *p.shape[1:]))
+                full.normal_(0.0, std, generator=gen)
+                p.copy_(full[ex.ep_rank * n:(ex.ep_rank + 1) * n])
             else:
                 p.normal_(0.0, std, generator=gen)
         for i, moe in enumerate(self.moe_layers()):

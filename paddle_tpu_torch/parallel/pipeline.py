@@ -548,6 +548,9 @@ def pipeline_hcg(mesh, zero_axis=None):
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.mesh import set_mesh
 
+    if mesh.shape.get("ep", 1) > 1:
+        raise NotImplementedError("expert parallelism under pp is not "
+                                  "ported yet (ROADMAP A8)")
     set_mesh(mesh)
     dp, sharding = mesh.shape.get("dp", 1), mesh.shape.get("sharding", 1)
     if zero_axis == "dp" and sharding == 1:

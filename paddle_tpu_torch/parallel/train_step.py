@@ -47,8 +47,20 @@ interior remat policies and fp8 raise, as in JAX. With ``mesh=`` a batch
 is the global one, as there: each rank takes its block of rows along
 the data axes (dp-major over dp x sharding) and the step returns the
 mean of the data ranks' losses, the global loss when every rank holds as
-many tokens. A pipeline axis in the mesh replicates the step over its
-ranks, as ``CompiledTrainStep`` does over such a mesh; pipelining is
+many tokens. An "ep" axis (expert parallelism, for a model whose MoE
+layers were built under the mesh) is a data axis too: the rows split
+over dp x sharding x ep, dp-major, the model is a ``TensorParallel`` and
+the hybrid optimizer averages each replicated parameter's gradient over
+dp x ep and each expert block's over dp, divided by dp x ep (the owner's
+gradient already sums its ep group's contributions through the
+all-to-all's backward), so the ranks' gradients are the global mean
+loss's; ZeRO-1/2 over "dp" shards the optimizer state over the dp group
+of each ep coordinate. ep beside mp, pp or sep, and ZeRO-3 with ep,
+raise (ROADMAP A8). JAX's ``CompiledTrainStep`` splits the batch over
+dp only and the tokens over (dp, ep) inside the MoE layer, which agrees
+token for token when the rows divide over dp x ep. A pipeline axis in
+the mesh replicates the step over its ranks, as ``CompiledTrainStep``
+does over such a mesh; pipelining is
 ``parallel.pipeline.PipelinedTrainStep``'s. A ``grad_scaler`` under a
 fleet optimizer and fp8 or LoRA under mp > 1 raise (ROADMAP A8).
 ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
@@ -212,6 +224,9 @@ class TrainStep:
             zero_axis = None
         deg = {a: mesh.shape.get(a, 1) for a in ("dp", "sharding", "sep",
                                                  "mp")}
+        ep = mesh.shape.get("ep", 1)
+        if ep > 1:
+            self._check_expert_parallel(model, mesh, pp, deg)
         if zero_axis not in (None, "dp", "sharding"):
             raise ValueError(f"zero_axis {zero_axis!r} names no data axis of "
                              f"the mesh {mesh.shape}")
@@ -220,6 +235,10 @@ class TrainStep:
             deg["sharding"], deg["dp"] = deg["dp"], 1
         zero3 = (zero_stage == 3 and zero_axis is not None
                  and deg["sharding"] > 1)
+        if zero3 and ep > 1:
+            raise NotImplementedError("ZeRO-3 under expert parallelism is not "
+                                      "ported yet (ROADMAP A8); ep composes "
+                                      "with ZeRO-1/2")
         if zero3:
             mode = str(flag("zero3_gather") if zero3_gather is None
                        else zero3_gather)
@@ -231,7 +250,7 @@ class TrainStep:
         strategy.hybrid_configs = {
             "dp_degree": deg["dp"], "mp_degree": deg["mp"],
             "pp_degree": pp, "sharding_degree": deg["sharding"],
-            "sep_degree": deg["sep"]}
+            "sep_degree": deg["sep"], "ep_degree": ep}
         strategy.sharding_configs = {"stage": 3 if zero3 else
                                      min(int(zero_stage), 2)}
         hcg = fleet.init(strategy=strategy)
@@ -248,8 +267,9 @@ class TrainStep:
                 model, group=hcg.get_sharding_parallel_group(),
                 pretrain_sync_models=False, zero3_gather=mode)
             self._zero3 = model.sharder
-        elif pp > 1 and not isinstance(model, (DataParallel,
-                                               TensorParallel)):
+        elif (pp > 1 or ep > 1) and not isinstance(model, (DataParallel,
+                                                            TensorParallel)):
+            # ep: the optimizer averages at its step, the experts apart
             model = TensorParallel(model, hcg, strategy)
         elif not isinstance(model, (DataParallel, TensorParallel)):
             model = fleet.distributed_model(model)
@@ -257,9 +277,36 @@ class TrainStep:
                                                  "last_grad_norm"):
             optimizer = HybridParallelOptimizer(optimizer, hcg, strategy,
                                                 sum_pp=False)
-        # dp-major over dp x sharding: the fused group's member order
-        self._data_group = hcg.get_dp_sharding_parallel_group()
+        # dp-major over dp x sharding (x ep): the fused group's member
+        # order
+        self._data_group = hcg.get_dp_sharding_ep_parallel_group()
         return model, optimizer
+
+    @staticmethod
+    def _check_expert_parallel(model, mesh, pp, deg):
+        """What expert parallelism composes with (dp, sharding; ZeRO-1/2),
+        and MoE layers built under this mesh's ep axis."""
+        from paddle_tpu_torch.distributed.parallel import DataParallel
+
+        beside = {a: n for a, n in (("mp", deg["mp"]), ("pp", pp),
+                                    ("sep", deg["sep"])) if n > 1}
+        if beside:
+            raise NotImplementedError(
+                f"expert parallelism beside {beside} is not ported yet "
+                f"(ROADMAP A8): ep composes with dp and sharding")
+        if isinstance(model, DataParallel):
+            raise ValueError("under expert parallelism the optimizer "
+                             "averages the gradients (the experts apart); "
+                             "pass the model unwrapped, not a DataParallel")
+        ranks = tuple(mesh.group("ep").ranks)
+        for m in model.modules():
+            if isinstance(m, MoELayer) and (
+                    m.ep_degree != mesh.shape["ep"]
+                    or tuple(m._ep_group.ranks) != ranks):
+                raise ValueError(
+                    f"an MoE layer holds ep block {m.ep_rank} of "
+                    f"{m.ep_degree}, the mesh's ep axis is {mesh.shape['ep']} "
+                    f"over ranks {ranks}: build the model after build_mesh")
 
     def _local_rows(self, value):
         """This data rank's block of rows (dim 0) of a global batch entry."""
@@ -269,7 +316,8 @@ class TrainStep:
         n = value.shape[0]
         if n % g.nranks:
             raise ValueError(f"a global batch of {n} rows does not split "
-                             f"over {g.nranks} data ranks")
+                             f"over {g.nranks} data ranks (dp x sharding x "
+                             f"ep)")
         k = n // g.nranks
         return value[g.rank * k:(g.rank + 1) * k]
 

@@ -347,10 +347,3 @@ def test_moe_modules_import_no_jax():
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
 
-
-def test_expert_parallelism_raises_not_ported():
-    class Group:
-        nranks = 2
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        MoELayer(16, num_expert=4, d_hidden=32, moe_group=Group())
