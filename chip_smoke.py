@@ -120,7 +120,8 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     adapter (pools padded to 8) equal to the CPU; two replicas behind
     the adapter-affine router with serving.replica.kill armed mid-run,
     every stream complete and equal to the CPU's;
- 4. the LLaMA-2-7B geometry (32 layers, hidden 4096, 32 heads, bf16, random
+ 4. the LLaMA-2-7B geometry (SERVE_LAYERS = 16 of its 32 layers, hidden
+    4096, 32 heads, bf16, random
     weights from --seed) serving 8 greedy requests of mixed prompt length
     (packed, single-chunk and multi-chunk prefill), with every kernel's
     launch count read around this run; prints prefill and decode tokens/s,
@@ -278,7 +279,7 @@ single-process step, every vocab-parallel ce_stats call against its plain
 version; a world of one on nccl against the single-process step on the
 card; two ranks on the card asking for nccl must raise) and
 ``fleet_full_width`` (phase 7's model at mp 2 x sharding 2, ZeRO-1, 4
-gloo ranks time-sharing the card, 2 + 4 steps: per rank step ms, peak
+gloo ranks time-sharing the card, 2 + 2 steps: per rank step ms, peak
 memory, flash and CE launches, collective calls, bytes and host ms a step; the
 first loss against the single-rank model's, every CE call against its
 plain version). A rank that fails or outlives its group's timeout fails
@@ -308,7 +309,7 @@ gathered parameters by phase 6's rule, every CE call against its plain
 version, the shards 1/N of the units, no full buffer left after a step,
 the gathered units' peak at 'ahead' and 'start') and
 ``zero3_full_width`` (phase 7's model at sharding 4, ZeRO-3, 4 gloo
-ranks time-sharing the card: 'ahead' 2 + 3 steps and one for the peak
+ranks time-sharing the card: 'ahead' 2 + 1 steps and one for the peak
 memory, 'start' one step, then ZeRO-2 at sharding 4 1 + 1 as the
 memory yardstick: per rank step ms, peak memory per mode, resident
 parameter bytes, launches, all-gather and reduce-scatter calls, bytes
@@ -332,6 +333,27 @@ peak memory, the all-to-alls' calls, bytes and host ms a step, launches
 and expert counts; then gmm_fwd's and gmm_dw's event-timed ms a call on a
 received layout beside the ep = 1 layout). ``--only
 moe_ep_cuda_vs_cpu,moe_ep_full_width`` needs no earlier phase.
+
+Since the sequence-parallel slice (sep > 1: each rank a contiguous
+segment of the rows' sequence, attention across the segments by ring
+attention on the flash kernels, K/V blocks hopping around the sep group
+through gloo): the flash forward and backward cases gain split segments
+(``split_seg_*``: a q stretch and an earlier k stretch of one packed row
+with the keys' own segment ids, ``kv_segment_ids``, rows that see no key
+among them, held to the plain versions: out 0, lse -inf, zero
+gradients); ``sep_cuda_vs_cpu`` (4 gloo ranks on the card against 4 on
+the CPU: phase 6's tiny fp32 model, 3 steps at sep 4, dp 2 x sep 2, sep
+2 x mp 2 and a packed batch at sep 4, losses and gathered parameters by
+phase 6's rule and the CPU ranks against a single-process step, every
+ring block's flash call against its plain version, sep rank r launching
+r + 1 of each flash kernel a layer a step) and ``sep_full_width``
+(phase 7's model at sep 4, one 16,384-token row a step, 4,096 a rank, 2
++ 4 steps: the first two losses and gradient norms against the
+single-rank model on the same 16,384 tokens, every CE call against its
+plain version, per rank step ms, peak memory, launches, the flash
+kernels' device ms in a profiled step and the ring's p2p calls, bytes
+and host ms a step). ``--only sep_cuda_vs_cpu,sep_full_width`` needs no
+earlier phase.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
@@ -373,6 +395,9 @@ RMS_EPS = 1e-6
 RMS_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd", "rmsnorm_dw")
 TUNE_TIMEOUT_S = 420       # each tuning process
 NEW_TOKENS = 32                                  # per full-width request
+# the full-width serving phases' depth: 16 of the 7B geometry's 32 layers
+# (32 until the sep slice's phases needed the script's time)
+SERVE_LAYERS = 16
 TRAIN_LAYERS = 3           # full-width training: the 32-layer state
 TRAIN_SEQ = 4096           # (about 108 GB) does not fit in 80 GB
 TRAIN_LR = 1e-4
@@ -469,7 +494,63 @@ def flash_cases(gen):
                                  causal=False)),
         ("packed_gqa_s2048_d64_b2", dict(s=2048, hq=16, hkv=4, dtype=bf,
                                          d=64, b=2, seg=_packed_rows())),
+        # a ring attention block: a q stretch and an earlier k stretch of
+        # one packed row, non-causal, each side with its own segment ids
+        # (kv_segment_ids); 3192 query rows see no key of the stretch
+        ("split_seg_s4096", dict(s=4096, hq=32, hkv=32, dtype=bf,
+                                 causal=False, own_gen=True,
+                                 **_split_segments(4096))),
+        ("split_seg_gqa_s1000_fp32", dict(s=1000, hq=32, hkv=8,
+                                          dtype=torch.float32, causal=False,
+                                          own_gen=True,
+                                          **_split_segments(1000))),
     ]
+
+
+def _split_segments(s):
+    """{seg, kv_seg} on the card: rows [s, 2s) (the queries) and [0, s)
+    (the keys) of one packed row of 2s tokens holding documents [0, 0.73
+    s), [0.73 s, 1.22 s) and [1.22 s, 2s): the queries of the third see no
+    key, whole q tiles of them (the tile skip leaves them no K tile), and
+    those of the second see the keys from 0.73 s on."""
+    import torch
+
+    row = torch.zeros(2 * s, dtype=torch.int32)
+    row[int(0.73 * s):] = 1
+    row[int(1.22 * s):] = 2
+    return {"seg": row[s:][None].cuda(), "kv_seg": row[:s][None].cuda()}
+
+
+def _seg_kwargs(seg, kv_seg):
+    """The flash calls' segment keywords (``kv_segment_ids`` only where a
+    case has it, so the cases run on a tree without it too)."""
+    ids = {"segment_ids": seg}
+    if kv_seg is not None:
+        ids["kv_segment_ids"] = kv_seg
+    return ids
+
+
+def _lse_err(lse, ref):
+    """max |lse - ref| over the rows that see a key; inf where a row sees
+    no key on one side only (its lse must be -inf on both)."""
+    import torch
+
+    dead = torch.isneginf(ref)
+    if not bool((torch.isneginf(lse) == dead).all()):
+        return float("inf")
+    return (lse - ref)[~dead].abs().max().item() if (~dead).any() else 0.0
+
+
+def _masked_sdpa_mask(seg, kv_seg, causal, s, device):
+    """SDPA's boolean mask of a packed case (query and key ids apart)."""
+    import torch
+
+    kv = seg if kv_seg is None else kv_seg
+    mask = seg[:, None, :, None] == kv[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                 device=device).tril()
+    return mask
 
 
 def _packed_rows():
@@ -506,7 +587,7 @@ def _chunk_prefill_qkv(gen, s, hq, hkv, d, dtype, chunk, ps=16):
 
 
 def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1,
-                   causal=True):
+                   causal=True, kv_seg=None):
     import torch
     import torch.nn.functional as tF
 
@@ -521,44 +602,48 @@ def run_flash_case(gen, s, hq, hkv, dtype, seg=None, chunk=None, d=128, b=1,
         if k.is_contiguous():
             raise AssertionError("the chunked-prefill case lost its "
                                  "strided k/v views")
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                      segment_ids=seg)
+    ids = _seg_kwargs(seg, kv_seg)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, **ids)
     torch.cuda.synchronize()
+    digest = _digest(out, lse)
     ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(),
                                                 v.float(), causal=causal,
-                                                segment_ids=seg)
+                                                **ids)
     dname = str(dtype).replace("torch.", "")
     cmp = _compare(out, ref, dname)
-    lse_err = (lse - ref_lse).abs().max().item()
+    lse_err = _lse_err(lse, ref_lse)
+    dead_rows = int(torch.isneginf(ref_lse).sum().item())
     del ref, ref_lse
     call = lambda: fa.flash_attention_fwd(q, k, v,  # noqa: E731
-                                          causal=causal, segment_ids=seg)
+                                          causal=causal, **ids)
     # the kernel's device time; call_ms adds the wrapper's host work
     ms = _kernel_ms(_device_ms_by_kernel(call), "flash_fwd_kernel")
     call_ms = _cuda_ms(call)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(
-        q, k, v, causal=causal, segment_ids=seg), reps=5)
+        q, k, v, causal=causal, **ids), reps=5)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if seg is None:
         lib = lambda: tF.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vh, is_causal=causal, enable_gqa=True)
         pairs = b * (s * (s + 1) // 2 if causal else s * s)
     else:
-        mask = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones(
-            s, s, dtype=torch.bool, device=q.device).tril()
+        mask = _masked_sdpa_mask(seg, kv_seg, causal, s, q.device)
         lib = lambda: tF.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vh, attn_mask=mask, enable_gqa=True)
         pairs = int(mask.sum().item())
     library_ms = _cuda_ms(lib)
     item = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * item \
-        + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
+        + lse.numel() * 4 + sum(t.numel() * 4 for t in (seg, kv_seg)
+                                if t is not None)
     flops = 4 * d * hq * pairs
     bound_ms, bound_by = _bound(nbytes, flops, dname)
-    return dict(cmp, lse_err=lse_err, ms=ms, call_ms=call_ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_share=bound_ms / ms,
-                tflops=flops / ms / 1e9, ok=cmp["ok"] and lse_err <= 1e-3)
+    return dict(cmp, lse_err=lse_err, dead_rows=dead_rows, digest=digest,
+                ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, tflops=flops / ms / 1e9,
+                ok=cmp["ok"] and lse_err <= 1e-3)
 
 
 PAGED_LENS = [0, 1, 17, 4095, 100, 2048, 300, 3000]
@@ -1056,11 +1141,21 @@ def flash_bwd_cases(gen):
                                         causal=False)),
         ("packed_gqa_s2048_d64_b2", dict(s=2048, hq=16, hkv=4, dtype=bf,
                                          d=64, b=2, seg=_packed_rows())),
+        # a ring attention block's backward (the forward cases' split
+        # segments): query rows that see no key carry lse -inf and get
+        # zero dq, keys no query sees zero dk, dv
+        ("split_seg_s4096", dict(s=4096, hq=32, hkv=32, dtype=bf,
+                                 causal=False, own_gen=True,
+                                 **_split_segments(4096))),
+        ("split_seg_gqa_s1000_fp32", dict(s=1000, hq=32, hkv=8,
+                                          dtype=torch.float32, causal=False,
+                                          own_gen=True,
+                                          **_split_segments(1000))),
     ]
 
 
 def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
-                       causal=True):
+                       causal=True, kv_seg=None):
     import torch
     import torch.nn.functional as tF
 
@@ -1070,25 +1165,26 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
     k = _rand(gen, (b, s, hkv, d), dtype)
     v = _rand(gen, (b, s, hkv, d), dtype)
     do = _rand(gen, (b, s, hq, d), dtype)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                      segment_ids=seg)
+    ids = _seg_kwargs(seg, kv_seg)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, **ids)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
-                                   segment_ids=seg)
+                                   **ids)
     torch.cuda.synchronize()
+    digest = _digest(*grads)
     refs = fa.flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), out.float(), lse, do.float(),
-        causal=causal, segment_ids=seg)
+        causal=causal, **ids)
     dname = str(dtype).replace("torch.", "")
     cmp = {n: _compare(g, r, dname) for n, g, r in zip(("dq", "dk", "dv"),
                                                        grads, refs)}
     del grads, refs
     torch.cuda.empty_cache()
     call = lambda: fa.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, lse, do, causal=causal, segment_ids=seg)
+        q, k, v, out, lse, do, causal=causal, **ids)
     ms = _cuda_ms(call)
     split = _device_ms_by_kernel(call)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, causal=causal, segment_ids=seg), reps=3,
+        q, k, v, out, lse, do, causal=causal, **ids), reps=3,
         warmup=1)
     torch.cuda.empty_cache()
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -1098,8 +1194,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
         kw = dict(is_causal=causal)
         pairs = b * (s * (s + 1) // 2 if causal else s * s)
     else:
-        mask = (seg[:, None, :, None] == seg[:, None, None, :]) & torch.ones(
-            s, s, dtype=torch.bool, device=q.device).tril()
+        mask = _masked_sdpa_mask(seg, kv_seg, causal, s, q.device)
         kw = dict(attn_mask=mask)
         pairs = int(mask.sum().item())
     fwd = lambda: tF.scaled_dot_product_attention(  # noqa: E731
@@ -1108,7 +1203,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
                                           doh)
     library_ms = _cuda_ms(fwd_bwd) - _cuda_ms(fwd)
     item = q.element_size()
-    seg_bytes = seg.numel() * 4 if seg is not None else 0
+    seg_bytes = sum(t.numel() * 4 for t in (seg, kv_seg) if t is not None)
     qo_bytes = q.numel() * item             # q, out, do: one [B, S, Hq, D]
     kv_bytes = k.numel() * item
     # least work: the dq kernel needs S = QK^T, dP = dO V^T and dQ = dS K
@@ -1127,7 +1222,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
         bound_ms, bound_by = _bound(nbytes, flops, dname)
         kms = _kernel_ms(split, f"flash_bwd_{name}_kernel")
         kplain_ms = _cuda_ms(lambda: plain(  # noqa: B023
-            q, k, v, out, lse, do, causal=causal, segment_ids=seg), reps=3,
+            q, k, v, out, lse, do, causal=causal, **ids), reps=3,
             warmup=1)
         torch.cuda.empty_cache()
         errs = [cmp["dq"]] if name == "dq" else [cmp["dk"], cmp["dv"]]
@@ -1142,7 +1237,7 @@ def run_flash_bwd_case(gen, s, hq, hkv, dtype, seg=None, d=128, b=1,
     bound_ms, bound_by = _bound(
         3 * qo_bytes + 2 * kv_bytes + lse.numel() * 4 + seg_bytes
         + (q.numel() + 2 * k.numel()) * 4, 10 * d * hq * pairs, dname)
-    return dict(cmp=cmp, ok=ok, ms=ms, plain_ms=plain_ms,
+    return dict(cmp=cmp, ok=ok, digest=digest, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 kernels=rows, tol=TOL[dname], rtol=RTOL[dname])
 
@@ -1790,10 +1885,13 @@ def phase_kernels(seed, report):
     gen.manual_seed(seed)
     flash = {}
     for label, kw in flash_cases(gen):
-        flash[label] = r = run_flash_case(gen, **kw)
+        # own_gen cases (the split segments) leave the shared draws alone
+        g, kw = _paged_gen(gen, seed, label, kw)
+        flash[label] = r = run_flash_case(g, **kw)
         print(f"flash {label}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
               f"row rel {r['max_rel_err']:.3g} (rtol {r['rtol']:.3g}) "
-              f"lse_err {r['lse_err']:.3g} ms {r['ms']:.4f} (device; call "
+              f"lse_err {r['lse_err']:.3g} rows with no key "
+              f"{r['dead_rows']} ms {r['ms']:.4f} (device; call "
               f"{r['call_ms']:.4f}) {r['tflops']:.2f} TFLOP/s, "
               f"{r['bound_share']:.1%} of bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms {r['library_ms']:.4f} plain_ms "
@@ -1822,7 +1920,8 @@ def phase_kernels(seed, report):
     report["paged_quant_cases"], report["visit_cases"] = paged_q, visits
     bwd = {}
     for label, kw in flash_bwd_cases(gen):
-        bwd[label] = r = run_flash_bwd_case(gen, **kw)
+        g, kw = _paged_gen(gen, seed, label, kw)
+        bwd[label] = r = run_flash_bwd_case(g, **kw)
         errs = " ".join(f"{n} {c['max_abs_err']:.3g}/{c['max_rel_err']:.3g}"
                         for n, c in r["cmp"].items())
         kern = " ".join(f"{n} {k['ms']:.3f} ms ({k['tflops']:.2f} TFLOP/s, "
@@ -6452,7 +6551,9 @@ FLEET_LAYOUTS = {
     "dp2_mp2": ({"dp": 2, "mp": 2}, None, 1),
     "mp2_sharding2_zero1": ({"mp": 2, "sharding": 2}, "sharding", 1),
     "mp2_sharding2_zero2": ({"mp": 2, "sharding": 2}, "sharding", 2)}
-FLEET_WARMUP, FLEET_STEPS = 2, 4   # the full-width run: 2 + 4 steps
+# the full-width run: 2 + 2 steps (2 + 4 until the sep slice's phases
+# needed the script's time)
+FLEET_WARMUP, FLEET_STEPS = 2, 2
 # the full-width run against the single-rank model: its first two losses
 # and its gradient norms of steps 0 and 1, relative. Sound runs read at
 # most 3.0e-5 (losses) and 3.7e-5 (norms); a planted fault (mp rank 1
@@ -6586,6 +6687,15 @@ def _moved(job, dev):
 
     name, args, kw, got = job
     return (name, mv(args), kw, mv(got))
+
+
+def _rank_threads():
+    """A full-width rank's intra-op threads: its share of the host's cores
+    (four ranks share the machine, and gloo stages their collectives
+    through host memory on the same cores)."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
 
 
 def _fleet_named(cfg, seed):
@@ -6853,6 +6963,7 @@ def _fleet_full_rank(out_dir, seed):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
+    _rank_threads()
     env = dist.init_parallel_env(backend="gloo")
     cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
     t0 = time.perf_counter()
@@ -6947,7 +7058,7 @@ def phase_fleet_full_width(args, report):
     """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
     seq 4096, AdamW, the fused head loss) at mp 2 x sharding 2 (ZeRO-1):
     4 gloo ranks on the one card, 1 x 4096 tokens a rank, a fresh batch a
-    step (``_fleet_full_batches``), 2 + 4 steps. Per rank: step ms, peak
+    step (``_fleet_full_batches``), 2 + 2 steps. Per rank: step ms, peak
     memory, the flash and CE launches and the collectives' calls, bytes
     and host ms a step. These times are 4 ranks time-sharing one card
     through gloo, no multi-GPU figure. Gates, against the single-rank
@@ -7055,7 +7166,9 @@ PIPE_LAYERS = 4              # the full-width run: one layer a stage at pp 4
 PIPE_MICRO = 4               # microbatches of 1 x TRAIN_SEQ a step
 # 1F1B: 2 warm-up steps (their losses and norms gated), 4 timed and one
 # for the peak memory; ZB-H1 the same with 2 timed
-PIPE_WARMUP, PIPE_STEPS, PIPE_ZB_STEPS = 2, 4, 2
+# 1F1B 2 + 2 timed steps (2 + 4 until the sep slice's phases needed the
+# script's time), ZB-H1 2 timed
+PIPE_WARMUP, PIPE_STEPS, PIPE_ZB_STEPS = 2, 2, 2
 # the full-width run against the single-rank model (the fleet phase's
 # rules): its first two losses and its gradient norms of steps 0 and 1
 PIPE_LOSS_RTOL = 7e-5
@@ -7417,6 +7530,7 @@ def _pipe_full_rank(out_dir, seed):
     from paddle_tpu_torch.models import llama_7b_config
     from paddle_tpu_torch.parallel.pipeline import pipeline_hcg
 
+    _rank_threads()
     env = dist.init_parallel_env(backend="gloo")
     cfg = llama_7b_config(num_hidden_layers=PIPE_LAYERS, dtype="bfloat16")
     fleet.reset()
@@ -7604,12 +7718,13 @@ ZERO3_SMALL = {              # label: (route, mesh axes, gather mode)
     "zbh1_pp2_sharding2": ("zbh1", {"pp": 2, "sharding": 2}, None),
     "group_sharded_p_g_os": ("group_sharded", {"dp": 4}, "ahead")}
 # the full-width run: 2 warm-up steps, the first at 'start' and the second
-# at 'ahead' (both held to the single rank's losses and norms); 'ahead' 3
-# timed, 1 for the peak memory; 'start' one step, timed and giving the
+# at 'ahead' (both held to the single rank's losses and norms); 'ahead' 1
+# timed (3 until the sep slice's phases needed the script's time), 1 for
+# the peak memory; 'start' one step, timed and giving the
 # peak (kept short: the script's time limit); ZeRO-2 (the yardstick) its
 # first step timed, its second (its optimizer state made) for the peak
 ZERO3_WARM_MODES = ("start", "ahead")
-ZERO3_WARMUP, ZERO3_AHEAD, ZERO3_START, ZERO3_Z2 = 2, 3, 1, 1
+ZERO3_WARMUP, ZERO3_AHEAD, ZERO3_START, ZERO3_Z2 = 2, 1, 1, 1
 
 
 def _zero3_small_case(label, named, batch, dev):
@@ -7947,6 +8062,7 @@ def _zero3_full_rank(out_dir, seed):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
+    _rank_threads()
     env = dist.init_parallel_env(backend="gloo")
     cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
     batches = _rank_in(out_dir, "batches.pkl")
@@ -8604,6 +8720,7 @@ def _moe_ep_full_rank(out_dir, seed):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
+    _rank_threads()
     env = dist.init_parallel_env(backend="gloo")
     cfg = GptMoeConfig(moe_dispatch="dropless")
     t0 = time.perf_counter()
@@ -8876,6 +8993,559 @@ def phase_moe_ep_full_width(args, report):
         raise AssertionError(f"moe_ep_full_width: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# sequence (sep) parallelism: each rank a contiguous segment of the rows'
+# sequence, attention across the segments by ring attention (K/V blocks
+# hopping around the sep group through gloo), a process a rank
+# ---------------------------------------------------------------------------
+
+SEP_LR = 1e-3                # the tiny CUDA-vs-CPU cases (phase 6's lr)
+SEP_SMALL_TIMEOUT_S = 300
+SEP_FULL_TIMEOUT_S = 600
+SEP_SMALL = {                # label: (mesh axes, batch)
+    "sep4": ({"sep": 4}, "plain"),
+    "dp2_sep2": ({"dp": 2, "sep": 2}, "plain"),
+    "sep2_mp2": ({"sep": 2, "mp": 2}, "plain"),
+    "sep4_packed": ({"sep": 4}, "packed")}
+SEP_SEQ = 16384              # the full-width row: 4096 tokens a rank
+SEP_WARMUP, SEP_STEPS = 2, 2  # the full-width run: 2 + 2 steps
+# the full-width run against the single-rank model on the same 16,384
+# tokens: its first two losses and its gradient norms of steps 0 and 1,
+# relative. Sound runs read 5.5e-6 and 4.6e-6 (losses), 2.7e-5 and 1.1e-5
+# (norms); planted faults (tools/sep_gate_probe.py) read, on the losses,
+# 2.9e-4 and 4.8e-4 (sep rank 1's RoPE offset forgotten) and 4.2e-5 and
+# 3.6e-4 (rank 2 dropping rank 0's block), and on the norms from 1.3e-3
+# (those two) to 0.75 (the gradients averaged over sep, not summed, which
+# moves no loss: AdamW is blind to the scale)
+SEP_LOSS_RTOL = 3e-5
+SEP_GNORM_RTOL = 2e-4
+
+
+class _RingCalls:
+    """Holds every flash call that ring attention makes in this process
+    (``parallel.ring_attention``'s block calls) to its plain version on
+    the same inputs, by the kernels phase's rules: each row of the output
+    (and of dq, dk, dv) within RTOL of its max |ref| and the whole within
+    TOL, the forward's lse within 1e-3 on the rows that see a key and
+    -inf on both sides on the rows that see none. Counts the calls by
+    kind, causal apart. The plain versions launch no kernel."""
+
+    def __init__(self):
+        from paddle_tpu_torch.parallel import ring_attention as ra
+
+        self.ra = ra
+        self.real = (ra.flash_attention_fwd, ra.flash_attention_bwd)
+        self.out = {name: {"calls": 0, "causal": 0, "dead_rows": 0,
+                           "worst": 0.0, "ok": True}
+                    for name in ("fwd", "bwd")}
+        ra.flash_attention_fwd, ra.flash_attention_bwd = self._fwd, self._bwd
+
+    def restore(self):
+        self.ra.flash_attention_fwd, self.ra.flash_attention_bwd = self.real
+
+    def _note(self, name, causal, errs, ok, dead=0):
+        rec = self.out[name]
+        rec["calls"] += 1
+        rec["causal"] += int(bool(causal))
+        rec["dead_rows"] += dead
+        rec["worst"] = max([rec["worst"]] + errs)
+        rec["ok"] = rec["ok"] and ok
+
+    def _fwd(self, q, k, v, causal=False, scale=None, segment_ids=None,
+             kv_segment_ids=None):
+        import torch
+
+        from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+        ids = dict(segment_ids=segment_ids, kv_segment_ids=kv_segment_ids)
+        got = self.real[0](q, k, v, causal=causal, scale=scale, **ids)
+        if q.is_cuda:
+            ref = fa.flash_attention_reference(q.float(), k.float(),
+                                               v.float(), causal=causal,
+                                               scale=scale, **ids)
+            cmp = _compare(got[0], ref[0], str(q.dtype)[6:])
+            lse_err = _lse_err(got[1], ref[1])
+            self._note("fwd", causal, [cmp["max_rel_err"], lse_err],
+                       cmp["ok"] and lse_err <= 1e-3,
+                       int(torch.isneginf(ref[1]).sum()))
+        return got
+
+    def _bwd(self, q, k, v, out, lse, do, causal=False, scale=None,
+             segment_ids=None, kv_segment_ids=None):
+        from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+        ids = dict(segment_ids=segment_ids, kv_segment_ids=kv_segment_ids)
+        got = self.real[1](q, k, v, out, lse, do, causal=causal, scale=scale,
+                           **ids)
+        if q.is_cuda:
+            refs = fa.flash_attention_bwd_reference(
+                q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+                causal=causal, scale=scale, **ids)
+            cmps = [_compare(g, r, str(q.dtype)[6:])
+                    for g, r in zip(got, refs)]
+            self._note("bwd", causal, [c["max_rel_err"] for c in cmps],
+                       all(c["ok"] for c in cmps))
+        return got
+
+
+def _sep_plain_batch(seed, vocab, seq, rows):
+    """`rows` x `seq` tokens with no ignored label (the data ranks of a dp
+    layout then count as many tokens each)."""
+    import numpy as np
+
+    ids = np.random.RandomState(seed + 11).randint(1, vocab, (rows, seq + 1))
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:].copy()}
+
+
+def _sep_small_rank(out_dir):
+    """One gloo rank of ``sep_cuda_vs_cpu``: each layout on cuda:0 then on
+    the CPU, 3 steps from the same weights; the ring's flash calls held to
+    their plain versions; each CUDA layout's launches."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import from_paddle_tpu_params
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    env = dist.init_parallel_env(backend="gloo")
+    named, batches = _rank_in(out_dir, "inputs.pkl")
+    cfg = _tiny_gqa_config()
+    ce, ring = _CeCalls(), _RingCalls()
+    out = {"rank": env.rank,
+           "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend(), "layouts": {}}
+    for label, (axes, kind) in SEP_SMALL.items():
+        out["layouts"][label] = {}
+        for dev in ("cuda", "cpu"):
+            fleet.reset()
+            mesh = build_mesh(axes)
+            model = from_paddle_tpu_params(named, cfg, device=dev)
+            opt = AdamW(learning_rate=SEP_LR, parameters=model.parameters(),
+                        weight_decay=0.01)
+            step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
+                             mesh=mesh)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                port_cuda.reset_launch_counts()
+            losses = [float(step(batches[kind])) for _ in range(3)]
+            rec = {"coord": mesh.coord(), "losses": losses,
+                   "grad_norm": step.last_metrics()["grad_norm"],
+                   "params": {n: p.detach().cpu()
+                              for n, p in model.named_parameters()}}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                rec["launches"] = {k: n for k, n in
+                                   port_cuda.launch_counts().items() if n}
+            out["layouts"][label][dev] = rec
+            del step, opt, model
+    ce.restore()
+    ring.restore()
+    out["ce_calls"], out["ring_calls"] = ce.out, ring.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def phase_sep_cuda_vs_cpu(seed, report):
+    """4 gloo ranks on cuda:0 against the same 4 ranks on the CPU: phase
+    6's tiny fp32 LLaMA (head_dim 128, 4 query heads on 2 kv heads, mp 2
+    splitting them), 3 AdamW steps at sep 4, dp 2 x sep 2 and sep 2 x mp
+    2 on a 4 x 256 batch with no ignored label, and at sep 4 on a packed
+    4 x 256 batch (its documents cross the segments, its ignored labels
+    spread unevenly): per-step losses within 1e-4 relative and the
+    parameters gathered over mp within lr (phase 6's rule); the CPU ranks'
+    losses within 1e-5 relative and parameters within lr of a
+    single-process CPU TrainStep on the same batch; every flash call of
+    the ring on the card (each block's forward, each block's backward)
+    held to its plain version; each CUDA layout's launches: sep rank r
+    runs r + 1 flash forward calls a layer (its own block causal, the r
+    earlier ones whole, the later ones skipped), as many dq and dkv
+    calls, a step; ce_stats launched."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+    from paddle_tpu_torch.models import (from_paddle_tpu_params,
+                                         gather_paddle_tpu_params)
+    from paddle_tpu_torch.models.convert import _to_port_layout
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = _tiny_gqa_config()
+    named = _fleet_named(cfg, seed)
+    batches = {"plain": _sep_plain_batch(seed, cfg.vocab_size, 256, 4),
+               "packed": _packed_batch(seed, cfg.vocab_size, 256, 4)}
+    tmp = tempfile.mkdtemp(prefix="sep_small_")
+    _rank_out(tmp, "inputs.pkl", (named, batches))
+    single = {}
+    for kind, batch in batches.items():
+        model = from_paddle_tpu_params(named, cfg, device="cpu")
+        opt = AdamW(learning_rate=SEP_LR, parameters=model.parameters(),
+                    weight_decay=0.01)
+        step = TrainStep(model, _fused_loss, opt)
+        single[kind] = ([float(step(batch)) for _ in range(3)],
+                        {n: p.detach() for n, p in model.named_parameters()})
+    t0 = time.perf_counter()
+    spawn(_sep_small_rank, (tmp,), nprocs=4, timeout=SEP_SMALL_TIMEOUT_S)
+    gloo_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    layers = cfg.num_hidden_layers
+    bad = []
+    out = {"gloo_s": gloo_s, "layouts": {}, "launches": {},
+           "ring_calls": [r["ring_calls"] for r in ranks],
+           "ce_calls": [r["ce_calls"] for r in ranks],
+           "tolerance": {"loss_rel": 1e-4, "param": SEP_LR,
+                         "cpu_vs_single_loss_rel": 1e-5,
+                         "cpu_vs_single_param": SEP_LR}}
+    for r in ranks:
+        if r["backend"] != "gloo" or r["device"] != "cuda:0":
+            bad.append(f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        # the fp32 model's CE backward takes the fp32 route: no ce_bwd call
+        for name, rec in [("ring " + k_, v) for k_, v in
+                          r["ring_calls"].items()] + [
+                ("ce_stats", r["ce_calls"]["ce_stats"])]:
+            if not rec["ok"] or rec["calls"] == 0:
+                bad.append(f"rank {r['rank']} {name}: ok {rec['ok']}, "
+                           f"{rec['calls']} calls, worst {rec['worst']:.3g}")
+    # the packed batch's documents cross the segments: some block of some
+    # rank holds query rows that see none of its keys
+    if not sum(r["ring_calls"]["fwd"]["dead_rows"] for r in ranks):
+        bad.append("no ring block met a row that sees no key")
+    for label, (axes, kind) in SEP_SMALL.items():
+        mp = axes.get("mp", 1)
+        full = {dev: gather_paddle_tpu_params(
+            [ranks[i]["layouts"][label][dev]["params"] for i in range(mp)])
+            for dev in ("cuda", "cpu")}
+        losses = {dev: ranks[0]["layouts"][label][dev]["losses"]
+                  for dev in ("cuda", "cpu")}
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses["cuda"], losses["cpu"]))
+        p_err = max(float(abs(full["cuda"][n] - full["cpu"][n]).max())
+                    for n in full["cpu"])
+        s_err = max(float((torch.from_numpy(_to_port_layout(
+            n, full["cpu"][n]).copy()) - single[kind][1][n]).abs().max())
+            for n in full["cpu"])
+        s_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(losses["cpu"], single[kind][0]))
+        per_rank = []
+        for r in ranks:
+            rec = r["layouts"][label]["cuda"]
+            for k, n in rec["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+            want = (rec["coord"]["sep"] + 1) * layers * 3
+            got = {k: rec["launches"].get(k, 0)
+                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            per_rank.append(got)
+            if any(n != want for n in got.values()) or \
+                    not rec["launches"].get("ce_stats"):
+                bad.append(f"{label} rank {r['rank']}: launches "
+                           f"{rec['launches']}, want {want} of each flash "
+                           f"kernel")
+        out["layouts"][label] = {
+            "losses": losses, "loss_rel_err": loss_rel,
+            "param_max_abs_err": p_err, "cpu_vs_single_param_err": s_err,
+            "cpu_vs_single_loss_rel": s_loss, "flash_launches": per_rank,
+            "grad_norm": {d: ranks[0]["layouts"][label][d]["grad_norm"]
+                          for d in ("cuda", "cpu")}}
+        if not (loss_rel <= 1e-4 and p_err <= SEP_LR
+                and s_err <= SEP_LR and s_loss <= 1e-5):
+            bad.append(f"{label}: loss {loss_rel:.3g}, params {p_err:.3g}, "
+                       f"CPU vs single {s_err:.3g} / {s_loss:.3g}")
+    report["sep_cuda_vs_cpu"] = out
+    print("sep_cuda_vs_cpu: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"sep_cuda_vs_cpu: {bad}")
+
+
+def _sep_full_config():
+    from paddle_tpu_torch.models import llama_7b_config
+
+    return llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
+                           rope_max_position=SEP_SEQ)
+
+
+def _sep_full_batches(cfg, seed, steps):
+    """sep_full_width's batches: one row of SEP_SEQ tokens a step, fresh
+    each step; every 97th label ignored."""
+    import numpy as np
+
+    batches = []
+    for t in range(steps):
+        ids = np.random.RandomState(seed + 7919 * (t + 1)).randint(
+            1, cfg.vocab_size, (1, SEP_SEQ + 1))
+        labels = ids[:, 1:].copy()
+        labels[:, ::97] = -100
+        batches.append({"input_ids": ids[:, :-1], "labels": labels})
+    return batches
+
+
+def _flash_device_ms(step, batch):
+    """One profiled step: {kernel: device ms} of the flash kernels, and the
+    step's device ms over all its kernels (None where the profiler
+    recorded nothing)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    by = {e.key: e.self_device_time_total / 1e3
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+    if not by:
+        return {"flash_fwd": None, "flash_bwd_dq": None,
+                "flash_bwd_dkv": None, "step_device_ms": None}
+    out = {k: sum(ms for key, ms in by.items() if name in key)
+           for k, name in (("flash_fwd", "flash_fwd_kernel"),
+                           ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+                           ("flash_bwd_dkv", "flash_bwd_dkv_kernel"))}
+    out["step_device_ms"] = sum(by.values())
+    return out
+
+
+def _sep_timed(step, batches):
+    """The timed steps of ``sep_full_width``: step ms, peak memory,
+    launches and the collectives' calls, bytes and host ms a step."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    n = len(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collective.reset_stats()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    losses, times = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    launches = port_cuda.launch_counts()     # ... and ends here
+    comm = collective.stats()
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "median_step_ms": statistics.median(times) * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "launches_per_step": {k: v / n for k, v in launches.items()
+                                  if v},
+            "collective_calls_per_step": {k: v / n for k, v in
+                                          comm["calls"].items()},
+            "collective_bytes_per_step": {k: v / n for k, v in
+                                          comm["bytes"].items()},
+            "collective_host_ms_per_step": {k: v * 1e3 / n for k, v in
+                                            comm["seconds"].items()}}
+
+
+def _sep_full_rank(out_dir, seed):
+    """One gloo rank of ``sep_full_width``: phase 7's model at sep 4, this
+    rank's 4096-token segment of each 16,384-token row. Every CE call's
+    inputs and outputs are kept in host memory and checked after the
+    model and optimizer are freed: four ranks each holding the whole
+    model leave no room for the checks' fp64 witnesses beside them."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    _rank_threads()
+    env = dist.init_parallel_env(backend="gloo")
+    cfg = _sep_full_config()
+    batches = _rank_in(out_dir, "batches.pkl")
+    ce = _CeCalls()
+    ce.defer = ce.host = True
+    fleet.reset()
+    mesh = build_mesh({"sep": 4})
+    out = {"rank": env.rank, "coord": mesh.coord(),
+           "device": str(dist.parallel.current_device()),
+           "backend": collective.get_backend()}
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
+                     mesh=mesh)
+    out["setup_s"] = time.perf_counter() - t0
+    losses, norms, warm = [], [], []
+    for i, b in enumerate(batches[:SEP_WARMUP]):
+        port_cuda.reset_launch_counts()
+        if i == SEP_WARMUP - 1:          # the last warm-up step, profiled
+            out["profiled"] = _flash_device_ms(step, b)
+        else:
+            step(b)
+        losses.append(float(step.last_metrics()["loss"]))
+        norms.append(step.last_metrics()["grad_norm"])
+        torch.cuda.synchronize()
+        warm.append(port_cuda.launch_counts())
+    out.update(warm_losses=losses, warm_grad_norms=norms,
+               warm_launches=warm)
+    out["timed"] = _sep_timed(step, batches[SEP_WARMUP:])
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ce.defer = ce.host = False
+    ce.check_deferred()
+    ce.restore()
+    out["ce_calls"] = ce.out
+    _rank_out(out_dir, f"rank{env.rank}.pkl", out)
+    dist.destroy_process_group()
+
+
+def _sep_reference(cfg, seed, batches):
+    """The single-rank model on the same weights and 16,384-token rows: its
+    first two steps' losses and gradient norms."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import global_norm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    losses, norms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:2]:
+        opt.clear_grad()
+        ids = torch.from_numpy(b["input_ids"]).cuda()
+        lab = torch.from_numpy(b["labels"]).cuda()
+        loss = model(ids, labels=lab).float()
+        loss.backward()
+        losses.append(float(loss.detach()))
+        norms.append(float(global_norm([p.grad for p in model.parameters()
+                                        if p.grad is not None])))
+        opt.step()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, opt
+    return losses, norms, peak
+
+
+def phase_sep_full_width(args, report):
+    """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
+    AdamW, the fused head loss; RoPE tables to 16,384 positions) at sep 4:
+    4 gloo ranks on the one card, one row of 16,384 tokens a step, 4,096 a
+    rank, a fresh row a step. SEP_WARMUP steps, the last of them
+    profiled, then SEP_STEPS timed (their time includes copying each CE
+    call's inputs and outputs to host memory, about 0.6 GB a step, for
+    the checks after the run). Per rank: step ms, peak memory, the flash
+    and CE launches a step and the flash kernels' device ms in the
+    profiled step, and the ring's p2p calls,
+    bytes and host ms a step (``collective.stats()``: "send", "recv",
+    "p2p"). These are 4 ranks time-sharing one card through gloo: no
+    multi-GPU figure. Gates, on every rank: the first two losses within
+    SEP_LOSS_RTOL and the gradient norms of steps 0 and 1 within
+    SEP_GNORM_RTOL of the single-rank model's on the same weights and
+    16,384 tokens (run before the ranks, so the card never holds both);
+    sep rank r launching r + 1 flash forward, dq and dkv calls a layer
+    a step, ce_stats and ce_bwd once; every CE call within its plain
+    version's rule; finite losses."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed.spawn import spawn
+
+    cfg = _sep_full_config()
+    batches = _sep_full_batches(cfg, args.seed, SEP_WARMUP + SEP_STEPS)
+    ref_losses, ref_norms, ref_peak = _sep_reference(cfg, args.seed,
+                                                     batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="sep_full_")
+    _rank_out(tmp, "batches.pkl", batches)
+    t0 = time.perf_counter()
+    spawn(_sep_full_rank, (tmp, args.seed), nprocs=4,
+          timeout=SEP_FULL_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    ranks = [_rank_in(tmp, f"rank{r}.pkl") for r in range(4)]
+    launches = {}
+    for r in ranks:
+        for k_, n in r["timed"]["launches"].items():
+            launches[k_] = launches.get(k_, 0) + n
+
+    def worst(read, want):
+        return max(abs(read(r) - want) / abs(want) for r in ranks)
+
+    layers = cfg.num_hidden_layers
+    out = {"layers": layers, "seq": SEP_SEQ,
+           "layout": "sep 4, 4 gloo ranks on one card",
+           "wall_s": wall_s, "ref_losses": ref_losses,
+           "ref_grad_norms": ref_norms, "ref_peak_mem_gb": ref_peak,
+           "loss_rel_errs": [worst(lambda r, i=i: r["warm_losses"][i],
+                                   ref_losses[i]) for i in range(2)],
+           "grad_norm_rel_errs": [
+               worst(lambda r, i=i: r["warm_grad_norms"][i], ref_norms[i])
+               for i in range(2)],
+           "limits": {"loss": SEP_LOSS_RTOL, "grad_norm": SEP_GNORM_RTOL},
+           "launches": launches, "ranks": ranks}
+    report["sep_full_width"] = out
+    for r in ranks:
+        t = r["timed"]
+        print(f"sep full width rank {r['rank']} ({report.get('gpu')}; 4 "
+              f"ranks time-sharing one card through gloo): " + json.dumps({
+                  "coord": r["coord"], "warm_losses": r["warm_losses"],
+                  "warm_grad_norms": r["warm_grad_norms"],
+                  "median_step_ms": t["median_step_ms"],
+                  "step_ms": t["step_ms"], "peak_mem_gb": t["peak_mem_gb"],
+                  "launches_per_step": t["launches_per_step"],
+                  "flash_device_ms_profiled_step": r["profiled"],
+                  "p2p_calls_per_step": t["collective_calls_per_step"],
+                  "p2p_bytes_per_step": t["collective_bytes_per_step"],
+                  "host_ms_per_step": t["collective_host_ms_per_step"],
+                  "ce_calls": {k_: (v["calls"], v["ok"], v["worst"])
+                               for k_, v in r["ce_calls"].items()}}),
+              flush=True)
+    print("sep full width: " + json.dumps(
+        {k_: v for k_, v in out.items() if k_ != "ranks"}), flush=True)
+    bad = []
+    if not max(out["loss_rel_errs"]) <= SEP_LOSS_RTOL:
+        bad.append(f"losses {ranks[0]['warm_losses']} vs the single "
+                   f"rank's {ref_losses}")
+    for i, err in enumerate(out["grad_norm_rel_errs"]):
+        if not err <= SEP_GNORM_RTOL:
+            bad.append(f"step {i} grad norm {ranks[0]['warm_grad_norms'][i]}"
+                       f" vs the single rank's {ref_norms[i]}")
+    calls = SEP_WARMUP + SEP_STEPS
+    for r in ranks:
+        need = {"flash_fwd": (r["coord"]["sep"] + 1) * layers,
+                "ce_stats": 1, "ce_bwd": 1}
+        need["flash_bwd_dq"] = need["flash_bwd_dkv"] = need["flash_fwd"]
+        for i, got in enumerate(list(r["warm_launches"])
+                                + [r["timed"]["launches_per_step"]]):
+            off = {k_: got.get(k_, 0) for k_, v in need.items()
+                   if got.get(k_, 0) != v}
+            if off:
+                bad.append(f"rank {r['rank']} step {i}: launches {off}, "
+                           f"want {need}")
+        losses = r["warm_losses"] + r["timed"]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"rank {r['rank']}: non-finite loss {losses}")
+        for name, rec in r["ce_calls"].items():
+            if not rec["ok"] or rec["calls"] != calls:
+                bad.append(f"rank {r['rank']} {name}: ok {rec['ok']}, "
+                           f"{rec['calls']} calls of {calls}")
+    if bad:
+        raise AssertionError(f"sep_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -8889,9 +9559,11 @@ def kernels_line(report):
     pipeline phases' ranks alike (the tiny cases' CUDA steps, the
     full-width 1F1B run's timed steps), and since the ZeRO-3 slice the
     ZeRO-3 phases' ranks (the tiny cases' CUDA steps, the full-width
-    run's timed 'ahead' and 'start' steps), and since the MoE ep slice the
+    run's timed 'ahead' and 'start' steps), since the MoE ep slice the
     ep phases' ranks (the tiny cases' CUDA steps and layer calls, the
-    full-width run's timed steps). gmm_fwd is the bf16 forward kernel
+    full-width run's timed steps), and since the sep slice the sep
+    phases' ranks alike (the ring's block calls: sep rank r launches each
+    flash kernel r + 1 times a layer a step). gmm_fwd is the bf16 forward kernel
     (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
@@ -8930,7 +9602,9 @@ def kernels_line(report):
              report.get("zero3_cuda_vs_cpu", {}).get("launches", {}),
              report.get("zero3_full_width", {}).get("launches", {}),
              report.get("moe_ep_cuda_vs_cpu", {}).get("launches", {}),
-             report.get("moe_ep_full_width", {}).get("launches", {})]
+             report.get("moe_ep_full_width", {}).get("launches", {}),
+             report.get("sep_cuda_vs_cpu", {}).get("launches", {}),
+             report.get("sep_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -9019,7 +9693,7 @@ def kernels_line(report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=32,
+    ap.add_argument("--layers", type=int, default=SERVE_LAYERS,
                     help="decoder depth of the full-width serving phase")
     ap.add_argument("--tuning-worker", choices=("cold", "warm"),
                     help=argparse.SUPPRESS)
@@ -9208,6 +9882,12 @@ def main(argv=None) -> int:
                ("moe_ep_full_width",
                 lambda: (free_memory(),
                          phase_moe_ep_full_width(args, report))),
+               ("sep_cuda_vs_cpu",
+                lambda: (free_memory(),
+                         phase_sep_cuda_vs_cpu(args.seed, report))),
+               ("sep_full_width",
+                lambda: (free_memory(),
+                         phase_sep_full_width(args, report))),
                ("tuning",
                 lambda: (free_memory(), phase_tuning(args.seed, report)))]
     only = [n for n in args.only.split(",") if n]

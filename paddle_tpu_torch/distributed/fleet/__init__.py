@@ -13,7 +13,10 @@ then wraps by parallel mode: ``DataParallel`` over the dp group in data
 (and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode
 and under expert parallelism,
 ``PipelineParallel`` around a ``PipelineLayer`` when pp > 1 (1F1B, VPP
-or ZB-H1 by ``pipeline_configs["schedule_mode"]``).
+or ZB-H1 by ``pipeline_configs["schedule_mode"]``), and
+``SegmentParallel`` under sequence parallelism without mp or pp (the
+reference's SEGMENT_PARALLEL mode; the hybrid optimizer sums the
+gradients over dp x sep at its step).
 ``distributed_optimizer`` wraps with ``HybridParallelOptimizer`` (dp
 averaging, the hybrid clip with its norm summed over mp and pp, ZeRO-1/2
 at ``sharding_configs["stage"]``, gradient merge).
@@ -100,7 +103,7 @@ def distributed_model(model):
     """reference fleet/model.py:140: wrap by parallel mode after the
     strategy's passes."""
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
-        PipelineLayer, PipelineParallel, TensorParallel)
+        PipelineLayer, PipelineParallel, SegmentParallel, TensorParallel)
     from paddle_tpu_torch.distributed.parallel import DataParallel
 
     hcg = get_hybrid_communicate_group()
@@ -118,6 +121,10 @@ def distributed_model(model):
         # expert parallelism: the hybrid optimizer averages the gradients
         # at its step, the experts' apart from the rest
         return TensorParallel(model, hcg, strat)
+    if hcg.get_sep_parallel_world_size() > 1:
+        # sequence parallelism: the hybrid optimizer sums the gradients
+        # over dp x sep at its step
+        return SegmentParallel(model, hcg, strat)
     # data (and sharding) parallel: the reducer averages over dp; the
     # sharding optimizer reduces over the sharding group itself
     return DataParallel(

@@ -30,6 +30,12 @@ whole parameter's.
   views of the shard, and gathers nothing: the parameter stays sharded. A
   parameter that is not sharded takes the stage-1 route.
 
+Under sequence parallelism the ranks of the sep group hold segments of
+the same rows: each gradient is first summed over the sep group (stage 1
+at the step, stage 2 in its hook), then reduce-scattered over the
+sharding group, and sep adds nothing to the divisor. ZeRO-3 with sep is
+refused where the step is built (ROADMAP A8).
+
 Zero padding stays zero: a zero gradient moves neither Adam's moments nor
 a zero parameter. At stage 1 a parameter without a gradient joins as
 zeros, so all ranks run the same collectives; stage 2 reduces in backward
@@ -67,6 +73,8 @@ class DygraphShardingOptimizer:
         self._dp_group = hcg.get_data_parallel_group()
         ep = hcg.get_expert_parallel_group()
         self._ep_group = ep if ep.nranks > 1 else None
+        sep = hcg.get_sep_parallel_group()
+        self._sep_group = sep if sep.nranks > 1 else None
         self._full = list(optimizer._params)
         n, r = self._group.nranks, self._group.rank
         self._z3 = [_zero3_mark(p) is not None for p in self._full]
@@ -127,7 +135,10 @@ class DygraphShardingOptimizer:
         return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
 
     def _scatter(self, i, g):
-        """This rank's slice of the sharding group's sum of gradient `g`."""
+        """This rank's slice of the sharding group's sum of gradient `g`
+        (first summed over the sep group, in place)."""
+        if self._sep_group is not None:
+            collective.all_reduce(g, group=self._sep_group)
         out = g.new_empty(self._per[i])
         collective.reduce_scatter(out, self._flat(g, self._per[i]),
                                   group=self._group)

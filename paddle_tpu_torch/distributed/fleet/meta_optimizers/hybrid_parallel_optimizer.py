@@ -15,11 +15,14 @@ counterpart; reference: dygraph_optimizer/hybrid_parallel_optimizer.py,
   ``sum_pp=False``. Under expert parallelism the experts' blocks
   (``ep_sharded``) are summed over the ep group, every other parameter
   counted once. Gradients are already averaged over dp, so dp adds
-  nothing.
+  nothing, and summed over sep, where every rank then holds the same
+  ones, so sep adds nothing either.
 * ``HybridParallelOptimizer``: averages the gradients over the dp group
   when the model is not a ``DataParallel`` (whose reducer averaged them
   in backward), over dp x ep under expert parallelism (the experts'
-  blocks summed over dp only, ``fused_allreduce_gradients``), hands the step to ``DygraphShardingOptimizer`` when the
+  blocks summed over dp only, ``fused_allreduce_gradients``), summed over
+  dp x sep and divided by dp under sequence parallelism, hands the step
+  to ``DygraphShardingOptimizer`` when the
   sharding degree is above 1 (``sharding_configs["stage"]`` 1, 2 or 3;
   at 3 the ZeRO-3 sharded parameters' gradients arrive reduce-scattered
   and the step gathers no parameter back),
@@ -111,10 +114,13 @@ class HybridParallelOptimizer:
         self._sharding = hcg.get_sharding_parallel_world_size() > 1
         # under expert parallelism no reducer averaged the gradients in
         # backward (the model is a TensorParallel): the step does it
+        # nor under sequence parallelism (the model is a SegmentParallel or
+        # a TensorParallel): the step sums over dp x sep
         self._dp_enable = ((hcg.get_data_parallel_world_size() > 1
                             and hcg.get_parallel_mode()
                             != ParallelMode.DATA_PARALLEL)
-                           or hcg.get_expert_parallel_world_size() > 1)
+                           or hcg.get_expert_parallel_world_size() > 1
+                           or hcg.get_sep_parallel_world_size() > 1)
         self._gm_steps, self._gm_avg = 1, True
         if strategy is not None and getattr(strategy, "gradient_merge",
                                             False):

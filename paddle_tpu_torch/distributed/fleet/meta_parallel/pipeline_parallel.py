@@ -11,8 +11,9 @@ through ``parallel.pipeline``'s engine: ``pipeline_configs
 mirror backward when the layer has ``num_virtual_pipeline_stages`` > 1)
 or ZB-H1 (``parallel.zero_bubble``'s W-gradient deferral), over
 ``accumulate_steps`` microbatches of the global batch. ZB-H1 with an mp
-or sep axis falls back to 1F1B with a warning, and replicates the batch
-over dp, as the JAX package does (``pipeline_parallel.py:128-150``).
+axis falls back to 1F1B with a warning, and replicates the batch over dp,
+as the JAX package does (``pipeline_parallel.py:128-150``). A sep axis
+above 1 raises (ROADMAP A8): nothing here splits the sequence.
 
 ``train_batch(data, optimizer, lr_scheduler, scaler)``: forward and
 backward, the shared-weight gradient sum, then the optimizer (a
@@ -49,6 +50,9 @@ class PipelineParallel:
 
         if not isinstance(layers, PipelineLayer):
             raise TypeError("PipelineParallel expects a PipelineLayer")
+        if hcg.get_sep_parallel_world_size() > 1:
+            raise NotImplementedError("sequence parallelism (sep > 1) under "
+                                      "pp is not ported yet (ROADMAP A8)")
         self._layers = layers
         self._hcg = hcg
         self._strategy = strategy

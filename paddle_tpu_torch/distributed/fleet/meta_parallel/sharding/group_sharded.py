@@ -439,6 +439,9 @@ class _Groups:
     def get_expert_parallel_group(self):
         return _solo()
 
+    def get_sep_parallel_group(self):
+        return _solo()
+
 
 class GroupShardedOptimizerStage2:
     """Optimizer-state sharding over `group` (reference

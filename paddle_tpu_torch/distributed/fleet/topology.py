@@ -9,8 +9,10 @@ one process group per axis, plus the fused data x sharding group, taken
 from the port's rank mesh (``distributed.mesh``, built over the same
 order, so rank r holds the coordinates of device r in the JAX mesh).
 Every axis's group is built; the pipeline runs on the pp group
-(``meta_parallel.PipelineParallel``, ``parallel.pipeline``), the sep
-runtime is later work (ROADMAP A8). An "expert" axis (``ep_degree`` >
+(``meta_parallel.PipelineParallel``, ``parallel.pipeline``), ring
+attention on the sep group (``parallel.ring_attention``), and the
+gradients of a sequence-parallel step are summed over the dp x sep
+(x sharding) groups. An "expert" axis (``ep_degree`` >
 1, innermost; the mesh's "ep") adds the expert-parallel group, whose
 ranks hold different experts and different rows, and the
 dp x sharding x ep group of the ranks holding different rows.
@@ -136,6 +138,8 @@ class HybridCommunicateGroup:
         self._dp_sharding_group = mesh.group(("dp", "sharding"))
         self._ep_group = mesh.group("ep")
         self._dp_sharding_ep_group = mesh.group(("dp", "sharding", "ep"))
+        self._dp_sep_group = mesh.group(("dp", "sep"))
+        self._dp_sharding_sep_group = mesh.group(("dp", "sharding", "sep"))
 
     @classmethod
     def from_mesh(cls, mesh):
@@ -258,6 +262,17 @@ class HybridCommunicateGroup:
         sharding x ep, dp-major (the dp x sharding group without an
         expert axis)."""
         return self._dp_sharding_ep_group
+
+    def get_dp_sep_parallel_group(self):
+        """The ranks that hold different rows or different segments of
+        them, dp x sep, dp-major: a replicated parameter's gradient is
+        summed over it (reference topology.py ``get_dp_sep_parallel_group``)."""
+        return self._dp_sep_group
+
+    def get_dp_sharding_sep_parallel_group(self):
+        """dp x sharding x sep, dp-major: every rank that shares no mp (or
+        pp) coordinate."""
+        return self._dp_sharding_sep_group
 
     def get_check_parallel_group(self, sharding=False):
         from paddle_tpu_torch.distributed.collective import get_group

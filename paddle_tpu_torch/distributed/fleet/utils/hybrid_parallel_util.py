@@ -40,9 +40,19 @@ def fused_allreduce_gradients(parameter_list, hcg):
     gradient is summed over the dp x ep group, an expert's over the dp
     group only (its owner's gradient already sums every ep rank's
     contribution, through the all-to-all's backward), and both are
-    divided by dp x ep."""
+    divided by dp x ep.
+
+    Under sequence parallelism the ranks of the sep group hold different
+    segments of the same rows, and each one's loss is its share of the
+    rows' mean: every gradient is summed over dp x sep and divided by dp
+    (the JAX package's rule, "sep contribution unscaled"). Expert
+    parallelism beside sep is refused where the step is built."""
     ep = hcg.get_expert_parallel_group()
     g = hcg.get_data_parallel_group()
+    if hcg.get_sep_parallel_world_size() > 1:
+        _allreduce_mean(parameter_list, hcg.get_dp_sep_parallel_group(),
+                        g.nranks)
+        return
     if ep.nranks == 1:
         _allreduce_mean(parameter_list, g, g.nranks)
         return

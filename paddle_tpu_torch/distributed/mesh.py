@@ -11,7 +11,10 @@ along several axes at once (``group(("dp", "sharding"))``, the fused
 group for gradient averaging). An "ep" axis (expert parallelism) is a
 data axis of the MoE layers: it follows ``AXIS_ORDER``, as in the JAX
 mesh, and its fused groups with dp and sharding are the ranks that hold
-different rows. ``build_mesh`` creates every such group on every rank,
+different rows. A "sep" axis (sequence parallelism) splits the
+sequence: its fused groups with dp and sharding are the ranks whose
+gradients are summed (``fused_allreduce_gradients``). ``build_mesh``
+creates every such group on every rank,
 as c10d requires; an axis of size 1 needs no process group.
 """
 from __future__ import annotations
@@ -28,10 +31,12 @@ __all__ = ["AXIS_ORDER", "RankMesh", "build_mesh", "get_mesh", "set_mesh",
            "mesh_axis_size"]
 
 AXIS_ORDER = ("pp", "dp", "sharding", "sep", "mp")
-# fused groups: the data ranks (dp x sharding), and with an expert axis
-# the ranks holding different rows (dp, sharding and ep)
+# fused groups: the data ranks (dp x sharding), with an expert axis the
+# ranks holding different rows (dp, sharding and ep), with a sep axis the
+# ranks holding different rows or different segments of them
 FUSED = (("dp", "sharding"), ("dp", "ep"), ("sharding", "ep"),
-         ("dp", "sharding", "ep"))
+         ("dp", "sharding", "ep"), ("dp", "sep"), ("sharding", "sep"),
+         ("dp", "sharding", "sep"))
 
 _GLOBAL_MESH: list = [None]
 

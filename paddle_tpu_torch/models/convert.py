@@ -28,6 +28,10 @@ up, the head and the embedding by rows, o and down by columns, the norms
 whole), ``from_paddle_tpu_params`` loads them into a model built under
 the hcg, and ``gather_paddle_tpu_params`` puts the mp ranks' shards back
 together into the full, JAX-layout state.
+A single tensor-parallel layer (``ColumnParallelLinear``,
+``RowParallelLinear`` and their sequence-parallel kin) takes its rank's
+shard of a JAX layer's full ``[in, out]`` weight from ``shard_linear``,
+and ``gather_linear`` puts the ranks' shards back.
 
 Under pipeline parallelism a rank holds its stage's layers only, named
 by their index in ``LlamaForCausalLM.pipeline_layers`` (0 the embedding,
@@ -64,7 +68,8 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 __all__ = ["from_paddle_tpu_params", "optimizer_state_from_paddle_tpu",
            "fp8_state_from_paddle_tpu", "lora_from_paddle_tpu",
            "state_from_paddle_tpu", "shard_paddle_tpu_params",
-           "gather_paddle_tpu_params", "mp_split_axis",
+           "gather_paddle_tpu_params", "mp_split_axis", "shard_linear",
+           "gather_linear",
            "llama_pipeline_name", "pipeline_stage_params",
            "load_pipeline_params", "gather_pipeline_params",
            "is_expert_param", "shard_expert_params", "gather_expert_params"]
@@ -131,6 +136,52 @@ def gather_paddle_tpu_params(shards) -> dict:
         full = (as_np(shards[0][name]) if ax is None else
                 np.concatenate([as_np(s[name]) for s in shards], axis=ax))
         out[name] = full.T if _is_linear(name) else full
+    return out
+
+
+def shard_linear(kind: str, mp_rank: int, mp_degree: int, weight,
+                 bias=None) -> dict:
+    """mp rank `mp_rank`'s {"weight"[, "bias"]} (numpy, PyTorch layout) of
+    a JAX linear layer's full ``[in, out]`` weight and ``[out]`` bias:
+    `kind` "column" (``ColumnParallelLinear``,
+    ``ColumnSequenceParallelLinear``) takes rows ``[r out/mp, (r+1)
+    out/mp)`` of ``[out, in]`` and the same block of the bias; "row"
+    (``RowParallelLinear``, ``RowSequenceParallelLinear``) takes columns
+    ``[r in/mp, (r+1) in/mp)`` and the whole bias."""
+    if kind not in ("column", "row"):
+        raise ValueError(f"kind {kind!r}: expected 'column' or 'row'")
+    w = np.asarray(weight).T
+    ax = 0 if kind == "column" else 1
+    n = w.shape[ax]
+    if n % mp_degree:
+        raise ValueError(f"{kind} weight: dim {ax} ({n}) is not a multiple "
+                         f"of the mp degree {mp_degree}")
+    k = n // mp_degree
+    part = slice(mp_rank * k, (mp_rank + 1) * k)
+    out = {"weight": np.ascontiguousarray(w[part] if ax == 0
+                                          else w[:, part])}
+    if bias is not None:
+        b = np.asarray(bias)
+        out["bias"] = np.ascontiguousarray(b[part] if kind == "column"
+                                           else b)
+    return out
+
+
+def gather_linear(kind: str, shards) -> dict:
+    """The full JAX-layout {"weight" [in, out][, "bias"]} from the mp
+    ranks' ``shard_linear`` dicts (or the layers' state dicts), in rank
+    order; numpy out."""
+    def as_np(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy()
+        return np.asarray(v)
+
+    ax = 0 if kind == "column" else 1
+    out = {"weight": np.concatenate([as_np(sh["weight"]) for sh in shards],
+                                    axis=ax).T}
+    if shards[0].get("bias") is not None:
+        out["bias"] = (np.concatenate([as_np(sh["bias"]) for sh in shards])
+                       if kind == "column" else as_np(shards[0]["bias"]))
     return out
 
 

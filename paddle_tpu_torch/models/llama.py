@@ -33,8 +33,15 @@ loop applies the remat policy of ``current_layer_ctx()`` (else the
 final norm and the fused head never sit in one, and each layer tags its
 two residual-stream tensors (``tag_residual``) for ``offload_residuals``.
 ``scan_group()`` is the homogeneous stack; ``scan_layers`` runs it
-unrolled. Under ZeRO-3 (a ``shard_info`` in the layer context) the stack
-runs through ``scan_layers.zero3_layer_loop``. The projections, the
+unrolled. Under sequence parallelism (a sep group of more than one rank
+published by the training step, ``parallel.segments.sep_execution``)
+each rank holds a contiguous segment of the sequence: the attention runs
+ring attention over the group (``parallel.ring_attention``, the flash
+kernels block by block), the RoPE positions without ``position_ids`` are
+the segment's global ones, ``r S_local + arange(S_local)``, and the
+criterion returns the rank's share of the group's mean loss. Under
+ZeRO-3 (a ``shard_info`` in the layer context) the stack runs through
+``scan_layers.zero3_layer_loop``. The projections, the
 embedding, the norms, ``rope`` and the head go through the
 ``nn.functional`` seam (AMP casts, fp8); the LM head sits in
 ``amp.fp8.head_scope``.
@@ -50,6 +57,7 @@ from paddle_tpu_torch.amp import apply_seam
 from paddle_tpu_torch.amp import fp8 as amp_fp8
 from paddle_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from paddle_tpu_torch.core.flags import flag
+from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_layers
 from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import (
     _c_concat, mp_group)
@@ -57,11 +65,14 @@ from paddle_tpu_torch.lora import seam as lora_seam
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import TorchRMSNorm
 from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
+from paddle_tpu_torch.parallel.ring_attention import RingAttention
 from paddle_tpu_torch.parallel.scan_layers import (current_layer_ctx,
                                                    tag_residual,
                                                    unrolled_layer_call,
                                                    zero3_layer_loop)
-from paddle_tpu_torch.parallel.segments import current_segment_ctx
+from paddle_tpu_torch.parallel.segments import (current_segment_ctx,
+                                                current_sep_group,
+                                                note_sep_loss)
 from paddle_tpu_torch.quantization import quantize_kv, raw_bytes
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
@@ -152,6 +163,13 @@ def _check_positions(position_ids, limit: int):
             f"(rope_max_position={limit}); raise "
             f"LlamaConfig.rope_max_position (or max_position_embeddings) "
             f"to serve longer contexts")
+
+
+def _sep_group():
+    """The published sep group when it has more than one rank, else
+    None."""
+    g = current_sep_group()
+    return g if g is not None and g.nranks > 1 else None
 
 
 def apply_rotary(q, k, cos, sin):
@@ -333,20 +351,29 @@ class LlamaAttention(nn.Module):
         q, k, cos, sin = apply_seam("rope", (q, k) + tuple(rope))
         limit = self._rope_limit
         _check_positions(position_ids, limit)
+        sep = _sep_group()
         if position_ids is not None:
-            # per-row positions (restarting at 0 per packed document)
+            # per-row positions (restarting at 0 per packed document); under
+            # sep the step hands each rank its slice of the global ids
             c, sn = cos[position_ids], sin[position_ids]
         else:
-            if s > limit:
+            # under sep this rank's rows sit at its segment's global
+            # positions
+            off = sep.rank * s if sep is not None else 0
+            if off + s > limit:
                 raise ValueError(
-                    f"sequence length {s} is past the hoisted RoPE table "
-                    f"(rope_max_position={limit}); raise "
+                    f"sequence length {off + s} is past the hoisted RoPE "
+                    f"table (rope_max_position={limit}); raise "
                     f"LlamaConfig.rope_max_position to run longer sequences")
-            c, sn = cos[:s], sin[:s]
+            c, sn = cos[off:off + s], sin[off:off + s]
         q, k = apply_rotary(q, k, c.to(q.dtype), sn.to(q.dtype))
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                             training=self.training,
-                                             segment_ids=segment_ids)
+        if sep is not None:
+            q, k, v = apply_seam("sdpa", (q, k, v))
+            out = RingAttention.apply(q, k, v, sep, True, None, segment_ids)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 training=self.training,
+                                                 segment_ids=segment_ids)
         return self.o_proj(out.reshape(b, s, -1))
 
     def forward_decode(self, x, *, rope, cache, layer_idx, page_table,
@@ -552,7 +579,16 @@ class LlamaPretrainingCriterion(nn.Module):
     ``use_parallel_cross_entropy`` (the default): per-token CE, then the
     mean over ALL tokens, ignored ones counting as 0; without it: the mean
     over the non-ignored tokens. Labels are the next-token targets, already
-    shifted by the caller (the packer does it), ``ignore_index`` -100."""
+    shifted by the caller (the packer does it), ``ignore_index`` -100.
+
+    Under sequence parallelism (a published sep group of more than one
+    rank) each rank holds a segment of the rows, and its loss is its share
+    of the group's mean: its summed per-token loss over the group's
+    counted tokens (all of them, or the non-ignored ones, whose count
+    takes one all-reduce over the group). The shares sum to the mean over
+    the whole rows, whatever the ignored labels' spread over the
+    segments. The share is recorded (``segments.note_sep_loss``): a step
+    under sep trains only on it."""
 
     ignore_index = -100
 
@@ -564,14 +600,33 @@ class LlamaPretrainingCriterion(nn.Module):
         self.mp_group = mp_group if mp_group is not None and \
             mp_group.nranks > 1 else None
 
+    def _sep_share(self, total, labels, sep):
+        """`total`, this rank's summed per-token loss, over the sep
+        group's counted tokens."""
+        if self.parallel:
+            return note_sep_loss(total / (labels.numel() * sep.nranks))
+        count = (labels != self.ignore_index).sum().to(torch.float32)
+        collective.all_reduce(count, group=sep)
+        return note_sep_loss(total / count.clamp_min(1).to(total.dtype))
+
     def forward(self, logits, labels):
+        sep = _sep_group()
         if self.mp_group is not None:
             nll = mp_layers.vocab_parallel_nll(logits, labels, self.mp_group,
                                                self.ignore_index)
+            if sep is not None:
+                return self._sep_share(nll.sum(), labels, sep)
             if self.parallel:
                 return F.mean(nll)
             valid = (labels != self.ignore_index).sum().clamp_min(1)
             return nll.sum() / valid.to(nll.dtype)
+        if sep is not None:
+            total = (F.parallel_cross_entropy(
+                logits, labels, ignore_index=self.ignore_index).sum()
+                if self.parallel else F.cross_entropy(
+                    logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                    ignore_index=self.ignore_index, reduction="sum"))
+            return self._sep_share(total, labels, sep)
         if self.parallel:
             return F.mean(F.parallel_cross_entropy(
                 logits, labels, ignore_index=self.ignore_index))
@@ -583,6 +638,13 @@ class LlamaPretrainingCriterion(nn.Module):
         """The head projection and the CE in one fused op: the
         [tokens, vocab] logits never exist, and the reduction is this
         criterion's own."""
+        sep = _sep_group()
+        if sep is not None:
+            total = F.fused_linear_cross_entropy(
+                hidden, lm_head.weight, labels, bias=lm_head.bias,
+                ignore_index=self.ignore_index, reduction="sum",
+                mp_group=self.mp_group)
+            return self._sep_share(total, labels, sep)
         reduction = "none" if self.parallel else "mean"
         loss = F.fused_linear_cross_entropy(
             hidden, lm_head.weight, labels, bias=lm_head.bias,
@@ -598,6 +660,9 @@ class LlamaForCausalLM(nn.Module):
     0.02) for the matrices, ones for the norms) on the target device."""
 
     layer_remat_capable = True
+    # under a published sep group the attention rings over it and the
+    # criterion shares the loss (TrainStep and SegmentParallel check it)
+    supports_sep = True
 
     def __init__(self, config: LlamaConfig, device=DEFAULT_DEVICE,
                  dtype=None, seed: int | None = None):

@@ -17,6 +17,9 @@ namespace ptt {
 
 constexpr float kNegInf = -1e30f;
 
+// -inf, the lse of a row with no visible key
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
 // THE cross-block skip predicate (paddle_tpu/ops/pallas/flash_attention.py
 // `_seg_blocks_can_touch`): a K block may contribute to a Q block only if
 // their id ranges intersect. The flash kernel runs it over segment-id

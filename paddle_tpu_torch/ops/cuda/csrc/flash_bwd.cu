@@ -18,7 +18,11 @@
 // mask plus the whole-tile skip through ptt::blocks_can_touch (the same
 // predicate as the forward), ragged S masked here, head_dim 64 or 128.
 // A masked (query, key) pair gets P = 0 by selection, never through exp of
-// a sentinel, so a row whose lse came from an all-masked row gives no NaN.
+// a sentinel, so a row whose lse came from an all-masked row (-inf, the
+// forward's) gives no NaN. As in the forward, the keys' segment ids may
+// come from a pointer of their own (kv_seg, defaulting to seg): every read
+// of a key's id and every K-tile range go through it, in a compile-time
+// variant (kSplit) launched only when kv_seg differs from seg.
 //
 // What bounds it: five products of 2 D flops per visible (query, key) pair
 // and head (the dq kernel runs three, the dkv kernel four), against
@@ -105,14 +109,15 @@ __device__ __forceinline__ void stage_rows(const T* base, long long ss, int r0,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ seg, float* __restrict__ dq, int S,
-                    int Hq, int Hkv, int causal, float scale) {
+                    const int* __restrict__ seg,
+                    const int* __restrict__ kv_seg, float* __restrict__ dq,
+                    int S, int Hq, int Hkv, int causal, float scale) {
   constexpr int DP = D + 4;
   constexpr int CPL = D / 32;
   extern __shared__ float4 smem4[];
@@ -132,6 +137,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lseb = lse + ((long long)b * Hq + h) * S;
   const float* deltab = delta + ((long long)b * Hq + h) * S;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
+  const int* kvb = kSplit ? kv_seg + (long long)b * S : segb;
 
   stage_rows<T, D, kDqBQ>(qb, q_ss, q0, S, scale, qs);
   stage_rows<T, D, kDqBQ>(dob, q_ss, q0, S, 1.f, dos);
@@ -161,10 +167,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kDqBK;
     const int kpos = k0 + lane;
-    const int kseg = (segb && kpos < S) ? segb[kpos] : 0;
+    const int kseg = (kvb && kpos < S) ? kvb[kpos] : 0;
     if (segb) {
       int mn, mx;
-      ptt::seg_range(segb, k0, 1, S, mn, mx);
+      ptt::seg_range(kvb, k0, 1, S, mn, mx);
       if (!ptt::blocks_can_touch(q_min, q_max, mn, mx)) continue;
     }
     __syncthreads();  // the previous tile's readers (and the staging) are done
@@ -225,13 +231,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const int* __restrict__ seg, float* __restrict__ dk,
+                     const int* __restrict__ seg,
+                     const int* __restrict__ kv_seg, float* __restrict__ dk,
                      float* __restrict__ dv, int S, int Hq, int Hkv,
                      int causal, float scale) {
   constexpr int DP = D + 4;
@@ -250,6 +257,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (long long)b * S * k_ss + (long long)hk * D;
   const T* vb = v + (long long)b * S * k_ss + (long long)hk * D;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
+  const int* kvb = kSplit ? kv_seg + (long long)b * S : segb;
 
   stage_rows<T, D, kKvBK>(kb, k_ss, k0, S, 1.f, ks);
   stage_rows<T, D, kKvBK>(vb, k_ss, k0, S, 1.f, vs);
@@ -258,9 +266,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int kseg[kKvKeys];
 #pragma unroll
   for (int i = 0; i < kKvKeys; ++i)
-    kseg[i] = (segb && key0 + i < S) ? segb[key0 + i] : 0;
+    kseg[i] = (kvb && key0 + i < S) ? kvb[key0 + i] : 0;
   int k_min = 0, k_max = 0;
-  if (segb) ptt::seg_range(segb, k0, kKvBK / 32, S, k_min, k_max);
+  if (segb) ptt::seg_range(kvb, k0, kKvBK / 32, S, k_min, k_max);
 
   float dka[kKvKeys][CPL], dva[kKvKeys][CPL];
 #pragma unroll
@@ -379,7 +387,7 @@ constexpr size_t mma_smem_bytes(bool dkv) {
          (dkv ? sizeof(float) * 2 * 2 * kMmaB : 0);
 }
 
-template <int D>
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -387,8 +395,10 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        const int* __restrict__ seg, float* __restrict__ dq,
-                        int S, int Hq, int Hkv, int causal, float scale) {
+                        const int* __restrict__ seg,
+                        const int* __restrict__ kv_seg,
+                        float* __restrict__ dq, int S, int Hq, int Hkv,
+                        int causal, float scale) {
   constexpr int LD = MmaTile<D>::kLd, TE = MmaTile<D>::kElems;
   constexpr int NT = D / 8;  // n8 tiles over the head dim
   extern __shared__ uint4 smem_mma[];
@@ -410,6 +420,7 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const float* lseb = lse + ((long long)b * Hq + h) * S;
   const float* deltab = delta + ((long long)b * Hq + h) * S;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
+  const int* kvb = kSplit ? kv_seg + (long long)b * S : segb;
 
   ptt::copy_tile<kMmaB, D, kMmaThreads>(qs, qb, q_ss, q0, S);
   ptt::copy_tile<kMmaB, D, kMmaThreads>(dos, dob, q_ss, q0, S);
@@ -432,7 +443,7 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
   auto next_tile = [&](int t) {
     for (; t < n_kt && segb; ++t) {
       int mn, mx;
-      ptt::seg_range(segb, t * kMmaB, 2, S, mn, mx);
+      ptt::seg_range(kvb, t * kMmaB, 2, S, mn, mx);
       if (ptt::blocks_can_touch(q_min, q_max, mn, mx)) break;
     }
     return t;
@@ -498,7 +509,7 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
           const int kpos = k0 + 8 * nt + 2 * tig + (i & 1);
           const bool valid = qpos < S && kpos < S &&
                              (!causal || qpos >= kpos) &&
-                             (!segb || (hi ? qseg_b : qseg_a) == segb[kpos]);
+                             (!segb || (hi ? qseg_b : qseg_a) == kvb[kpos]);
           p = valid ? p : 0.f;
         }
         s[nt][i] = p * (dp[nt][i] - (hi ? delta_b : delta_a));
@@ -533,7 +544,7 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -541,9 +552,10 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         const int* __restrict__ seg, float* __restrict__ dk,
-                         float* __restrict__ dv, int S, int Hq, int Hkv,
-                         int causal, float scale) {
+                         const int* __restrict__ seg,
+                         const int* __restrict__ kv_seg,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int S, int Hq, int Hkv, int causal, float scale) {
   constexpr int LD = MmaTile<D>::kLd, TE = MmaTile<D>::kElems;
   constexpr int NT = D / 8;
   extern __shared__ uint4 smem_mma[];
@@ -561,6 +573,7 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const int kt = blockIdx.y, k0 = kt * kMmaB;
   const long long q_ss = (long long)Hq * D, k_ss = (long long)Hkv * D;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
+  const int* kvb = kSplit ? kv_seg + (long long)b * S : segb;
 
   const long long kv_off = (long long)b * S * k_ss + (long long)hk * D;
   ptt::copy_tile<kMmaB, D, kMmaThreads>(ks, k + kv_off, k_ss, k0, S);
@@ -568,11 +581,11 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   // this thread's accumulator rows (keys): ka (i = 0, 1), kb = ka + 8
   const int ka = k0 + 16 * warp + gid, kb = ka + 8;
-  const int kseg_a = (segb && ka < S) ? segb[ka] : -1;
-  const int kseg_b = (segb && kb < S) ? segb[kb] : -1;
+  const int kseg_a = (kvb && ka < S) ? kvb[ka] : -1;
+  const int kseg_b = (kvb && kb < S) ? kvb[kb] : -1;
   const float sl2 = scale * ptt::kLog2e;
   int k_min = 0, k_max = 0;
-  if (segb) ptt::seg_range(segb, k0, 2, S, k_min, k_max);
+  if (segb) ptt::seg_range(kvb, k0, 2, S, k_min, k_max);
 
   // the walk: item j is q tile first_qt + j % per_head of the group's query
   // head j / per_head; causal q tiles above this K tile contribute nothing
@@ -717,10 +730,15 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, const int* seg,
-               float* dq, float* dk, float* dv, int B, int S, int Hq, int Hkv,
-               int causal, float scale, cudaStream_t stream) {
-  auto dq_kern = flash_bwd_dq_kernel_mma<D>;
-  auto dkv_kern = flash_bwd_dkv_kernel_mma<D>;
+               const int* kv_seg, float* dq, float* dk, float* dv, int B,
+               int S, int Hq, int Hkv, int causal, float scale,
+               cudaStream_t stream) {
+  // the keys' own ids only where they differ from the queries'
+  const bool split = seg && kv_seg != seg;
+  auto dq_kern = split ? flash_bwd_dq_kernel_mma<D, true>
+                       : flash_bwd_dq_kernel_mma<D, false>;
+  auto dkv_kern = split ? flash_bwd_dkv_kernel_mma<D, true>
+                        : flash_bwd_dkv_kernel_mma<D, false>;
   const size_t dq_smem = mma_smem_bytes<D>(false);
   const size_t dkv_smem = mma_smem_bytes<D>(true);
   cudaError_t err = cudaFuncSetAttribute(
@@ -737,21 +755,26 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   const int n_t = (S + kMmaB - 1) / kMmaB;
   // heads on x: the blocks of every head's longest tile start first
   dq_kern<<<dim3(B * Hq, n_t), kMmaThreads, dq_smem, stream>>>(
-      qt, kt, vt, dt, lse, delta, seg, dq, S, Hq, Hkv, causal, scale);
+      qt, kt, vt, dt, lse, delta, seg, kv_seg, dq, S, Hq, Hkv, causal,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dkv_kern<<<dim3(B * Hkv, n_t), kMmaThreads, dkv_smem, stream>>>(
-      qt, kt, vt, dt, lse, delta, seg, dk, dv, S, Hq, Hkv, causal, scale);
+      qt, kt, vt, dt, lse, delta, seg, kv_seg, dk, dv, S, Hq, Hkv, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, const int* seg, float* dq,
-           float* dk, float* dv, int B, int S, int Hq, int Hkv, int causal,
-           float scale, cudaStream_t stream) {
-  auto dq_kern = flash_bwd_dq_kernel<T, D>;
-  auto dkv_kern = flash_bwd_dkv_kernel<T, D>;
+           const float* lse, const float* delta, const int* seg,
+           const int* kv_seg, float* dq, float* dk, float* dv, int B, int S,
+           int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  const bool split = seg && kv_seg != seg;
+  auto dq_kern = split ? flash_bwd_dq_kernel<T, D, true>
+                       : flash_bwd_dq_kernel<T, D, false>;
+  auto dkv_kern = split ? flash_bwd_dkv_kernel<T, D, true>
+                        : flash_bwd_dkv_kernel<T, D, false>;
   const size_t dq_smem = dq_smem_bytes<D>(), dkv_smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
@@ -765,12 +788,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* dt = static_cast<const T*>(dout);
   dim3 dq_grid((S + kDqBQ - 1) / kDqBQ, B * Hq);
   dq_kern<<<dq_grid, kThreads, dq_smem, stream>>>(
-      qt, kt, vt, dt, lse, delta, seg, dq, S, Hq, Hkv, causal, scale);
+      qt, kt, vt, dt, lse, delta, seg, kv_seg, dq, S, Hq, Hkv, causal,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 dkv_grid((S + kKvBK - 1) / kKvBK, B * Hkv);
   dkv_kern<<<dkv_grid, kThreads, dkv_smem, stream>>>(
-      qt, kt, vt, dt, lse, delta, seg, dk, dv, S, Hq, Hkv, causal, scale);
+      qt, kt, vt, dt, lse, delta, seg, kv_seg, dk, dv, S, Hq, Hkv, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -778,12 +803,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // Plain C entry point (bound with ctypes): launches the dq kernel, then the
 // dkv kernel, on `stream`. is_bf16: 1 bf16 inputs (the tensor-core
-// kernels), 0 fp32 (the CUDA-core ones); outputs fp32.
+// kernels), 0 fp32 (the CUDA-core ones); outputs fp32. kv_seg: the keys'
+// segment ids (null: seg's); ignored without seg.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
-                             const float* delta, const int* seg, float* dq,
-                             float* dk, float* dv, int B, int S, int Hq,
+                             const float* delta, const int* seg,
+                             const int* kv_seg, float* dq, float* dk,
+                             float* dv, int B, int S, int Hq,
                              int Hkv, int D, int causal, float scale,
                              int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -791,12 +818,13 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_seg == nullptr) kv_seg = seg;
   if (is_bf16) {
-    if (D == 64) return launch_mma<64>(q, k, v, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
-    if (D == 128) return launch_mma<128>(q, k, v, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
+    if (D == 64) return launch_mma<64>(q, k, v, dout, lse, delta, seg, kv_seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
+    if (D == 128) return launch_mma<128>(q, k, v, dout, lse, delta, seg, kv_seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
   } else {
-    if (D == 64) return launch<float, 64>(q, k, v, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
-    if (D == 128) return launch<float, 128>(q, k, v, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
+    if (D == 64) return launch<float, 64>(q, k, v, dout, lse, delta, seg, kv_seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
+    if (D == 128) return launch<float, 128>(q, k, v, dout, lse, delta, seg, kv_seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

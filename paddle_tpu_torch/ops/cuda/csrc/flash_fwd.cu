@@ -12,7 +12,16 @@
 //  * segment_ids: q_seg != k_seg is masked inside a tile, and a whole K
 //    tile whose segment range cannot touch the q tile's is skipped through
 //    ptt::blocks_can_touch (the predicate the backward and the paged
-//    kernel share);
+//    kernel share). The keys' ids may come from a pointer of their own
+//    (kv_seg, the segment ids of another stretch of the sequence: a ring
+//    attention block); every read of a key's id and every K-tile range go
+//    through it. That is a compile-time variant (kSplit), launched only
+//    when kv_seg differs from seg, so every other caller runs the code it
+//    ran before the pointer existed;
+//  * a row with no visible key (possible only across stretches: a row
+//    always sees itself otherwise, also when the segment skip leaves a
+//    q tile no K tile) writes o = 0 and lse = -inf, which the caller's
+//    log-sum-exp merge lets through;
 //  * ragged S: rows and keys past S are masked here, S need not divide
 //    the tile sizes. A masked pair gets P = 0 by selection.
 //  * flash_visit_kernel counts, per (row, block_q rows), the K blocks that
@@ -82,10 +91,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBK * D);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ seg,
+                 const int* __restrict__ kv_seg,
                  T* __restrict__ o, float* __restrict__ lse, int S, int Hq,
                  int group, long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
@@ -105,6 +115,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
+  const int* kvb = kSplit ? kv_seg + (long long)b * S : segb;
 
   for (int e = tid * 8; e < kBQ * D; e += kThreads * 8) {
     const int r = e / D, c = e % D;
@@ -151,7 +162,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     const int kpos = k0 + lane;
-    const int kseg = (segb && kpos < S) ? segb[kpos] : 0;
+    const int kseg = (kvb && kpos < S) ? kvb[kpos] : 0;
     if (segb) {
       const int mn = ptt::warp_min_i(kpos < S ? kseg : INT_MAX);
       const int mx = ptt::warp_max_i(kpos < S ? kseg : INT_MIN);
@@ -230,16 +241,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + (((long long)b * S + r) * Hq + h) * D;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) ptt::store(acc[i][j] * inv, orow + lane + 32 * j);
-    if (lane == 0) lse[((long long)b * Hq + h) * S + r] = m[i] + logf(lc);
+    if (lane == 0)
+      lse[((long long)b * Hq + h) * S + r] =
+          (!kSplit || l[i] > 0.f) ? m[i] + logf(lc) : ptt::neg_inf();
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* seg,
-           void* o, float* lse, int B, int S, int Hq, int Hkv,
+           const int* kv_seg, void* o, float* lse, int B, int S, int Hq,
+           int Hkv,
            const long long* st, int causal, float scale,
            cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
+  // the keys' own ids only where they differ from the queries'
+  auto kern = seg && kv_seg != seg ? flash_fwd_kernel<T, D, true>
+                                   : flash_fwd_kernel<T, D, false>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -247,7 +263,7 @@ int launch(const void* q, const void* k, const void* v, const int* seg,
   dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<T*>(o), lse, S, Hq,
+      static_cast<const T*>(v), seg, kv_seg, static_cast<T*>(o), lse, S, Hq,
       Hq / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], causal, scale);
   return (int)cudaGetLastError();
@@ -272,12 +288,13 @@ constexpr size_t mma_smem_bytes() {
          ptt::kTileLd<D>;
 }
 
-template <int D>
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ seg,
+                     const int* __restrict__ kv_seg,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int S, int Hq, int group, long long q_sb, long long q_ss,
                      long long q_sh, long long k_sb, long long k_ss,
@@ -302,6 +319,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
   const int* segb = seg ? seg + (long long)b * S : nullptr;
+  const int* kvb = kSplit ? kv_seg + (long long)b * S : segb;
 
   ptt::copy_tile<BQ, D, kMmaThreads>(qs, qb, q_ss, q0, S);
 
@@ -326,7 +344,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
   auto next_tile = [&](int t) {
     for (; t < n_kt && segb; ++t) {
       int mn, mx;
-      ptt::seg_range(segb, t * kMmaBK, kMmaBK / 32, S, mn, mx);
+      ptt::seg_range(kvb, t * kMmaBK, kMmaBK / 32, S, mn, mx);
       if (ptt::blocks_can_touch(q_min, q_max, mn, mx)) break;
     }
     return t;
@@ -411,7 +429,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
               if constexpr (kMasked) {
                 const int kpos = k0 + 8 * nt + 2 * tig + e;
                 const bool valid = kpos < S && (!causal || qpos >= kpos) &&
-                                   (!segb || qseg[mt][hi] == segb[kpos]);
+                                   (!segb || qseg[mt][hi] == kvb[kpos]);
                 if (!valid) vis &= ~(1u << bit);
               }
               if (vis >> bit & 1u) mx = fmaxf(mx, s[mt][nt][2 * hi + e]);
@@ -482,16 +500,20 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
             __floats2bfloat162_rn(acc[mt][nt][2 * hi] * inv,
                                   acc[mt][nt][2 * hi + 1] * inv);
       if (tig == 0)
-        lse[((long long)b * Hq + h) * S + r] = m[mt][hi] * scale + logf(lc);
+        lse[((long long)b * Hq + h) * S + r] =
+            (!kSplit || lt > 0.f) ? m[mt][hi] * scale + logf(lc)
+                                  : ptt::neg_inf();
     }
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, const int* seg,
-               void* o, float* lse, int B, int S, int Hq, int Hkv,
+               const int* kv_seg, void* o, float* lse, int B, int S, int Hq,
+               int Hkv,
                const long long* st, int causal, float scale,
                cudaStream_t stream) {
-  auto kern = flash_fwd_kernel_mma<D>;
+  auto kern = seg && kv_seg != seg ? flash_fwd_kernel_mma<D, true>
+                                   : flash_fwd_kernel_mma<D, false>;
   const size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -501,7 +523,8 @@ int launch_mma(const void* q, const void* k, const void* v, const int* seg,
   dim3 grid(B * Hq, (S + FwdTile<D>::kBQ - 1) / FwdTile<D>::kBQ);
   kern<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), seg, static_cast<bf*>(o), lse, S, Hq,
+      static_cast<const bf*>(v), seg, kv_seg, static_cast<bf*>(o), lse, S,
+      Hq,
       Hq / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], causal, scale);
   return (int)cudaGetLastError();
@@ -724,10 +747,13 @@ extern "C" int ptt_flash_visit(const int* seg, int* counts, int B, int S,
 
 // Plain C entry point (bound with ctypes). strides: 9 element strides,
 // (batch, seq, head) for q, k, v in that order. is_bf16: 1 bf16 (the
-// tensor-core kernel), 0 fp32 (the CUDA-core one).
+// tensor-core kernel), 0 fp32 (the CUDA-core one). kv_seg: the keys'
+// segment ids [B, S] (null: seg's, so every existing caller computes what
+// it computed before); ignored without seg.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
-                             const int* seg, void* o, float* lse, int B,
+                             const int* seg, const int* kv_seg, void* o,
+                             float* lse, int B,
                              int S, int Hq, int Hkv, int D,
                              const long long* strides, int causal,
                              float scale, int is_bf16, int device,
@@ -737,12 +763,13 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_seg == nullptr) kv_seg = seg;
   if (is_bf16) {
-    if (D == 64) return launch_mma<64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
-    if (D == 128) return launch_mma<128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
+    if (D == 64) return launch_mma<64>(q, k, v, seg, kv_seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
+    if (D == 128) return launch_mma<128>(q, k, v, seg, kv_seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
   } else {
-    if (D == 64) return launch<float, 64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
-    if (D == 128) return launch<float, 128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
+    if (D == 64) return launch<float, 64>(q, k, v, seg, kv_seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
+    if (D == 128) return launch<float, 128>(q, k, v, seg, kv_seg, o, lse, B, S, Hq, Hkv, strides, causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -32,6 +32,14 @@ owns a q tile and walks K tiles, the dkv kernel owns a K tile and walks
 the q tiles of every query head of its GQA group. The plain versions
 keep fp32 throughout.
 
+``kv_segment_ids`` (forward, backward and their plain versions) gives
+the keys' segment ids apart from the queries': ring attention runs the
+kernels on a query stretch and a key stretch of one packed row, whose
+ids are taken from different ranges of the row. It defaults to
+``segment_ids``. A query row that sees no key there gets out = 0 and
+lse = -inf (the ring's log-sum-exp merge lets it through), and zero
+gradients.
+
 On a CUDA tensor ``flash_attention_fwd`` / ``flash_attention_bwd`` /
 ``segment_block_visit_counts`` launch the kernels or raise; on a CPU tensor
 they run ``flash_attention_reference`` / ``flash_attention_bwd_reference``
@@ -75,7 +83,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(q, k, v, segment_ids):
+def _check(q, k, v, segment_ids, kv_segment_ids=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [batch, seq, heads, head_dim]")
     b, s, hq, d = q.shape
@@ -87,31 +95,39 @@ def _check(q, k, v, segment_ids):
     if hkv == 0 or hq % hkv != 0:
         raise ValueError(
             f"q heads must be a multiple of kv heads, got {hq} and {hkv}")
-    if segment_ids is not None and tuple(segment_ids.shape) != (b, s):
-        raise ValueError(f"segment_ids must be [batch, seq]=({b}, {s}), "
-                         f"got {tuple(segment_ids.shape)}")
+    for name, ids in (("segment_ids", segment_ids),
+                      ("kv_segment_ids", kv_segment_ids)):
+        if ids is not None and tuple(ids.shape) != (b, s):
+            raise ValueError(f"{name} must be [batch, seq]=({b}, {s}), "
+                             f"got {tuple(ids.shape)}")
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError("kv_segment_ids needs segment_ids (the queries')")
     return b, s, hq, hkv, d
 
 
-def _mask(s, causal, segment_ids, device):
-    """[B, 1, 1, S, S] (or [1, 1, 1, S, S]) bool: key t visible to query s."""
+def _mask(s, causal, segment_ids, device, kv_segment_ids=None):
+    """[B, 1, 1, S, S] (or [1, 1, 1, S, S]) bool: key t visible to query s
+    (the keys' segment ids `kv_segment_ids`, else the queries')."""
     valid = torch.ones(s, s, dtype=torch.bool, device=device)
     if causal:
         valid = torch.tril(valid)
     valid = valid.view(1, 1, 1, s, s)
     if segment_ids is not None:
         seg = segment_ids.to(device)
+        kseg = seg if kv_segment_ids is None else kv_segment_ids.to(device)
         valid = valid & (seg[:, None, None, :, None]
-                         == seg[:, None, None, None, :])
+                         == kseg[:, None, None, None, :])
     return valid
 
 
 def flash_attention_reference(q, k, v, causal: bool = False,
-                              scale: float | None = None, segment_ids=None):
+                              scale: float | None = None, segment_ids=None,
+                              kv_segment_ids=None):
     """Plain PyTorch version of the kernel: q [B, S, Hq, D], k/v
     [B, S, Hkv, D] -> (out [B, S, Hq, D] in q's dtype, lse [B, Hq, S] fp32).
-    fp32 math; masked keys get probability 0 exactly as in the kernel."""
-    b, s, hq, hkv, d = _check(q, k, v, segment_ids)
+    fp32 math; masked keys get probability 0 exactly as in the kernel, and
+    a row with no visible key out 0 and lse -inf."""
+    b, s, hq, hkv, d = _check(q, k, v, segment_ids, kv_segment_ids)
     g = hq // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -119,14 +135,15 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     kf = k.float().permute(0, 2, 1, 3)                     # [B, Hkv, S, D]
     vf = v.float().permute(0, 2, 1, 3)
     scores = torch.einsum("bhgsd,bhtd->bhgst", qf, kf)
-    valid = _mask(s, causal, segment_ids, q.device)
+    valid = _mask(s, causal, segment_ids, q.device, kv_segment_ids)
     scores = scores.masked_fill(~valid, _NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m).masked_fill(~valid, 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgst,bhtd->bhgsd", p / l, vf)
     out = out.reshape(b, hq, s, d).permute(0, 2, 1, 3).to(q.dtype)
-    lse = (m + torch.log(l)).reshape(b, hq, s)
+    lse = (m + torch.log(l)).masked_fill(~valid.any(-1, keepdim=True),
+                                         float("-inf")).reshape(b, hq, s)
     return out.contiguous(), lse
 
 
@@ -136,8 +153,8 @@ def _lib():
     fn = load("flash_fwd").ptt_flash_fwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci,
-                       ctypes.c_float, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+                       ci, ctypes.c_float, ci, ci, vp]
         fn.restype = ci
     return fn
 
@@ -157,8 +174,23 @@ def check_view(name, t):
                          f"base, got strides {t.stride()}")
 
 
-def _launch(q, k, v, causal, scale, segment_ids):
-    b, s, hq, hkv, d = _check(q, k, v, segment_ids)
+def _seg_ptrs(segment_ids, kv_segment_ids, device):
+    """(ids, kv ids, seg pointer, kv pointer) as the kernels read them:
+    contiguous int32 on `device`, the pointers None where absent. The
+    kernels' split-ids variant runs only where the kv pointer is set and
+    differs from the ids'; the same tensor given twice takes the other."""
+    if kv_segment_ids is segment_ids:
+        kv_segment_ids = None
+    out = []
+    for ids in (segment_ids, kv_segment_ids):
+        if ids is not None:
+            ids = ids.to(device=device, dtype=torch.int32).contiguous()
+        out.append(ids)
+    return (*out, *(None if t is None else t.data_ptr() for t in out))
+
+
+def _launch(q, k, v, causal, scale, segment_ids, kv_segment_ids=None):
+    b, s, hq, hkv, d = _check(q, k, v, segment_ids, kv_segment_ids)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} must share q's device and dtype")
@@ -170,18 +202,15 @@ def _launch(q, k, v, causal, scale, segment_ids):
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_view(name, t)
         strides += list(t.stride()[:3])
-    seg_ptr = None
-    if segment_ids is not None:
-        segment_ids = segment_ids.to(device=q.device,
-                                     dtype=torch.int32).contiguous()
-        seg_ptr = segment_ids.data_ptr()
+    segment_ids, kv_segment_ids, seg_ptr, kv_ptr = _seg_ptrs(
+        segment_ids, kv_segment_ids, q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     st = (ctypes.c_longlong * 9)(*strides)
     fn = _lib()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, kv_ptr,
              out.data_ptr(), lse.data_ptr(), b, s, hq, hkv, d, st,
              int(bool(causal)), float(scale), _DTYPES[q.dtype],
              q.device.index or 0,
@@ -193,25 +222,28 @@ def _launch(q, k, v, causal, scale, segment_ids):
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
-                        scale: float | None = None, segment_ids=None):
+                        scale: float | None = None, segment_ids=None,
+                        kv_segment_ids=None):
     """(out, lse) of attention over [B, S, H, D] q/k/v (GQA when k/v carry
     fewer heads; ``segment_ids`` [B, S] makes it block-diagonal per packed
-    document). CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    document, ``kv_segment_ids`` gives the keys' ids apart). CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
     if q.is_cuda:
-        return _launch(q, k, v, causal, scale, segment_ids)
+        return _launch(q, k, v, causal, scale, segment_ids, kv_segment_ids)
     return flash_attention_reference(q, k, v, causal=causal, scale=scale,
-                                     segment_ids=segment_ids)
+                                     segment_ids=segment_ids,
+                                     kv_segment_ids=kv_segment_ids)
 
 
 
-def _bwd_reference_ds(q, k, v, out, lse, do, causal, scale, segment_ids):
+def _bwd_reference_ds(q, k, v, out, lse, do, causal, scale, segment_ids,
+                      kv_segment_ids=None):
     """What both backward kernels recompute first: P from the saved lse
     and dS = P * (dP - delta) * scale ([B, Hkv, g, S, S] fp32, masked
     pairs at P = 0 exactly), with the fp32 head views [B, Hkv, g, S, D]
     of q and do, k [B, Hkv, S, D], and ``back``, which returns a
     [B, Hkv, (g,) S, D] gradient to [B, S, H, D]."""
-    b, s, hq, hkv, d = _check(q, k, v, segment_ids)
+    b, s, hq, hkv, d = _check(q, k, v, segment_ids, kv_segment_ids)
     g = hq // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -224,7 +256,7 @@ def _bwd_reference_ds(q, k, v, out, lse, do, causal, scale, segment_ids):
     vf = v.float().permute(0, 2, 1, 3)
     lse5 = lse.float().reshape(b, hkv, g, s, 1)
     delta = (dof * of).sum(-1, keepdim=True)
-    valid = _mask(s, causal, segment_ids, q.device)
+    valid = _mask(s, causal, segment_ids, q.device, kv_segment_ids)
     scores = torch.einsum("bhgsd,bhtd->bhgst", qf * scale, kf)
     p = torch.exp(scores - lse5).masked_fill(~valid, 0.0)
     del scores
@@ -241,22 +273,24 @@ def _bwd_reference_ds(q, k, v, out, lse, do, causal, scale, segment_ids):
 def flash_attention_bwd_dq_reference(q, k, v, out, lse, do,
                                      causal: bool = False,
                                      scale: float | None = None,
-                                     segment_ids=None):
+                                     segment_ids=None, kv_segment_ids=None):
     """Plain PyTorch version of the dq kernel: dq = dS·K [B, S, Hq, D]
     fp32 (arguments as ``flash_attention_bwd_reference``)."""
     _, ds, _, _, kf, back = _bwd_reference_ds(q, k, v, out, lse, do, causal,
-                                              scale, segment_ids)
+                                              scale, segment_ids,
+                                              kv_segment_ids)
     return back(torch.einsum("bhgst,bhtd->bhgsd", ds, kf), q.shape[2])
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
                                       causal: bool = False,
                                       scale: float | None = None,
-                                      segment_ids=None):
+                                      segment_ids=None, kv_segment_ids=None):
     """Plain PyTorch version of the dkv kernel: (dk = dSᵀ·Q, dv = Pᵀ·dO),
     each [B, S, Hkv, D] fp32, summed over the GQA group."""
     p, ds, qf, dof, _, back = _bwd_reference_ds(q, k, v, out, lse, do,
-                                                causal, scale, segment_ids)
+                                                causal, scale, segment_ids,
+                                                kv_segment_ids)
     dv = torch.einsum("bhgst,bhgsd->bhtd", p, dof)
     del p
     dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qf)
@@ -265,7 +299,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, out, lse, do,
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
                                   scale: float | None = None,
-                                  segment_ids=None):
+                                  segment_ids=None, kv_segment_ids=None):
     """Plain PyTorch version of the backward kernels: (dq [B, S, Hq, D],
     dk, dv [B, S, Hkv, D]), all fp32, from q, k, v, the forward's out
     [B, S, Hq, D] and lse [B, Hq, S], and the output gradient do. Like the
@@ -273,7 +307,8 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = False,
     forms the flash-2 products explicitly (delta = rowsum(do * out),
     dS = P * (dP - delta) * scale) in fp32, once for dq and once for
     dk/dv; it is not autograd through the forward."""
-    args = (q, k, v, out, lse, do, causal, scale, segment_ids)
+    args = (q, k, v, out, lse, do, causal, scale, segment_ids,
+            kv_segment_ids)
     return (flash_attention_bwd_dq_reference(*args),
             *flash_attention_bwd_dkv_reference(*args))
 
@@ -284,13 +319,14 @@ def _bwd_lib():
     fn = load("flash_bwd").ptt_flash_bwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
+        fn.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
         fn.restype = ci
     return fn
 
 
-def _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids):
-    b, s, hq, hkv, d = _check(q, k, v, segment_ids)
+def _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids,
+                kv_segment_ids=None):
+    b, s, hq, hkv, d = _check(q, k, v, segment_ids, kv_segment_ids)
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes bf16 or fp32, got {q.dtype}")
     if d not in (64, 128):
@@ -313,18 +349,16 @@ def _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids):
                              f"kernels copy 16-byte pieces")
     lse = lse.float().contiguous()
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    seg_ptr = None
-    if segment_ids is not None:
-        segment_ids = segment_ids.to(device=q.device,
-                                     dtype=torch.int32).contiguous()
-        seg_ptr = segment_ids.data_ptr()
+    segment_ids, kv_segment_ids, seg_ptr, kv_ptr = _seg_ptrs(
+        segment_ids, kv_segment_ids, q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     dq = torch.empty((b, s, hq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, s, hkv, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), seg_ptr, dq.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), seg_ptr, kv_ptr,
+                     dq.data_ptr(),
                      dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d,
                      int(bool(causal)), float(scale), _DTYPES[q.dtype],
                      q.device.index or 0,
@@ -337,17 +371,20 @@ def _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids):
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
-                        scale: float | None = None, segment_ids=None):
+                        scale: float | None = None, segment_ids=None,
+                        kv_segment_ids=None):
     """(dq, dk, dv) in fp32 for the forward ``out, lse =
     flash_attention_fwd(q, k, v, ...)`` and the output gradient ``do``
     (delta = rowsum(do * out) is formed here, outside the kernels, as the
     JAX package forms it outside Pallas). CUDA tensors launch the dq and
     dkv kernels; CPU tensors take the plain version."""
     if q.is_cuda:
-        return _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids)
+        return _launch_bwd(q, k, v, out, lse, do, causal, scale, segment_ids,
+                           kv_segment_ids)
     return flash_attention_bwd_reference(q, k, v, out, lse, do,
                                          causal=causal, scale=scale,
-                                         segment_ids=segment_ids)
+                                         segment_ids=segment_ids,
+                                         kv_segment_ids=kv_segment_ids)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -551,6 +551,11 @@ def pipeline_hcg(mesh, zero_axis=None):
     if mesh.shape.get("ep", 1) > 1:
         raise NotImplementedError("expert parallelism under pp is not "
                                   "ported yet (ROADMAP A8)")
+    if mesh.shape.get("sep", 1) > 1:
+        # nothing here splits the sequence: the stages would train it
+        # replicated
+        raise NotImplementedError("sequence parallelism (sep > 1) under pp "
+                                  "is not ported yet (ROADMAP A8)")
     set_mesh(mesh)
     dp, sharding = mesh.shape.get("dp", 1), mesh.shape.get("sharding", 1)
     if zero_axis == "dp" and sharding == 1:

@@ -168,7 +168,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _replaying(fn):
     """`fn` whose second and later runs (the recompute) run under the
     thread-local state of the first: the AMP state, the packed-batch
-    context, and the fp8 session with its callsite cursor rewound to where
+    context, the sep group, and the fp8 session with its callsite cursor rewound to where
     the first run started. Autograd runs a CUDA backward on its own device
     thread, where none of them is installed."""
     from paddle_tpu_torch import amp
@@ -182,11 +182,13 @@ def _replaying(fn):
             sess = fp8.current_session()
             first.update(amp=amp.state_snapshot(), sess=sess,
                          seg=segments.current_segment_ctx(),
+                         sep=segments.current_sep_group(),
                          cursor=sess.cursor if sess is not None else 0)
             return fn(*a)
         sess = first["sess"]
         with amp.restored_state(first["amp"]), fp8.installed(sess), \
-                segments.restored_segment_ctx(first["seg"]):
+                segments.restored_segment_ctx(first["seg"]), \
+                segments.sep_execution(first["sep"]):
             if sess is None:
                 return fn(*a)
             with sess.rewind(first["cursor"]):

@@ -58,9 +58,26 @@ loss's; ZeRO-1/2 over "dp" shards the optimizer state over the dp group
 of each ep coordinate. ep beside mp, pp or sep, and ZeRO-3 with ep,
 raise (ROADMAP A8). JAX's ``CompiledTrainStep`` splits the batch over
 dp only and the tokens over (dp, ep) inside the MoE layer, which agrees
-token for token when the rows divide over dp x ep. A pipeline axis in
-the mesh replicates the step over its ranks, as ``CompiledTrainStep``
-does over such a mesh; pipelining is
+token for token when the rows divide over dp x ep. A "sep" axis
+(sequence parallelism) splits the SEQUENCE of every ``[B, S]`` batch
+entry (dim 1: input ids, labels, segment and position ids) into
+contiguous segments, rank r of the sep group taking segment r, as
+``CompiledTrainStep`` shards dim 1 over "sep"; a length that does not
+divide raises. The step publishes the sep group around the forward and
+backward (``parallel.segments.sep_execution``): the LLaMA attention runs
+ring attention over it, its RoPE positions are the segment's global
+ones, and its criterion returns the rank's share of the rows' mean loss.
+The model is a ``SegmentParallel`` (a ``TensorParallel`` beside mp), the
+hybrid optimizer sums the gradients over dp x sep and divides by dp (the
+sep sum before ZeRO-1/2's reduce-scatter), and the step returns the sum
+of the sep ranks' losses averaged over the data ranks. Only a model
+that declares ``supports_sep`` (``LlamaForCausalLM``) takes a sep axis,
+and only with its own criterion's loss (the share it records, checked
+at each step): any other model attends within its segment and means its
+own tokens, so it raises, as do sep beside pp or ep and ZeRO-3 with sep
+(ROADMAP A8). A pipeline axis in the mesh
+(without sep) replicates the step over its ranks, as
+``CompiledTrainStep`` does over such a mesh; pipelining is
 ``parallel.pipeline.PipelinedTrainStep``'s. A ``grad_scaler`` under a
 fleet optimizer and fp8 or LoRA under mp > 1 raise (ROADMAP A8).
 ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
@@ -92,6 +109,7 @@ from paddle_tpu_torch.io.device_feed import (DispatchWindow, LossFuture,
 from paddle_tpu_torch.nn.clip import global_norm
 from paddle_tpu_torch.parallel.scan_layers import (layer_execution,
                                                    normalize_remat)
+from paddle_tpu_torch.parallel.segments import sep_execution, sep_loss
 
 __all__ = ["TrainStep"]
 
@@ -124,6 +142,8 @@ class TrainStep:
                 "the anomaly detector (resilience) is not ported yet: "
                 "ROADMAP A8")
         self._data_group = None
+        self._sep_group = None
+        self._loss_group = None
         self._zero3 = None
         if remat is None:
             remat = getattr(model, "remat_policy", None)
@@ -227,6 +247,8 @@ class TrainStep:
         ep = mesh.shape.get("ep", 1)
         if ep > 1:
             self._check_expert_parallel(model, mesh, pp, deg)
+        if deg["sep"] > 1:
+            self._check_sep(model, pp, zero_axis, zero_stage)
         if zero_axis not in (None, "dp", "sharding"):
             raise ValueError(f"zero_axis {zero_axis!r} names no data axis of "
                              f"the mesh {mesh.shape}")
@@ -280,7 +302,33 @@ class TrainStep:
         # dp-major over dp x sharding (x ep): the fused group's member
         # order
         self._data_group = hcg.get_dp_sharding_ep_parallel_group()
+        if deg["sep"] > 1:
+            # the sep ranks hold segments of the data rank's rows: the loss
+            # sums over them, then averages over the data ranks
+            self._sep_group = hcg.get_sep_parallel_group()
+            self._loss_group = hcg.get_dp_sharding_sep_parallel_group()
         return model, optimizer
+
+    @staticmethod
+    def _check_sep(model, pp, zero_axis, zero_stage):
+        """What sequence parallelism composes with (dp, sharding with
+        ZeRO-1/2, mp), and the models it takes."""
+        from paddle_tpu_torch.distributed.fleet.meta_parallel.\
+            segment_parallel import check_supports_sep
+        from paddle_tpu_torch.distributed.parallel import DataParallel
+
+        check_supports_sep(model)
+        if pp > 1:
+            raise NotImplementedError("sequence parallelism (sep > 1) beside "
+                                      "pp is not ported yet (ROADMAP A8)")
+        if zero_stage == 3 and zero_axis is not None:
+            raise NotImplementedError("ZeRO-3 with sequence parallelism (sep "
+                                      "> 1) is not ported yet (ROADMAP A8); "
+                                      "sep composes with ZeRO-1/2")
+        if isinstance(model, DataParallel):
+            raise ValueError("under sequence parallelism the optimizer sums "
+                             "the gradients over dp x sep; pass the model "
+                             "unwrapped, not a DataParallel")
 
     @staticmethod
     def _check_expert_parallel(model, mesh, pp, deg):
@@ -321,12 +369,26 @@ class TrainStep:
         k = n // g.nranks
         return value[g.rank * k:(g.rank + 1) * k]
 
+    def _local_segment(self, value):
+        """This sep rank's contiguous segment of the sequence (dim 1) of a
+        [B, S, ...] batch entry."""
+        g = self._sep_group
+        if g is None or value.dim() < 2:
+            return value
+        s = value.shape[1]
+        if s % g.nranks:
+            raise ValueError(f"sequence length {s} not divisible by sep "
+                             f"degree {g.nranks}")
+        k = s // g.nranks
+        return value[:, g.rank * k:(g.rank + 1) * k].contiguous()
+
     def _place(self, value):
         value = self._local_rows(value)
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(value)
         if isinstance(value, torch.Tensor):
-            return value.to(self.device, non_blocking=True)
+            return self._local_segment(value).to(self.device,
+                                                 non_blocking=True)
         return value
 
     def __call__(self, *batch):
@@ -345,7 +407,8 @@ class TrainStep:
             self.fp8_policy, states=self._fp8_states or [],
             hist_len=self._fp8_hist_len, record=self._fp8_states is None)
         policy = self.remat_policy if self._layer_capable else "none"
-        with fp8_ctx as sess, layer_execution(policy):
+        with fp8_ctx as sess, layer_execution(policy), \
+                sep_execution(self._sep_group):
             if named:
                 kwargs = {k: self._place(v) for k, v in batch[0].items()}
                 out = self.model(**kwargs)
@@ -355,6 +418,13 @@ class TrainStep:
                 out = self.model(*args[:-1])
                 labels = args[-1]
             loss = self.loss_fn(out, labels)
+            if self._sep_group is not None and loss is not sep_loss():
+                raise ValueError(
+                    "under sequence parallelism (sep > 1) the step trains on "
+                    "the rank's share of the group's mean loss, which only "
+                    "the model's own criterion (LlamaPretrainingCriterion) "
+                    "computes; a loss_fn of its own would mean the rank's "
+                    "segment alone (ROADMAP A8)")
             moe = self._moe_stats()
             if self._scaler is not None:
                 # float16 loss scaling before the backward; the step
@@ -366,7 +436,14 @@ class TrainStep:
             # the held units' gradients reduce-scattered, every full
             # buffer freed
             self._zero3.finish()
-        if self._data_group is not None and self._data_group.nranks > 1:
+        if self._loss_group is not None:
+            # the sep ranks' shares summed, the data ranks' means averaged
+            from paddle_tpu_torch.distributed import collective
+
+            loss = loss.detach().float().clone()
+            collective.all_reduce(loss, group=self._loss_group)
+            loss.div_(self._data_group.nranks)
+        elif self._data_group is not None and self._data_group.nranks > 1:
             from paddle_tpu_torch.distributed import collective
 
             loss = loss.detach().float().clone()

@@ -365,8 +365,14 @@ def test_spawn_fails_fast_on_a_failing_rank_and_kills_the_rest():
 
 
 def test_spawn_times_out_a_hung_rank():
-    t0 = time.monotonic()
     ctx = spawn(_hang_rank, nprocs=2, join=False)
+    # rank 0 returns as soon as it has started (imported torch and this
+    # module, which under many test workers at once takes seconds): wait for
+    # it, bounded, so the window below measures only the hung rank 1
+    deadline = time.monotonic() + 60
+    while ctx.processes[0].is_alive() and time.monotonic() < deadline:
+        ctx.processes[0].join(0.1)
+    t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=r"rank\(s\) \[1\] still running"):
         ctx.join(timeout=8)
     assert time.monotonic() - t0 < 40
