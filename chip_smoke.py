@@ -355,6 +355,25 @@ kernels' device ms in a profiled step and the ring's p2p calls, bytes
 and host ms a step). ``--only sep_cuda_vs_cpu,sep_full_width`` needs no
 earlier phase.
 
+Since the checkpoint slice (elastic sharded checkpoints and self-healing
+training): ``resilience_full_width`` (after ``train_full_width``) runs
+phase 7's model at RESIL_LAYERS layer through ``run_resilient``: a NaN
+learning rate at batch RESIL_NAN_AT rolled back to the last commit, the
+third save killed before its COMMIT, a fresh step restored from the last
+commit; the rollback, the final state and the restored run must repeat
+the fault-free run bit for bit; it prints the snapshot's GB, the
+caller-thread capture ms beside the step's ms, each save's host copy,
+write, fsync and commit seconds and write GB/s, and the load seconds
+(snapshots go to the git-ignored ``.ckpt_smoke/``, removed after). The
+tiny 4-rank phases carry the sharded layouts (CUDA ranks, 2 steps, a
+multi-rank save, 2 more; the resumed runs held to the phase's rule
+against the target layout's uninterrupted run, every save read back
+bit-equal to the ranks' gathered parameters): ``zero3_cuda_vs_cpu``
+resumes a ZeRO-3 sharding-4 save at dp 4 and a dp 4 save at ZeRO-3, and
+an mp 2 x dp 2 save at dp 4; ``pipeline_cuda_vs_cpu`` a pp 2 x dp 2 1F1B
+save in ``TrainStep`` at dp 4 and the reverse. The whole script's seconds
+are printed before the result lines.
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -7313,6 +7332,14 @@ def _pipe_small_rank(out_dir):
                 for k, n in got.items():
                     launches[k] = launches.get(k, 0) + n
             out["cases"][label][dev] = res
+    # elastic checkpoints: a pipeline save resumed into TrainStep and back
+    cfg = dataclasses.replace(_tiny_gqa_config(),
+                              num_hidden_layers=PIPE_LAYERS)
+    out["resume"] = _ckpt_resume_cases(
+        cfg, named, batch, os.path.join(out_dir, "ckpt"),
+        ("pp2_dp2", "dp4"), (("pp2_dp2", "dp4"), ("dp4", "pp2_dp2")))
+    for k, n in out["resume"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
     ce.restore()
     out["launches"] = launches
     out["ce_calls"] = ce.out
@@ -7397,6 +7424,8 @@ def phase_pipeline_cuda_vs_cpu(seed, report):
         if not (loss_rel <= 1e-4 and p_err <= PIPE_LR and agree):
             bad.append(f"{label}: loss {loss_rel:.3g}, params {p_err:.3g}, "
                        f"ranks agree {agree}")
+    out["resume"] = _ckpt_resume_check(ranks, os.path.join(tmp, "ckpt"),
+                                       PIPE_LR, bad)
     report["pipeline_cuda_vs_cpu"] = out
     print("pipeline_cuda_vs_cpu: " + json.dumps(out), flush=True)
     if bad:
@@ -7860,6 +7889,17 @@ def _zero3_small_rank(out_dir):
                 for k, n in got.items():
                     launches[k] = launches.get(k, 0) + n
             out["cases"][label][dev] = res
+    # elastic checkpoints: a ZeRO-3 save resumed replicated and back, an
+    # mp 2 save resumed at mp 1
+    cfg = dataclasses.replace(_tiny_gqa_config(),
+                              num_hidden_layers=ZERO3_LAYERS)
+    out["resume"] = _ckpt_resume_cases(
+        cfg, named, batch, os.path.join(out_dir, "ckpt"),
+        ("zero3_sharding4", "dp4", "mp2_dp2"),
+        (("zero3_sharding4", "dp4"), ("dp4", "zero3_sharding4"),
+         ("mp2_dp2", "dp4")))
+    for k, n in out["resume"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
     ce.restore()
     out["launches"] = launches
     out["ce_calls"] = ce.out
@@ -7976,6 +8016,8 @@ def phase_zero3_cuda_vs_cpu(seed, report):
             bad.append(f"{label}: loss {loss_rel:.3g}, params {p_err:.3g}, "
                        f"ranks agree {agree}")
         bad += [f"{label}: {why}" for ok, why in holds if not ok]
+    out["resume"] = _ckpt_resume_check(ranks, os.path.join(tmp, "ckpt"),
+                                       FLEET_LR, bad)
     report["zero3_cuda_vs_cpu"] = out
     print("zero3_cuda_vs_cpu: " + json.dumps(out), flush=True)
     if bad:
@@ -9546,6 +9588,447 @@ def phase_sep_full_width(args, report):
         raise AssertionError(f"sep_full_width: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# elastic checkpoints across layouts (riding the tiny 4-rank ZeRO-3 and
+# pipeline phases) and self-healing training at full width
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 2               # steps before a save, and after it
+# the full-width run: phase 7's LLaMA at one layer (a snapshot of the bf16
+# parameters, fp32 masters and moments is about 6.5 GB a layer's worth of
+# disk a save), 6 batches, a snapshot every 3 (step 0, 3 and 6: the last
+# one killed before its COMMIT), the NaN learning rate at batch 4
+RESIL_LAYERS = 1
+RESIL_BATCHES = 6
+RESIL_EVERY = 3
+RESIL_NAN_AT = 4
+
+
+def _pipe_canonical(mods, idx, n_layers):
+    """A pipeline rank's stage modules under the single LLaMA's canonical
+    prefixes (``elastic.capture_modules``)."""
+    out = {}
+    if 0 in mods:
+        out["llama."] = mods[0]
+    for i in idx:
+        out[f"llama.layers.{i}."] = mods[i + 1]
+    if n_layers + 1 in mods:
+        out["llama.norm."] = mods[n_layers + 1].norm
+        out["lm_head."] = mods[n_layers + 1].lm_head
+    return out
+
+
+def _pipe_restore(mods, idx, n_layers, opt, arrays, meta):
+    """A single-LLaMA snapshot into a pipeline rank's stage modules and
+    its optimizer, by name."""
+    from paddle_tpu_torch.distributed.checkpoint import elastic
+
+    if 0 in mods:
+        elastic.restore(arrays, meta, mods[0], opt,
+                        mapper={"model/llama.": "model/",
+                                "opt/llama.": "opt/"})
+    for i in idx:
+        elastic.restore(arrays, meta, mods[i + 1], opt,
+                        mapper={f"model/llama.layers.{i}.": "model/",
+                                f"opt/llama.layers.{i}.": "opt/"})
+    if n_layers + 1 in mods:
+        elastic.restore(arrays, meta, mods[n_layers + 1], opt,
+                        mapper={"model/llama.norm.": "model/norm.",
+                                "opt/llama.norm.": "opt/norm.",
+                                "model/lm_head.": "model/lm_head.",
+                                "opt/lm_head.": "opt/lm_head."})
+
+
+CKPT_LAYOUTS = {                  # kind: (route, mesh axes, ZeRO)
+    "dp4": ("train_step", {"dp": 4}, None),
+    "zero3_sharding4": ("train_step", {"sharding": 4}, "sharding"),
+    "mp2_dp2": ("train_step", {"dp": 2, "mp": 2}, None),
+    "pp2_dp2": ("1f1b", {"pp": 2, "dp": 2}, None)}
+
+
+def _ckpt_layout(kind, cfg, named, batch, dev, arrays=None, meta=None):
+    """(run, capture, gathered) of one resume-case layout on this rank:
+    built from `named`, or restored from a snapshot (`arrays`, `meta`)
+    before the step is built. `gathered()` gives the full JAX-layout
+    parameters on every rank (the layout's own gathers: ZeRO-3's
+    ``state_dict``, the mp and pp ranks' shares over their groups), as
+    numpy."""
+    import torch
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.checkpoint import elastic
+    from paddle_tpu_torch.distributed.mesh import build_mesh, set_mesh
+    from paddle_tpu_torch.models import (from_paddle_tpu_params,
+                                         gather_paddle_tpu_params)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    route, axes, zero = CKPT_LAYOUTS[kind]
+    n_layers = cfg.num_hidden_layers
+    fleet.reset()
+    set_mesh(None)
+    mesh = build_mesh(axes)
+
+    def over(group, share):
+        parts = [None] * group.nranks
+        tdist.all_gather_object(parts, share, group=group.pg)
+        return parts
+
+    if route == "1f1b":
+        from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+        from paddle_tpu_torch.parallel.pipeline import (PipelinedTrainStep,
+                                                        pipeline_hcg)
+
+        hcg, _ = pipeline_hcg(mesh)
+        mods, idx = _pipe_stage(cfg, hcg, n_layers, 1, dev, named=named)
+        opt = AdamW(learning_rate=FLEET_LR,
+                    parameters=[p for m in mods.values()
+                                for p in m.parameters()],
+                    weight_decay=0.01)
+        if arrays is not None:
+            _pipe_restore(mods, idx, n_layers, opt, arrays, meta)
+        step = PipelinedTrainStep(
+            mods.get(0), [mods[i + 1] for i in idx], mods.get(n_layers + 1),
+            LlamaPretrainingCriterion(cfg), optimizer=opt, mesh=mesh,
+            num_micro=2, remat="none")
+        kw = {"segment_ids": batch["segment_ids"],
+              "position_ids": batch["position_ids"]}
+
+        def run():
+            return float(step(batch["input_ids"], batch["labels"], **kw))
+
+        def capture():
+            return elastic.capture_modules(_pipe_canonical(mods, idx,
+                                                           n_layers),
+                                           step.optimizer, step.step_count)
+
+        def gathered():
+            share = {f"{k}{n}": p.detach().cpu().clone() for k, m in
+                     _pipe_canonical(mods, idx, n_layers).items()
+                     for n, p in m.named_parameters()}
+            merged = {}
+            for part in over(hcg.get_pipe_parallel_group(), share):
+                merged.update(part)
+            return gather_paddle_tpu_params([merged])
+        return run, capture, gathered
+    model = from_paddle_tpu_params(named, cfg, device=dev)
+    opt = AdamW(learning_rate=FLEET_LR, parameters=model.parameters(),
+                weight_decay=0.01)
+    if arrays is not None:
+        missing, _ = elastic.restore(arrays, meta, model, opt)
+        if missing:
+            raise AssertionError(f"{kind}: the snapshot lacks {missing}")
+    step = TrainStep(model, _fused_loss, opt, mesh=mesh, zero_axis=zero,
+                     zero_stage=3 if zero else 1)
+    if arrays is not None:
+        step.load_resume_extras(arrays, meta)
+
+    def run():
+        return float(step(batch))
+
+    def capture():
+        return elastic.capture(step)
+
+    def gathered():
+        if zero:
+            share = {n: v.detach().cpu()
+                     for n, v in step.model.state_dict().items()}
+        else:
+            share = {n: p.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        if axes.get("mp", 1) > 1:
+            from paddle_tpu_torch.distributed.fleet import (
+                get_hybrid_communicate_group)
+
+            parts = over(get_hybrid_communicate_group()
+                         .get_model_parallel_group(), share)
+        else:
+            parts = [share]
+        return gather_paddle_tpu_params(parts)
+    return run, capture, gathered
+
+
+def _ckpt_resume_cases(cfg, named, batch, root, saves, resumes,
+                       dev="cuda"):
+    """This rank's resume cases on `dev` (cuda:0): each layout of `saves`
+    trains CKPT_STEPS steps, saves into root/<kind> (every rank, the
+    elastic commit protocol), trains CKPT_STEPS more; each (src, dst) of
+    `resumes` restores src's snapshot into dst's layout and trains
+    CKPT_STEPS steps. The port kernels' launches are counted over it."""
+    import torch
+
+    from paddle_tpu_torch.distributed.checkpoint import elastic
+    from paddle_tpu_torch.ops import cuda as port_cuda
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    port_cuda.reset_launch_counts()
+    out = {"layouts": {}, "resumes": {}}
+    for kind in saves:
+        run, capture, gathered = _ckpt_layout(kind, cfg, named, batch, dev)
+        rec = {"losses": [run() for _ in range(CKPT_STEPS)]}
+        with elastic.CheckpointManager(os.path.join(root, kind)) as mgr:
+            mgr.save(capture())
+            rec["step"] = mgr.latest()
+        rec["saved"] = gathered()
+        rec["losses"] += [run() for _ in range(CKPT_STEPS)]
+        rec["final"] = gathered()
+        out["layouts"][kind] = rec
+    for src, dst in resumes:
+        mgr = elastic.CheckpointManager(os.path.join(root, src))
+        arrays, meta = mgr.load()
+        mgr.close()
+        run, _, gathered = _ckpt_layout(dst, cfg, named, batch, dev,
+                                        arrays, meta)
+        out["resumes"][f"{src}->{dst}"] = {
+            "losses": [run() for _ in range(CKPT_STEPS)],
+            "final": gathered()}
+    sync()
+    out["launches"] = {k: n for k, n in port_cuda.launch_counts().items()
+                       if n}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _ckpt_resume_check(ranks, root, lr, bad):
+    """The resume cases against the phase's rule (per-step losses within
+    1e-4 relative of the target layout's uninterrupted run, the final
+    parameters within lr), every rank's losses alike, and each save read
+    back (``read_global_state``) bit-equal to the ranks' gathered
+    parameters at the save."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.checkpoint import read_global_state
+
+    res = [r["resume"] for r in ranks]
+    out = {"layouts": {}, "resumes": {},
+           "seconds": max(r["seconds"] for r in res), "launches": {}}
+    for r in res:
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    for kind, rec in res[0]["layouts"].items():
+        full = read_global_state(os.path.join(
+            root, kind, f"step_{rec['step']:08d}"))
+        exact = all(np.array_equal(full[f"model/{n}"].numpy(), v)
+                    for n, v in rec["saved"].items())
+        keys = sorted(k for k in full if k.startswith("model/"))
+        out["layouts"][kind] = {"losses": rec["losses"],
+                                "saved_equals_gathered": exact,
+                                "model_keys": len(keys)}
+        if not exact or len(keys) != len(rec["saved"]):
+            bad.append(f"resume {kind}: the save does not read back as the "
+                       f"gathered parameters")
+        if any(r["layouts"][kind]["losses"] != rec["losses"] for r in res):
+            bad.append(f"resume {kind}: ranks' losses differ")
+    for pair, rec in res[0]["resumes"].items():
+        src, dst = pair.split("->")
+        want = res[0]["layouts"][dst]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(rec["losses"], want["losses"][CKPT_STEPS:]))
+        p_err = max(float(np.abs(rec["final"][n] - want["final"][n]).max())
+                    for n in want["final"])
+        out["resumes"][pair] = {
+            "losses": rec["losses"], "loss_rel_err": rel,
+            "param_max_abs_err": p_err,
+            "bit_equal_target": rec["losses"] ==
+            want["losses"][CKPT_STEPS:],
+            "bit_equal_source": rec["losses"] ==
+            res[0]["layouts"][src]["losses"][CKPT_STEPS:]}
+        if not (rel <= 1e-4 and p_err <= lr):
+            bad.append(f"resume {pair}: loss {rel:.3g}, params {p_err:.3g}")
+        if any(r["resumes"][pair]["losses"] != rec["losses"] for r in res):
+            bad.append(f"resume {pair}: ranks' losses differ")
+    return out
+
+
+def _resil_batch(seed, vocab, seq, i):
+    """Batch `i` of the full-width resilient run, a function of its index
+    only (a replay must see the same data)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed * 7919 + i)
+    ids = rng.randint(1, vocab, (1, seq + 1))
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def _same_state(a, b):
+    """Parameters and optimizer states of two TrainSteps bit-equal?"""
+    import torch
+
+    from paddle_tpu_torch.distributed.checkpoint.elastic import (
+        innermost_opt)
+
+    pa, pb = dict(a.model.named_parameters()), dict(
+        b.model.named_parameters())
+    if any(not torch.equal(pa[n], pb[n]) for n in pa):
+        return False
+    sa, sb = innermost_opt(a.optimizer)[0], innermost_opt(b.optimizer)[0]
+    return sa._state.keys() == sb._state.keys() and all(
+        torch.equal(v, sb._state[i][k]) for i, st in sa._state.items()
+        for k, v in st.items())
+
+
+def _resilience_run(cfg, dev, seed, seq, root):
+    """The fault-free reference (timed steps), then ``run_resilient`` with
+    a NaN learning rate at RESIL_NAN_AT and the third save killed before
+    its COMMIT, then a fresh step restored from the last commit: the
+    numbers and checks of ``phase_resilience_full_width``."""
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch.core.flags import flag, set_flags
+    from paddle_tpu_torch.distributed.checkpoint import elastic
+    from paddle_tpu_torch.distributed.resilience import faults, run_resilient
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    built = {}
+
+    def build(det=False, arrays=None, meta=None):
+        model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                    weight_decay=0.01, multi_precision=True)
+        if arrays is not None:
+            elastic.restore(arrays, meta, model, opt)
+        step = TrainStep(model, _fused_loss, opt, anomaly_detector=det,
+                         metrics_every=0)
+        if arrays is not None:
+            step.load_resume_extras(arrays, meta)
+        built["step"] = step
+        return step
+
+    n = RESIL_BATCHES
+    batches = [_resil_batch(seed, cfg.vocab_size, seq, i) for i in range(n)]
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"layers": cfg.num_hidden_layers, "seq": seq, "batches": n,
+           "every": RESIL_EVERY, "nan_at": RESIL_NAN_AT,
+           "disk_free_gb": shutil.disk_usage(root).free / 1e9}
+    ref = build()
+    built.pop("step")
+    losses, step_ms = [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(ref(b)))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["ref_losses"], out["step_ms"] = losses, step_ms
+    keep = flag("ckpt_keep_last")
+    set_flags({"ckpt_keep_last": 1})
+    faults.reset()
+    faults.arm("step.grads", mode="nth", nth=RESIL_NAN_AT + 1)
+    faults.arm("ckpt.before_commit", mode="nth", nth=3)
+    port_cuda.reset_launch_counts()       # the resilient run starts here
+    t0 = time.perf_counter()
+    try:
+        rep = run_resilient(
+            build, lambda start: iter(batches[start:]), n, root,
+            ckpt_every=RESIL_EVERY, feed_depth=2, device=dev)
+    finally:
+        faults.reset()
+        set_flags({"ckpt_keep_last": keep})
+    sync()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in port_cuda.launch_counts().items()
+                       if v}                 # ... and ends here
+    chaos = built.pop("step")
+    out["status"], out["losses"] = rep["status"], rep["losses"]
+    out["incidents"] = [{k: v for k, v in e.items() if k != "ts"}
+                        for e in rep["incidents"]]
+    out["timings"] = rep["ckpt_timings"]
+    out["rollback_bit_equal"] = (
+        [rep["losses"].get(i) for i in range(n)] == losses)
+    out["final_state_bit_equal"] = _same_state(chaos, ref)
+    del chaos
+    mgr = elastic.CheckpointManager(root)
+    out["committed"] = mgr.steps()
+    out["uncommitted_left"] = sorted(
+        d for d in os.listdir(root) if d.startswith("step_")
+        and not os.path.exists(os.path.join(root, d, "COMMIT")))
+    t0 = time.perf_counter()
+    arrays, meta = mgr.load()
+    out["load_s"] = time.perf_counter() - t0
+    mgr.close()
+    fresh = build(False, arrays, meta)
+    built.pop("step")
+    del arrays
+    start = int(meta["cursor"]["batches"])
+    out["restored_at"] = start
+    out["restored_losses"] = [float(fresh(b)) for b in batches[start:]]
+    sync()
+    out["restored_bit_equal"] = (out["restored_losses"] == losses[start:]
+                                 and _same_state(fresh, ref))
+    del fresh, ref
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_resilience_full_width(args, report):
+    """Phase 7's LLaMA (7B width, bf16, AdamW with fp32 masters) at
+    RESIL_LAYERS layer(s), seq TRAIN_SEQ, through ``run_resilient`` over
+    RESIL_BATCHES batches with a snapshot every RESIL_EVERY (keep-last 1):
+    ``step.grads`` poisons batch RESIL_NAN_AT's learning rate, the next
+    step's non-finite loss rolls back to step RESIL_EVERY's snapshot, and
+    the third save is killed before its COMMIT. The rollback's losses and
+    final parameters and optimizer states must equal the fault-free run's
+    bit for bit, the killed commit must leave the previous snapshot
+    loadable, and a fresh TrainStep restored from it must continue
+    bit-equal; the flash and CE kernels must launch. Prints the snapshot's
+    GB, the caller-thread capture ms against the step's ms, each save's
+    host copy, write, fsync and commit seconds and write GB/s, and the load
+    seconds, beside the card's name and power limit."""
+    import statistics as stats
+
+    from paddle_tpu_torch.models import llama_7b_config
+
+    cfg = llama_7b_config(num_hidden_layers=RESIL_LAYERS, dtype="bfloat16")
+    out = _resilience_run(cfg, "cuda", args.seed, TRAIN_SEQ,
+                          os.path.join(REPO, ".ckpt_smoke"))
+    out["gpu"] = report.get("gpu")
+    saves = [t for t in out["timings"] if "bytes" in t]
+    out["snapshot_gb"] = max(t["bytes"] for t in saves) / 1e9 if saves \
+        else None
+    out["median_step_ms"] = stats.median(out["step_ms"][1:])
+    out["capture_ms"] = [t["capture_ms"] for t in out["timings"]]
+    out["write_gb_per_s"] = [t["bytes"] / 1e9 / t["write_s"]
+                             for t in saves]
+    report["resilience_full_width"] = out
+    print("resilience_full_width: " + json.dumps(out), flush=True)
+    bad = []
+    events = [e["event"] for e in out["incidents"]]
+    if out["status"] != "ok" or events != ["anomaly", "rollback",
+                                           "ckpt_save_failed"]:
+        bad.append(f"status {out['status']}, incidents {events}")
+    if not out["rollback_bit_equal"] or not out["final_state_bit_equal"]:
+        bad.append("the rollback does not repeat the fault-free run")
+    if out["committed"] != [RESIL_EVERY] or not out["uncommitted_left"]:
+        bad.append(f"killed commit: committed {out['committed']}, "
+                   f"uncommitted {out['uncommitted_left']}")
+    if not out["restored_bit_equal"]:
+        bad.append("the restored step does not continue bit-equal")
+    layers = cfg.num_hidden_layers
+    need = {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "ce_stats": 1, "ce_bwd": 1}
+    short = {k: out["launches"].get(k, 0) for k in need
+             if out["launches"].get(k, 0) < need[k]}
+    if short:
+        bad.append(f"kernels not launched: {short}")
+    if bad:
+        raise AssertionError(f"resilience_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -9563,7 +10046,9 @@ def kernels_line(report):
     ep phases' ranks (the tiny cases' CUDA steps and layer calls, the
     full-width run's timed steps), and since the sep slice the sep
     phases' ranks alike (the ring's block calls: sep rank r launches each
-    flash kernel r + 1 times a layer a step). gmm_fwd is the bf16 forward kernel
+    flash kernel r + 1 times a layer a step); since the checkpoint slice
+    also the resilient full-width run and the tiny ZeRO-3 and pipeline
+    phases' resume cases. gmm_fwd is the bf16 forward kernel
     (its row the h1 case),
     gmm_fwd_tf32 the split-TF32 one that the VJP's dx runs (its row the dx
     of h1 through ``GroupedMatmul.backward``), and gmm_dw's ms sums the
@@ -9604,7 +10089,8 @@ def kernels_line(report):
              report.get("moe_ep_cuda_vs_cpu", {}).get("launches", {}),
              report.get("moe_ep_full_width", {}).get("launches", {}),
              report.get("sep_cuda_vs_cpu", {}).get("launches", {}),
-             report.get("sep_full_width", {}).get("launches", {})]
+             report.get("sep_full_width", {}).get("launches", {}),
+             report.get("resilience_full_width", {}).get("launches", {})]
     quant = report.get("paged_quant_cases", {})
     visit = report.get("visit_cases", {})
     flash = report.get("flash_cases", {}).get("causal_s2048") or {}
@@ -9710,6 +10196,7 @@ def main(argv=None) -> int:
         return 2
     if args.tuning_worker:        # one process of the tuning phase
         return tuning_worker(args.tuning_worker, args.seed, args.out)
+    t_script = time.perf_counter()
     from paddle_tpu_torch.ops.cuda import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -9835,6 +10322,9 @@ def main(argv=None) -> int:
                          phase_train_cuda_vs_cpu(args.seed, report))),
                ("train_full_width",
                 lambda: phase_train_full_width(args, report)),
+               ("resilience_full_width",
+                lambda: (free_memory(),
+                         phase_resilience_full_width(args, report))),
                ("lora_train_cuda_vs_cpu",
                 lambda: (free_memory(),
                          phase_lora_train_cuda_vs_cpu(args.seed, report))),
@@ -9904,6 +10394,9 @@ def main(argv=None) -> int:
         print(f"phase {name}: {'FAILED' if name in report['failed'] else 'ok'}"
               f" ({report[f'{name}_s']:.1f} s)", flush=True)
 
+    report["script_s"] = time.perf_counter() - t_script
+    print(f"chip_smoke: whole script {report['script_s']:.1f} s",
+          flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),
               "w") as fh:

@@ -307,3 +307,29 @@ define_flag("scaler_max_consecutive_skips", 100,
             "GradScaler: halt with FloatingPointError after this many "
             "CONSECUTIVE non-finite-gradient skips (warn at half); 0 "
             "disables the guard", type=int)
+define_flag("ckpt_fault_injection", "",
+            "LEGACY alias for the fault registry "
+            "(distributed.resilience.faults): arms 'ckpt.<value>' in "
+            "always-fire mode, one of after_snapshot|after_shard_write|"
+            "after_metadata|before_rename|before_commit|after_commit; "
+            "empty = off. Prefer FLAGS_fault_injection='ckpt.<point>'")
+define_flag("ckpt_keep_last", 3,
+            "committed elastic snapshots kept per checkpoint root (older "
+            "ones are removed after each commit; 0 keeps all)", type=int)
+define_flag("anomaly_detection", False,
+            "TrainStep anomaly detection default (consulted when a step is "
+            "built with anomaly_detector=None): a step with a non-finite "
+            "loss or gradient skips its update and feeds the loss-spike "
+            "detector")
+define_flag("anomaly_policy", "rollback",
+            "escalation policy of a flag-built AnomalyDetector: "
+            "warn|skip_batch|rollback|halt")
+define_flag("anomaly_window", 32,
+            "rolling window of finite losses behind the median+MAD spike "
+            "gate", type=int)
+define_flag("anomaly_mad_k", 12.0,
+            "loss-spike threshold: a loss above median + k * 1.4826 * MAD "
+            "of the window is a spike", type=float)
+define_flag("anomaly_min_history", 8,
+            "finite losses the window needs before the spike gate is on "
+            "(non-finite detection is always on)", type=int)

@@ -117,6 +117,8 @@ class VocabParallelEmbedding(nn.Module):
 class ColumnParallelLinear(nn.Module):
     """reference mp_layers.py:334: the output features sharded."""
 
+    torch_linear_layout = True    # weight [out, in] (checkpoint.layout)
+
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=True, fuse_matmul_bias=False,
                  mp_group=None, name=None, device=None, dtype=None):
@@ -150,6 +152,8 @@ class ColumnParallelLinear(nn.Module):
 class RowParallelLinear(nn.Module):
     """reference mp_layers.py:541: the input features sharded, the
     partial products summed over mp."""
+
+    torch_linear_layout = True    # weight [out, in] (checkpoint.layout)
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,

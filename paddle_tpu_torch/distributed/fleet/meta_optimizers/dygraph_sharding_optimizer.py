@@ -44,7 +44,9 @@ and needs every rank to use the same parameters.
 ``state_dict()`` gathers every parameter's state whole over the sharding
 group, in the unsharded optimizer's layout, and ``set_state_dict()``
 keeps this rank's slice of such a state: a sharded run resumes unsharded
-and the other way round.
+and the other way round. An optimizer that already holds whole states
+when it is wrapped (restored by ``checkpoint.elastic.restore`` before the
+step was built) keeps this rank's slice of them the same way.
 """
 from __future__ import annotations
 
@@ -117,6 +119,14 @@ class DygraphShardingOptimizer:
         self._hooks = []
         if stage == 2:
             self.enable_grad_hooks()
+        if optimizer._state:
+            # whole-parameter states restored before sharding (an elastic
+            # resume): each rank keeps its slice
+            whole = {f"param_{i}": {k: v.detach().float().cpu().numpy()
+                                    for k, v in st.items()}
+                     for i, st in optimizer._state.items() if st}
+            optimizer._state = {}
+            self.set_state_dict({"step": optimizer._step_count, **whole})
 
     def enable_grad_hooks(self):
         """ZeRO-2: reduce-scatter each gradient of a parameter that is not

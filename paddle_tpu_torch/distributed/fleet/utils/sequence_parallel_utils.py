@@ -201,6 +201,8 @@ class ColumnSequenceParallelLinear(nn.Module):
     """reference :427: all-gather the sequence, then this rank's block of
     output features (the output stays split along its last dim)."""
 
+    torch_linear_layout = True    # weight [out, in] (checkpoint.layout)
+
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=False, fuse_matmul_bias=False,
                  mp_group=None, name=None, device=None, dtype=None):
@@ -226,6 +228,8 @@ class RowSequenceParallelLinear(nn.Module):
     """This rank's block of input features, the partial sums
     reduce-scattered along the sequence, then the bias (marked
     ``sequence_parallel``: its gradient needs the mp sum)."""
+
+    torch_linear_layout = True    # weight [out, in] (checkpoint.layout)
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=True,

@@ -27,7 +27,10 @@ Arming, from code or from the ``FLAGS_fault_injection`` flag:
 
 An arm() or a hit on an unregistered name raises KeyError. ``hits()`` and
 ``fired()`` count a point's hits and firings since ``reset()``, which
-disarms everything and zeroes the counters.
+disarms everything and zeroes the counters. A point registered with
+``legacy_flag=(flag_name, value)`` also counts as armed "always" while
+that flag holds that value (the checkpoint points keep
+``FLAGS_ckpt_fault_injection`` working so).
 """
 from __future__ import annotations
 
@@ -60,6 +63,8 @@ class _Point:
     exc: type
     hits: int = 0
     fired: int = 0
+    # (flag_name, value): armed "always" while flag(flag_name) == value
+    legacy_flag: tuple | None = None
 
 
 @dataclass
@@ -80,16 +85,20 @@ _ARMED: dict[str, _Arming] = {}
 _FLAG_CACHE: tuple = ("", {})
 
 
-def register(name: str, doc: str = "", exc: type = FaultInjected) -> str:
+def register(name: str, doc: str = "", exc: type = FaultInjected,
+             legacy_flag: tuple | None = None) -> str:
     """Declare an injection point (idempotent; called at import time by the
-    module that owns the site). `exc` is the exception `point()` raises."""
+    module that owns the site). `exc` is the exception `point()` raises;
+    `legacy_flag=(flag_name, value)` keeps an older per-subsystem flag
+    working as an "always" arming."""
     with _LOCK:
         pt = _REGISTRY.get(name)
         if pt is None:
-            _REGISTRY[name] = _Point(name, doc, exc)
+            _REGISTRY[name] = _Point(name, doc, exc, legacy_flag=legacy_flag)
         else:  # re-import: refresh the declaration, keep the counters
             pt.doc = doc or pt.doc
             pt.exc = exc
+            pt.legacy_flag = legacy_flag or pt.legacy_flag
     return name
 
 
@@ -151,8 +160,8 @@ def fired(name: str) -> int:
 
 
 def armed(name: str) -> bool:
-    """True if the point currently has ANY live arming (API or flag
-    spec)."""
+    """True if the point currently has ANY live arming (API, flag spec or
+    legacy flag)."""
     with _LOCK:
         if name not in _REGISTRY:
             raise KeyError(f"unknown fault point {name!r}")
@@ -222,8 +231,8 @@ def check_flag_spec():
 
 
 def _effective_arming(pt: _Point):
-    """Resolution order: API arming > FLAGS_fault_injection spec. Called
-    under _LOCK."""
+    """Resolution order: API arming > FLAGS_fault_injection spec > the
+    point's legacy flag. Called under _LOCK."""
     global _FLAG_CACHE
     a = _ARMED.get(pt.name)
     if a is not None:
@@ -236,7 +245,13 @@ def _effective_arming(pt: _Point):
         # string is unchanged; any flag edit re-arms from scratch
         _FLAG_CACHE = (raw, _parse_flag_spec(raw))
     a = _FLAG_CACHE[1].get(pt.name)
-    return None if a is None or a.spent else a
+    if a is not None:
+        return None if a.spent else a
+    if pt.legacy_flag is not None:
+        fname, fval = pt.legacy_flag
+        if flag(fname) == fval:
+            return _Arming(mode="always", exc=pt.exc)
+    return None
 
 
 def _evaluate(name: str):

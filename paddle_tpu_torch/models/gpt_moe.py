@@ -110,6 +110,9 @@ class GptMoeForCausalLM(nn.Module):
     biases) and seeds each MoE layer's routing generator with seed + 1 +
     its index."""
 
+    # linear weights [out, in]; the JAX package and snapshots: [in, out]
+    torch_linear_layout = True
+
     def __init__(self, config: GptMoeConfig, device=DEFAULT_DEVICE,
                  dtype=None, seed: int = 0):
         super().__init__()

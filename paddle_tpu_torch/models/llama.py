@@ -484,6 +484,9 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    # linear weights [out, in]; the JAX package and snapshots: [in, out]
+    torch_linear_layout = True
+
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         eps = config.rms_norm_eps
@@ -659,6 +662,9 @@ class LlamaForCausalLM(nn.Module):
     ``seed`` draws the weights from a seeded ``torch.Generator`` (N(0,
     0.02) for the matrices, ones for the norms) on the target device."""
 
+    # linear weights [out, in]; the JAX package and snapshots: [in, out]
+    torch_linear_layout = True
+
     layer_remat_capable = True
     # under a published sep group the attention rings over it and the
     # criterion shares the loss (TrainStep and SegmentParallel check it)
@@ -752,6 +758,9 @@ class LlamaEmbeddingStage(nn.Module):
     """The first pipeline stage's embedding (JAX ``_EmbeddingStage``):
     ``nn.Embedding``, or ``VocabParallelEmbedding`` under mp."""
 
+    # linear weights [out, in]; the JAX package and snapshots: [in, out]
+    torch_linear_layout = True
+
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         self.embed_tokens = _embedding(config, device, dtype)
@@ -770,6 +779,9 @@ class LlamaHeadStage(nn.Module):
     ``ColumnParallelLinear`` whose vocab shard stays local, so ``forward``
     returns this rank's logits shard (``LlamaPretrainingCriterion`` with
     the mp group takes them)."""
+
+    # linear weights [out, in]; the JAX package and snapshots: [in, out]
+    torch_linear_layout = True
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()

@@ -619,7 +619,17 @@ class PipelinedTrainStep:
     applies per block. `seed` is accepted (the JAX step's dropout key;
     the port's blocks draw no random numbers). The modules are the
     parameters, so ``sync_params_to_model`` and
-    ``sync_states_to_optimizer`` (JAX names) have nothing to move."""
+    ``sync_states_to_optimizer`` (JAX names) have nothing to move.
+
+    Elastic checkpoints: each stage rank captures its modules under the
+    single model's canonical names (``checkpoint.elastic.
+    capture_modules(named, step.optimizer, step.step_count)``), so a
+    pipeline snapshot and a ``TrainStep`` one are the same snapshot; on
+    resume ``elastic.restore(arrays, meta, module, optimizer,
+    mapper=...)`` per stage module, before the step is built or into a
+    built one, gives each parameter and this rank's optimizer its stage's
+    values and moments by name (a ZeRO axis rank its slice), and sets
+    the step count."""
 
     _replicate = False      # every data rank takes the whole batch (ZB-H1)
 
@@ -745,6 +755,16 @@ class PipelinedTrainStep:
         """The hybrid global norm of the last step's gradients."""
         opt = self.optimizer
         return None if opt is None else opt.last_grad_norm
+
+    @property
+    def step_count(self) -> int:
+        """The optimizer's step count."""
+        if self.optimizer is None:
+            return 0
+        from paddle_tpu_torch.distributed.checkpoint.elastic import (
+            innermost_opt)
+
+        return int(innermost_opt(self.optimizer)[0]._step_count)
 
     def sync_params_to_model(self):
         """The stage modules hold the trained parameters themselves."""

@@ -83,8 +83,32 @@ fleet optimizer and fp8 or LoRA under mp > 1 raise (ROADMAP A8).
 ``last_metrics()``'s ``grad_norm`` is then the hybrid global norm
 (``HybridParallelClipGrad``'s).
 
-CUDA graphs over the step and the anomaly detector (ROADMAP A8) are
-later work. Unlike ``CompiledTrainStep``,
+``anomaly_detector`` (an ``AnomalyDetector``, True for a flag-built one,
+None reads the ``anomaly_detection`` flag, False is off): the step
+computes a health flag on the device (a non-finite loss or gradient; with
+a ``grad_scaler`` its found-inf flag) and an unhealthy step skips the
+whole update (parameters, moments and fp8 histories keep their values,
+the step count advances), as ``CompiledTrainStep`` does in its program.
+The port reads the flag on the host once a step (all-reduced over the
+ranks first, so every rank skips alike) and feeds the detector at once,
+where the JAX package settles it lazily: ``settle_anomalies`` has nothing
+left to settle. The ``step.grads`` fault point poisons a step as JAX's
+does: the first floating batch entry times NaN, or, for token-only
+batches, a NaN learning rate (the parameters are then poisoned and the
+NEXT step's loss is non-finite). A dynamic GradScaler raises an unset
+detector tolerance to 2, as there.
+
+Elastic checkpoints (``distributed.checkpoint.elastic``):
+``named_train_state()`` gives the training state under the JAX package's
+names and layout (``model/<name>``, ``opt/<name>/<slot>`` keyed by the
+parameter's name, ``fp8/<i>`` with ``fp8_layout``, the scaler in meta;
+each rank's part at its global offset), and ``load_resume_extras``
+restores what the model and optimizer do not hold: the step count, fp8
+histories (a scanned JAX layout is unstacked), the GradScaler. The port's
+step draws no random numbers: a ``rng/key`` that a JAX snapshot carries is
+kept as it is and saved again, so a JAX snapshot round-trips.
+
+CUDA graphs over the step are later work. Unlike ``CompiledTrainStep``,
 whose compiled update never applies ``optimizer._grad_clip``, the port
 applies it, as ``apply_optimizer_update`` and the eager ``AdamW.step`` do.
 With ``collect_metrics`` the step keeps its loss, the global norm of the
@@ -103,6 +127,7 @@ import torch
 
 from paddle_tpu_torch.amp import fp8 as _fp8
 from paddle_tpu_torch.core.flags import flag
+from paddle_tpu_torch.distributed.resilience import faults
 from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 from paddle_tpu_torch.io.device_feed import (DispatchWindow, LossFuture,
                                              step_event)
@@ -112,6 +137,31 @@ from paddle_tpu_torch.parallel.scan_layers import (layer_execution,
 from paddle_tpu_torch.parallel.segments import sep_execution, sep_loss
 
 __all__ = ["TrainStep"]
+
+faults.register(
+    "step.grads",
+    "poison one training step (fire_check site in TrainStep): NaN-scales "
+    "the first floating batch entry (NaN gradients: the health check "
+    "catches it the SAME step and skips the update) or, for token-only "
+    "batches, the learning rate (parameters poisoned: caught on the NEXT "
+    "step's non-finite loss; only a rollback recovers)")
+
+
+def _nan_poison(kwargs, args):
+    """The ``step.grads`` chaos: the first floating batch entry (a dict
+    batch's in sorted key order) times NaN. False when there is none."""
+    if kwargs is not None:
+        for k in sorted(kwargs):
+            v = kwargs[k]
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                kwargs[k] = v * float("nan")
+                return True
+        return False
+    for i, v in enumerate(args):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            args[i] = v * float("nan")
+            return True
+    return False
 
 
 class TrainStep:
@@ -137,10 +187,6 @@ class TrainStep:
                  dispatch_window: int | None = None,
                  anomaly_detector=None, mesh=None, zero_axis=None,
                  zero_stage: int = 1, zero3_gather=None):
-        if anomaly_detector:
-            raise NotImplementedError(
-                "the anomaly detector (resilience) is not ported yet: "
-                "ROADMAP A8")
         self._data_group = None
         self._sep_group = None
         self._loss_group = None
@@ -189,6 +235,29 @@ class TrainStep:
         self._moe_layers = ([m for m in model.modules()
                              if isinstance(m, MoELayer)]
                             if collect_metrics else [])
+        self._anomaly_det = self._detector(anomaly_detector)
+        self._rng_key = None      # a JAX snapshot's key, carried as it is
+
+    def _detector(self, det):
+        """None reads the flag, True builds a flag-configured detector,
+        False is off, a detector is used as it is; a dynamic GradScaler
+        raises an unset tolerance to 2 (its growth-interval overflows are
+        expected)."""
+        from paddle_tpu_torch.distributed.resilience.anomaly import (
+            AnomalyDetector)
+
+        if det is None:
+            det = bool(flag("anomaly_detection"))
+        if det is True:
+            det = AnomalyDetector()
+        if not isinstance(det, AnomalyDetector):
+            return None
+        if (self._scaler is not None and getattr(self._scaler, "_dynamic",
+                                                 True)
+                and not det.tolerance_explicit
+                and det.nonfinite_tolerance == 0):
+            det.nonfinite_tolerance = 2
+        return det
 
     def _check_zero3(self, mode):
         """JAX's refusals of ZeRO-3 (``train_step.py:634-654``), before
@@ -403,6 +472,8 @@ class TrainStep:
         else:
             self.model.zero_grad(set_to_none=True)
         fp8_on = self.fp8_policy != "none"
+        poison = faults.fire_check("step.grads")
+        poison_lr = False
         fp8_ctx = _fp8.fp8_execution(
             self.fp8_policy, states=self._fp8_states or [],
             hist_len=self._fp8_hist_len, record=self._fp8_states is None)
@@ -411,10 +482,12 @@ class TrainStep:
                 sep_execution(self._sep_group):
             if named:
                 kwargs = {k: self._place(v) for k, v in batch[0].items()}
+                poison_lr = poison and not _nan_poison(kwargs, None)
                 out = self.model(**kwargs)
                 labels = kwargs["labels"]
             else:
                 args = [self._place(v) for v in batch]
+                poison_lr = poison and not _nan_poison(None, args)
                 out = self.model(*args[:-1])
                 labels = args[-1]
             loss = self.loss_fn(out, labels)
@@ -452,6 +525,8 @@ class TrainStep:
         params = [p for p in self.model.parameters()
                   if p.requires_grad and p.grad is not None]
         found_inf = self._unscale(params) if self._scaler else None
+        if self._anomaly_det is not None:
+            found_inf = self._health(loss, found_inf)
         if fp8_on:
             # a skipped step keeps the old histories
             sess.commit(skip=found_inf)
@@ -467,11 +542,22 @@ class TrainStep:
                 **moe}
         skipped = found_inf is not None and bool(found_inf)
         if self.optimizer is not None:
+            from paddle_tpu_torch.distributed.checkpoint.elastic import (
+                innermost_opt)
+
+            base = innermost_opt(self.optimizer)[0]
             if skipped:
-                self.optimizer._step_count += 1
+                base._step_count += 1
+            elif poison_lr:
+                # chaos: a NaN learning rate corrupts the parameters
+                base.get_lr = lambda: float("nan")
+                try:
+                    self.optimizer.step()
+                finally:
+                    del base.get_lr
             else:
                 self.optimizer.step()
-            step = self.optimizer._step_count
+            step = base._step_count
             if self.collect_metrics and self._hybrid:
                 self._metrics["grad_norm"] = self.optimizer.last_grad_norm
         else:
@@ -480,6 +566,9 @@ class TrainStep:
         if self._scaler is not None:
             self._scaler._found_inf = skipped
             self._scaler.update()
+        if self._anomaly_det is not None:
+            self._anomaly_det.observe(step, float(loss.detach()),
+                                      float(skipped))
         if self.collect_metrics:
             self._metrics["step"] = step
             wall = time.perf_counter()
@@ -490,6 +579,43 @@ class TrainStep:
         self._last_event = step_event(self.device)
         self._window.admit(self._last_event)
         return loss.detach()
+
+    @torch.no_grad()
+    def _health(self, loss, found_inf):
+        """The device flag of an unhealthy step: a non-finite loss, or
+        (without a scaler, whose found-inf flag covers them) a non-finite
+        gradient, full or sharded; OR-ed over the ranks."""
+        bad = (found_inf.clone() if found_inf is not None else
+               torch.zeros((), dtype=torch.bool, device=self.device))
+        bad |= ~torch.isfinite(loss.detach()).all()
+        if found_inf is None:
+            for g in self._grads():
+                bad |= ~torch.isfinite(g).all()
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            from paddle_tpu_torch.distributed import collective
+
+            flag_ = bad.float()
+            collective.all_reduce(flag_, collective.ReduceOp.MAX)
+            bad = flag_ > 0
+        return bad
+
+    def _grads(self):
+        """Every gradient this rank holds before the update: the
+        parameters', the ZeRO-1/2 slices' and the ZeRO-3 shards'."""
+        gs = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if self.optimizer is not None:
+            from paddle_tpu_torch.distributed.checkpoint.elastic import (
+                innermost_opt)
+
+            dso = innermost_opt(self.optimizer)[1]
+            if dso is not None:
+                gs += [s.grad for s in dso._slices if s.grad is not None]
+                gs += [b.shard.grad for u in dso._units for b in u.buckets
+                       if b.shard.grad is not None]
+        return gs
 
     @torch.no_grad()
     def _unscale(self, params):
@@ -518,6 +644,101 @@ class TrainStep:
     def drain(self):
         """Wait until every step run so far has finished on the device."""
         self._window.drain()
+
+    # -- anomaly detection ------------------------------------------------
+    @property
+    def anomaly_detector(self):
+        return self._anomaly_det
+
+    def settle_anomalies(self, block: bool = False):
+        """The detector has seen every step already (the port reads each
+        step's health flag at once); kept for the supervisor's loop."""
+
+    @property
+    def step_count(self) -> int:
+        """The optimizer's step count (the one its bias correction uses),
+        or the steps taken without one."""
+        if self.optimizer is None:
+            return self._steps
+        from paddle_tpu_torch.distributed.checkpoint.elastic import (
+            innermost_opt)
+
+        return int(innermost_opt(self.optimizer)[0]._step_count)
+
+    # -- elastic checkpoint interface ------------------------------------
+    def named_train_state(self):
+        """(arrays, meta) for elastic checkpointing, under the JAX
+        package's layout-free names and layout, without a host sync:
+
+        * ``model/<state-dict name>``: every parameter and persistent
+          buffer, as this rank's ``LocalShards`` (its part at its global
+          offset; a replicated value on its lowest holder only);
+        * ``opt/<name>/<slot>``: the optimizer's moments keyed by the
+          parameter's name (a ZeRO slice at its global offset);
+        * ``rng/key``: carried from a JAX snapshot, when one was loaded;
+        * meta: the step count, the fp8 callsite layout (with
+          ``fp8/<i>`` amax histories in arrays), the GradScaler's scalars.
+
+        The tensors are the live ones, which the next step overwrites in
+        place: ``checkpoint.elastic.capture`` clones them."""
+        from paddle_tpu_torch.distributed.checkpoint import layout
+        from paddle_tpu_torch.distributed.checkpoint.elastic import (
+            module_state)
+
+        arrays, _ = module_state({"": self.model}, self.optimizer)
+        first = layout.writes(set())
+        meta = {"step": self.step_count}
+        if self._rng_key is not None and first:
+            arrays["rng/key"] = self._rng_key
+        if self._fp8_states is not None:
+            meta["fp8_layout"] = [["plain"]] * len(self._fp8_states)
+            leaves = [st[k] for st in self._fp8_states
+                      for k in sorted(_fp8.STATE_KEYS)]
+            meta["fp8_leaves"] = len(leaves)
+            if first:
+                for i, leaf in enumerate(leaves):
+                    arrays[f"fp8/{i:05d}"] = leaf.detach()
+        if self._scaler is not None:
+            meta["scaler"] = dict(self._scaler.state_dict())
+        return arrays, meta
+
+    def load_resume_extras(self, arrays, meta):
+        """Restore what a (model, optimizer) restore cannot carry: the step
+        count, the fp8 amax histories (a JAX snapshot's scanned layout
+        unstacked), the GradScaler's scalars, and a JAX snapshot's RNG
+        key. Parameters and moments go through ``checkpoint.elastic.
+        restore``."""
+        if "rng/key" in arrays:
+            v = arrays["rng/key"]
+            self._rng_key = (v.numpy() if isinstance(v, torch.Tensor)
+                             else np.asarray(v)).copy()
+        if "step" in meta:
+            if self.optimizer is not None:
+                from paddle_tpu_torch.distributed.checkpoint.elastic import (
+                    innermost_opt)
+
+                innermost_opt(self.optimizer)[0]._step_count = int(
+                    meta["step"])
+            else:
+                self._steps = int(meta["step"])
+        if meta.get("fp8_layout") is not None and self.fp8_policy != "none":
+            from paddle_tpu_torch.models.convert import (
+                fp8_state_from_paddle_tpu)
+
+            it = iter(np.asarray(arrays[f"fp8/{i:05d}"], np.float32)
+                      for i in range(int(meta.get("fp8_leaves", 0))))
+            # the callsite dicts flattened in sorted-key order; a scanned
+            # entry ("scan", L, k) holds k stacked callsites
+            states = []
+            for e in meta["fp8_layout"]:
+                for _ in range(1 if e[0] == "plain" else int(e[2])):
+                    states.append({k: next(it)
+                                   for k in sorted(_fp8.STATE_KEYS)})
+            self.load_fp8_state(fp8_state_from_paddle_tpu(
+                {"layout": [tuple(e) for e in meta["fp8_layout"]],
+                 "states": states}))
+        if meta.get("scaler") is not None and self._scaler is not None:
+            self._scaler.load_state_dict(dict(meta["scaler"]))
 
     def fp8_state_dict(self):
         """The delayed-scaling amax state, in the JAX package's layout:

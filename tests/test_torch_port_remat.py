@@ -187,8 +187,9 @@ def test_unported_paths_raise():
         with pytest.raises(ValueError, match="delayed scaling"):
             sl.zero3_layer_loop([], torch.zeros(1), shard_info=None)
     _, tm = _models()
-    with pytest.raises(NotImplementedError, match="A8"):
-        TrainStep(tm, lambda o, l: o, anomaly_detector=True)
+    # the anomaly detector is ported now: the step takes a flag-built one
+    assert TrainStep(tm, lambda o, l: o,
+                     anomaly_detector=True).anomaly_detector is not None
     moe = GptMoeForCausalLM(gpt_moe_tiny_config(), device="cpu")
     with pytest.raises(ValueError, match="layer_remat_capable"):
         TrainStep(moe, lambda o, l: o, remat="full")
