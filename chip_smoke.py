@@ -120,7 +120,7 @@ cuda/csrc`` (nvcc, sm_90a) and runs, in order:
     adapter (pools padded to 8) equal to the CPU; two replicas behind
     the adapter-affine router with serving.replica.kill armed mid-run,
     every stream complete and equal to the CPU's;
- 4. the LLaMA-2-7B geometry (SERVE_LAYERS = 16 of its 32 layers, hidden
+ 4. the LLaMA-2-7B geometry (SERVE_LAYERS = 8 of its 32 layers, hidden
     4096, 32 heads, bf16, random
     weights from --seed) serving 8 greedy requests of mixed prompt length
     (packed, single-chunk and multi-chunk prefill), with every kernel's
@@ -374,6 +374,29 @@ an mp 2 x dp 2 save at dp 4; ``pipeline_cuda_vs_cpu`` a pp 2 x dp 2 1F1B
 save in ``TrainStep`` at dp 4 and the reverse. The whole script's seconds
 are printed before the result lines.
 
+Since the launcher slice (the launcher and the host plane):
+``launch_full_width`` starts 4 gloo ranks on the card through ``python -m
+paddle_tpu_torch.distributed.launch`` (this script with the hidden
+``--launch-worker train``): ``init_parallel_env`` from the launch
+contract, fleet at dp 2 x mp 2, phase 7's model at RANKS_LAYERS layers, 2
+steps plain and 2 with ``strategy.recompute`` wrapping each decoder layer
+in ``fleet.recompute``, from the same weights and rows (losses and
+gradient norms against the plain run, flash_fwd twice a layer a step
+under recompute, every flash call by its row rule and every CE call by
+``_CeCalls``); a gradient shard of 86 MiB through ``multiproc``'s socket
+ring against the numpy ring sum of the shards exchanged through the
+store, beside gloo's all_reduce of the same bytes; rank 0's ``rpc_sync``
+for rank 1's peak memory; every rank's elastic lease and rank 0's
+``watch()``; the ranks' report through ``LocalFS``; then a launch of the
+tiny model whose rank 3 exits 7 after a step while the others wait in
+gloo: the launcher returns 7 and no rank it started is alive or on the
+card. It prints the seconds from launch to every rank's first step, step
+ms and peak GB a rank with and without recompute, the launches, the
+ring's GB/s against gloo's, the rpc round trip and the teardown's
+seconds. Since this slice the fleet, ZeRO-3 and sep full-width phases
+run RANKS_LAYERS (2) layers, 3 before, for the script's time. ``--only
+launch_full_width`` needs no earlier phase.
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -414,11 +437,15 @@ RMS_EPS = 1e-6
 RMS_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd", "rmsnorm_dw")
 TUNE_TIMEOUT_S = 420       # each tuning process
 NEW_TOKENS = 32                                  # per full-width request
-# the full-width serving phases' depth: 16 of the 7B geometry's 32 layers
-# (32 until the sep slice's phases needed the script's time)
-SERVE_LAYERS = 16
+# the full-width serving phases' depth: 8 of the 7B geometry's 32 layers
+# (32 until the sep slice's phases needed the script's time, then 16 until
+# the launch slice's phase did)
+SERVE_LAYERS = 8
 TRAIN_LAYERS = 3           # full-width training: the 32-layer state
 TRAIN_SEQ = 4096           # (about 108 GB) does not fit in 80 GB
+# the 4-rank fleet, ZeRO-3 and sep full-width phases (TRAIN_LAYERS until
+# the launch slice's phase needed the script's time)
+RANKS_LAYERS = 2
 TRAIN_LR = 1e-4
 MOE_BATCH = 4              # GPT-MoE: 4 x 2048 tokens, 2 warm-up steps
 MOE_STEPS = 8              # and 8 timed ones
@@ -6976,33 +7003,19 @@ def _fleet_full_rank(out_dir, seed):
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed import collective, fleet
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
-    from paddle_tpu_torch.models.convert import mp_split_axis
+    from paddle_tpu_torch.models import llama_7b_config
     from paddle_tpu_torch.ops import cuda as port_cuda
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
     _rank_threads()
     env = dist.init_parallel_env(backend="gloo")
-    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    cfg = llama_7b_config(num_hidden_layers=RANKS_LAYERS, dtype="bfloat16")
     t0 = time.perf_counter()
-    with torch.no_grad():
-        full = LlamaForCausalLM(cfg, device="cuda", seed=seed)
-        state = {n: p.detach() for n, p in full.named_parameters()}
-        strategy = fleet.DistributedStrategy()
-        strategy.hybrid_configs = {"mp_degree": 2, "sharding_degree": 2}
-        strategy.sharding_configs = {"stage": 1}
-        hcg = fleet.init(strategy=strategy)
-        model = LlamaForCausalLM(cfg, device="cuda")
-        mp = hcg.get_model_parallel_group()
-        for n, p in model.named_parameters():
-            src, ax = state[n], mp_split_axis(n)
-            if ax is not None:
-                k = src.shape[ax] // mp.nranks
-                src = src.narrow(ax, mp.rank * k, k)
-            p.copy_(src)
-        del full, state
-    torch.cuda.empty_cache()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 2, "sharding_degree": 2}
+    strategy.sharding_configs = {"stage": 1}
+    model, hcg = _mp_llama(cfg, strategy, seed)
     opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
                 weight_decay=0.01, multi_precision=True)
     step = TrainStep(model, _fused_loss, opt, collect_metrics=True,
@@ -7074,8 +7087,8 @@ def _fleet_full_batches(cfg, seed, rows=2, steps=FLEET_WARMUP + FLEET_STEPS):
 
 
 def phase_fleet_full_width(args, report):
-    """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
-    seq 4096, AdamW, the fused head loss) at mp 2 x sharding 2 (ZeRO-1):
+    """Phase 7's model (the 7B width, RANKS_LAYERS layers, bf16 with fp32
+    masters, seq 4096, AdamW, the fused head loss) at mp 2 x sharding 2 (ZeRO-1):
     4 gloo ranks on the one card, 1 x 4096 tokens a rank, a fresh batch a
     step (``_fleet_full_batches``), 2 + 2 steps. Per rank: step ms, peak
     memory, the flash and CE launches and the collectives' calls, bytes
@@ -7096,7 +7109,7 @@ def phase_fleet_full_width(args, report):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
-    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    cfg = llama_7b_config(num_hidden_layers=RANKS_LAYERS, dtype="bfloat16")
     batches = _fleet_full_batches(cfg, args.seed)
     # the single-rank model on the same weights and rows: 2 steps
     ref = LlamaForCausalLM(cfg, device="cuda", seed=args.seed)
@@ -8106,7 +8119,7 @@ def _zero3_full_rank(out_dir, seed):
 
     _rank_threads()
     env = dist.init_parallel_env(backend="gloo")
-    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    cfg = llama_7b_config(num_hidden_layers=RANKS_LAYERS, dtype="bfloat16")
     batches = _rank_in(out_dir, "batches.pkl")
     ce = _CeCalls()
     fleet.reset()
@@ -8201,8 +8214,8 @@ def _zero3_reference(cfg, seed, batches, rows):
 
 
 def phase_zero3_full_width(args, report):
-    """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
-    seq 4096, AdamW, the fused head loss) at sharding 4 with ZeRO-3: 4 gloo
+    """Phase 7's model (the 7B width, RANKS_LAYERS layers, bf16 with fp32
+    masters, seq 4096, AdamW, the fused head loss) at sharding 4 with ZeRO-3: 4 gloo
     ranks on the one card, 1 x 4096 tokens a rank, a fresh batch a step
     (``_fleet_full_batches`` at 4 rows). ZERO3_WARMUP steps, the first at
     'start' and the second at 'ahead'; 'ahead' ZERO3_AHEAD timed, one for
@@ -8231,7 +8244,7 @@ def phase_zero3_full_width(args, report):
     from paddle_tpu_torch.distributed.spawn import spawn
     from paddle_tpu_torch.models import llama_7b_config
 
-    cfg = llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16")
+    cfg = llama_7b_config(num_hidden_layers=RANKS_LAYERS, dtype="bfloat16")
     steps = ZERO3_WARMUP + ZERO3_AHEAD + 1 + ZERO3_START
     batches = _fleet_full_batches(cfg, args.seed, rows=4, steps=steps)
     ref_losses, ref_norms = _zero3_reference(cfg, args.seed, batches, 4)
@@ -9065,69 +9078,117 @@ SEP_GNORM_RTOL = 2e-4
 
 class _RingCalls:
     """Holds every flash call that ring attention makes in this process
-    (``parallel.ring_attention``'s block calls) to its plain version on
-    the same inputs, by the kernels phase's rules: each row of the output
-    (and of dq, dk, dv) within RTOL of its max |ref| and the whole within
-    TOL, the forward's lse within 1e-3 on the rows that see a key and
-    -inf on both sides on the rows that see none. Counts the calls by
-    kind, causal apart. The plain versions launch no kernel."""
+    (``parallel.ring_attention``'s block calls; or, given `mod`, the
+    calls through that module's ``flash_attention_fwd`` and
+    ``flash_attention_bwd``, e.g. ``ops.cuda.flash_attention``'s own
+    autograd function) to its plain version on the same inputs, by the
+    kernels phase's rules: each row of the output (and of dq, dk, dv)
+    within RTOL of its max |ref| and the whole within TOL, the forward's
+    lse within 1e-3 on the rows that see a key and -inf on both sides on
+    the rows that see none. With ``rows_only`` the whole-output TOL is
+    recorded (``worst_abs``) but not gated: it is an absolute bound for
+    the kernels phase's unit-scale inputs, and a model's activations
+    (causal rows of few keys, whose output is a value row) reach past it
+    in bf16 rounding alone while every row holds the row rule. Counts the
+    calls by kind, causal apart. While ``defer`` is set the calls' inputs
+    and outputs are kept (in host memory with ``host``) and checked by
+    ``check_deferred()``, as ``_CeCalls`` does. The plain versions launch
+    no kernel."""
 
-    def __init__(self):
-        from paddle_tpu_torch.parallel import ring_attention as ra
+    def __init__(self, mod=None, rows_only=False):
+        if mod is None:
+            from paddle_tpu_torch.parallel import ring_attention as mod
 
-        self.ra = ra
-        self.real = (ra.flash_attention_fwd, ra.flash_attention_bwd)
+        self.ra = mod
+        self.rows_only = rows_only
+        self.real = (mod.flash_attention_fwd, mod.flash_attention_bwd)
         self.out = {name: {"calls": 0, "causal": 0, "dead_rows": 0,
-                           "worst": 0.0, "ok": True}
+                           "worst": 0.0, "worst_abs": 0.0, "worst_lse": 0.0,
+                           "ok": True}
                     for name in ("fwd", "bwd")}
-        ra.flash_attention_fwd, ra.flash_attention_bwd = self._fwd, self._bwd
+        self.defer = False
+        self.host = False
+        self.pending = []
+        mod.flash_attention_fwd, mod.flash_attention_bwd = \
+            self._fwd, self._bwd
 
     def restore(self):
         self.ra.flash_attention_fwd, self.ra.flash_attention_bwd = self.real
 
-    def _note(self, name, causal, errs, ok, dead=0):
+    def _note(self, name, causal, errs, ok, dead=0, cmps=(), lse_err=0.0):
         rec = self.out[name]
         rec["calls"] += 1
         rec["causal"] += int(bool(causal))
         rec["dead_rows"] += dead
         rec["worst"] = max([rec["worst"]] + errs)
+        rec["worst_abs"] = max([rec["worst_abs"]]
+                               + [c["max_abs_err"] for c in cmps])
+        rec["worst_lse"] = max(rec["worst_lse"], lse_err)
         rec["ok"] = rec["ok"] and ok
+
+    def _held(self, cmp):
+        return cmp["rows_ok"] if self.rows_only else cmp["ok"]
+
+    def _queue(self, job):
+        if not self.defer:
+            self._check(job)
+            return
+        name, args, kw, got = job
+        dev = args[0].device
+        keep = "cpu" if self.host else dev
+
+        def kept(ts):
+            return tuple(t.detach().to(keep, copy=True) for t in ts)
+
+        self.pending.append((name, kept(args), kw, kept(got), dev))
 
     def _fwd(self, q, k, v, causal=False, scale=None, segment_ids=None,
              kv_segment_ids=None):
-        import torch
-
-        from paddle_tpu_torch.ops.cuda import flash_attention as fa
-
-        ids = dict(segment_ids=segment_ids, kv_segment_ids=kv_segment_ids)
-        got = self.real[0](q, k, v, causal=causal, scale=scale, **ids)
+        kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+                  kv_segment_ids=kv_segment_ids)
+        got = self.real[0](q, k, v, **kw)
         if q.is_cuda:
-            ref = fa.flash_attention_reference(q.float(), k.float(),
-                                               v.float(), causal=causal,
-                                               scale=scale, **ids)
-            cmp = _compare(got[0], ref[0], str(q.dtype)[6:])
-            lse_err = _lse_err(got[1], ref[1])
-            self._note("fwd", causal, [cmp["max_rel_err"], lse_err],
-                       cmp["ok"] and lse_err <= 1e-3,
-                       int(torch.isneginf(ref[1]).sum()))
+            self._queue(("fwd", (q, k, v), kw, got))
         return got
 
     def _bwd(self, q, k, v, out, lse, do, causal=False, scale=None,
              segment_ids=None, kv_segment_ids=None):
+        kw = dict(causal=causal, scale=scale, segment_ids=segment_ids,
+                  kv_segment_ids=kv_segment_ids)
+        got = self.real[1](q, k, v, out, lse, do, **kw)
+        if q.is_cuda:
+            self._queue(("bwd", (q, k, v, out, lse, do), kw, got))
+        return got
+
+    def _check(self, job):
+        import torch
+
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-        ids = dict(segment_ids=segment_ids, kv_segment_ids=kv_segment_ids)
-        got = self.real[1](q, k, v, out, lse, do, causal=causal, scale=scale,
-                           **ids)
-        if q.is_cuda:
-            refs = fa.flash_attention_bwd_reference(
-                q.float(), k.float(), v.float(), out.float(), lse, do.float(),
-                causal=causal, scale=scale, **ids)
-            cmps = [_compare(g, r, str(q.dtype)[6:])
-                    for g, r in zip(got, refs)]
-            self._note("bwd", causal, [c["max_rel_err"] for c in cmps],
-                       all(c["ok"] for c in cmps))
-        return got
+        name, args, kw, got = job
+        q = args[0]
+        if name == "fwd":
+            q, k, v = args
+            ref = fa.flash_attention_reference(q.float(), k.float(),
+                                               v.float(), **kw)
+            cmp = _compare(got[0], ref[0], str(q.dtype)[6:])
+            lse_err = _lse_err(got[1], ref[1])
+            self._note("fwd", kw["causal"], [cmp["max_rel_err"], lse_err],
+                       self._held(cmp) and lse_err <= 1e-3,
+                       int(torch.isneginf(ref[1]).sum()), [cmp], lse_err)
+            return
+        q, k, v, out, lse, do = args
+        refs = fa.flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+            **kw)
+        cmps = [_compare(g, r, str(q.dtype)[6:]) for g, r in zip(got, refs)]
+        self._note("bwd", kw["causal"], [c["max_rel_err"] for c in cmps],
+                   all(self._held(c) for c in cmps), cmps=cmps)
+
+    def check_deferred(self):
+        pending, self.pending = self.pending, []
+        for job in pending:
+            self._check(_moved(job[:4], job[4]))
 
 
 def _sep_plain_batch(seed, vocab, seq, rows):
@@ -9309,7 +9370,7 @@ def phase_sep_cuda_vs_cpu(seed, report):
 def _sep_full_config():
     from paddle_tpu_torch.models import llama_7b_config
 
-    return llama_7b_config(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
+    return llama_7b_config(num_hidden_layers=RANKS_LAYERS, dtype="bfloat16",
                            rope_max_position=SEP_SEQ)
 
 
@@ -9481,8 +9542,8 @@ def _sep_reference(cfg, seed, batches):
 
 
 def phase_sep_full_width(args, report):
-    """Phase 7's model (the 7B width, 3 layers, bf16 with fp32 masters,
-    AdamW, the fused head loss; RoPE tables to 16,384 positions) at sep 4:
+    """Phase 7's model (the 7B width, RANKS_LAYERS layers, bf16 with fp32
+    masters, AdamW, the fused head loss; RoPE tables to 16,384 positions) at sep 4:
     4 gloo ranks on the one card, one row of 16,384 tokens a step, 4,096 a
     rank, a fresh row a step. SEP_WARMUP steps, the last of them
     profiled, then SEP_STEPS timed (their time includes copying each CE
@@ -9586,6 +9647,556 @@ def phase_sep_full_width(args, report):
                            f"{rec['calls']} calls of {calls}")
     if bad:
         raise AssertionError(f"sep_full_width: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# the launcher and the host plane: 4 ranks started by the port's launcher
+# ---------------------------------------------------------------------------
+
+LAUNCH_STEPS = 2             # a run's steps: plain, then recompute
+LAUNCH_TIMEOUT_S = 240
+LAUNCH_RANK_LIMIT_S = 210    # a rank's own limit, inside the launcher's
+LAUNCH_TEARDOWN_S = 60       # the failing launch must end within
+LAUNCH_FAIL_CODE = 7
+LAUNCH_RPC_CALLS = 20        # rpc round trips timed
+LAUNCH_RING_MIN = 64 << 20   # the socket ring's payload, bytes at the least
+LAUNCH_CHECKPOINTS = ["llama.layers."]      # the decoder layers
+
+
+def _launch_strategy(recompute):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    if recompute:
+        s.recompute = True
+        s.recompute_configs = {"checkpoints": list(LAUNCH_CHECKPOINTS)}
+    return s
+
+
+def _mp_llama(cfg, strategy, seed):
+    """(model, hcg): phase 7's seeded model on the card, built whole
+    first, then ``fleet.init(strategy)`` and this rank's mp shard of it
+    (a model built under an mp group is built sharded)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import mp_split_axis
+
+    with torch.no_grad():
+        full = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+        state = {n: p.detach() for n, p in full.named_parameters()}
+        hcg = fleet.init(strategy=strategy)
+        model = LlamaForCausalLM(cfg, device="cuda")
+        mp = hcg.get_model_parallel_group()
+        for n, p in model.named_parameters():
+            src, ax = state[n], mp_split_axis(n)
+            if ax is not None:
+                k = src.shape[ax] // mp.nranks
+                src = src.narrow(ax, mp.rank * k, k)
+            p.copy_(src)
+        del full, state
+    torch.cuda.empty_cache()
+    return model, hcg
+
+
+def _ring_sum(rows):
+    """The socket ring's sum (``SocketPlane.allreduce``): the rows padded
+    to a multiple of n, chunk c summed from member c around the ring."""
+    import numpy as np
+
+    n, shape = len(rows), rows[0].shape
+    flat = [r.reshape(-1) for r in rows]
+    pad = (-flat[0].size) % n
+    chunks = [np.split(np.concatenate([f, np.zeros(pad, f.dtype)]), n)
+              for f in flat]
+    out = []
+    for c in range(n):
+        acc = chunks[c][c].copy()
+        for k in range(1, n):
+            acc = chunks[(c + k) % n][c] + acc
+        out.append(acc)
+    return np.concatenate(out)[:flat[0].size].reshape(shape)
+
+
+def _launch_run(model, label, batches, hcg):
+    """LAUNCH_STEPS of `model` from its current weights: 'plain', or
+    'recompute' with the strategy's pass (``fleet.distributed_model``)
+    wrapping the decoder layers in ``fleet.recompute``."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    target = model
+    if label == "recompute":
+        # TrainStep(mesh=) builds its own strategy: the recompute
+        # strategy's pass goes first
+        fleet.init(strategy=_launch_strategy(True))
+        target = fleet.distributed_model(model)
+    wrapped = sorted(n for n, m in model.named_modules()
+                     if getattr(m, "_recompute_wrapped", False))
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStep(target, _fused_loss, opt, collect_metrics=True,
+                     mesh=hcg.mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port_cuda.reset_launch_counts()          # the training path starts here
+    out = {"wrapped": wrapped, "losses": [], "grad_norms": [], "step_ms": [],
+           "first_step_at": time.time()}
+    for b in batches:
+        t1 = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        out["losses"].append(float(loss))
+        out["grad_norms"].append(step.last_metrics()["grad_norm"])
+    launches = port_cuda.launch_counts()     # ... and ends here
+    out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches,
+               launches_per_step={k: n / len(batches)
+                                  for k, n in launches.items() if n})
+    return out
+
+
+def _launch_ring(model, hcg, rank):
+    """One full-width gradient shard (layer 0's down_proj, fp32, made
+    distinct a rank) through the socket ring over the dp group, against
+    the numpy ring sum of the shards exchanged through the store, and
+    gloo's all_reduce of the same bytes."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import collective, multiproc
+
+    dp = hcg.get_data_parallel_group()
+    members = list(dp.ranks)
+    g = model.llama.layers[0].mlp.down_proj.weight.grad
+    shard = g.float().cpu().numpy() * np.float32(rank + 1) + \
+        np.float32(0.125 * rank)
+    multiproc.subgroup_barrier(members)
+    t1 = time.perf_counter()
+    ring = multiproc.subgroup_allreduce_np(shard, members)
+    ring_s = time.perf_counter() - t1
+    rows = multiproc.exchange_objects(shard, ranks=members)
+    t = torch.from_numpy(shard.copy())
+    collective.barrier(group=dp)
+    t1 = time.perf_counter()
+    collective.all_reduce(t, group=dp)
+    gloo_s = time.perf_counter() - t1
+    return {"members": members, "bytes": int(shard.nbytes),
+            "equal": bool(np.array_equal(ring, _ring_sum(rows))),
+            "gloo_equal": bool(np.array_equal(t.numpy(), ring)),
+            "ring_s": ring_s, "gloo_s": gloo_s,
+            "ring_gb_s": shard.nbytes / ring_s / 1e9,
+            "gloo_gb_s": shard.nbytes / gloo_s / 1e9}
+
+
+def _launch_rpc_and_lease(rank, world):
+    """rank 0's rpc to rank 1 for its peak memory (read by rank 1 itself
+    while the ranks wait), the round trip's ms; every rank's elastic
+    lease in the job's store and rank 0's watch()."""
+    import torch
+
+    from paddle_tpu_torch.distributed import multiproc, rpc
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+
+    out = {}
+    rpc.init_rpc(f"worker{rank}")
+    multiproc.barrier()
+    out["own_peak_bytes"] = torch.cuda.max_memory_allocated()
+    multiproc.barrier()
+    if rank == 0:
+        out["rank1_peak_by_rpc"] = rpc.rpc_sync(
+            "worker1", torch.cuda.max_memory_allocated)
+        t1 = time.perf_counter()
+        for _ in range(LAUNCH_RPC_CALLS):
+            rpc.rpc_sync("worker1", os.getpid)
+        out["rpc_ms"] = (time.perf_counter() - t1) * 1e3 / LAUNCH_RPC_CALLS
+    rpc.shutdown()
+    mgr = ElasticManager(rank=rank, world_size=world, lease_ttl=30.0)
+    mgr.register()
+    multiproc.barrier()
+    if rank == 0:
+        out.update(watch=mgr.watch(), alive=mgr.alive_ranks(),
+                   record=mgr.read_record())
+    multiproc.barrier()
+    mgr.exit()
+    return out
+
+
+def _launch_gates(r, peaks):
+    """This rank's gates (see ``phase_launch_full_width``)."""
+    bad = []
+    plain, rc = r["runs"]["plain"], r["runs"]["recompute"]
+    layers = RANKS_LAYERS
+    if plain["wrapped"] or rc["wrapped"] != [f"llama.layers.{i}"
+                                             for i in range(layers)]:
+        bad.append(f"wrapped {plain['wrapped']} / {rc['wrapped']}")
+    for run in (plain, rc):
+        if not all(math.isfinite(x) for x in run["losses"]):
+            bad.append(f"non-finite loss {run['losses']}")
+    for key, rtol in (("losses", FLEET_LOSS_RTOL),
+                      ("grad_norms", FLEET_GNORM_RTOL)):
+        for a, b in zip(rc[key], plain[key]):
+            if not abs(a - b) <= rtol * abs(b):
+                bad.append(f"{key}: recompute {rc[key]} vs plain "
+                           f"{plain[key]}")
+                break
+    for run, fwd in ((plain, layers), (rc, 2 * layers)):
+        got = run["launches_per_step"]
+        if any(got.get(k, 0) != n for k, n in (
+                ("flash_fwd", fwd), ("flash_bwd_dq", layers),
+                ("flash_bwd_dkv", layers))) or \
+                got.get("ce_stats", 0) < 1 or got.get("ce_bwd", 0) < 1:
+            bad.append(f"launches a step {got}")
+    for name, rec in r["ce_calls"].items():
+        if not rec["ok"] or rec["calls"] != 2 * LAUNCH_STEPS:
+            bad.append(f"{name}: ok {rec['ok']}, {rec['calls']} calls")
+    calls = {"fwd": 3 * layers * LAUNCH_STEPS, "bwd": 2 * layers * LAUNCH_STEPS}
+    for name, rec in r["flash_calls"].items():
+        if not rec["ok"] or rec["calls"] != calls[name]:
+            bad.append(f"flash {name}: ok {rec['ok']}, {rec['calls']} calls")
+    ring = r["ring"]
+    if not (ring["equal"] and ring["bytes"] >= LAUNCH_RING_MIN):
+        bad.append(f"socket ring {ring}")
+    if r["rank"] == 0:
+        hp = r["host_plane"]
+        if hp["rank1_peak_by_rpc"] != peaks[1]:
+            bad.append(f"rpc peak {hp['rank1_peak_by_rpc']} vs rank 1's "
+                       f"{peaks[1]}")
+        if hp["watch"] != "hold" or hp["alive"] != list(range(4)):
+            bad.append(f"elastic watch {hp['watch']} alive {hp['alive']}")
+    return bad
+
+
+def _warm_recompute():
+    """``fleet.recompute``'s first call imports torch's compiler stack
+    (``torch.utils.checkpoint``; about 2 s a process on an idle host,
+    9-11 s with four ranks importing at once): made once before the
+    steps, so no step carries it. Returns its seconds."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet import recompute
+
+    t1 = time.perf_counter()
+    x = torch.ones(1, requires_grad=True)
+    recompute(lambda v: v * 2, x).sum().backward()
+    return time.perf_counter() - t1
+
+
+def _launch_train_rank(out_dir, seed):
+    """One rank of ``launch_full_width``'s training launch."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, multiproc
+    from paddle_tpu_torch.distributed.fleet.utils import LocalFS
+    from paddle_tpu_torch.models import llama_7b_config
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    _rank_threads()
+    # the launcher's contract; ranks sharing one card ask for gloo
+    env = dist.init_parallel_env(backend="gloo")
+    rank = env.rank
+    _launch_note("init_parallel_env done")
+    warm_s = _warm_recompute()
+    _launch_note(f"recompute warmed in {warm_s:.1f} s")
+    cfg = llama_7b_config(num_hidden_layers=RANKS_LAYERS, dtype="bfloat16")
+    model, hcg = _mp_llama(cfg, _launch_strategy(False), seed)
+    init = [p.detach().clone() for p in model.parameters()]
+    batches = _fleet_full_batches(cfg, seed, steps=LAUNCH_STEPS)
+    _launch_note("model and batches built")
+    ce, flash = _CeCalls(), _RingCalls(fa, rows_only=True)
+    for c in (ce, flash):
+        c.defer = c.host = True   # the steps carry no reference work
+    out = {"rank": rank, "coord": hcg.mesh.coord(),
+           "backend": collective.get_backend(),
+           "local_size": os.environ.get("PADDLE_LOCAL_SIZE"),
+           "session": os.environ.get("PADDLE_JOB_SESSION"),
+           "recompute_first_call_s": warm_s, "runs": {}}
+    for label in ("plain", "recompute"):
+        with torch.no_grad():
+            for p, v in zip(model.parameters(), init):
+                p.copy_(v)
+        out["runs"][label] = _launch_run(model, label, batches, hcg)
+        _launch_note(f"{label} steps {out['runs'][label]['step_ms']} ms")
+        ce.check_deferred()
+        flash.check_deferred()
+        _launch_note(f"{label} calls checked")
+    ce.restore()
+    flash.restore()
+    del init
+    out.update(ce_calls=ce.out, flash_calls=flash.out,
+               ring=_launch_ring(model, hcg, rank))
+    _launch_note("socket ring done")
+    out["host_plane"] = _launch_rpc_and_lease(rank, env.world_size)
+    _launch_note("rpc and leases done")
+    peaks = multiproc.exchange_objects(out["host_plane"]["own_peak_bytes"])
+    out["bad"] = _launch_gates(out, peaks)
+    ranks = multiproc.exchange_objects(out)
+    if rank == 0:             # the ranks' report, written through LocalFS
+        fs = LocalFS()
+        fs.mkdirs(out_dir)
+        stage = os.path.join(out_dir, "report.json.part")
+        with open(stage, "w") as fh:
+            json.dump(ranks, fh, default=str)
+        fs.mv(stage, os.path.join(out_dir, "report.json"), overwrite=True)
+    multiproc.barrier()
+    dist.destroy_process_group()
+    if out["bad"]:
+        print(f"LAUNCH_RANK_BAD {rank} {out['bad']}", flush=True)
+        return 1
+    print(f"LAUNCH_RANK_OK {rank}", flush=True)
+    return 0
+
+
+def _launch_teardown_rank(out_dir, seed):
+    """One rank of the teardown launch: phase 3's tiny model at dp 4, one
+    step; then rank 3 exits LAUNCH_FAIL_CODE while the others wait in the
+    second step's gloo all-reduce for it."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    with open(os.path.join(out_dir, f"pid.{rank}"), "w") as fh:
+        fh.write(str(os.getpid()))
+    torch.set_num_threads(1)
+    dist.init_parallel_env(backend="gloo")
+    cfg = _tiny_gqa_config()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    step = TrainStep(model, _fused_loss, AdamW(
+        learning_rate=FLEET_LR, parameters=model.parameters()),
+        mesh=build_mesh({"dp": 4}))
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 4)
+    step(batch)
+    torch.cuda.synchronize()
+    if rank == 3:
+        with open(os.path.join(out_dir, "exit.3"), "w") as fh:
+            fh.write(repr(time.time()))
+        os._exit(LAUNCH_FAIL_CODE)
+    step(batch)
+    torch.cuda.synchronize()
+    print(f"rank {rank}: the second step ended without rank 3", flush=True)
+    return 0
+
+
+_LAUNCH_T0 = time.perf_counter()   # a launched rank's notes count from here
+
+
+def _launch_note(msg):
+    """A timestamped progress line in this rank's workerlog, so a launch
+    that runs past its time shows how far each rank got."""
+    print(f"[rank {os.environ.get('PADDLE_TRAINER_ID')} "
+          f"+{time.perf_counter() - _LAUNCH_T0:.1f} s] {msg}",
+          file=sys.stderr, flush=True)
+
+
+def launch_worker(mode, seed, out_dir) -> int:
+    """A rank started by ``phase_launch_full_width``'s launcher. A rank
+    that its launcher ends with SIGTERM writes every thread's stack to
+    its workerlog first."""
+    import faulthandler
+    import signal
+
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
+    # a rank still running near the launcher's limit writes its stacks and
+    # exits non-zero, so the launcher returns and the phase says where
+    faulthandler.dump_traceback_later(LAUNCH_RANK_LIMIT_S, exit=True)
+    _launch_note(f"{mode} rank started, pid {os.getpid()}")
+    if mode == "train":
+        return _launch_train_rank(out_dir, seed)
+    return _launch_teardown_rank(out_dir, seed)
+
+
+def _run_launcher(mode, seed, out_dir, timeout):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 4
+    ... chip_smoke.py --launch-worker <mode>``; (returncode, output,
+    seconds, start time). A launcher past `timeout` gets SIGTERM (it
+    ends its ranks) and then SIGKILL."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "4", "--log_dir",
+           os.path.join(out_dir, "log"), "--job_id", f"chip_launch_{mode}",
+           os.path.join(REPO, "chip_smoke.py"), "--launch-worker", mode,
+           "--seed", str(seed), "--out", out_dir]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        text = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            text = proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text = proc.communicate()[0]
+        text += f"\nchip_smoke: the launcher ran past {timeout} s"
+    return proc.returncode, text, time.time() - t0, t0
+
+
+def _teardown_launch(seed):
+    """The teardown launch (``_launch_teardown_rank``) and, as soon as its
+    launcher has returned, which of its ranks are alive or on the card
+    (nvidia-smi's compute apps): (record, the launcher's output)."""
+    import tempfile
+
+    down = tempfile.mkdtemp(prefix="launch_down_")
+    rc, text, down_s, t0 = _run_launcher("teardown", seed, down,
+                                         LAUNCH_TEARDOWN_S + 60)
+    pids = [int(open(os.path.join(down, f"pid.{r}")).read())
+            for r in range(4) if os.path.exists(os.path.join(down,
+                                                             f"pid.{r}"))]
+    on_card = _compute_app_pids()
+    exit_at = os.path.join(down, "exit.3")
+    return {"launcher_rc": rc, "seconds": down_s,
+            "after_rank3_exit_s": (t0 + down_s - float(open(exit_at).read())
+                                   if os.path.exists(exit_at) else None),
+            "pids": pids, "alive": [p for p in pids if _pid_alive(p)],
+            "on_card": [p for p in pids if p in on_card],
+            "compute_apps": on_card}, text
+
+
+def _compute_app_pids():
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return sorted(int(x) for x in res.stdout.split() if x.strip().isdigit())
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_launch_full_width(args, report):
+    """The port's launcher starts 4 gloo ranks on the card (``python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node 4 ...
+    chip_smoke.py --launch-worker train``): ``init_parallel_env`` from the
+    launch contract, fleet at dp 2 x mp 2, phase 7's model at
+    RANKS_LAYERS layers (bf16, fp32 masters, AdamW, the fused head
+    loss, seq 4096, ``_fleet_full_batches``), LAUNCH_STEPS steps plain
+    and LAUNCH_STEPS with ``strategy.recompute`` wrapping each decoder
+    layer in ``fleet.recompute``, from the same weights and rows. Each
+    rank's gates (``_launch_gates``): the recompute's losses and
+    gradient norms within FLEET_LOSS_RTOL / FLEET_GNORM_RTOL of the plain
+    run's (bit equality is recorded), flash_fwd launched 2 x layers a
+    step under recompute and 1 x layers without, every flash and CE call
+    within its plain version's rule (``_RingCalls``, ``_CeCalls``); a
+    gradient shard of at least 64 MiB through the socket ring over the
+    dp group equal to the numpy ring sum of the shards exchanged by
+    ``exchange_objects``; rank 0's ``rpc_sync`` for rank 1's peak memory
+    equal to rank 1's own; every rank's elastic lease and rank 0's
+    ``watch()`` HOLD; rank 0 writes the report through ``LocalFS``. The
+    launcher returns 0 and each ``workerlog.<rank>`` holds its ok line.
+    Beside it, the teardown launch: rank 3 exits LAUNCH_FAIL_CODE after one
+    step of the tiny model while the others wait in gloo; the launcher
+    returns that code within LAUNCH_TEARDOWN_S, and no rank it started
+    is alive or on the card (nvidia-smi's compute apps). Prints the
+    seconds from launch to every rank's first step, step ms and peak GB
+    a rank with and without recompute, the launches, the ring's GB/s
+    against gloo's all_reduce of the same bytes, the rpc round trip and
+    the teardown's seconds: 4 ranks time-sharing one card through host
+    memory, no multi-GPU figure."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp = tempfile.mkdtemp(prefix="launch_full_")
+    # the teardown launch runs beside the training launch: its tiny ranks
+    # need little of the card or the host, and the script's time is short
+    with ThreadPoolExecutor(1) as pool:
+        teardown = pool.submit(_teardown_launch, args.seed)
+        rc, text, wall_s, t0 = _run_launcher("train", args.seed, tmp,
+                                             LAUNCH_TIMEOUT_S)
+        td, down_text = teardown.result()
+    logs = {r: open(os.path.join(tmp, "log", f"workerlog.{r}")).read()
+            if os.path.exists(os.path.join(tmp, "log", f"workerlog.{r}"))
+            else "" for r in range(4)}
+    bad = []
+    if rc != 0:
+        bad.append(f"the launcher returned {rc}: {text[-2000:]}")
+    for r, log in logs.items():
+        if f"LAUNCH_RANK_OK {r}" not in log:
+            notes = [ln for ln in log.splitlines() if ln.startswith("[rank")]
+            bad.append(f"workerlog.{r} holds no ok line; its last notes "
+                       f"{notes[-3:]}; its end: {log[-1500:]}")
+    path = os.path.join(tmp, "report.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"launch_full_width: no report; {bad}")
+    with open(path) as fh:
+        ranks = json.load(fh)
+    launches = {}
+    for r in ranks:
+        bad += [f"rank {r['rank']}: {b}" for b in r["bad"]]
+        for run in r["runs"].values():
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    first = [r["runs"]["plain"]["first_step_at"] - t0 for r in ranks]
+    r0 = ranks[0]
+    out = {"layers": RANKS_LAYERS, "seq": TRAIN_SEQ, "steps": LAUNCH_STEPS,
+           "layout": "dp 2 x mp 2, 4 gloo ranks on one card, started by "
+                     "paddle_tpu_torch.distributed.launch",
+           "launcher_rc": rc, "wall_s": wall_s,
+           "launch_to_first_step_s": max(first),
+           "bit_equal": all(r["runs"]["recompute"][k] == r["runs"]["plain"][k]
+                            for r in ranks for k in ("losses", "grad_norms")),
+           "launches": launches,
+           "ring": {k: r0["ring"][k] for k in ("bytes", "ring_gb_s",
+                                               "gloo_gb_s", "equal",
+                                               "gloo_equal")},
+           "rpc_ms": r0["host_plane"].get("rpc_ms"),
+           "ranks": [{"rank": r["rank"], "coord": r["coord"],
+                      "backend": r["backend"], "local_size": r["local_size"],
+                      "recompute_first_call_s": r["recompute_first_call_s"],
+                      **{label: {k: run[k] for k in (
+                          "losses", "grad_norms", "step_ms", "peak_mem_gb",
+                          "launches_per_step")}
+                         for label, run in r["runs"].items()},
+                      "ce_calls": {k: {f: v[f] for f in ("calls", "worst",
+                                                         "ok")}
+                                   for k, v in r["ce_calls"].items()},
+                      "flash_calls": r["flash_calls"],
+                      "ring_gb_s": r["ring"]["ring_gb_s"],
+                      "gloo_gb_s": r["ring"]["gloo_gb_s"]}
+                     for r in ranks]}
+    report["launch_full_width"] = out
+    for r in out["ranks"]:
+        print(f"launch full width rank {r['rank']} {r['coord']} "
+              f"({report.get('gpu')}; 4 ranks time-sharing one card "
+              f"through gloo): " + json.dumps(r), flush=True)
+    print(f"launch full width ({report.get('gpu')}): " + json.dumps(
+        {k: v for k, v in out.items() if k != "ranks"}), flush=True)
+
+    out["teardown"] = td
+    print(f"launch teardown ({report.get('gpu')}): " + json.dumps(td),
+          flush=True)
+    if td["launcher_rc"] != LAUNCH_FAIL_CODE:
+        bad.append(f"teardown: the launcher returned {td['launcher_rc']}, "
+                   f"not {LAUNCH_FAIL_CODE}: {down_text[-2000:]}")
+    if td["seconds"] > LAUNCH_TEARDOWN_S:
+        bad.append(f"teardown took {td['seconds']:.1f} s")
+    if len(td["pids"]) != 4 or td["alive"] or td["on_card"]:
+        bad.append(f"teardown left ranks: {td}")
+    if bad:
+        raise AssertionError(f"launch_full_width: {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -10082,6 +10693,7 @@ def kernels_line(report):
              report.get("lora_train_full_width", {}).get("launches", {}),
              report.get("fleet_cuda_vs_cpu", {}).get("launches", {}),
              report.get("fleet_full_width", {}).get("launches", {}),
+             report.get("launch_full_width", {}).get("launches", {}),
              report.get("pipeline_cuda_vs_cpu", {}).get("launches", {}),
              report.get("pipeline_full_width", {}).get("launches", {}),
              report.get("zero3_cuda_vs_cpu", {}).get("launches", {}),
@@ -10183,6 +10795,8 @@ def main(argv=None) -> int:
                     help="decoder depth of the full-width serving phase")
     ap.add_argument("--tuning-worker", choices=("cold", "warm"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--launch-worker", choices=("train", "teardown"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--only", default="",
                     help="comma-separated phase names: run only these, and "
@@ -10196,6 +10810,8 @@ def main(argv=None) -> int:
         return 2
     if args.tuning_worker:        # one process of the tuning phase
         return tuning_worker(args.tuning_worker, args.seed, args.out)
+    if args.launch_worker:        # a rank the launch phase's launcher started
+        return launch_worker(args.launch_worker, args.seed, args.out)
     t_script = time.perf_counter()
     from paddle_tpu_torch.ops.cuda import _build
 
@@ -10354,6 +10970,9 @@ def main(argv=None) -> int:
                ("fleet_full_width",
                 lambda: (free_memory(),
                          phase_fleet_full_width(args, report))),
+               ("launch_full_width",
+                lambda: (free_memory(),
+                         phase_launch_full_width(args, report))),
                ("pipeline_cuda_vs_cpu",
                 lambda: (free_memory(),
                          phase_pipeline_cuda_vs_cpu(args.seed, report))),
@@ -10391,8 +11010,12 @@ def main(argv=None) -> int:
             traceback.print_exc()
             report["failed"].append(name)
         report[f"{name}_s"] = time.perf_counter() - t0
-        print(f"phase {name}: {'FAILED' if name in report['failed'] else 'ok'}"
-              f" ({report[f'{name}_s']:.1f} s)", flush=True)
+        line = (f"phase {name}: "
+                f"{'FAILED' if name in report['failed'] else 'ok'} "
+                f"({report[f'{name}_s']:.1f} s, "
+                f"{time.perf_counter() - t_script:.1f} s into the script)")
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
 
     report["script_s"] = time.perf_counter() - t_script
     print(f"chip_smoke: whole script {report['script_s']:.1f} s",

@@ -249,10 +249,17 @@ struct StoreClient {
 };
 
 // copies a reply into the caller's buffer: its length, or -3 when the
-// buffer is too small (the value stays on the server; the caller grows)
+// buffer is too small (the value stays on the server; the caller grows to
+// the size written in the buffer's first 8 bytes)
 int copy_out(const std::string& out, uint8_t* buf, int cap) {
   int n = static_cast<int>(out.size());
-  if (n > cap) return -3;
+  if (n > cap) {
+    if (cap >= 8) {
+      int64_t need = n;
+      memcpy(buf, &need, 8);
+    }
+    return -3;
+  }
   memcpy(buf, out.data(), n);
   return n;
 }

@@ -9,6 +9,10 @@ gradient averaging; ``spawn`` starts ranks; ``utils`` the MoE dispatch
 all-to-alls (``global_scatter``, ``global_gather``); ``fleet`` (import
 it as ``paddle_tpu_torch.distributed.fleet``) is hybrid parallelism: the
 topology, the tensor-parallel layers, ZeRO-1/2 and the hybrid optimizer.
+The host plane: ``launch`` (``python -m
+paddle_tpu_torch.distributed.launch``, the launcher), ``multiproc`` (host
+collectives on the store and the rank-to-rank ``socket_plane``) and
+``rpc``.
 Also here: the fault-injection registry (``resilience.faults``) and the
 rank heartbeats (``store``).
 """
@@ -26,3 +30,5 @@ from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
 from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401
 from paddle_tpu_torch.distributed.utils import (  # noqa: F401
     global_gather, global_scatter)
+from paddle_tpu_torch.distributed.launch.main import launch  # noqa: F401
+from paddle_tpu_torch.distributed import rpc  # noqa: F401

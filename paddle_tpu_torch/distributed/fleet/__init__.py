@@ -8,10 +8,10 @@ strategy's degrees over the joined process group (``init_parallel_env``
 first; a world of one needs none); calling it again builds another. An
 ``ep_degree`` above 1 adds the expert axis, innermost (the JAX package's
 fleet ignores ``ep_degree``; its MoE layer reads the mesh's "ep" axis).
-``distributed_model`` applies the strategy's amp and recompute passes,
-then wraps by parallel mode: ``DataParallel`` over the dp group in data
-(and sharding) parallel mode, ``TensorParallel`` in tensor-parallel mode
-and under expert parallelism,
+``distributed_model`` applies the strategy's amp and recompute passes
+(``_apply_strategy_passes``), then wraps by parallel mode:
+``DataParallel`` over the dp group in data (and sharding) parallel mode,
+``TensorParallel`` in tensor-parallel mode and under expert parallelism,
 ``PipelineParallel`` around a ``PipelineLayer`` when pp > 1 (1F1B, VPP
 or ZB-H1 by ``pipeline_configs["schedule_mode"]``), and
 ``SegmentParallel`` under sequence parallelism without mp or pp (the
@@ -19,9 +19,13 @@ reference's SEGMENT_PARALLEL mode; the hybrid optimizer sums the
 gradients over dp x sep at its step).
 ``distributed_optimizer`` wraps with ``HybridParallelOptimizer`` (dp
 averaging, the hybrid clip with its norm summed over mp and pp, ZeRO-1/2
-at ``sharding_configs["stage"]``, gradient merge).
+at ``sharding_configs["stage"]``, gradient merge). ``recompute`` is
+activation recomputation (``fleet.recompute``); ``elastic`` the elastic
+manager; ``utils.fs`` the filesystem abstraction.
 """
 from __future__ import annotations
+
+import functools
 
 from paddle_tpu_torch.distributed.fleet.base.distributed_strategy import (  # noqa: F401
     DistributedStrategy)
@@ -33,7 +37,7 @@ __all__ = ["DistributedStrategy", "init", "fleet",
            "get_hybrid_communicate_group", "distributed_model",
            "distributed_optimizer", "get_rng_state_tracker", "worker_index",
            "worker_num", "barrier_worker", "ParallelMode", "utils",
-           "meta_parallel"]
+           "meta_parallel", "recompute"]
 
 _hcg: list = [None]
 _strategy: list = [None]
@@ -77,10 +81,17 @@ def reset():
 def _apply_strategy_passes(model, strategy):
     """The strategy's model passes (reference fleet/meta_optimizers' amp
     and recompute): ``amp`` with ``use_pure_fp16`` casts the model to the
-    amp dtype (O2, ``amp.decorate``); ``recompute`` sets the model's
-    ``remat_policy`` to "full" on a ``layer_remat_capable`` model, whose
-    layer loop applies it (other models raise); ``TrainStep`` reads it
-    when given no ``remat`` of its own."""
+    amp dtype (O2, ``amp.decorate``). ``recompute`` wraps, with
+    ``fleet.recompute``, every sublayer whose name contains one of
+    ``recompute_configs["checkpoints"]`` (``named_modules`` of a torch
+    module, ``named_sublayers`` of a Paddle-API ``Layer``) and marks it
+    ``_recompute_wrapped``; a match inside a wrapped sublayer is left as
+    it is (the JAX package wraps it too, nesting the remat, which here
+    would run its forward once more a level). Given no patterns, a
+    ``layer_remat_capable`` model gets ``remat_policy`` "full" (its
+    layer loop recomputes every decoder layer; ``TrainStep`` reads it
+    when given no ``remat`` of its own), where the JAX package wraps
+    nothing: the same numbers in less memory."""
     if strategy is None:
         return model
     if getattr(strategy, "amp", False) and \
@@ -91,12 +102,27 @@ def _apply_strategy_passes(model, strategy):
                              dtype=strategy.amp_configs.get("dtype",
                                                             "bfloat16"))
     if getattr(strategy, "recompute", False):
-        if not getattr(model, "layer_remat_capable", False):
-            raise NotImplementedError(
-                "strategy.recompute needs a layer_remat_capable model (its "
-                "layer loop applies the policy)")
-        model.remat_policy = "full"
+        patterns = list(strategy.recompute_configs.get("checkpoints") or [])
+        if patterns:
+            _wrap_recompute(model, patterns)
+        elif getattr(model, "layer_remat_capable", False):
+            model.remat_policy = "full"
     return model
+
+
+def _wrap_recompute(model, patterns):
+    from paddle_tpu_torch.distributed.fleet.recompute import recompute
+
+    named = (model.named_modules() if hasattr(model, "named_modules")
+             else model.named_sublayers())
+    wrapped = []
+    for name, sub in named:
+        if not name or not any(p in name for p in patterns) or \
+                any(name.startswith(w + ".") for w in wrapped):
+            continue
+        sub.forward = functools.partial(recompute, sub.forward)
+        sub._recompute_wrapped = True
+        wrapped.append(name)
 
 
 def distributed_model(model):
@@ -180,3 +206,4 @@ fleet = _FleetModule()
 
 from paddle_tpu_torch.distributed.fleet import meta_parallel  # noqa: F401,E402
 from paddle_tpu_torch.distributed.fleet import utils  # noqa: F401,E402
+from paddle_tpu_torch.distributed.fleet.recompute import recompute  # noqa: F401,E402

@@ -43,6 +43,15 @@ _OP_SET, _OP_GET, _OP_ADD, _OP_WAIT, _OP_DELETE = range(5)
 THREAD_PREFIX = "paddle_tpu_torch.store"
 
 
+def _too_large_size(buf) -> int:
+    """The size of a value that did not fit a native read's buffer (the
+    library writes it to the buffer's first 8 bytes)."""
+    need = struct.unpack("<q", bytes(buf[:8]))[0]
+    if need >= 1 << 31:
+        raise ConnectionError("TCPStore get: value too large")
+    return need
+
+
 def _recv_exact(sock, n: int) -> bytes:
     buf = b""
     while len(buf) < n:
@@ -276,23 +285,25 @@ class TCPStore:
 
     def get(self, key: str, default=None):
         if self._native is not None:
-            cap = 1 << 20
-            while True:
-                buf = (ctypes.c_uint8 * cap)()
-                n = self._native.pt_store_get(self._client, key.encode(),
-                                              buf, cap)
-                if n == -1:
-                    return default
-                if n == -3:  # larger than the buffer: it stays server-side
-                    cap *= 4
-                    if cap > (1 << 31):
-                        raise ConnectionError("TCPStore get: value too large")
-                    continue
-                if n < 0:
-                    raise ConnectionError("TCPStore get failed")
-                return bytes(buf[:n])
+            return self._native_get(key, 1 << 20, default)
         st, out = self._client.request(_OP_GET, key, b"")
         return out if st == 0 else default
+
+    def _native_get(self, key: str, cap: int, default=None):
+        while True:
+            buf = (ctypes.c_uint8 * cap)()
+            n = self._native.pt_store_get(self._client, key.encode(), buf,
+                                          cap)
+            if n == -1:
+                return default
+            if n == -3:
+                # larger than the buffer: it stays server-side, and its
+                # size is in the buffer's first 8 bytes
+                cap = max(_too_large_size(buf), cap + 1)
+                continue
+            if n < 0:
+                raise ConnectionError("TCPStore get failed")
+            return ctypes.string_at(buf, n)
 
     def add(self, key: str, delta: int = 1) -> int:
         if self._native is not None:
@@ -335,12 +346,13 @@ class TCPStore:
                     continue
                 if n == -3:
                     # the key exists but exceeds the buffer: re-read it
-                    # through the growing get
-                    outs.append(self.get(key))
+                    # at its size
+                    outs.append(self._native_get(key,
+                                                 _too_large_size(buf)))
                     continue
                 if n < 0:
                     raise ConnectionError("TCPStore wait failed")
-                outs.append(bytes(buf[:n]))
+                outs.append(ctypes.string_at(buf, n))
             else:
                 st, out = self._client.request(_OP_WAIT, key,
                                                struct.pack("<q", tmo))

@@ -122,6 +122,40 @@ def test_set_get_add_delete_wait(master):
         client.close()
 
 
+def test_native_large_value_read_again_once_at_its_size():
+    """A value past the native read buffer is read once more, at the size
+    the library reports, by ``get`` and by ``wait`` (it used to be read
+    again at 4x the buffer until it fit)."""
+    if not available():
+        pytest.skip("no C++ toolchain: the native store cannot build")
+    s = TCPStore(is_master=True, timeout=5.0)
+    lib, calls = s._native, []
+
+    class Counting:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name == "pt_store_get":
+                return lambda *a: calls.append((name, a[3])) or fn(*a)
+            if name == "pt_store_wait":
+                return lambda *a: calls.append((name, a[4])) or fn(*a)
+            return fn
+
+    try:
+        big = bytes(range(256)) * (5 * 4096)      # 5 MiB
+        s.set("big", big)
+        s._native = Counting()
+        assert s.get("big") == big
+        assert calls == [("pt_store_get", 1 << 20),
+                         ("pt_store_get", len(big))]
+        calls.clear()
+        assert s.wait("big", timeout=1.0) == big
+        assert calls == [("pt_store_wait", 1 << 20),
+                         ("pt_store_get", len(big))]
+    finally:
+        s._native = lib
+        s.close()
+
+
 def test_barrier(master):
     clients = [TCPStore("127.0.0.1", master.port, is_master=False,
                         timeout=5.0) for _ in range(3)]
