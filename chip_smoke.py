@@ -397,6 +397,22 @@ seconds. Since this slice the fleet, ZeRO-3 and sep full-width phases
 run RANKS_LAYERS (2) layers, 3 before, for the script's time. ``--only
 launch_full_width`` needs no earlier phase.
 
+Since the semi-auto slice (``auto_parallel``, the tuner, ``io``,
+``framework``): the training job of ``launch_full_width`` makes a third
+run after the plain and recompute ones (``_auto_parallel_run``), and
+``auto_parallel_full_width`` reads it: phase 7's model from the same
+weights through ``shard_layer`` and ``dist.to_static(model, loader,
+loss, opt, strategy)``, fed by a ``DataLoader`` over the same rows
+through ``shard_dataloader``, AP_WARM steps held to the plain run's
+losses and norms and AP_STEPS timed (every flash and CE call against its
+plain version, the launches counted around the run); ``eval()`` and
+``predict()`` equal on every rank; ``Engine.save`` -> ``Engine.load``
+restoring parameters, moments and masters bit for bit; ``reshard``
+s->r, r->s, p->r and s(0)->s(1) of a [4096, 4096] bf16 tensor against
+the host's result; ``AutoTuner`` over phase 3's tiny model in the live
+world (one history on every rank). ``--only
+launch_full_width,auto_parallel_full_width`` runs both.
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``; exits non-zero (and prints no
 result) without CUDA, outside the repository, or when any phase fails.
@@ -9889,6 +9905,278 @@ def _warm_recompute():
     return time.perf_counter() - t1
 
 
+# ---------------------------------------------------------------------------
+# semi-automatic parallelism: dist.to_static inside the launch's training job
+# ---------------------------------------------------------------------------
+
+AP_WARM, AP_STEPS = 2, 2         # to_static's steps: held to the plain run,
+#                                  then timed
+AP_TUNER_TRIALS = 3              # the tuner's first candidates: dp 4, dp 2
+#                                  x sharding 2, sharding 4
+AP_RESHARD = (4096, 4096)        # the reshards' bf16 tensor
+AP_LOGITS_RTOL = 1e-4            # the fused eval loss of a row against the
+#                                  fp32 CE over predict()'s bf16 logits
+
+
+class _ApRows:
+    """``_fleet_full_batches``' rows as a map-style dataset, a dict row
+    each (the fused head loss takes the labels through the model)."""
+
+    def __init__(self, batches):
+        import numpy as np
+
+        self.ids = np.concatenate([b["input_ids"] for b in batches])
+        self.labels = np.concatenate([b["labels"] for b in batches])
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ids[i], "labels": self.labels[i]}
+
+    def __len__(self):
+        return len(self.ids)
+
+
+def _ap_state(model, opt):
+    """Device clones of the parameters and the optimizer's state, and its
+    step count."""
+    return ([p.detach().clone() for p in model.parameters()],
+            {i: {k: v.detach().clone() for k, v in st.items()}
+             for i, st in opt._state.items()}, opt._step_count)
+
+
+def _ap_save_load(model, opt, path):
+    """``Engine.save``, the parameters and optimizer state zeroed, then
+    ``Engine.load``: whether every parameter and moment (and the fp32
+    masters and the step count) came back bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.distributed.auto_parallel.static import Engine
+    from paddle_tpu_torch.distributed.auto_parallel.static.engine import (
+        _file)
+
+    before = _ap_state(model, opt)
+    eng = Engine(model, _fused_loss, opt)
+    t1 = time.perf_counter()
+    eng.save(path)
+    save_s = time.perf_counter() - t1
+    size = os.path.getsize(_file(path))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+        for st in opt._state.values():
+            for v in st.values():
+                v.zero_()
+    opt._step_count = 0
+    t1 = time.perf_counter()
+    eng.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    os.remove(_file(path))
+    after = _ap_state(model, opt)
+    equal = (before[2] == after[2] and set(before[1]) == set(after[1])
+             and all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+             and all(set(before[1][i]) == set(after[1][i])
+                     and all(torch.equal(v, after[1][i][k])
+                             for k, v in before[1][i].items())
+                     for i in before[1]))
+    return {"equal": equal, "save_s": save_s, "load_s": load_s,
+            "file_gb": size / 1e9, "step": after[2]}
+
+
+def _ap_reshard(rank, seed):
+    """reshard s->r over mp, r->s over dp, p->r over mp (each rank's own
+    partial values) and s(0)->s(1) over mp of a bf16 AP_RESHARD tensor on
+    the card, each against the host's result (numpy's fp32 sum rounded
+    once to bf16 for p->r); the device ms of each."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+
+    pm = dist.ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])
+    dp, mp = pm.coord()
+    R, S, P = dist.Replicate, dist.Shard, dist.Partial
+
+    def drawn(s):
+        g = torch.Generator(device="cuda").manual_seed(s)
+        return torch.randn(AP_RESHARD, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    x = drawn(seed + 7)
+    host = x.cpu()
+    half = AP_RESHARD[1] // 2
+    line = [r for r in pm.process_ids if r // 2 == rank // 2]
+    parts = [drawn(seed + 100 + r).float().cpu().numpy() for r in line]
+    cases = {
+        "s_to_r_mp": (x, [R(), S(0)], [R(), R()], host),
+        "r_to_s_dp": (x, [R(), R()], [S(1), R()],
+                      host[:, dp * half:(dp + 1) * half]),
+        "p_to_r_mp": (drawn(seed + 100 + rank), [R(), P()], [R(), R()],
+                      torch.from_numpy(sum(parts)).to(torch.bfloat16)),
+        "s0_to_s1_mp": (x, [R(), S(0)], [R(), S(1)],
+                        host[:, mp * half:(mp + 1) * half])}
+    out = {}
+    for name, (v, src, dst, want) in cases.items():
+        t = (dist.dtensor_from_local(v, pm, src) if name == "p_to_r_mp"
+             else dist.shard_tensor(v, pm, src))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = dist.reshard(t, pm, dst)
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.perf_counter() - t1) * 1e3,
+                     "equal": bool(torch.equal(r._value.cpu(), want)),
+                     "shape": list(r._value.shape)}
+    return out
+
+
+def _ap_tuner(seed):
+    """``AutoTuner(4, compiled_trial_fn(...), max_trials=AP_TUNER_TRIALS)``
+    over phase 6's tiny model (phase 3's config, its packed 4 x 256
+    batch) in the live world: the history, the best and the seconds."""
+    from paddle_tpu_torch.distributed.auto_tuner import (AutoTuner,
+                                                         compiled_trial_fn)
+    from paddle_tpu_torch.distributed.mesh import get_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = _tiny_gqa_config()
+    batch = _packed_batch(seed, cfg.vocab_size, 256, 4)
+    prev = get_mesh()
+    tuner = AutoTuner(4, compiled_trial_fn(
+        lambda: (LlamaForCausalLM(cfg, device="cuda", seed=seed),
+                 _fused_loss),
+        lambda c: (batch,),
+        lambda params: AdamW(learning_rate=FLEET_LR, parameters=params),
+        warmup=1, iters=2), max_trials=AP_TUNER_TRIALS)
+    t1 = time.perf_counter()
+    best = tuner.search()
+
+    def fields(c):
+        return [c.dp, c.mp, c.pp, c.sharding, c.micro_batches,
+                c.schedule_mode, c.time_s, c.error]
+
+    return {"history": [fields(c) for c in tuner.history],
+            "best": fields(best), "seconds": time.perf_counter() - t1,
+            "mesh_back": get_mesh() is prev}
+
+
+def _ap_logits_loss(logits, labels, fused):
+    """The criterion's loss computed in fp32 from predict()'s logits of
+    a row (``use_parallel_cross_entropy``: the per-token CE summed over
+    the valid tokens, over ALL tokens), beside the fused head loss of the
+    same row and the mean over the valid tokens only (torch's default
+    reduction, which the criterion does not use)."""
+    import torch
+
+    lab = labels.to(logits.device).reshape(-1)
+    nll = torch.nn.functional.cross_entropy(
+        logits.float().reshape(lab.numel(), -1), lab, ignore_index=-100,
+        reduction="sum")
+    valid = int((lab != -100).sum())
+    return {"fused": fused, "from_logits": float(nll) / lab.numel(),
+            "valid_token_mean": float(nll) / valid, "valid": valid,
+            "tokens": lab.numel()}
+
+
+def _auto_parallel_run(cfg, init, seed, out_dir, rank):
+    """One rank of ``auto_parallel_full_width``: phase 7's model at dp 2 x
+    mp 2 from the launch's initial weights, ``shard_layer``, trained
+    through ``dist.to_static(model, loader, loss, opt, strategy)`` on a
+    ``DataLoader`` over ``_fleet_full_batches``' rows cut by
+    ``shard_dataloader`` (AP_WARM steps held to the plain run, AP_STEPS
+    timed; every flash and CE call against its plain version), then
+    eval and predict on a held-out batch, Engine save/load, the
+    reshards and the tuner."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.mesh import build_mesh, get_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import cuda as port_cuda
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    fleet.reset()
+    mesh = get_mesh()
+    if mesh is None or dict(mesh.shape) != {"dp": 2, "mp": 2}:
+        build_mesh({"dp": 2, "mp": 2})      # else the launch's groups
+    with torch.no_grad():
+        model = LlamaForCausalLM(cfg, device="cuda")
+        for p, v in zip(model.parameters(), init):
+            p.copy_(v)
+    pm = dist.ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])
+    dist.shard_layer(model, pm)
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    batches = _fleet_full_batches(cfg, seed, steps=AP_WARM + AP_STEPS)
+    loader = dist.shard_dataloader(
+        pio.DataLoader(_ApRows(batches), batch_size=2), pm)
+    dm = dist.to_static(model, loader, _fused_loss, opt, strategy)
+    dm.collect_metrics = True
+    ce, flash = _CeCalls(), _RingCalls(fa, rows_only=True)
+    for c in (ce, flash):
+        c.defer = c.host = True   # the steps carry no reference work
+    rec = {"losses": [], "grad_norms": [], "step_ms": [], "rows": [],
+           "vocab": cfg.vocab_size}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port_cuda.reset_launch_counts()          # the to_static path starts here
+    for b in loader:
+        t1 = time.perf_counter()
+        loss = dm(b)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        rec["losses"].append(float(loss))
+        rec["grad_norms"].append(dm.last_metrics()["grad_norm"])
+        rec["rows"].append(int(b["input_ids"].shape[0]))
+    launches = port_cuda.launch_counts()     # ... and ends here
+    n = len(rec["losses"])
+    rec.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches,
+               launches_per_step={k: v / n for k, v in launches.items()
+                                  if v})
+    _launch_note(f"to_static steps {rec['step_ms']} ms")
+    ce.check_deferred()
+    flash.check_deferred()
+    ce.restore()
+    flash.restore()
+    rec.update(ce_calls={k: {f: v[f] for f in ("calls", "worst", "ok")}
+                         for k, v in ce.out.items()},
+               flash_calls=flash.out)
+    # a held-out batch (the run trained on the others: at lr 1e-4 the 7B
+    # width memorises a batch within a few steps)
+    g = {k: torch.from_numpy(v) for k, v in _fleet_full_batches(
+        cfg, seed, steps=AP_WARM + AP_STEPS + 1)[-1].items()}
+    dm.eval()
+    rec["eval_loss"] = float(dm(g))
+    row = {k: v[:1] for k, v in g.items()}
+    fused_row = float(dm(row))
+    dm.predict()
+    logits = dm({"input_ids": row["input_ids"]})._value
+    rec["predict"] = {"shape": list(logits.shape),
+                      "finite": bool(torch.isfinite(logits).all()),
+                      "sha256": hashlib.sha256(
+                          logits.float().cpu().numpy().tobytes()).hexdigest()}
+    rec["eval_vs_logits"] = _ap_logits_loss(logits, row["labels"], fused_row)
+    del logits
+    rec["save_load"] = _ap_save_load(model, opt,
+                                     os.path.join(out_dir, "engine"))
+    _launch_note(f"eval, predict, save/load done: {rec['save_load']}")
+    del dm, model, opt, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["reshard"] = _ap_reshard(rank, seed)
+    rec["tuner"] = _ap_tuner(seed)
+    _launch_note(f"reshards and tuner done: {rec['tuner']['history']}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def _launch_train_rank(out_dir, seed):
     """One rank of ``launch_full_width``'s training launch."""
     import torch
@@ -9932,10 +10220,19 @@ def _launch_train_rank(out_dir, seed):
         _launch_note(f"{label} calls checked")
     ce.restore()
     flash.restore()
-    del init
     out.update(ce_calls=ce.out, flash_calls=flash.out,
                ring=_launch_ring(model, hcg, rank))
     _launch_note("socket ring done")
+    del model            # the plain and recompute runs' model
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        out["auto_parallel"] = _auto_parallel_run(cfg, init, seed, out_dir,
+                                                  rank)
+    except Exception:
+        out["auto_parallel"] = {"error": traceback.format_exc()[-3000:]}
+    del init
+    _launch_note("auto_parallel done")
     out["host_plane"] = _launch_rpc_and_lease(rank, env.world_size)
     _launch_note("rpc and leases done")
     peaks = multiproc.exchange_objects(out["host_plane"]["own_peak_bytes"])
@@ -10143,6 +10440,11 @@ def phase_launch_full_width(args, report):
         raise AssertionError(f"launch_full_width: no report; {bad}")
     with open(path) as fh:
         ranks = json.load(fh)
+    # the same job's to_static run: auto_parallel_full_width reads it
+    report["_auto_parallel_ranks"] = [
+        {"rank": r["rank"], "coord": r["coord"],
+         "plain": r["runs"]["plain"], "run": r.get("auto_parallel")}
+        for r in ranks]
     launches = {}
     for r in ranks:
         bad += [f"rank {r['rank']}: {b}" for b in r["bad"]]
@@ -10640,6 +10942,142 @@ def phase_resilience_full_width(args, report):
         raise AssertionError(f"resilience_full_width: {bad}")
 
 
+def phase_auto_parallel_full_width(report):
+    """Reads the to_static run that ``launch_full_width``'s training job
+    made after its plain and recompute runs (``_auto_parallel_run``; this
+    phase needs that one in the same run): phase 7's model at dp 2 x mp 2
+    (bf16, fp32 masters, AdamW, the fused head loss, seq 4096,
+    RANKS_LAYERS layers) from the plain run's weights, ``shard_layer``,
+    ``dist.to_static(model, loader, loss, opt, strategy)`` fed by a
+    ``DataLoader`` over ``_fleet_full_batches``' rows through
+    ``shard_dataloader``, AP_WARM + AP_STEPS steps. Gates, on every rank:
+    the first AP_WARM losses and gradient norms within FLEET_LOSS_RTOL /
+    FLEET_GNORM_RTOL of the plain run's on the same weights and rows (bit
+    equality recorded); a row a step from the sharded loader; flash_fwd,
+    flash_bwd_dq and flash_bwd_dkv launched RANKS_LAYERS times a step and
+    the CE kernels at least once; every flash call by its row rule and
+    every CE call by ``_CeCalls``; ``eval()`` the same finite loss on
+    every rank and ``predict()`` the same full-vocabulary logits of one
+    row on every rank (their sha256), on a held-out batch; the fused
+    eval loss of that row within AP_LOGITS_RTOL of the criterion's loss
+    computed in fp32 from predict()'s logits (``_ap_logits_loss``);
+    ``Engine.save`` -> ``Engine.load`` restoring parameters, moments,
+    masters and the step count bit for bit; ``reshard`` s->r, r->s, p->r
+    and s(0)->s(1) of a [4096, 4096] bf16 tensor equal to the host's
+    result; the tuner's history and best
+    the same on every rank with no failed trial. Prints step ms, peak GB
+    and launches a rank, the reshards' ms, each trial's seconds, the
+    save/load seconds and the phase's seconds: 4 ranks time-sharing one
+    card through gloo, no multi-GPU figure."""
+    ranks = report.pop("_auto_parallel_ranks", None)
+    if ranks is None:
+        raise AssertionError("auto_parallel_full_width: needs "
+                             "launch_full_width's training job in this run")
+    bad = [f"rank {r['rank']}: {r['run']['error']}" for r in ranks
+           if r["run"] is None or "error" in r["run"]]
+    if bad:
+        raise AssertionError(f"auto_parallel_full_width: {bad}")
+    layers = RANKS_LAYERS
+    steps = AP_WARM + AP_STEPS
+    launches = {}
+    for r in ranks:
+        run, plain, who = r["run"], r["plain"], f"rank {r['rank']}"
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for key, rtol in (("losses", FLEET_LOSS_RTOL),
+                          ("grad_norms", FLEET_GNORM_RTOL)):
+            for a, b in zip(run[key][:AP_WARM], plain[key]):
+                if not abs(a - b) <= rtol * abs(b):
+                    bad.append(f"{who} {key}: to_static {run[key]} vs the "
+                               f"plain run's {plain[key]}")
+                    break
+        if not all(math.isfinite(x) for x in run["losses"]):
+            bad.append(f"{who}: non-finite loss {run['losses']}")
+        if run["rows"] != [1] * steps:
+            bad.append(f"{who}: rows a step {run['rows']}")
+        got = run["launches_per_step"]
+        if any(got.get(k, 0) != layers for k in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) or \
+                got.get("ce_stats", 0) < 1 or got.get("ce_bwd", 0) < 1:
+            bad.append(f"{who}: launches a step {got}")
+        for name, rec in run["ce_calls"].items():
+            if not rec["ok"] or rec["calls"] != steps:
+                bad.append(f"{who} {name}: ok {rec['ok']}, "
+                           f"{rec['calls']} calls")
+        for name, rec in run["flash_calls"].items():
+            if not rec["ok"] or rec["calls"] != layers * steps:
+                bad.append(f"{who} flash {name}: ok {rec['ok']}, "
+                           f"{rec['calls']} calls")
+        if not run["save_load"]["equal"]:
+            bad.append(f"{who}: Engine.load did not restore the state "
+                       f"{run['save_load']}")
+        for name, rec in run["reshard"].items():
+            if not rec["equal"]:
+                bad.append(f"{who}: reshard {name} {rec}")
+        tuner = run["tuner"]
+        if any(c[7] is not None for c in tuner["history"]) or \
+                len(tuner["history"]) != AP_TUNER_TRIALS or \
+                not tuner["mesh_back"]:
+            bad.append(f"{who}: tuner {tuner}")
+    first = ranks[0]["run"]
+    evals = [r["run"]["eval_loss"] for r in ranks]
+    if len(set(evals)) != 1 or not math.isfinite(evals[0]):
+        bad.append(f"eval losses {evals}")
+    for r in ranks:
+        e = r["run"]["eval_vs_logits"]
+        if not abs(e["fused"] - e["from_logits"]) <= \
+                AP_LOGITS_RTOL * abs(e["from_logits"]):
+            bad.append(f"rank {r['rank']}: the fused eval loss against the "
+                       f"CE over predict()'s logits {e}")
+    preds = [r["run"]["predict"] for r in ranks]
+    if any(p != preds[0] for p in preds) or not preds[0]["finite"] or \
+            preds[0]["shape"] != [1, TRAIN_SEQ, first["vocab"]]:
+        bad.append(f"predict {preds}")
+    if any(r["run"]["tuner"]["history"] != first["tuner"]["history"]
+           or r["run"]["tuner"]["best"] != first["tuner"]["best"]
+           for r in ranks):
+        bad.append("the tuner's history or best differs across ranks")
+    out = {"layers": layers, "seq": TRAIN_SEQ, "steps": steps,
+           "layout": "dp 2 x mp 2, 4 gloo ranks on one card, "
+                     "dist.to_static fed by shard_dataloader",
+           "seconds": max(r["run"]["seconds"] for r in ranks),
+           "bit_equal": all(r["run"][k][:AP_WARM] == r["plain"][k]
+                            for r in ranks
+                            for k in ("losses", "grad_norms")),
+           "launches": launches, "eval_loss": evals[0],
+           "predict": preds[0],
+           "eval_vs_logits": first["eval_vs_logits"],
+           "reshard_ms": {k: max(r["run"]["reshard"][k]["ms"]
+                                 for r in ranks)
+                          for k in first["reshard"]},
+           "tuner": {"history": first["tuner"]["history"],
+                     "best": first["tuner"]["best"],
+                     "seconds": first["tuner"]["seconds"]},
+           "save_load": {k: max(r["run"]["save_load"][k] for r in ranks)
+                         for k in ("save_s", "load_s", "file_gb")},
+           "ranks": [{"rank": r["rank"], "coord": r["coord"],
+                      **{k: r["run"][k] for k in (
+                          "losses", "grad_norms", "step_ms", "peak_mem_gb",
+                          "launches_per_step", "ce_calls", "flash_calls",
+                          "seconds")},
+                      "plain_losses": r["plain"]["losses"],
+                      "plain_grad_norms": r["plain"]["grad_norms"]}
+                     for r in ranks]}
+    report["auto_parallel_full_width"] = out
+    for r in out["ranks"]:
+        print(f"auto_parallel full width rank {r['rank']} {r['coord']} "
+              f"({report.get('gpu')}; 4 ranks time-sharing one card "
+              f"through gloo): " + json.dumps(r), flush=True)
+    print(f"auto_parallel full width ({report.get('gpu')}): " + json.dumps(
+        {k: v for k, v in out.items() if k != "ranks"}), flush=True)
+    for c in out["tuner"]["history"]:
+        print(f"auto_tuner trial dp {c[0]} mp {c[1]} pp {c[2]} sharding "
+              f"{c[3]} micro {c[4]} {c[5]}: {c[6]} s a step "
+              f"({report.get('gpu')})", flush=True)
+    if bad:
+        raise AssertionError(f"auto_parallel_full_width: {bad}")
+
+
 def kernels_line(report):
     """One row per kernel; `launches` counts the main paths' runs (the
     7B bf16 serve, the 7B int8 and fp8 serves and their visit counters,
@@ -10694,6 +11132,7 @@ def kernels_line(report):
              report.get("fleet_cuda_vs_cpu", {}).get("launches", {}),
              report.get("fleet_full_width", {}).get("launches", {}),
              report.get("launch_full_width", {}).get("launches", {}),
+             report.get("auto_parallel_full_width", {}).get("launches", {}),
              report.get("pipeline_cuda_vs_cpu", {}).get("launches", {}),
              report.get("pipeline_full_width", {}).get("launches", {}),
              report.get("zero3_cuda_vs_cpu", {}).get("launches", {}),
@@ -10973,6 +11412,8 @@ def main(argv=None) -> int:
                ("launch_full_width",
                 lambda: (free_memory(),
                          phase_launch_full_width(args, report))),
+               ("auto_parallel_full_width",
+                lambda: phase_auto_parallel_full_width(report)),
                ("pipeline_cuda_vs_cpu",
                 lambda: (free_memory(),
                          phase_pipeline_cuda_vs_cpu(args.seed, report))),

@@ -13,7 +13,8 @@ JAX: ``import paddle_tpu_torch as paddle`` gives ``Tensor``,
 ``to_tensor``, the op library, ``seed``, ``no_grad``, ``grad``, and
 ``nn``, ``optimizer``, ``autograd`` and ``amp``; models written on it
 (``models.gpt``) train with ``loss.backward(); opt.step();
-opt.clear_grad()``.
+opt.clear_grad()``. ``save``/``load`` write and read the JAX package's
+files (``framework.io_``); ``summary``/``flops`` inspect a model.
 
 Entry points default to the card (``device="cuda"``; the Paddle API's
 current device is ``"gpu"``) and raise when CUDA is absent; pass
@@ -31,13 +32,25 @@ from paddle_tpu_torch.core.dtype import (bfloat16, bool_, complex64,
                                          int16, int32, int64,
                                          set_default_dtype, uint8)
 from paddle_tpu_torch.core.dtype import bool_ as bool  # noqa: A001
-from paddle_tpu_torch.core.flags import set_flags
+from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.core.tensor import Tensor, is_tensor, to_tensor
 from paddle_tpu_torch.autograd.tape import (enable_grad, no_grad,
                                             set_grad_enabled)
 from paddle_tpu_torch.ops import *  # noqa: F401,F403
 from paddle_tpu_torch.ops import seed
-from paddle_tpu_torch import amp, autograd, io, nn, optimizer, regularizer
+from paddle_tpu_torch import (amp, autograd, framework, io, metric, nn,
+                              optimizer, regularizer)
+from paddle_tpu_torch.framework import (LazyGuard, finfo,
+                                        get_cuda_rng_state, get_rng_state,
+                                        iinfo, in_dynamic_mode,
+                                        is_compiled_with_cinn,
+                                        is_compiled_with_custom_device,
+                                        is_compiled_with_rocm,
+                                        is_compiled_with_xpu,
+                                        set_cuda_rng_state,
+                                        set_printoptions, set_rng_state)
+from paddle_tpu_torch.framework.inspection import flops, summary
+from paddle_tpu_torch.framework.io_ import load, save
 from paddle_tpu_torch.nn.initializer import ParamAttr
 from paddle_tpu_torch.regularizer import L1Decay, L2Decay
 

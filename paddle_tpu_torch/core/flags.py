@@ -14,7 +14,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any
 
-__all__ = ["define_flag", "flag", "flag_explicit", "set_flags"]
+__all__ = ["define_flag", "flag", "flag_explicit", "get_flags", "set_flags"]
 
 _lock = threading.Lock()
 
@@ -57,6 +57,20 @@ def define_flag(name: str, default: Any, help: str = "",
 
 def flag(name: str):
     return _REGISTRY[name].value
+
+
+def get_flags(keys) -> dict:
+    """The flags' values by the names asked (with or without the FLAGS_
+    prefix), as ``paddle.get_flags``."""
+    if isinstance(keys, str):
+        keys = [keys]
+    out = {}
+    for key in keys:
+        name = key[6:] if key.startswith("FLAGS_") else key
+        if name not in _REGISTRY:
+            raise KeyError(f"unknown flag: {key}")
+        out[key] = _REGISTRY[name].value
+    return out
 
 
 def set_flags(flags: dict) -> None:

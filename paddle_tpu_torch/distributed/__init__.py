@@ -12,7 +12,10 @@ topology, the tensor-parallel layers, ZeRO-1/2 and the hybrid optimizer.
 The host plane: ``launch`` (``python -m
 paddle_tpu_torch.distributed.launch``, the launcher), ``multiproc`` (host
 collectives on the store and the rank-to-rank ``socket_plane``) and
-``rpc``.
+``rpc``. Semi-automatic parallelism: ``auto_parallel`` (placements,
+``ProcessMesh``, ``shard_tensor``/``reshard``, ``shard_layer``,
+``shard_dataloader``, ``to_static``/``DistModel``, the ``Engine``) and
+``auto_tuner``.
 Also here: the fault-injection registry (``resilience.faults``) and the
 rank heartbeats (``store``).
 """
@@ -32,3 +35,9 @@ from paddle_tpu_torch.distributed.utils import (  # noqa: F401
     global_gather, global_scatter)
 from paddle_tpu_torch.distributed.launch.main import launch  # noqa: F401
 from paddle_tpu_torch.distributed import rpc  # noqa: F401
+from paddle_tpu_torch.distributed.mesh import (  # noqa: F401
+    build_mesh, get_mesh, set_mesh)
+from paddle_tpu_torch.distributed.auto_parallel.api import (  # noqa: F401
+    Partial, Placement, ProcessMesh, Replicate, Shard, dtensor_from_fn,
+    dtensor_from_local, reshard, shard_dataloader, shard_layer,
+    shard_optimizer, shard_tensor, to_static, unshard_dtensor)

@@ -10,7 +10,14 @@ __all__ = ["group_sharded_parallel", "save_group_sharded_model"]
 
 
 def save_group_sharded_model(model, output, optimizer=None):
-    """Not ported: the JAX package writes through ``framework.io_.save``,
-    whose port is ROADMAP A9 (``framework/``)."""
-    raise NotImplementedError("save_group_sharded_model needs the port of "
-                              "framework.io_ (ROADMAP A9)")
+    """``<output>.pdmodel`` (the model's state dict) and, with an
+    optimizer, ``<output>.pdopt`` (its state dict), through
+    ``framework.io_.save`` in the JAX package's format. A ZeRO-3 model's
+    ``state_dict()`` gathers the full parameters first (a collective:
+    every rank of its group calls this); every rank writes the same
+    files, so give each rank its own `output` or write from one."""
+    from paddle_tpu_torch.framework.io_ import save
+
+    save(model.state_dict(), output + ".pdmodel")
+    if optimizer is not None:
+        save(optimizer.state_dict(), output + ".pdopt")

@@ -60,7 +60,7 @@ from paddle_tpu_torch.core.flags import flag
 from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.distributed.fleet.layers.mpu import mp_layers
 from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import (
-    _c_concat, mp_group)
+    _c_concat, _c_identity, mp_group)
 from paddle_tpu_torch.lora import seam as lora_seam
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.norm import TorchRMSNorm
@@ -706,16 +706,20 @@ class LlamaForCausalLM(nn.Module):
         hidden = self.llama(input_ids, segment_ids=segment_ids,
                             position_ids=position_ids)
         with amp_fp8.head_scope():
-            if labels is None:
-                logits = F.linear(hidden, self.lm_head.weight)
-                if self.mp_group is not None:
-                    logits = _c_concat(logits, self.mp_group)
-                return logits
-            if flag("use_fused_head_loss"):
+            if labels is not None and flag("use_fused_head_loss"):
                 return self.criterion.forward_fused(hidden, self.lm_head,
                                                     labels)
-            return self.criterion(F.linear(hidden, self.lm_head.weight),
-                                  labels)
+            if self.mp_group is not None:
+                # the vocab shard's logits: the hidden state's gradient
+                # sums the mp ranks' parts (identity forward, all-reduce
+                # backward, as ColumnParallelLinear's input)
+                hidden = _c_identity(hidden, self.mp_group)
+            logits = F.linear(hidden, self.lm_head.weight)
+            if labels is not None:
+                return self.criterion(logits, labels)
+            if self.mp_group is not None:
+                logits = _c_concat(logits, self.mp_group)
+            return logits
 
     def scan_group(self):
         return self.llama.scan_group()

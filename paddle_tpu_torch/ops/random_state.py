@@ -43,6 +43,27 @@ class Generator:
                 self._gens[key] = gen
             return gen
 
+    def get_state(self) -> dict:
+        """A snapshot: the seed and each device generator's state."""
+        with self._lock:
+            return {"seed": self._seed,
+                    "states": {k: g.get_state() for k, g in
+                               self._gens.items()}}
+
+    def set_state(self, state: dict):
+        """Restore a ``get_state()`` snapshot: the same seed, and each
+        device generator where it was (one drawn from since is reseeded
+        at its next use)."""
+        with self._lock:
+            self._seed = int(state["seed"])
+            self._gens = {}
+            for (kind, index), st in state["states"].items():
+                dev = torch.device(kind, index) if kind != "cpu" else \
+                    torch.device("cpu")
+                gen = torch.Generator(device=dev)
+                gen.set_state(st)
+                self._gens[(kind, index)] = gen
+
 
 default_generator = Generator(0)
 

@@ -108,6 +108,13 @@ histories (a scanned JAX layout is unstacked), the GradScaler. The port's
 step draws no random numbers: a ``rng/key`` that a JAX snapshot carries is
 kept as it is and saved again, so a JAX snapshot round-trips.
 
+A Paddle-API ``Layer`` (``models.gpt``, users' nets) trains as a torch
+model does: the step wraps it in a ``PaddleLayerModule``, calls it and
+the loss on ``Tensor``s, and backpropagates the loss's torch value.
+``local_batch=True`` takes each batch as this data rank's rows already
+(a loader that ``auto_parallel.shard_dataloader`` cut), so ``mesh=``
+cuts nothing.
+
 CUDA graphs over the step are later work. Unlike ``CompiledTrainStep``,
 whose compiled update never applies ``optimizer._grad_clip``, the port
 applies it, as ``apply_optimizer_update`` and the eager ``AdamW.step`` do.
@@ -136,7 +143,7 @@ from paddle_tpu_torch.parallel.scan_layers import (layer_execution,
                                                    normalize_remat)
 from paddle_tpu_torch.parallel.segments import sep_execution, sep_loss
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "PaddleLayerModule"]
 
 faults.register(
     "step.grads",
@@ -164,6 +171,47 @@ def _nan_poison(kwargs, args):
     return False
 
 
+class PaddleLayerModule(torch.nn.Module):
+    """A Paddle-API ``Layer`` seen as a ``torch.nn.Module``, so the step,
+    ``DataParallel`` and the hybrid optimizer take it as they take a torch
+    model. Each parameter's torch leaf becomes an ``nn.Parameter`` over
+    the same storage, registered here (dots in names as ``__``) and set
+    back as the ``Parameter``'s ``_value``, which the port's optimizers
+    read at every step. ``forward`` wraps torch tensors as ``Tensor``s
+    and returns what the layer returns."""
+
+    def __init__(self, layer):
+        super().__init__()
+        self.__dict__["layer"] = layer
+        for name, p in layer.named_parameters():
+            leaf = p._value
+            if not isinstance(leaf, torch.nn.Parameter):
+                leaf = torch.nn.Parameter(leaf.detach(),
+                                          requires_grad=leaf.requires_grad)
+                p._value = leaf
+            self.register_parameter(name.replace(".", "__"), leaf)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode:
+            self.layer.train()
+        else:
+            self.layer.eval()
+        return self
+
+    @staticmethod
+    def tensor(v):
+        """`v` as the layer's API takes it: a torch tensor as a
+        ``Tensor``."""
+        from paddle_tpu_torch.core.tensor import Tensor
+
+        return Tensor(v) if isinstance(v, torch.Tensor) else v
+
+    def forward(self, *args, **kwargs):
+        return self.layer(*[self.tensor(a) for a in args],
+                          **{k: self.tensor(v) for k, v in kwargs.items()})
+
+
 class TrainStep:
     """``step = TrainStep(model, loss_fn, optimizer)``; ``step(*batch)``
     or ``step(batch_dict)`` runs one step and returns the loss (a detached
@@ -186,7 +234,14 @@ class TrainStep:
                  metrics_every: int | None = None,
                  dispatch_window: int | None = None,
                  anomaly_detector=None, mesh=None, zero_axis=None,
-                 zero_stage: int = 1, zero3_gather=None):
+                 zero_stage: int = 1, zero3_gather=None,
+                 local_batch: bool = False):
+        from paddle_tpu_torch.nn.layer.layers import Layer
+
+        if isinstance(model, Layer):
+            model = PaddleLayerModule(model)
+        self._paddle = isinstance(model, PaddleLayerModule)
+        self.local_batch = bool(local_batch)
         self._data_group = None
         self._sep_group = None
         self._loss_group = None
@@ -428,7 +483,8 @@ class TrainStep:
     def _local_rows(self, value):
         """This data rank's block of rows (dim 0) of a global batch entry."""
         g = self._data_group
-        if g is None or g.nranks == 1 or not hasattr(value, "shape"):
+        if g is None or g.nranks == 1 or not hasattr(value, "shape") \
+                or self.local_batch:
             return value
         n = value.shape[0]
         if n % g.nranks:
@@ -490,7 +546,10 @@ class TrainStep:
                 poison_lr = poison and not _nan_poison(None, args)
                 out = self.model(*args[:-1])
                 labels = args[-1]
+            if self._paddle:
+                labels = PaddleLayerModule.tensor(labels)
             loss = self.loss_fn(out, labels)
+            loss = getattr(loss, "_value", loss)
             if self._sep_group is not None and loss is not sep_loss():
                 raise ValueError(
                     "under sequence parallelism (sep > 1) the step trains on "

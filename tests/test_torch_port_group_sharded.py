@@ -536,12 +536,26 @@ def test_sync_buffers_broadcasts_them(ranks, level):
     assert all(r["sync_buffers"][level] for r in ranks)
 
 
-def test_save_group_sharded_model_waits_for_framework_io():
+def test_save_group_sharded_model_waits_for_framework_io(tmp_path):
+    """Since ``framework.io_`` is ported, the model and optimizer state
+    are written in the JAX package's format (the ZeRO-3 case is
+    ``test_torch_port_auto_parallel``'s)."""
+    import paddle_tpu as jpaddle
     from paddle_tpu_torch.distributed.sharding import (
         save_group_sharded_model)
+    from paddle_tpu_torch.optimizer import AdamW
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        save_group_sharded_model(None, "x")
+    model = torch.nn.Linear(3, 2)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    model(torch.ones(1, 3)).sum().backward()
+    opt.step()
+    out = str(tmp_path / "gs")
+    save_group_sharded_model(model, out, opt)
+    got = jpaddle.load(out + ".pdmodel")
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(np.asarray(got[k]._value),
+                                      v.detach().numpy())
+    assert jpaddle.load(out + ".pdopt")["step"] == 1
 
 
 @pytest.mark.parametrize("stage", STAGES)
